@@ -1,0 +1,44 @@
+"""Reference parameter tree (as numpy arrays) -> the port's parameters.
+
+The reference stores ``embed [Vp, d]``, ``final_norm [d]``, ``lm_head [d, Vp]``
+and the layers stacked over groups under ``layers["0"]``: ``ln1``,
+``attn{wq, wk, wv, wo[, bq, bk, bv]}``, ``ln2`` and
+``ffn{w_gate, w_up, w_down}``, each with a leading ``[G]`` axis and laid out
+for ``x @ W``.  The port keeps that layout per layer, so conversion is an
+unstacking; no weight is transposed.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import DTYPES
+
+
+def params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                      device: str | torch.device | None = None) -> dict[str, torch.Tensor]:
+    """Returns a state dict for ``Model(cfg)``: ``model.load_state_dict(...)``.
+    Arrays are cast to ``cfg.param_dtype``."""
+    dev = resolve_device(device)
+    dtype = DTYPES[cfg.param_dtype]
+    if set(tree["layers"]) != {"0"}:
+        raise NotImplementedError("params_from_numpy: period-1 stacks only")
+
+    def t(a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dtype)
+
+    out = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
+           "lm_head": t(tree["lm_head"])}
+    stack = tree["layers"]["0"]
+    for g in range(cfg.n_layers):
+        out[f"layers.{g}.ln1"] = t(stack["ln1"][g])
+        out[f"layers.{g}.ln2"] = t(stack["ln2"][g])
+        for name, a in stack["attn"].items():
+            out[f"layers.{g}.attn.{name}"] = t(a[g])
+        for name, a in stack["ffn"].items():
+            out[f"layers.{g}.ffn.{name}"] = t(a[g])
+    return out

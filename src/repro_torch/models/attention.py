@@ -1,0 +1,99 @@
+"""Self-attention with the in-place KV-cache scatter of ES-dLLM (Alg. 1).
+
+Three cache modes, as in the reference: no cache (the vanilla engine: fresh
+K/V), write-through (prefill: every row scattered, then the cache attended)
+and partial (decode: only the active rows scattered, the whole cache
+attended).  The cache is updated in place: ``KVCache.k``/``v`` are views of
+the model's ``[G, B, S, Hkv, Dh]`` planes, and the scatter kernel writes
+into them.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.common import rope_tables, rotate
+
+
+class KVCache(NamedTuple):
+    """Dense KV cache rows: ``[B, S, Hkv, Dh]`` for one layer, or stacked
+    ``[G, B, S, Hkv, Dh]`` over the layers (``Model.init_cache``)."""
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def _param(shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+class Attention(nn.Module):
+    """Projections for ``x @ W`` (weights ``[in, out]``, the reference's
+    layout), with the optional qkv bias (Dream)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.wq = _param((d, h * dh), device, dtype)
+        self.wk = _param((d, hkv * dh), device, dtype)
+        self.wv = _param((d, hkv * dh), device, dtype)
+        self.wo = _param((h * dh, d), device, dtype)
+        if cfg.qkv_bias:
+            self.bq = _param((h * dh,), device, dtype)
+            self.bk = _param((hkv * dh,), device, dtype)
+            self.bv = _param((hkv * dh,), device, dtype)
+        else:
+            self.bq = self.bk = self.bv = None
+
+
+def _project_qkv(p: Attention, cfg: ModelConfig, x, rope):
+    b, k, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p.wq
+    kk = x @ p.wk
+    vv = x @ p.wv
+    if p.bq is not None:
+        q = q + p.bq
+        kk = kk + p.bk
+        vv = vv + p.bv
+    return (rotate(q.reshape(b, k, h, dh), rope), rotate(kk.reshape(b, k, hkv, dh), rope),
+            vv.reshape(b, k, hkv, dh))
+
+
+def self_attention(
+    p: Attention,
+    cfg: ModelConfig,
+    x: torch.Tensor,                        # [B, K, d] active rows
+    positions: torch.Tensor,                # [B, K] int32 global positions
+    *,
+    cache: Optional[KVCache] = None,        # [B, S, Hkv, Dh] views, updated in place
+    slot_idx: Optional[torch.Tensor] = None,   # [B, K] int32 cache rows to write
+    kv_pos: Optional[torch.Tensor] = None,     # [B, S] int32 cache validity (-1 invalid)
+    rope=None,                      # common.rope_tables(positions, ...), if precomputed
+) -> torch.Tensor:
+    """Returns the attention output ``[B, K, d]``; with a cache, first
+    scatters the fresh K/V rows into it, then attends the whole cache."""
+    b, k, _ = x.shape
+    if rope is None:
+        rope = rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta,
+                           fraction=cfg.rope_fraction)
+    q, kk, vv = _project_qkv(p, cfg, x, rope)
+    if cache is not None:
+        if slot_idx is None or kv_pos is None:
+            raise ValueError("a cached attention needs slot_idx and kv_pos")
+        ops.scatter_rows(((cache.k, kk.to(cache.k.dtype)), (cache.v, vv.to(cache.v.dtype))),
+                         slot_idx)
+        k_full, v_full, kv_positions = cache.k, cache.v, kv_pos
+    else:
+        k_full, v_full, kv_positions = kk, vv, positions
+    out = ops.attention(
+        q.transpose(1, 2),                                    # [B, H, K, Dh] views
+        k_full.to(q.dtype).transpose(1, 2),
+        v_full.to(q.dtype).transpose(1, 2),
+        positions,
+        kv_positions,
+    )
+    return out.transpose(1, 2).reshape(b, k, -1) @ p.wo

@@ -1,0 +1,204 @@
+"""The port's kernel functions against the JAX reference's.
+
+On the CPU the port's ops run their plain PyTorch versions; the reference
+runs its Pallas kernels in interpret mode (``impl="pallas"``) and its XLA
+lowering.  The same numpy inputs go through both.  The hand-written CUDA
+kernels are held against the plain versions by the ``cuda``-marked test,
+which needs a card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.importance import importance
+from repro_torch.kernels.scatter_kv import scatter_rows
+
+ATOL = 2e-5   # f32: the two sides sum the softmax in different orders
+
+
+def _attn_inputs(seed, b, hq, hkv, lq, lkv, d=32):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, lq, d), np.float32)
+    k = rng.standard_normal((b, hkv, lkv, d), np.float32)
+    v = rng.standard_normal((b, hkv, lkv, d), np.float32)
+    q_pos = np.tile(np.arange(lkv - lq, lkv, dtype=np.int32), (b, 1))
+    kv_pos = np.tile(np.arange(lkv, dtype=np.int32), (b, 1))
+    return q, k, v, q_pos, kv_pos
+
+
+# (name, Hq, Hkv, Lq, mask kwargs, edit): T = 40 positions, block Lb = 8,
+# keep_k = 4 after a skip stage, prompt of 24 (block-causal bc_start)
+ATTN_CASES = [
+    ("mha_block", 4, 4, 8, {}, None),
+    ("mha_keep_k", 4, 4, 4, {}, None),
+    ("mha_full_T", 4, 4, 40, {}, None),
+    ("gqa_block", 4, 2, 8, {}, None),
+    ("gqa_full_T", 4, 1, 40, {}, None),
+    ("gqa_invalid_rows", 4, 2, 8, {}, "kv_invalid"),
+    ("causal", 4, 2, 40, {"causal": True}, None),
+    ("window_anchor", 4, 2, 40, {"window": 6, "anchor": 5}, None),
+    ("block_causal", 4, 2, 40, {"bc_start": 24, "bc_block": 8}, "kv_invalid"),
+    ("fully_masked_row", 4, 2, 8, {"causal": True}, "masked_row"),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_attention_matches_reference(case, impl):
+    name, hq, hkv, lq, kw, edit = case
+    q, k, v, q_pos, kv_pos = _attn_inputs(len(name), 2, hq, hkv, lq, 40)
+    if edit == "kv_invalid":
+        kv_pos[:, 3:6] = -1
+        kv_pos[1, 30:] = -1
+    if edit == "masked_row":
+        q_pos[0, 2] = -1          # causal: no key has kv_pos <= -1
+    want = jops.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(q_pos),
+                          jnp.asarray(kv_pos), impl=impl, block_q=8, block_kv=128, **kw)
+    got = ops.attention(*(torch.from_numpy(a) for a in (q, k, v, q_pos, kv_pos)), **kw)
+    assert got.shape == (2, hq, lq, 32) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    if edit == "masked_row":
+        assert np.all(got.numpy()[0, :, 2] == 0.0)
+
+
+def test_attention_mask_rule():
+    """Spot values of the position rule: kv_pos < 0, causal, window+anchor,
+    block-causal (prompt rows are block -1)."""
+    q_pos = torch.tensor([[10, 30]])
+    kv_pos = torch.tensor([[-1, 2, 9, 11, 25, 31]])
+    m = ref.attention_mask(q_pos, kv_pos)
+    assert m[0].tolist() == [[False, True, True, True, True, True]] * 2
+    m = ref.attention_mask(q_pos, kv_pos, causal=True)
+    assert m[0].tolist() == [[False, True, True, False, False, False],
+                             [False, True, True, True, True, False]]
+    m = ref.attention_mask(q_pos, kv_pos, window=2, anchor=3)
+    assert m[0].tolist() == [[False, True, True, True, False, False],
+                             [False, True, False, False, False, True]]
+    m = ref.attention_mask(q_pos, kv_pos, bc_start=20, bc_block=8)
+    assert m[0].tolist() == [[False, True, True, True, False, False],
+                             [False, True, True, True, True, True]]
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 4, 16), (1, 64, 1, 128), (3, 17, 2, 8)])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_scatter_rows_matches_reference(shape, impl):
+    b, s, h, d = shape
+    k = min(5, s)
+    rng = np.random.default_rng(s)
+    cache = rng.standard_normal(shape, np.float32)
+    new = rng.standard_normal((b, k, h, d), np.float32)
+    idx = np.stack([rng.permutation(s)[:k] for _ in range(b)]).astype(np.int32)
+    want = np.asarray(jops.scatter_rows(jnp.asarray(cache), jnp.asarray(new),
+                                        jnp.asarray(idx), impl=impl))
+    got = torch.from_numpy(cache.copy())
+    ops.scatter_rows(((got, torch.from_numpy(new)),), torch.from_numpy(idx))   # in place
+    np.testing.assert_array_equal(got.numpy(), want)
+    untouched = np.ones((b, s), bool)
+    for i in range(b):
+        untouched[i, idx[i]] = False
+    np.testing.assert_array_equal(got.numpy()[untouched], cache[untouched])
+
+
+def test_scatter_kv_pair_equals_two_scatters():
+    rng = np.random.default_rng(3)
+    kc, vc = (torch.from_numpy(rng.standard_normal((2, 12, 2, 8), np.float32)) for _ in "kv")
+    kn, vn = (torch.from_numpy(rng.standard_normal((2, 4, 2, 8), np.float32)) for _ in "kv")
+    idx = torch.tensor([[0, 5, 7, 11], [3, 2, 1, 9]], dtype=torch.int32)
+    want_k, want_v = kc.clone(), vc.clone()
+    ops.scatter_rows(((want_k, kn),), idx)
+    ops.scatter_rows(((want_v, vn),), idx)
+    ops.scatter_rows(((kc, kn), (vc, vn)), idx)
+    assert torch.equal(kc, want_k) and torch.equal(vc, want_v)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("alpha", [0.0, 0.5, 1.0])
+def test_importance_matches_reference(impl, alpha):
+    rng = np.random.default_rng(int(alpha * 10))
+    hn = rng.standard_normal((3, 16, 64), np.float32)
+    ho = rng.standard_normal((3, 16, 64), np.float32)
+    conf = rng.uniform(size=(3, 16)).astype(np.float32)
+    want = np.asarray(jops.importance_score(jnp.asarray(hn), jnp.asarray(ho), jnp.asarray(conf),
+                                            alpha=alpha, impl=impl))
+    got = ops.importance_score(torch.from_numpy(hn), torch.from_numpy(ho),
+                               torch.from_numpy(conf), alpha=alpha)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises: it never computes on the CPU."""
+    x = torch.zeros(1, 2, 4, 8)
+    pos = torch.zeros(1, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(x, x, x, pos, pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        scatter_rows(((torch.zeros(1, 4, 8), torch.zeros(1, 2, 8)),),
+                     torch.zeros(1, 2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        importance(torch.zeros(1, 2, 8), torch.zeros(1, 2, 8), torch.zeros(1, 2), alpha=0.5)
+
+
+def test_ops_refuse_mixed_devices():
+    meta = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="one CUDA device or the CPU"):
+        ops.importance_score(meta, torch.zeros(1, 2, 8), torch.zeros(1, 2), alpha=0.5)
+
+
+def test_library_is_keyed_by_sources():
+    """The built library's name hashes every source in csrc/ and the flags."""
+    path = build.library_path()
+    assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+    assert path == build.library_path()
+    assert set(build.SOURCES) <= {p.name for p in build.CSRC.iterdir()}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    # pad > 0: rows of a wider buffer, so the strides are not 16-byte multiples;
+    # with D 80 or 96, or such strides, K/V are staged element by element
+    for hq, hkv, lq, d, pad, kw in ((4, 4, 8, 32, 0, {}), (28, 4, 32, 128, 0, {"causal": True}),
+                                    (4, 2, 40, 64, 0, {"window": 6, "anchor": 5}),
+                                    (4, 2, 5, 128, 0, {"bc_start": 24, "bc_block": 8}),
+                                    (4, 2, 8, 80, 0, {}), (28, 4, 16, 96, 0, {"causal": True}),
+                                    (4, 2, 8, 64, 2, {"window": 6, "anchor": 5})):
+        def rows(n, h):
+            x = torch.randn(2, n, h, d + pad, generator=g, device=cuda_device).to(dtype)
+            return x[..., :d].transpose(1, 2)
+        q, k, v = rows(lq, hq), rows(40, hkv), rows(40, hkv)
+        q_pos = torch.arange(40 - lq, 40, dtype=torch.int32, device=cuda_device).repeat(2, 1)
+        kv_pos = torch.arange(40, dtype=torch.int32, device=cuda_device).repeat(2, 1)
+        kv_pos[1, 3:9] = -1
+        got = flash_attention(q, k, v, q_pos, kv_pos, **kw)
+        want = ref.attention_reference(q, k, v, q_pos, kv_pos, **kw)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+    cache = torch.randn(2, 40, 4, 32, generator=g, device=cuda_device).to(dtype)
+    new = torch.randn(2, 6, 4, 32, generator=g, device=cuda_device).to(dtype)
+    idx = torch.stack([torch.randperm(40, generator=g, device=cuda_device)[:6]
+                       for _ in range(2)]).to(torch.int32)
+    got = cache.clone()
+    scatter_rows(((got, new),), idx)
+    assert torch.equal(got, ref.scatter_rows_reference(cache.clone(), new, idx))
+    with pytest.raises(ValueError, match="16 bytes"):     # rows of 9 elements
+        scatter_rows(((got[:, :, :3, :3].contiguous(), new[:, :, :3, :3].contiguous()),), idx)
+    hn = torch.randn(2, 8, 4096, generator=g, device=cuda_device).to(dtype)
+    ho = torch.randn(2, 8, 4096, generator=g, device=cuda_device).to(dtype)
+    conf = torch.rand(2, 8, generator=g, device=cuda_device)
+    got = importance(hn, ho, conf, alpha=0.5)
+    want = ref.importance_reference(hn, ho, conf, 0.5)
+    assert ((got - want).abs() / want.abs()).max().item() <= 1e-5
