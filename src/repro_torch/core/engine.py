@@ -1,7 +1,7 @@
 """Diffusion-LLM generation engines of the port: vanilla, DualCache, ES-dLLM.
 
-The offline block loop of the reference (``repro.core.engine``): the output
-is generated block by block; within a block, denoising iterations run until
+The block loop of the reference (``repro.core.engine``): the output is
+generated block by block; within a block, denoising iterations run until
 every position is unmasked.
 
 * ``vanilla``   -- full-sequence forward every iteration, no caches.
@@ -14,14 +14,36 @@ every position is unmasked.
                    refreshes (Table 5).
 
 Where the reference traces a ``lax.while_loop`` over iterations with a
-``lax.switch`` over three branches, the port runs a Python loop whose exit
+``lax.switch`` over the branches, the port runs a Python loop whose exit
 check reads one host scalar per iteration, and branches in Python on the
 phase.  The KV cache planes are updated in place by the scatter kernel.
-Greedy decoding only; the serving state, sampling and the beyond-paper
-cache features raise ``NotImplementedError`` (see ROADMAP.md).
+
+Paged KV (``paged=True``): the K/V caches are one pool ``[G, P, ps, Hkv,
+Dh]`` shared by every slot and addressed through a per-slot block table
+(-1 = unmapped; page 0 is the garbage page).  Offline ``generate`` uses an
+identity table, so dense and paged greedy tokens agree.
+
+Adaptive feature cache (``cache_prompt_interval > 1``): between full prompt
+refreshes, a partial refresh (branch 3) runs the shallow probe groups over
+the whole sequence, scores each past token's feature variation, and pushes
+only the top tokens through the deep groups, whose K/V scatters are token-
+masked.  ``feat``/``conf_full`` carry across blocks.
+
+Serving (``EngineState``, ``step``): every per-request quantity is a ``[B]``
+vector indexed by slot, including the within-block phase, so each row
+resolves its own branch per step.  ``step`` runs up to four passes in the
+reference's order (skip decode, block refresh, prefill, partial refresh),
+each only when some active row needs it; a pass's scatters leave the rows it
+does not own unwritten, and its outputs merge per row.  Rows advance their
+block the moment it unmasks with ``early_advance``; the lifetime ``iters``
+then jumps to the offline numbering.
+
+Greedy decoding only; sampling and the other beyond-paper features raise
+``NotImplementedError`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -30,7 +52,9 @@ from repro_torch.configs.base import GenerationConfig
 from repro_torch.core import sampler as smp
 from repro_torch.core.schedule import (
     BLOCK_REFRESH,
+    PARTIAL,
     PREFILL,
+    SKIP_DECODE,
     Segment,
     branch_index,
     resolve_segments,
@@ -41,15 +65,43 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.model import ForwardCtx, Model
 
 MODES = ("vanilla", "dualcache", "es")
+PASSES = {SKIP_DECODE: "skip", BLOCK_REFRESH: "noskip", PREFILL: "prefill",
+          PARTIAL: "partial"}
 
 
 class BlockState(NamedTuple):
     tokens: torch.Tensor             # [B, T] int32
-    cache: Optional[KVCache]         # [G, B, T, Hkv, Dh] planes (None for vanilla)
+    cache: Optional[KVCache]         # K/V planes or pools (None for vanilla)
     conf: torch.Tensor               # [B, Lb] f32 confidence cache
     pred: torch.Tensor               # [B, Lb] int32 predicted-token cache
     hidden: tuple                    # per skip stage: [B, Lb, d] f32 indicator cache
     t: int                           # iteration counter within the block
+    # adaptive feature cache (None without it): probe-boundary features and
+    # last-observed confidence at every position, carried across blocks
+    feat: Optional[torch.Tensor] = None        # [B, T, d] f32
+    conf_full: Optional[torch.Tensor] = None   # [B, T] f32
+
+
+class EngineState(NamedTuple):
+    """Slot-addressable serving state: the block caches plus per-slot
+    progress, every per-request quantity a ``[B]`` tensor."""
+    tokens: torch.Tensor             # [B, T] int32
+    cache: Optional[KVCache]
+    conf: torch.Tensor               # [B, Lb]
+    pred: torch.Tensor               # [B, Lb]
+    hidden: tuple
+    bs: torch.Tensor                 # [B] int32 start of the current block
+    blocks_left: torch.Tensor        # [B] int32 blocks not yet completed (incl. current)
+    phase: torch.Tensor              # [B] int32 within-block iteration phase
+    iters: torch.Tensor              # [B] int32 lifetime iteration counter
+    active: torch.Tensor             # [B] bool: slot holds a live request
+    prompt_start: torch.Tensor       # [B] int32 first real (non-pad) prompt position
+    block_tables: Optional[torch.Tensor] = None   # [B, T / page_size] int32 (paged)
+    feat: Optional[torch.Tensor] = None           # [B, T, d] f32 (adaptive cache)
+    conf_full: Optional[torch.Tensor] = None      # [B, T] f32 (adaptive cache)
+    cache_refreshed: Optional[torch.Tensor] = None   # [B] int32 cumulative tokens refreshed
+    cache_eligible: Optional[torch.Tensor] = None    # [B] int32 cumulative eligible tokens
+    poisoned: Optional[torch.Tensor] = None       # [B] bool: a non-finite value was seen
 
 
 def _row_gather(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -68,18 +120,17 @@ def _row_scatter(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> tor
     return buf.scatter(1, idx, new.to(buf.dtype))
 
 
-def _unsupported(gen: GenerationConfig, kv_cache_dtype, paged) -> Optional[str]:
+def _unsupported(gen: GenerationConfig, kv_cache_dtype, gather_refresh) -> Optional[str]:
     if gen.mode not in MODES:
         return f"mode={gen.mode!r} (one of {MODES})"
     if gen.temperature > 0:
         return ("temperature > 0: sampled decoding needs the reference's threefry "
                 "key chain (ROADMAP.md Queue A5)")
     for flag, what in ((gen.sparse_attention, "sparse_attention"),
-                       (gen.adaptive_cache, "the adaptive feature cache"),
                        (gen.windowed, "window_blocks"),
                        (gen.block_causal, "block_causal"),
                        (kv_cache_dtype is not None, "the int8 KV cache"),
-                       (paged, "paged=True")):
+                       (gather_refresh, "gather_refresh")):
         if flag:
             return f"{what} is outside this slice of the port (ROADMAP.md open items)"
     return None
@@ -95,9 +146,15 @@ class DiffusionEngine:
         eos_id: int = 2,
         disallow_eos: bool = False,
         kv_cache_dtype: str | None = None,
-        paged: bool = False,
+        paged: bool = False,                 # paged KV pool + block tables
+        page_size: int = 16,                 # tokens per KV page (paged only)
+        kv_pages: int | None = None,         # pool pages incl. garbage page 0;
+                                             # None => dense-equivalent sizing
+        early_advance: bool = False,         # serving: advance a row's block
+                                             # the moment it fully unmasks
+        gather_refresh: bool = False,
     ):
-        why = _unsupported(gen, kv_cache_dtype, paged)
+        why = _unsupported(gen, kv_cache_dtype, gather_refresh)
         if why is not None:
             raise NotImplementedError(why)
         self.device = resolve_device(device)
@@ -106,11 +163,17 @@ class DiffusionEngine:
                              f"{model.device}")
         if gen.gen_length % gen.block_length:
             raise ValueError("gen_length must be a multiple of block_length")
+        if paged and (gen.mode == "vanilla" or page_size <= 0):
+            raise ValueError("paged KV needs a cached engine mode and page_size > 0")
         self.model = model
         self.cfg = model.cfg
         self.gen = gen
         self.eos_id = eos_id
         self.disallow_eos = disallow_eos
+        self.paged = paged
+        self.page_size = page_size if paged else 0
+        self.kv_pages = kv_pages
+        self.early_advance = early_advance
         self.mask_id = self.cfg.vocab_size          # first padded-vocab slot
         lb = gen.block_length
         if gen.mode == "es":
@@ -119,47 +182,98 @@ class DiffusionEngine:
             self.segments = [Segment(0, model.n_groups, None, None)]
         self.n_stages = sum(1 for s in self.segments if s.keep_k is not None)
         self.n_per_step = max(1, -(-lb // gen.resolved_steps()))
-        # reporting: iterations of the last generate() and its final block's state
+        self.adaptive_cache = gen.adaptive_cache
+        if self.adaptive_cache:
+            if gen.mode != "es" or self.n_stages == 0:
+                raise ValueError("the adaptive feature cache needs the es mode and a skip "
+                                 "stage as its probe boundary")
+            self.cache_probe_groups = self.segments[0].group_hi
+        # reporting: iterations of the last generate() and its final block's
+        # state; cached-mode passes run (offline iterations and step() passes)
         self.iterations = 0
         self.last_state: Optional[BlockState] = None
+        self.pass_counts = {name: 0 for name in PASSES.values()}
 
     # ------------------------------------------------------------------
-    # public API
+    # indexing helpers
+    # ------------------------------------------------------------------
+    def _rows(self, b: int, n: int) -> torch.Tensor:
+        """[B, n] int32 rows of 0..n-1 (positions, cache rows, block rows)."""
+        return torch.arange(n, dtype=torch.int32, device=self.device)[None].expand(b, n).contiguous()
+
+    def _block_cols(self, bs: torch.Tensor) -> torch.Tensor:
+        """[B] block starts -> [B, Lb] int32 absolute columns."""
+        lb = self.gen.block_length
+        return bs[:, None] + torch.arange(lb, dtype=torch.int32, device=self.device)[None]
+
+    def _kv_pos(self, prompt_start: torch.Tensor, t_total: int) -> torch.Tensor:
+        """[B, T] int32 cache-validity positions: -1 for pad prompt rows
+        (pos < prompt_start).  Unmapped pages are masked one level down, by
+        ``ops.paged_attention``."""
+        pos = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
+        return torch.where(pos >= prompt_start[:, None], pos, -1)
+
+    def _identity_block_tables(self, b: int, t_total: int) -> torch.Tensor:
+        """Offline layout: slot b owns pages [1 + b*n_vp, 1 + (b+1)*n_vp)."""
+        n_vp = t_total // self.page_size
+        if self.kv_pages is not None and b * n_vp + 1 > self.kv_pages:
+            raise ValueError(f"kv_pages={self.kv_pages} cannot hold {b} offline rows of "
+                             f"{n_vp} pages (+ garbage page)")
+        return torch.arange(1, b * n_vp + 1, dtype=torch.int32,
+                            device=self.device).reshape(b, n_vp)
+
+    # ------------------------------------------------------------------
+    # public API: offline
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def generate(self, prompt: torch.Tensor) -> torch.Tensor:
+    def generate(self, prompt: torch.Tensor,
+                 prompt_start: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Generates ``gen.gen_length`` tokens after ``prompt [B, P]``;
-        returns the ``[B, P + gen_length]`` int32 tokens."""
+        returns the ``[B, P + gen_length]`` int32 tokens.  ``prompt_start
+        [B]`` masks each row's left-pad prompt positions out of attention
+        (the serving runtime's variable-length-prompt contract)."""
         gen = self.gen
         b, p = prompt.shape
         lb = gen.block_length
+        t_total = p + gen.gen_length
         tokens = torch.cat([
             prompt.to(device=self.device, dtype=torch.int32),
             torch.full((b, gen.gen_length), self.mask_id, dtype=torch.int32,
                        device=self.device)], dim=1)
-        # the KV cache carries across blocks; each block's first iteration
-        # is a prefill that zeroes and rewrites it
-        cache = self._init_cache(b, tokens.shape[1])
+        if prompt_start is None:
+            prompt_start = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        prompt_start = prompt_start.to(device=self.device, dtype=torch.int32)
+        bt = self._identity_block_tables(b, t_total) if self.paged else None
+        # the KV cache and the adaptive cache's planes carry across blocks;
+        # each block's first iteration is a prefill that rewrites the K/V
+        cache = self._init_cache(b, t_total)
+        feat, conf_full = self._feature_planes(b, t_total)
         self.iterations = 0
         for blk in range(gen.gen_length // lb):
-            self.last_state = self._run_block(tokens, cache, p + blk * lb)
-            tokens = self.last_state.tokens
+            self.last_state = self._run_block(tokens, cache, feat, conf_full, p + blk * lb,
+                                              blk * gen.resolved_steps(), prompt_start, bt)
+            tokens, feat, conf_full = (self.last_state.tokens, self.last_state.feat,
+                                       self.last_state.conf_full)
         return tokens
 
     def make_block_state(self, tokens: torch.Tensor) -> BlockState:
         b, t_total = tokens.shape
         return self._block_state(tokens.to(device=self.device, dtype=torch.int32),
-                                 self._init_cache(b, t_total))
+                                 self._init_cache(b, t_total),
+                                 *self._feature_planes(b, t_total))
 
     @torch.no_grad()
     def prefill(self, st: BlockState, bs: int) -> BlockState:
         """Cache initialization / prompt refresh as a standalone step."""
-        return self._apply_unmask(st, bs, *self._prefill_step(st, bs))
+        bs_rows, pstart, bt = self._offline_rows(st, bs)
+        return self._apply_unmask(st, bs_rows, *self._prefill_step(st, bs_rows, pstart, bt))
 
     @torch.no_grad()
     def decode_iteration(self, st: BlockState, bs: int) -> BlockState:
         """One steady-state ES iteration (paper Alg. 1): skip decode."""
-        return self._apply_unmask(st, bs, *self._decode_step(st, bs, skip=True))
+        bs_rows, pstart, bt = self._offline_rows(st, bs)
+        return self._apply_unmask(st, bs_rows,
+                                  *self._decode_step(st, bs_rows, pstart, bt, skip=True))
 
     # ------------------------------------------------------------------
     # per-block loop
@@ -167,9 +281,23 @@ class DiffusionEngine:
     def _init_cache(self, b: int, t_total: int) -> Optional[KVCache]:
         if self.gen.mode == "vanilla":
             return None
+        if self.paged:
+            if t_total % self.page_size:
+                raise ValueError(f"page_size {self.page_size} must divide the sequence "
+                                 f"{t_total}")
+            kv_pages = self.kv_pages or b * (t_total // self.page_size) + 1
+            return self.model.init_cache(b, t_total, kv_pages=kv_pages,
+                                         page_size=self.page_size)
         return self.model.init_cache(b, t_total)
 
-    def _block_state(self, tokens, cache) -> BlockState:
+    def _feature_planes(self, b: int, t_total: int):
+        if not self.adaptive_cache:
+            return None, None
+        return (torch.zeros((b, t_total, self.cfg.d_model), dtype=torch.float32,
+                            device=self.device),
+                torch.zeros((b, t_total), dtype=torch.float32, device=self.device))
+
+    def _block_state(self, tokens, cache, feat=None, conf_full=None) -> BlockState:
         b, lb, d = tokens.shape[0], self.gen.block_length, self.cfg.d_model
         dev = self.device
         return BlockState(
@@ -178,14 +306,25 @@ class DiffusionEngine:
             pred=torch.zeros((b, lb), dtype=torch.int32, device=dev),
             hidden=tuple(torch.zeros((b, lb, d), dtype=torch.float32, device=dev)
                          for _ in range(self.n_stages)),
-            t=0)
+            t=0, feat=feat, conf_full=conf_full)
 
-    def _run_block(self, tokens, cache, bs: int):
+    def _offline_rows(self, st: BlockState, bs: int):
+        """(bs [B], prompt_start [B], block tables) of the offline layout."""
+        b, t_total = st.tokens.shape
+        bs_rows = torch.full((b,), bs, dtype=torch.int32, device=self.device)
+        pstart = torch.zeros((b,), dtype=torch.int32, device=self.device)
+        bt = self._identity_block_tables(b, t_total) if self.paged else None
+        return bs_rows, pstart, bt
+
+    def _run_block(self, tokens, cache, feat, conf_full, bs: int, iters0: int,
+                   prompt_start, bt) -> BlockState:
         gen = self.gen
-        st = self._block_state(tokens, cache)
+        st = self._block_state(tokens, cache, feat, conf_full)
+        bs_rows = torch.full((tokens.shape[0],), bs, dtype=torch.int32, device=self.device)
         max_steps = gen.resolved_steps() + 1
         while st.t == 0 or (st.t < max_steps and self._any_masked(st, bs)):
-            st = self._apply_unmask(st, bs, *self._iteration_outputs(st, bs))
+            outs = self._iteration_outputs(st, bs_rows, iters0 + st.t, prompt_start, bt)
+            st = self._apply_unmask(st, bs_rows, *outs)
             self.iterations += 1
         return st
 
@@ -193,66 +332,204 @@ class DiffusionEngine:
         lb = self.gen.block_length
         return bool((st.tokens[:, bs:bs + lb] == self.mask_id).any().item())
 
-    def _iteration_outputs(self, st: BlockState, bs: int):
+    def _iteration_outputs(self, st: BlockState, bs, iters: int, prompt_start, bt):
         """Branch-dispatched compute for one denoising iteration at phase
-        ``st.t``.  Returns ``(cache, conf, pred, hidden)``."""
+        ``st.t`` and lifetime iteration ``iters``.  Returns ``(cache, conf,
+        pred, hidden, feat, stats)``."""
         if self.gen.mode == "vanilla":
             conf, pred = self._vanilla_compute(st, bs)
-            return st.cache, conf, pred, st.hidden
-        branch = branch_index(self.gen, st.t)
+            return st.cache, conf, pred, st.hidden, st.feat, None
+        branch = branch_index(self.gen, st.t, iters)
+        self.pass_counts[PASSES[branch]] += 1
         if branch == PREFILL:
-            return self._prefill_step(st, bs)
-        return self._decode_step(st, bs, skip=branch != BLOCK_REFRESH)
+            return self._prefill_step(st, bs, prompt_start, bt)
+        if branch == PARTIAL:
+            return self._partial_refresh_step(st, bs, prompt_start, bt)
+        return self._decode_step(st, bs, prompt_start, bt, skip=branch != BLOCK_REFRESH)
 
-    def _apply_unmask(self, st: BlockState, bs: int, cache, conf, pred, hidden) -> BlockState:
-        lb = self.gen.block_length
-        blk_tok = st.tokens[:, bs:bs + lb]
+    def _apply_unmask(self, st: BlockState, bs, cache, conf, pred, hidden, feat=None,
+                      stats=None, active: Optional[torch.Tensor] = None) -> BlockState:
+        cols = self._block_cols(bs)
+        blk_tok = _row_gather(st.tokens, cols)
         sel = smp.select_unmask(conf, blk_tok == self.mask_id, self.gen, self.n_per_step)
-        tokens = st.tokens.clone()
-        tokens[:, bs:bs + lb] = torch.where(sel, pred, blk_tok)
-        return BlockState(tokens, cache, conf, pred, hidden, st.t + 1)
+        if active is not None:
+            sel = sel & active[:, None]
+        tokens = st.tokens.scatter(1, cols.long(), torch.where(sel, pred, blk_tok))
+        conf_full = st.conf_full
+        if self.adaptive_cache:
+            # the block's freshest confidences at their absolute positions:
+            # settled blocks keep their final values for the refresh priority
+            conf_full = st.conf_full.scatter(1, cols.long(), conf)
+        return BlockState(tokens, cache, conf, pred, hidden, st.t + 1,
+                          st.feat if feat is None else feat, conf_full)
+
+    # ------------------------------------------------------------------
+    # serving
+    # ------------------------------------------------------------------
+    def init_engine_state(self, batch: int, prompt_len: int) -> EngineState:
+        """All-idle slot state for ``batch`` slots; ``prompt_len`` fixes the
+        padded prompt region, so the sequence is ``prompt_len + gen_length``."""
+        t_total = prompt_len + self.gen.gen_length
+        dev = self.device
+        tokens = torch.full((batch, t_total), self.mask_id, dtype=torch.int32, device=dev)
+        bst = self.make_block_state(tokens)
+        zeros = lambda dtype: torch.zeros((batch,), dtype=dtype, device=dev)  # noqa: E731
+        bt = None
+        if self.paged:
+            # every slot starts unmapped; the scheduler maps pages at admission
+            bt = torch.full((batch, t_total // self.page_size), -1, dtype=torch.int32,
+                            device=dev)
+        return EngineState(
+            tokens=bst.tokens, cache=bst.cache, conf=bst.conf, pred=bst.pred,
+            hidden=bst.hidden,
+            bs=torch.full((batch,), prompt_len, dtype=torch.int32, device=dev),
+            blocks_left=zeros(torch.int32), phase=zeros(torch.int32),
+            iters=zeros(torch.int32), active=zeros(torch.bool),
+            prompt_start=zeros(torch.int32), block_tables=bt,
+            feat=bst.feat, conf_full=bst.conf_full,
+            cache_refreshed=zeros(torch.int32), cache_eligible=zeros(torch.int32),
+            poisoned=zeros(torch.bool))
+
+    @torch.no_grad()
+    def step(self, state: EngineState) -> EngineState:
+        """One denoising iteration for every resident slot.  Each row's branch
+        comes from its own phase; the KV caches are updated in place, every
+        other field of the returned state is new."""
+        gen = self.gen
+        steps_pb, lb = gen.resolved_steps(), gen.block_length
+        bs = state.bs
+        st = BlockState(state.tokens, state.cache, state.conf, state.pred, state.hidden,
+                        state.phase, state.feat, state.conf_full)
+        if gen.mode == "vanilla":
+            conf, pred = self._vanilla_compute(st, bs)
+            outs = (st.cache, conf, pred, st.hidden, st.feat, None)
+        else:
+            outs = self._mixed_step_outputs(state, st)
+        stats = outs[5]
+        st = self._apply_unmask(st, bs, *outs[:5], active=state.active)
+
+        # poison detector: a non-finite confidence, indicator or feature value
+        # of an active row sets its sticky flag (the scheduler raises on it)
+        bad = ~torch.isfinite(st.conf).all(dim=1)
+        for hh in st.hidden:
+            bad |= ~torch.isfinite(hh).all(dim=2).all(dim=1)
+        if st.feat is not None:
+            bad |= ~torch.isfinite(st.feat).all(dim=2).all(dim=1)
+        poisoned = state.poisoned | (bad & state.active)
+
+        # per-row block advance: a row whose block fully unmasked moves to its
+        # next block (or completes) -- at once with early_advance, else at its
+        # own phase wrap.  The lifetime counter jumps to the offline numbering
+        # (block blk starts at blk * steps_pb): the skipped iterations were
+        # no-ops.
+        phase_used = state.phase
+        phase = (phase_used + 1) % steps_pb
+        blk_done = ~(_row_gather(st.tokens, self._block_cols(bs)) == self.mask_id).any(dim=1)
+        adv = state.active & blk_done
+        if not self.early_advance:
+            adv = adv & (phase == 0)
+        blocks_left = state.blocks_left - adv.int()
+        finished = adv & (blocks_left == 0)
+        cache_refreshed, cache_eligible = state.cache_refreshed, state.cache_eligible
+        if stats is not None:
+            cache_refreshed = cache_refreshed + stats[:, 0]
+            cache_eligible = cache_eligible + stats[:, 1]
+        return EngineState(
+            tokens=st.tokens, cache=st.cache, conf=st.conf, pred=st.pred, hidden=st.hidden,
+            bs=torch.where(adv & ~finished, bs + lb, bs),
+            blocks_left=blocks_left,
+            phase=torch.where(adv, 0, phase),
+            iters=torch.where(adv, state.iters - phase_used + steps_pb,
+                              state.iters + state.active.int()),
+            active=state.active & ~finished,
+            prompt_start=state.prompt_start, block_tables=state.block_tables,
+            feat=st.feat, conf_full=st.conf_full,
+            cache_refreshed=cache_refreshed, cache_eligible=cache_eligible,
+            poisoned=poisoned)
+
+    def _mixed_step_outputs(self, state: EngineState, st: BlockState):
+        """Up to four passes, in the reference's order (skip decode, block
+        refresh, prefill, partial refresh), each run only when some active
+        row is in its branch and masked to those rows.  Rows a pass does not
+        own still flow through it; their scatters are dropped and their
+        outputs merged away.  One host read per step decides the passes."""
+        br = branch_index(self.gen, state.phase, state.iters)
+        codes = [SKIP_DECODE, BLOCK_REFRESH, PREFILL] + ([PARTIAL] if self.adaptive_cache else [])
+        masks = [state.active & (br == code) for code in codes]
+        run = torch.stack([m.any() for m in masks]).tolist()
+        bs, pstart, bt = state.bs, state.prompt_start, state.block_tables
+        stats = None
+        if self.adaptive_cache:
+            stats = torch.zeros((bs.shape[0], 2), dtype=torch.int32, device=self.device)
+        carry = (st.cache, st.conf, st.pred, st.hidden, st.feat, stats)
+        for code, mask, on in zip(codes, masks, run):
+            if not on:
+                continue
+            self.pass_counts[PASSES[code]] += 1
+            cst = st._replace(cache=carry[0], conf=carry[1], pred=carry[2], hidden=carry[3],
+                              feat=carry[4])
+            if code == PREFILL:
+                out = self._prefill_step(cst, bs, pstart, bt, row_mask=mask)
+            elif code == PARTIAL:
+                out = self._partial_refresh_step(cst, bs, pstart, bt, row_mask=mask)
+            else:
+                out = self._decode_step(cst, bs, pstart, bt, skip=code == SKIP_DECODE,
+                                        row_mask=mask)
+            carry = _merge_step_outputs(mask, carry, out)
+        return carry
 
     # ------------------------------------------------------------------
     # branches
     # ------------------------------------------------------------------
-    def _positions(self, b: int, n: int) -> torch.Tensor:
-        """[B, n] int32 rows of 0..n-1 (positions, cache rows, block rows)."""
-        return torch.arange(n, dtype=torch.int32, device=self.device)[None].expand(b, n).contiguous()
-
-    def _prefill_step(self, st: BlockState, bs: int):
+    def _prefill_step(self, st: BlockState, bs, prompt_start, bt,
+                      row_mask: Optional[torch.Tensor] = None):
         """Full forward over the whole sequence: rebuilds the KV cache and
         the block's confidence/prediction/indicator caches (cache init and
-        prompt refresh)."""
-        model, lb = self.model, self.gen.block_length
+        prompt refresh).  Under a ``row_mask`` the carried caches are not
+        zeroed: the other rows' cache state (in a shared pool, their pages)
+        must survive, and the refresh rewrites every owned position anyway."""
+        model = self.model
         b, t_total = st.tokens.shape
-        st.cache.k.zero_()
-        st.cache.v.zero_()
-        pos = self._positions(b, t_total)
-        ctx = ForwardCtx(pos, "prefill", kv_pos=pos, slot_idx=pos)
+        cols = self._block_cols(bs)
+        if row_mask is None:
+            st.cache.k.zero_()
+            st.cache.v.zero_()
+        pos = self._rows(b, t_total)
+        ctx = ForwardCtx(pos, "prefill", kv_pos=self._kv_pos(prompt_start, t_total),
+                         slot_idx=pos, block_tables=bt, scatter_mask=row_mask)
         h = model.embed_tokens(st.tokens)
-        hidden = []
+        hidden, feat = [], st.feat
         for seg in self.segments:
             h = model.run_layers(h, ctx, st.cache, group_lo=seg.group_lo,
                                  group_hi=seg.group_hi)
+            if self.adaptive_cache and seg.group_hi == self.cache_probe_groups:
+                # the baseline the next partial refresh measures variation against
+                feat = h.float()
             if seg.keep_k is not None:
-                hidden.append(h[:, bs:bs + lb].float())
-        conf, pred = self._confidence(st, bs, model.logits(h[:, bs:bs + lb]))
-        return st.cache, conf, pred, tuple(hidden)
+                hidden.append(_row_gather(h, cols).float())
+        conf, pred = self._confidence(st, bs, model.logits(_row_gather(h, cols)))
+        stats = None
+        if self.adaptive_cache:
+            # a full refresh recomputes every eligible past token
+            n_el = self._cache_eligible(bs, prompt_start, bt, t_total).sum(dim=1).int()
+            stats = torch.stack([n_el, n_el], dim=1)
+        return st.cache, conf, pred, tuple(hidden), feat, stats
 
-    def _decode_step(self, st: BlockState, bs: int, *, skip: bool):
+    def _decode_step(self, st: BlockState, bs, prompt_start, bt, *, skip: bool,
+                     row_mask: Optional[torch.Tensor] = None):
         """One diffusion iteration on the current block (paper Alg. 1).
         ``skip=True`` applies the early-skip schedule; ``skip=False`` is the
         block refresh (all block rows computed)."""
         model, gen = self.model, self.gen
         b, t_total = st.tokens.shape
-        lb = gen.block_length
-        h = model.embed_tokens(st.tokens[:, bs:bs + lb])
-        s_idx = self._positions(b, lb)
-        kv_pos = self._positions(b, t_total)
+        h = model.embed_tokens(_row_gather(st.tokens, self._block_cols(bs)))
+        s_idx = self._rows(b, gen.block_length)
+        kv_pos = self._kv_pos(prompt_start, t_total)
         hidden = list(st.hidden)
         for seg in self.segments:
-            rows = bs + s_idx
-            ctx = ForwardCtx(rows, "decode", kv_pos=kv_pos, slot_idx=rows)
+            rows = bs[:, None] + s_idx
+            ctx = ForwardCtx(rows, "decode", kv_pos=kv_pos, slot_idx=rows, block_tables=bt,
+                             scatter_mask=row_mask)
             h = model.run_layers(h, ctx, st.cache, group_lo=seg.group_lo,
                                  group_hi=seg.group_hi)
             if seg.keep_k is not None:
@@ -270,23 +547,94 @@ class DiffusionEngine:
             model.logits(h), self.cfg.vocab_size, self.mask_id)
         conf = _row_scatter(st.conf, conf_new, s_idx)
         pred = _row_scatter(st.pred, pred_new, s_idx)
-        return st.cache, conf, pred, tuple(hidden)
+        return st.cache, conf, pred, tuple(hidden), st.feat, None
 
-    def _vanilla_compute(self, st: BlockState, bs: int):
+    def _cache_eligible(self, bs, prompt_start, bt, t_total: int) -> torch.Tensor:
+        """[B, T] bool: past tokens whose K/V a partial refresh may recompute:
+        real (not left-pad), outside the current block (the block pass owns
+        those), and, paged, on a mapped page (a write to an unmapped page
+        would land on the garbage page and lose the fresh values)."""
+        col = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
+        in_block = (col >= bs[:, None]) & (col < bs[:, None] + self.gen.block_length)
+        eligible = ~in_block & (col >= prompt_start[:, None])
+        if self.paged:
+            eligible &= (bt >= 0).repeat_interleave(self.page_size, dim=1)
+        return eligible
+
+    def _partial_refresh_step(self, st: BlockState, bs, prompt_start, bt,
+                              row_mask: Optional[torch.Tensor] = None):
+        """Partial prompt refresh (branch 3, adaptive feature cache): probe
+        the shallow groups over the whole sequence, score each past token's
+        feature variation against ``st.feat`` blended with ``st.conf_full``,
+        recompute the deep-group K/V of the top ``cache_refresh_fraction``
+        tokens at or above ``cache_variation_threshold`` (the others keep
+        their cached K/V: token-masked scatters), then run the block refresh.
+        The carried caches are never zeroed here."""
+        model, gen = self.model, self.gen
+        b, t_total = st.tokens.shape
+        gp = self.cache_probe_groups
+        kv_pos = self._kv_pos(prompt_start, t_total)
+        # 1. shallow probe over every position: its K/V refresh everywhere
+        pos = self._rows(b, t_total)
+        ctx = ForwardCtx(pos, "prefill", kv_pos=kv_pos, slot_idx=pos, block_tables=bt,
+                         scatter_mask=row_mask)
+        h_probe = model.run_layers(model.embed_tokens(st.tokens), ctx, st.cache,
+                                   group_lo=0, group_hi=gp)
+        feat = h_probe.float()
+        # 2. variation-gated selection: top-R by score, then the threshold
+        scores = ops.variation_score(feat, st.feat, st.conf_full, alpha=gen.alpha)
+        eligible = self._cache_eligible(bs, prompt_start, bt, t_total)
+        cand = torch.where(eligible, scores, -math.inf)
+        r = max(1, min(t_total,
+                       math.ceil(gen.cache_refresh_fraction * (t_total - gen.block_length))))
+        sel = _top_k(cand, r)
+        val = torch.gather(cand, 1, sel)
+        tok_ok = torch.isfinite(val) & (val >= gen.cache_variation_threshold)
+        # 3. deep refresh of the selected tokens; the token mask keeps the
+        # K/V of the filler and below-threshold ones
+        sel = sel.int()
+        dctx = ForwardCtx(sel, "decode", kv_pos=kv_pos, slot_idx=sel, block_tables=bt,
+                          scatter_mask=row_mask, refresh_mask=tok_ok)
+        model.run_layers(_row_gather(h_probe, sel), dctx, st.cache, group_lo=gp,
+                         group_hi=model.n_groups)
+        # 4. the block refresh on the partially refreshed caches
+        out = self._decode_step(st, bs, prompt_start, bt, skip=False, row_mask=row_mask)
+        stats = torch.stack([tok_ok.sum(dim=1), eligible.sum(dim=1)], dim=1).int()
+        return out[:4] + (feat, stats)
+
+    def _vanilla_compute(self, st: BlockState, bs):
         """Full-sequence forward, no caches (the original LLaDA loop)."""
-        model, lb = self.model, self.gen.block_length
+        model = self.model
         b, t_total = st.tokens.shape
         h = model.run_layers(model.embed_tokens(st.tokens),
-                             ForwardCtx(self._positions(b, t_total)))
-        return self._confidence(st, bs, model.logits(h[:, bs:bs + lb]))
+                             ForwardCtx(self._rows(b, t_total)))
+        return self._confidence(st, bs, model.logits(_row_gather(h, self._block_cols(bs))))
 
-    def _confidence(self, st: BlockState, bs: int, logits_blk: torch.Tensor):
+    def _confidence(self, st: BlockState, bs, logits_blk: torch.Tensor):
         if self.disallow_eos:
-            masked = (st.tokens[:, bs:bs + self.gen.block_length] == self.mask_id).int()
+            masked = (_row_gather(st.tokens, self._block_cols(bs)) == self.mask_id).int()
             rev = masked.flip(1).cumsum(1).flip(1)
             logits_blk = smp.disallow_premature_eos(logits_blk, (rev - masked) > 0,
                                                     self.eos_id)
         return smp.confidence_and_pred(logits_blk, self.cfg.vocab_size, self.mask_id)
+
+
+def _merge_step_outputs(mask: torch.Tensor, old, new):
+    """Per-row merge of one pass's ``(cache, conf, pred, hidden, feat,
+    stats)`` into the carried tuple: rows in ``mask`` take the pass's
+    results.  The KV cache is taken as it is: the pass's scatters already
+    left the other rows unwritten."""
+    o_cache, o_conf, o_pred, o_hidden, o_feat, o_stats = old
+    n_cache, n_conf, n_pred, n_hidden, n_feat, n_stats = new
+    m1, m2 = mask[:, None], mask[:, None, None]
+    return (
+        n_cache,
+        torch.where(m1, n_conf, o_conf),
+        torch.where(m1, n_pred, o_pred),
+        tuple(torch.where(m2, n, o) for o, n in zip(o_hidden, n_hidden)),
+        None if o_feat is None else torch.where(m2, n_feat, o_feat),
+        o_stats if n_stats is None else torch.where(m1, n_stats, o_stats),
+    )
 
 
 def _top_k(scores: torch.Tensor, k: int) -> torch.Tensor:

@@ -3,33 +3,72 @@
 A *segment* is a contiguous range of layer groups run by one
 ``Model.run_layers`` call; at the end of a segment with ``keep_k`` set, the
 active set shrinks to the top-k rows by importance (paper Alg. 1 line 13).
-``prompt_refresh_pred`` and ``branch_index`` map the offline loop's phase
-(a python int) to its branch.
+
+The cadence functions (``prompt_refresh_pred``, ``full_refresh_pred``,
+``branch_index``) are elementwise on python ints, numpy arrays and torch
+tensors alike: the offline loop (a scalar phase), the serving step (a
+per-row ``[B]`` phase tensor) and the scheduler's host-side hooks (numpy)
+share one cadence truth.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
+import numpy as np
+import torch
+
 from repro_torch.configs.base import GenerationConfig, ModelConfig
 
-PREFILL, BLOCK_REFRESH, SKIP_DECODE = 2, 1, 0
+PARTIAL, PREFILL, BLOCK_REFRESH, SKIP_DECODE = 3, 2, 1, 0
 
 
-def prompt_refresh_pred(gen: GenerationConfig, t: int) -> bool:
+def _where(cond, a, b):
+    """Elementwise select for python scalars, numpy arrays and tensors."""
+    if isinstance(cond, torch.Tensor):
+        return torch.where(cond, a, b)
+    if isinstance(cond, np.ndarray):
+        return np.where(cond, a, b)
+    return a if cond else b
+
+
+def prompt_refresh_pred(gen: GenerationConfig, t):
     """Whether iteration phase ``t`` is a prompt refresh: cache init at
     ``t == 0``, plus every ``prompt_refresh_period`` iterations."""
     pp = gen.prompt_refresh_period
-    return t == 0 or (pp > 0 and t % pp == 0)
+    r = t == 0
+    if pp > 0:
+        r = r | (t % pp == 0)
+    return r
 
 
-def branch_index(gen: GenerationConfig, t: int) -> int:
+def full_refresh_pred(gen: GenerationConfig, iters):
+    """Among scheduled prompt refreshes, which are FULL (vs PARTIAL), from the
+    lifetime iteration counter ``iters`` (``block_idx * steps_per_block +
+    phase``, kept across early block advances): the k-th scheduled refresh
+    is full iff ``k % cache_prompt_interval == 0``, and a block's first
+    iteration always is.  Every refresh is full with the cache off."""
+    if not gen.adaptive_cache:
+        return iters == iters
+    spb = gen.resolved_steps()
+    pp = gen.prompt_refresh_period
+    nrb = 1 + (spb - 1) // pp if pp > 0 else 1
+    ridx = (iters // spb) * nrb + ((iters % spb) // pp if pp > 0 else 0)
+    return ((ridx % gen.cache_prompt_interval) == 0) | ((iters % spb) == 0)
+
+
+def branch_index(gen: GenerationConfig, t, iters=None):
     """Phase -> branch: 2 = prompt refresh (full-sequence prefill), 1 = block
-    refresh (all block rows computed), 0 = skip decode (the early-skip plan)."""
-    if prompt_refresh_pred(gen, t):
-        return PREFILL
+    refresh (all block rows computed), 0 = skip decode (the early-skip plan).
+    With the adaptive cache and a lifetime ``iters``, a scheduled refresh
+    that is not full (:func:`full_refresh_pred`) is 3 = partial refresh."""
     bp = gen.block_refresh_period
-    return BLOCK_REFRESH if bp > 0 and t % bp == 0 else SKIP_DECODE
+    block_r = (t % bp == 0) if bp > 0 else (t != t)
+    refresh_br = PREFILL
+    if gen.adaptive_cache and iters is not None:
+        refresh_br = _where(full_refresh_pred(gen, iters), PREFILL, PARTIAL)
+    return _where(prompt_refresh_pred(gen, t), refresh_br,
+                  _where(block_r, BLOCK_REFRESH, SKIP_DECODE))
 
 
 @dataclasses.dataclass(frozen=True)

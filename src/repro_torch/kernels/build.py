@@ -34,10 +34,10 @@ _F = ctypes.c_float
 _LL = ctypes.c_longlong
 # name -> argtypes of the C entry points (all return an int status)
 SIGNATURES = {
-    "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _F, _I, _I, _I, _I, _I, _P],
-    "repro_scatter_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P],
-    "repro_importance": [_I, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                              _I, _F, _I, _I, _I, _I, _I, _P],
+    "repro_scatter_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P],
+    "repro_importance": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P],
 }
 
 

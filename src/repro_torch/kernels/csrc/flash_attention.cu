@@ -4,7 +4,8 @@
 // (body _flash_kernel) -- the TPU kernel every layer of every ES-dLLM
 // iteration calls: the active query rows (the block, or its top-k subset
 // after a skip stage, or the whole sequence on a prompt refresh) attend the
-// whole KV cache.
+// whole KV cache -- and paged_flash_attention_kernel, the same body over a
+// shared page pool read through a per-slot block table (the serving path).
 //
 // What bounds it on this card: at the main path's shapes (Lq <= Lkv of a few
 // hundred rows, head_dim 128) the work is a few MFLOP per (batch, head) and
@@ -29,6 +30,14 @@
 // strides with a contiguous last dimension are taken, so the cache's
 // [B, S, Hkv, D] layout is read without a transpose copy.  Scalar FMA, no
 // wgmma/TMA: a later PR makes it fast.
+//
+// Paged mode (bt != null): K/V are a pool [P, ps, Hkv, D] read in place;
+// KV row r of batch b is pool row bt[b, r / ps] * ps + r % ps.  The lookup
+// is per row, not per tile: a 32-row tile spans several pages at page size
+// 8 or 16.  A row of an unmapped page (bt < 0) is masked as kv_pos = -1 and
+// staged as zeros without a load.  On the TPU, repeated garbage-page indices
+// let the pipeline skip the DMA; here the tile walk skips every tile whose
+// pages are all unmapped, so the bytes moved follow the mapped pages.
 //
 // Mask (exactly _flash_kernel's): kv_pos < 0 is masked; causal keeps
 // kv_pos <= q_pos; window > 0 keeps |q_pos - kv_pos| <= window, plus
@@ -59,11 +68,37 @@ struct Params {
   void* o;
   const int* q_pos;   // [B, Lq]
   const int* kv_pos;  // [B, Lkv]
-  Strides sq, sk, sv, so;
-  int B, Hq, Hkv, Lq, Lkv, D;
+  const int* bt;      // [B, Lkv / ps] page table (paged mode), else null
+  Strides sq, sk, sv, so;  // paged: sk.l / sv.l step one pool row, sk.b unused
+  int B, Hq, Hkv, Lq, Lkv, D, ps;
   float scale;
   int window, anchor, causal, bc_start, bc_block;
 };
+
+// Pool row of KV row r (paged) or r itself (dense); -1 for an unmapped page.
+template <bool kPaged>
+__device__ __forceinline__ long long kv_row(const Params& p, const int* bt_b, int r) {
+  if constexpr (kPaged) {
+    const int page = bt_b[r / p.ps];
+    return page < 0 ? -1 : (long long)page * p.ps + r % p.ps;
+  } else {
+    return r;
+  }
+}
+
+// First tile start >= kv0 that holds a mapped row (every tile in dense
+// mode); Lkv when none is left.  The same for every thread of a block.
+template <bool kPaged>
+__device__ __forceinline__ int next_tile(const Params& p, const int* bt_b, int kv0) {
+  if constexpr (kPaged) {
+    for (; kv0 < p.Lkv; kv0 += kBlockKV) {
+      const int last = min(kv0 + kBlockKV, p.Lkv) - 1;
+      for (int pg = kv0 / p.ps; pg <= last / p.ps; ++pg)
+        if (bt_b[pg] >= 0) return kv0;
+    }
+  }
+  return kv0;
+}
 
 __device__ __forceinline__ bool allowed(int qp, int kp, const Params& p) {
   bool ok = kp >= 0;
@@ -91,14 +126,16 @@ struct TileRegs {
   static constexpr int kChunks = kBlockKV * KD / kVec / kThreads;  // per thread
   uint4 k[kChunks], v[kChunks];
 
-  __device__ __forceinline__ void load(const T* kg, const T* vg, long long skl, long long svl,
-                                       int kv0, int Lkv, int tid) {
+  template <bool kPaged>
+  __device__ __forceinline__ void load(const T* kg, const T* vg, const Params& p,
+                                       const int* bt_b, int kv0, int tid) {
 #pragma unroll
     for (int u = 0; u < kChunks; ++u) {
       const int c = tid + u * kThreads, kr = kv0 + c / kPerRow, d = (c % kPerRow) * kVec;
-      if (kr < Lkv) {
-        k[u] = *reinterpret_cast<const uint4*>(kg + kr * skl + d);
-        v[u] = *reinterpret_cast<const uint4*>(vg + kr * svl + d);
+      const long long row = kr < p.Lkv ? kv_row<kPaged>(p, bt_b, kr) : -1;
+      if (row >= 0) {
+        k[u] = *reinterpret_cast<const uint4*>(kg + row * p.sk.l + d);
+        v[u] = *reinterpret_cast<const uint4*>(vg + row * p.sv.l + d);
       } else {
         k[u] = v[u] = make_uint4(0u, 0u, 0u, 0u);   // zero bits: 0.0 in f32 and bf16
       }
@@ -131,7 +168,8 @@ struct TileRegs {
 // KD: head_dim rounded up to 32, 64 or 128 (tiles are zero-padded to it).
 // kVec: head_dim == KD and every K/V row starts 16-byte aligned, so K/V move
 // as 16-byte chunks, prefetched a tile ahead; else element by element.
-template <typename T, int KD, bool kVec>
+// kPaged: K/V rows come from a page pool through the block table p.bt.
+template <typename T, int KD, bool kVec, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) {
   constexpr int kDPL = KD / 32;                      // output columns per lane
   constexpr int kStride = KD + 4;                    // K/V row pitch in floats
@@ -148,9 +186,11 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
   const int D = p.D;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const T* kg = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const T* vg = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const long long kb = kPaged ? 0 : b * p.sk.b, vb = kPaged ? 0 : b * p.sv.b;
+  const T* kg = static_cast<const T*>(p.k) + kb + kvh * p.sk.h;
+  const T* vg = static_cast<const T*>(p.v) + vb + kvh * p.sv.h;
   const int* kvpos_g = p.kv_pos + (long long)b * p.Lkv;
+  const int* bt_b = kPaged ? p.bt + (long long)b * (p.Lkv / p.ps) : nullptr;
 
 #pragma unroll
   for (int i = tid; i < kBlockQ * KD; i += kThreads) {
@@ -171,9 +211,12 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
   }
 
   TileRegs<T, KD> regs;
-  if constexpr (kVec) regs.load(kg, vg, p.sk.l, p.sv.l, 0, p.Lkv, tid);
+  int kv0 = next_tile<kPaged>(p, bt_b, 0);
+  if constexpr (kVec) {
+    if (kv0 < p.Lkv) regs.template load<kPaged>(kg, vg, p, bt_b, kv0, tid);
+  }
 
-  for (int kv0 = 0; kv0 < p.Lkv; kv0 += kBlockKV) {
+  while (kv0 < p.Lkv) {
     __syncthreads();  // the previous tile is consumed (and q_s is staged)
     if constexpr (kVec) {
       regs.store(k_s, v_s, tid);
@@ -182,18 +225,19 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
 #pragma unroll
       for (int i = tid; i < kBlockKV * KD; i += kThreads) {
         const int j = i / KD, d = i % KD, kr = kv0 + j;
-        const bool in = kr < p.Lkv && d < D;
-        k_s[j][d] = in ? to_f32(kg[kr * p.sk.l + d]) : 0.f;
-        v_s[j][d] = in ? to_f32(vg[kr * p.sv.l + d]) : 0.f;
+        const long long row = kr < p.Lkv && d < D ? kv_row<kPaged>(p, bt_b, kr) : -1;
+        k_s[j][d] = row >= 0 ? to_f32(kg[row * p.sk.l + d]) : 0.f;
+        v_s[j][d] = row >= 0 ? to_f32(vg[row * p.sv.l + d]) : 0.f;
       }
     }
     if (tid < kBlockKV) {
       const int kr = kv0 + tid;
-      kvpos_s[tid] = kr < p.Lkv ? kvpos_g[kr] : -1;
+      kvpos_s[tid] = kr < p.Lkv && kv_row<kPaged>(p, bt_b, kr) >= 0 ? kvpos_g[kr] : -1;
     }
     __syncthreads();
+    const int kv_next = next_tile<kPaged>(p, bt_b, kv0 + kBlockKV);
     if constexpr (kVec) {
-      if (kv0 + kBlockKV < p.Lkv) regs.load(kg, vg, p.sk.l, p.sv.l, kv0 + kBlockKV, p.Lkv, tid);
+      if (kv_next < p.Lkv) regs.template load<kPaged>(kg, vg, p, bt_b, kv_next, tid);
     }
 
     // scores: lane j scores KV row j against the warp's query rows; one
@@ -244,6 +288,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
         for (int i = 0; i < kDPL; ++i) acc[r][i] = fmaf(pb, vv[i], acc[r][i]);
       }
     }
+    kv0 = kv_next;
   }
 
   T* og = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
@@ -260,7 +305,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
   }
 }
 
-template <typename T, int KD>
+template <typename T, int KD, bool kPaged>
 void launch_kd(const Params& p, cudaStream_t stream) {
   const dim3 grid((p.Lq + kBlockQ - 1) / kBlockQ, p.Hq, p.B);
   constexpr long long kVecElems = 16 / sizeof(T);
@@ -268,20 +313,29 @@ void launch_kd(const Params& p, cudaStream_t stream) {
                    reinterpret_cast<uintptr_t>(p.v) % 16 == 0 &&
                    (p.sk.b | p.sk.h | p.sk.l | p.sv.b | p.sv.h | p.sv.l) % kVecElems == 0;
   if (vec) {
-    flash_attention_kernel<T, KD, true><<<grid, kThreads, 0, stream>>>(p);
+    flash_attention_kernel<T, KD, true, kPaged><<<grid, kThreads, 0, stream>>>(p);
   } else {
-    flash_attention_kernel<T, KD, false><<<grid, kThreads, 0, stream>>>(p);
+    flash_attention_kernel<T, KD, false, kPaged><<<grid, kThreads, 0, stream>>>(p);
+  }
+}
+
+template <typename T, int KD>
+void launch_paged(const Params& p, cudaStream_t stream) {
+  if (p.bt != nullptr) {
+    launch_kd<T, KD, true>(p, stream);
+  } else {
+    launch_kd<T, KD, false>(p, stream);
   }
 }
 
 template <typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   if (p.D <= 32) {
-    launch_kd<T, 32>(p, stream);
+    launch_paged<T, 32>(p, stream);
   } else if (p.D <= 64) {
-    launch_kd<T, 64>(p, stream);
+    launch_paged<T, 64>(p, stream);
   } else {
-    launch_kd<T, 128>(p, stream);
+    launch_paged<T, 128>(p, stream);
   }
   return cudaGetLastError();
 }
@@ -290,10 +344,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace repro_torch
 
 // strides: 12 element strides, (b, h, l) of q, k, v and out in that order.
+// block_tables: null (k, v are [B, Lkv, Hkv, D]-like caches) or [B, Lkv /
+// page_size] int32 (k, v are [P, page_size, Hkv, D] pools; the k and v
+// "b" strides are then unused and "l" steps one pool row).
 // Returns a cudaError_t code (0 = launched), or -1 for arguments the kernel
 // does not take.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                      void* out, const void* q_pos, const void* kv_pos,
+                                     const void* block_tables, int page_size,
                                      const long long* strides, int B, int Hq, int Hkv,
                                      int Lq, int Lkv, int D, float scale, int window,
                                      int anchor, int causal, int bc_start, int bc_block,
@@ -302,6 +360,7 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
   if (B <= 0 || Lq <= 0 || Lkv < 0 || D <= 0 || D > 128 || Hkv <= 0 || Hq % Hkv != 0 ||
       Hq > 65535 || B > 65535)
     return -1;
+  if (block_tables != nullptr && (page_size <= 0 || Lkv % page_size != 0)) return -1;
   Params p;
   p.q = q;
   p.k = k;
@@ -309,6 +368,8 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
   p.o = out;
   p.q_pos = static_cast<const int*>(q_pos);
   p.kv_pos = static_cast<const int*>(kv_pos);
+  p.bt = static_cast<const int*>(block_tables);
+  p.ps = page_size;
   p.sq = {strides[0], strides[1], strides[2]};
   p.sk = {strides[3], strides[4], strides[5]};
   p.sv = {strides[6], strides[7], strides[8]};

@@ -1,18 +1,25 @@
-// Eq. 1 importance score, written by hand for Hopper (sm_90a).
+// Eq. 1 importance and the adaptive cache's variation score, written by
+// hand for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/importance.py, importance_kernel -- at each
 // skip stage of an ES-dLLM decode iteration, every active row is scored
 //   I = alpha * c + (1 - alpha) * ||Hn - Ho||_1 / (sqrt(d) * ||Ho||_2 + eps)
-// and the top-k rows go on to the deeper layers.
+// and the top-k rows go on to the deeper layers -- and variation_kernel, the
+// partial prompt refresh's priority over the whole sequence
+//   V = alpha * c + (1 - alpha) * (1 - dot / (sqrt(||Hn||^2 * ||Ho||^2) + eps))
+// (exactly this form: a clamp of each norm, as cosine_similarity does, would
+// change the score; a zero cached row scores alpha * c + (1 - alpha)).
 //
 // What bounds it on this card: it reads two [rows, d] hidden planes once and
-// writes one float per row -- a bandwidth-bound reduction, and at the main
-// path's size (B * K rows of d = 4096) a launch-latency-bound one.  The
-// design reads Hn and Ho exactly once, as the TPU kernel's single VMEM pass
-// does: one warp per (b, k) row walks d with lane-contiguous (coalesced)
-// loads, keeps sum|Hn - Ho| and sum Ho^2 in f32 registers, reduces both
-// with warp shuffles and blends in the confidence.  Nothing but the score
-// reaches device memory.
+// writes one float per row -- a bandwidth-bound reduction.  At the skip
+// stages (B * K rows of d = 4096) it is bound by launch latency; the
+// variation score reads the full sequence ([B, T, d] f32, some tens of MB at
+// serving sizes), where device memory bounds it.  The design reads Hn and Ho
+// exactly once, as the TPU kernel's single VMEM pass does: one warp per row
+// walks d with lane-contiguous (coalesced) loads, keeps its two or three
+// running sums in f32 registers, reduces them with warp shuffles and blends
+// in the confidence.  Nothing but the score reaches device memory.  One
+// kernel serves both scores; a template flag picks the formula.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -22,26 +29,51 @@ namespace {
 
 constexpr int kWarps = 4;
 
-template <typename T>
+template <typename T, bool kVariation>
 __global__ void __launch_bounds__(kWarps * 32)
-    importance_kernel(const T* hn, const T* ho, const float* conf, float* out, int rows, int d,
-                      float alpha, float eps) {
+    score_kernel(const T* hn, const T* ho, const float* conf, float* out, int rows, int d,
+                 float alpha, float eps) {
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const T* a = hn + (long long)row * d;
   const T* o = ho + (long long)row * d;
-  float l1 = 0.f, sq = 0.f;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f;  // importance: l1, |Ho|^2; variation: dot, |Hn|^2, |Ho|^2
   for (int i = lane; i < d; i += 32) {
     const float x = to_f32(a[i]), y = to_f32(o[i]);
-    l1 += fabsf(x - y);
-    sq = fmaf(y, y, sq);
+    if constexpr (kVariation) {
+      s0 = fmaf(x, y, s0);
+      s1 = fmaf(x, x, s1);
+      s2 = fmaf(y, y, s2);
+    } else {
+      s0 += fabsf(x - y);
+      s1 = fmaf(y, y, s1);
+    }
   }
-  l1 = warp_sum(l1);
-  sq = warp_sum(sq);
+  s0 = warp_sum(s0);
+  s1 = warp_sum(s1);
+  if constexpr (kVariation) s2 = warp_sum(s2);
   if (lane == 0) {
-    const float var = l1 / (sqrtf(static_cast<float>(d)) * sqrtf(sq) + eps);
+    float var;
+    if constexpr (kVariation) {
+      var = 1.f - s0 / (sqrtf(s1 * s2) + eps);
+    } else {
+      var = s0 / (sqrtf(static_cast<float>(d)) * sqrtf(s1) + eps);
+    }
     out[row] = alpha * conf[row] + (1.f - alpha) * var;
+  }
+}
+
+template <typename T>
+void launch(bool variation, const void* h_new, const void* h_old, const float* conf,
+            float* out, int rows, int d, float alpha, float eps, cudaStream_t s) {
+  const dim3 grid((rows + kWarps - 1) / kWarps), block(kWarps * 32);
+  const T* a = static_cast<const T*>(h_new);
+  const T* o = static_cast<const T*>(h_old);
+  if (variation) {
+    score_kernel<T, true><<<grid, block, 0, s>>>(a, o, conf, out, rows, d, alpha, eps);
+  } else {
+    score_kernel<T, false><<<grid, block, 0, s>>>(a, o, conf, out, rows, d, alpha, eps);
   }
 }
 
@@ -49,25 +81,21 @@ __global__ void __launch_bounds__(kWarps * 32)
 }  // namespace repro_torch
 
 // h_new, h_old: [rows, d] contiguous of dtype; conf, out: [rows] f32.
+// variation: 0 = Eq. 1 importance, 1 = the variation score.
 // Returns a cudaError_t code (0 = launched), or -1 for arguments the kernel
 // does not take.
-extern "C" int repro_importance(int dtype, const void* h_new, const void* h_old,
+extern "C" int repro_importance(int dtype, int variation, const void* h_new, const void* h_old,
                                 const void* conf, void* out, int rows, int d, float alpha,
                                 float eps, void* stream) {
   using namespace repro_torch;
   if (rows <= 0 || d <= 0) return -1;
-  const dim3 grid((rows + kWarps - 1) / kWarps), block(kWarps * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* c = static_cast<const float*>(conf);
   float* o = static_cast<float*>(out);
   if (dtype == kF32) {
-    importance_kernel<float><<<grid, block, 0, s>>>(static_cast<const float*>(h_new),
-                                                   static_cast<const float*>(h_old), c, o,
-                                                   rows, d, alpha, eps);
+    launch<float>(variation != 0, h_new, h_old, c, o, rows, d, alpha, eps, s);
   } else if (dtype == kBF16) {
-    importance_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(h_new), static_cast<const __nv_bfloat16*>(h_old), c,
-        o, rows, d, alpha, eps);
+    launch<__nv_bfloat16>(variation != 0, h_new, h_old, c, o, rows, d, alpha, eps, s);
   } else {
     return -1;
   }

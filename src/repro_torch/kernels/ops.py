@@ -7,16 +7,19 @@ and tensors split across devices raise.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.importance import importance
+from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
+from repro_torch.kernels.importance import importance, variation
 from repro_torch.kernels.scatter_kv import scatter_rows as scatter_rows_kernel
+from repro_torch.kernels.scatter_kv import scatter_rows_paged as scatter_rows_paged_kernel
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
-    kinds = {t.device.type for t in tensors}
+def _on_card(*tensors: Optional[torch.Tensor]) -> bool:
+    kinds = {t.device.type for t in tensors if t is not None}
     if kinds == {"cuda"}:
         return True
     if kinds == {"cpu"}:
@@ -45,16 +48,65 @@ def attention(
     return ref.attention_reference(q, k, v, q_pos, kv_pos, **kw)
 
 
-def scatter_rows(pairs, idx: torch.Tensor) -> None:
+def paged_attention(
+    q: torch.Tensor,             # [B, Hq, Lq, D]
+    k_pool: torch.Tensor,        # [P, ps, Hkv, D] shared page pool
+    v_pool: torch.Tensor,
+    q_pos: torch.Tensor,         # [B, Lq] int32
+    kv_pos: torch.Tensor,        # [B, n_vp * ps] int32 (-1 = invalid)
+    block_tables: torch.Tensor,  # [B, n_vp] int32 page ids, -1 unmapped
+) -> torch.Tensor:
+    """Attention over a page pool through a block table -> [B, Hq, Lq, D].
+    Rows of unmapped pages are masked (the reference's ``paged_kv_mask``)."""
+    if _on_card(q, k_pool, v_pool, q_pos, kv_pos, block_tables):
+        return paged_flash_attention(q, k_pool, v_pool, q_pos, kv_pos, block_tables)
+    return ref.paged_attention_reference(q, k_pool, v_pool, q_pos, kv_pos, block_tables)
+
+
+def _keep(row_mask: Optional[torch.Tensor], token_mask: Optional[torch.Tensor],
+          idx: torch.Tensor) -> Optional[torch.Tensor]:
+    """[B, K] bool: the tokens a scatter writes (both masks must pass), or
+    None when every token is written."""
+    if row_mask is None and token_mask is None:
+        return None
+    keep = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    if row_mask is not None:
+        keep = keep & row_mask[:, None]
+    if token_mask is not None:
+        keep = keep & token_mask
+    return keep
+
+
+def scatter_rows(pairs, idx: torch.Tensor, *, row_mask: Optional[torch.Tensor] = None,
+                 token_mask: Optional[torch.Tensor] = None) -> None:
     """In place, for one or two ``(cache [B, S, ...], new [B, K, ...])``
     pairs (K and V) sharing ``idx [B, K]``: ``cache[b, idx[b, k]] = new[b, k]``.
-    ``idx`` holds distinct in-range rows per batch entry.  One kernel launch
-    on the card."""
-    if _on_card(idx, *(t for pair in pairs for t in pair)):
-        scatter_rows_kernel(pairs, idx)
+    ``idx`` holds distinct in-range rows per batch entry.  ``row_mask [B]``
+    (rows a mixed-mode pass does not own) and ``token_mask [B, K]`` (tokens
+    a partial refresh leaves alone) leave the cache unwritten where False.
+    One kernel launch on the card."""
+    keep = _keep(row_mask, token_mask, idx)
+    if _on_card(idx, keep, *(t for pair in pairs for t in pair)):
+        scatter_rows_kernel(pairs, idx, keep)
     else:
         for cache, new in pairs:
-            ref.scatter_rows_reference(cache, new, idx)
+            ref.scatter_rows_reference(cache, new, idx, keep)
+
+
+def scatter_rows_paged(pairs, idx: torch.Tensor, block_tables: torch.Tensor, *,
+                       row_mask: Optional[torch.Tensor] = None,
+                       token_mask: Optional[torch.Tensor] = None) -> None:
+    """In place, for one or two ``(pool [P, ps, ...], new [B, K, ...])``
+    pairs: ``pool[bt[b, i // ps], i % ps] = new[b, k]`` for the absolute
+    positions ``i = idx[b, k]``; a row of an unmapped page lands on the
+    garbage page 0.  The masks work as in :func:`scatter_rows`.  One kernel
+    launch on the card."""
+    keep = _keep(row_mask, token_mask, idx)
+    if _on_card(idx, block_tables, keep, *(t for pair in pairs for t in pair)):
+        scatter_rows_paged_kernel(pairs, idx, block_tables, keep)
+    else:
+        for pool, new in pairs:
+            ref.scatter_rows_paged_reference(pool, new, idx, block_tables, keep)
 
 
 def importance_score(
@@ -71,4 +123,19 @@ def importance_score(
     return ref.importance_reference(h_new, h_old, conf, alpha, eps)
 
 
-__all__ = ["attention", "scatter_rows", "importance_score"]
+def variation_score(
+    h_new: torch.Tensor,    # [B, T, d]
+    h_old: torch.Tensor,    # [B, T, d]
+    conf: torch.Tensor,     # [B, T]
+    *,
+    alpha: float,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Adaptive-cache refresh priority ``alpha*conf + (1-alpha)*(1-cosine)`` -> f32 [B, T]."""
+    if _on_card(h_new, h_old, conf):
+        return variation(h_new, h_old, conf, alpha=alpha, eps=eps)
+    return ref.variation_reference(h_new, h_old, conf, alpha, eps)
+
+
+__all__ = ["attention", "paged_attention", "scatter_rows", "scatter_rows_paged",
+           "importance_score", "variation_score"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's three kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function computes what its hand-written CUDA kernel computes, in the
 reference package's layouts.  ``ops`` sends CPU tensors here; on the card
@@ -74,15 +74,81 @@ def attention_reference(
     return torch.einsum("bhqk,bhkd->bhqd", probs, vv).to(q.dtype)
 
 
+def gather_pages(
+    pool: torch.Tensor,           # [P, ps, ...] shared page pool
+    block_tables: torch.Tensor,   # [B, n_vp] int page ids, -1 unmapped
+) -> torch.Tensor:
+    """The per-slot dense view ``[B, n_vp * ps, ...]`` of a page pool.
+    Unmapped virtual pages read the garbage page 0; callers mask them."""
+    ps = pool.shape[1]
+    b, n_vp = block_tables.shape
+    flat = pool.reshape((-1,) + tuple(pool.shape[2:]))
+    rows = (block_tables.long().clamp(min=0)[..., None] * ps
+            + torch.arange(ps, device=pool.device))
+    return flat[rows.reshape(b, n_vp * ps)]
+
+
+def paged_kv_mask(block_tables: torch.Tensor, kv_pos: torch.Tensor,
+                  page_size: int) -> torch.Tensor:
+    """``kv_pos`` with -1 wherever the virtual page is unmapped."""
+    mapped = (block_tables >= 0).repeat_interleave(page_size, dim=1)
+    return torch.where(mapped, kv_pos, -1)
+
+
+def paged_attention_reference(
+    q: torch.Tensor,              # [B, Hq, Lq, D]
+    k_pool: torch.Tensor,         # [P, ps, Hkv, D]
+    v_pool: torch.Tensor,
+    q_pos: torch.Tensor,          # [B, Lq]
+    kv_pos: torch.Tensor,         # [B, n_vp * ps]
+    block_tables: torch.Tensor,   # [B, n_vp]
+) -> torch.Tensor:
+    """Attention over a page pool: the reference's XLA mirror, which gathers
+    the mapped pages into the dense layout and attends it with unmapped
+    pages masked."""
+    ps = k_pool.shape[1]
+    kv_pos = paged_kv_mask(block_tables, kv_pos, ps)
+    k = gather_pages(k_pool, block_tables).transpose(1, 2)
+    v = gather_pages(v_pool, block_tables).transpose(1, 2)
+    return attention_reference(q, k, v, q_pos, kv_pos)
+
+
 def scatter_rows_reference(
     cache: torch.Tensor,       # [B, S, ...]
     new: torch.Tensor,         # [B, K, ...]
     idx: torch.Tensor,         # [B, K] int, unique per row
+    keep: torch.Tensor | None = None,   # [B, K] bool: False tokens are not written
 ) -> torch.Tensor:
-    """In place: ``cache[b, idx[b, k]] = new[b, k]``; returns ``cache``."""
-    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
-    cache[rows, idx.long()] = new.to(cache.dtype)
+    """In place: ``cache[b, idx[b, k]] = new[b, k]`` where ``keep``; returns
+    ``cache``."""
+    rows = torch.arange(cache.shape[0], device=cache.device)[:, None].expand(idx.shape)
+    idx, new = idx.long(), new.to(cache.dtype)
+    if keep is not None:
+        rows, idx, new = rows[keep], idx[keep], new[keep]
+    cache[rows, idx] = new
     return cache
+
+
+def scatter_rows_paged_reference(
+    pool: torch.Tensor,           # [P, ps, ...]
+    new: torch.Tensor,            # [B, K, ...]
+    idx: torch.Tensor,            # [B, K] int absolute positions, unique per row
+    block_tables: torch.Tensor,   # [B, n_vp] int, -1 unmapped
+    keep: torch.Tensor | None = None,   # [B, K] bool: False tokens are not written
+) -> torch.Tensor:
+    """In place: ``pool[bt[b, i // ps], i % ps] = new[b, k]`` for ``i =
+    idx[b, k]`` where ``keep``; a row of an unmapped page lands on the
+    garbage page 0.  Returns ``pool``."""
+    ps = pool.shape[1]
+    idx = idx.long()
+    page = torch.gather(block_tables.long(), 1, torch.div(idx, ps, rounding_mode="floor"))
+    dest = page.clamp(min=0) * ps + idx % ps
+    new = new.to(pool.dtype)
+    if keep is not None:
+        dest, new = dest[keep], new[keep]
+    row = tuple(pool.shape[2:])
+    pool.view((-1,) + row)[dest.reshape(-1)] = new.reshape((-1,) + row)
+    return pool
 
 
 def importance_reference(
@@ -99,3 +165,20 @@ def importance_reference(
     norm = ho.square().sum(dim=-1).sqrt()
     var = diff / (math.sqrt(d) * norm + eps)
     return alpha * conf.float() + (1.0 - alpha) * var
+
+
+def variation_reference(
+    h_new: torch.Tensor,       # [B, K, d]
+    h_old: torch.Tensor,       # [B, K, d]
+    conf: torch.Tensor,        # [B, K]
+    alpha: float,
+    eps: float = 1e-8,
+) -> torch.Tensor:
+    """Adaptive-cache refresh priority: a*c + (1-a) * (1 - dot / (sqrt(nn*no) + eps)),
+    f32.  A zero cached row gives cos 0, the largest variation."""
+    hn, ho = h_new.float(), h_old.float()
+    dot = (hn * ho).sum(dim=-1)
+    nn = (hn * hn).sum(dim=-1)
+    no = (ho * ho).sum(dim=-1)
+    cos = dot / ((nn * no).sqrt() + eps)
+    return alpha * conf.float() + (1.0 - alpha) * (1.0 - cos)

@@ -1,0 +1,168 @@
+"""Serving launcher of the port: continuous batching through ``StreamScheduler``.
+
+Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
+PyTorch versions.  The model has random weights from ``--seed`` (reduced
+size unless ``--full``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 8 \\
+      --paged --page-size 8 --early-advance --prompt-refresh-period 4 \\
+      --cache-prompt-interval 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --dtype bfloat16 \\
+      --paged --early-advance --requests 16 --batch 4 --prompt-len 128 \\
+      --gen-length 64 --block-length 32
+
+Flags of the reference's launcher that this slice of the port does not
+cover are accepted and raise ``ConfigError`` naming ROADMAP.md.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.configs import GenerationConfig, default_skip_stages
+from repro_torch.device import resolve_device
+from repro_torch.models import Model
+from repro_torch.runtime import ConfigError, Request, StreamScheduler
+
+# reference flags outside this slice: (flag, attribute, value that is in the slice)
+_OUTSIDE = (("--prefix-sharing", "prefix_sharing", False),
+            ("--gather-refresh", "gather_refresh", False),
+            ("--window-blocks", "window_blocks", 0),
+            ("--lazy-reserve", "lazy_reserve", False),
+            ("--preemption", "preemption", False),
+            ("--block-causal", "block_causal", False),
+            ("--shards", "shards", 1),
+            ("--placement", "placement", "least_loaded"),
+            ("--refresh-shards", "refresh_shards", 1),
+            ("--decode-prompt-len", "decode_prompt_len", None))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llada-8b")
+    ap.add_argument("--full", action="store_true",
+                    help="full config (default: reduced, CPU-runnable)")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="parameter and compute dtype")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=0, help="weights and prompts")
+    ap.add_argument("--mode", default="es", choices=["vanilla", "dualcache", "es"])
+    ap.add_argument("--runtime", default="stream", choices=["stream", "batch"])
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=8, help="slot count")
+    ap.add_argument("--gen-length", type=int, default=32)
+    ap.add_argument("--block-length", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--parallel-decoding", action="store_true")
+    ap.add_argument("--early-advance", action="store_true",
+                    help="per-row cadence: a slot advances its block the moment it "
+                         "fully unmasks and admission happens on any iteration")
+    ap.add_argument("--stream-print", action="store_true",
+                    help="print each request's blocks as they unmask")
+    ap.add_argument("--paged", action="store_true", help="paged KV pool + block tables")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="pool pages incl. garbage page (default: dense-equivalent)")
+    ap.add_argument("--prompt-refresh-period", type=int, default=64)
+    ap.add_argument("--cache-prompt-interval", type=int, default=0,
+                    help="adaptive feature cache: every k-th scheduled prompt refresh "
+                         "is full, the ones between are partial (<=1 disables)")
+    ap.add_argument("--cache-response-interval", type=int, default=4,
+                    help="the block-refresh period")
+    ap.add_argument("--cache-variation-threshold", type=float, default=0.0)
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="spread requests round-robin over this many admission classes")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request SLO budget from arrival")
+    ap.add_argument("--prefix-sharing", action="store_true")
+    ap.add_argument("--gather-refresh", action="store_true")
+    ap.add_argument("--window-blocks", type=int, default=0)
+    ap.add_argument("--lazy-reserve", action="store_true")
+    ap.add_argument("--preemption", action="store_true")
+    ap.add_argument("--block-causal", action="store_true")
+    ap.add_argument("--shards", type=int, default=1)
+    ap.add_argument("--placement", default="least_loaded")
+    ap.add_argument("--refresh-shards", type=int, default=1)
+    ap.add_argument("--decode-prompt-len", type=int, default=None)
+    return ap.parse_args(argv)
+
+
+def validate(args: argparse.Namespace) -> None:
+    """Raises ConfigError, before any model is built, for flags outside the
+    slice and for bad values."""
+    if args.runtime != "stream":
+        raise ConfigError("--runtime batch (the lock-step BatchServer) is outside this "
+                          "slice of the port (ROADMAP.md)")
+    for flag, attr, ok in _OUTSIDE:
+        if getattr(args, attr) != ok:
+            raise ConfigError(f"{flag} is outside this slice of the port (ROADMAP.md)")
+    if args.priority_classes < 1:
+        raise ConfigError(f"--priority-classes must be >= 1, got {args.priority_classes}")
+    if args.deadline_s is not None and args.deadline_s <= 0:
+        raise ConfigError(f"--deadline-s must be positive, got {args.deadline_s}")
+
+
+def main(argv=None) -> list[Request]:
+    args = parse_args(argv)
+    validate(args)
+    device = resolve_device(args.device)
+    cfg = configs.get_config(args.arch)
+    if not args.full:
+        cfg = configs.reduced(cfg)
+    cfg = dataclasses.replace(cfg, param_dtype=args.dtype, compute_dtype=args.dtype)
+    model = Model(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(args.seed))
+    gen = GenerationConfig(
+        gen_length=args.gen_length, block_length=args.block_length, mode=args.mode,
+        skip_stages=default_skip_stages(cfg.n_layers) if args.mode == "es" else (),
+        prompt_refresh_period=args.prompt_refresh_period,
+        block_refresh_period=args.cache_response_interval,
+        parallel_decoding=args.parallel_decoding,
+        cache_prompt_interval=args.cache_prompt_interval,
+        cache_variation_threshold=args.cache_variation_threshold)
+
+    stream_cb = None
+    if args.stream_print:
+        def stream_cb(req, bi, blk):
+            print(f"  [stream] req={req.request_id} block={bi}: {blk.tolist()}")
+
+    server = StreamScheduler(model, gen, max_slots=args.batch, prompt_len=args.prompt_len,
+                             stream_cb=stream_cb, paged=args.paged,
+                             page_size=args.page_size, kv_pages=args.kv_pages,
+                             early_advance=args.early_advance, device=device)
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        plen = int(rng.integers(8, args.prompt_len + 1))
+        server.submit(Request(prompt=rng.integers(3, cfg.vocab_size, plen).astype(np.int32),
+                              priority=i % args.priority_classes, deadline_s=args.deadline_s))
+
+    done = server.drain()
+    st = server.stats
+    line = (f"served {len(done)} requests  device={device}  mode={args.mode}  "
+            f"goodput={st.goodput:.2f} tok/s  wall={st.wall_s:.2f}s  steps={st.steps}  "
+            f"p50={st.latency_pct(50):.2f}s  p95={st.latency_pct(95):.2f}s  "
+            f"admission_p50={st.admission_wait_p50:.3f}s")
+    if args.early_advance:
+        line += f"  early_advances={st.early_advances}"
+    if gen.adaptive_cache:
+        line += (f"  cache_hit={st.cache_hit_fraction:.3f}"
+                 f"  refresh_p50={st.tokens_refreshed_p50:.0f}")
+    if args.paged:
+        line += (f"  peak_pages={st.peak_pages_in_use}/{st.pages_total}"
+                 f"  concurrency_peak={st.resident_peak}")
+    if args.deadline_s is not None:
+        line += f"  deadline_rejects={st.deadline_rejects}"
+    print(line)
+    ok = [r for r in done if r.output is not None]
+    if ok:
+        print("sample output:", ok[0].output[:24].tolist())
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -4,8 +4,8 @@ Three cache modes, as in the reference: no cache (the vanilla engine: fresh
 K/V), write-through (prefill: every row scattered, then the cache attended)
 and partial (decode: only the active rows scattered, the whole cache
 attended).  The cache is updated in place: ``KVCache.k``/``v`` are views of
-the model's ``[G, B, S, Hkv, Dh]`` planes, and the scatter kernel writes
-into them.
+the model's ``[G, B, S, Hkv, Dh]`` planes, or of its ``[G, P, ps, Hkv, Dh]``
+page pool (``PagedKVCache``), and the scatter kernel writes into them.
 """
 from __future__ import annotations
 
@@ -20,10 +20,21 @@ from repro_torch.models.common import rope_tables, rotate
 
 
 class KVCache(NamedTuple):
-    """Dense KV cache rows: ``[B, S, Hkv, Dh]`` for one layer, or stacked
-    ``[G, B, S, Hkv, Dh]`` over the layers (``Model.init_cache``)."""
+    """KV cache rows: dense ``[B, S, Hkv, Dh]`` or a page pool ``[P, ps, Hkv,
+    Dh]`` for one layer, stacked ``[G, ...]`` over the layers
+    (``Model.init_cache``)."""
     k: torch.Tensor
     v: torch.Tensor
+
+
+class PagedKVCache(NamedTuple):
+    """Block-table view over one layer's page pool ``[P, ps, Hkv, Dh]``:
+    ``block_tables[b, vp]`` maps slot ``b``'s virtual page ``vp`` (positions
+    ``[vp*ps, (vp+1)*ps)``) to a physical page, -1 for unmapped (masked on
+    read, written to the garbage page 0).  Page ownership lives in the
+    scheduler's allocator."""
+    cache: KVCache
+    block_tables: torch.Tensor          # [B, n_vp] int32
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -69,23 +80,38 @@ def self_attention(
     x: torch.Tensor,                        # [B, K, d] active rows
     positions: torch.Tensor,                # [B, K] int32 global positions
     *,
-    cache: Optional[KVCache] = None,        # [B, S, Hkv, Dh] views, updated in place
+    cache: Optional[KVCache | PagedKVCache] = None,   # views, updated in place
     slot_idx: Optional[torch.Tensor] = None,   # [B, K] int32 cache rows to write
     kv_pos: Optional[torch.Tensor] = None,     # [B, S] int32 cache validity (-1 invalid)
     rope=None,                      # common.rope_tables(positions, ...), if precomputed
+    scatter_mask: Optional[torch.Tensor] = None,   # [B] rows whose K/V are written
+    token_mask: Optional[torch.Tensor] = None,     # [B, K] tokens whose K/V are written
 ) -> torch.Tensor:
     """Returns the attention output ``[B, K, d]``; with a cache, first
-    scatters the fresh K/V rows into it, then attends the whole cache."""
+    scatters the fresh K/V rows into it, then attends the whole cache.
+
+    ``scatter_mask`` (mixed-mode cadence) leaves the rows a pass does not own
+    unwritten; ``token_mask`` (adaptive partial refresh) the tokens of owned
+    rows that keep their cached K/V.  Reads are unmasked: unowned rows still
+    compute, and the engine merges their outputs away."""
     b, k, _ = x.shape
     if rope is None:
         rope = rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta,
                            fraction=cfg.rope_fraction)
     q, kk, vv = _project_qkv(p, cfg, x, rope)
+    masks = dict(row_mask=scatter_mask, token_mask=token_mask)
+    if cache is not None and (slot_idx is None or kv_pos is None):
+        raise ValueError("a cached attention needs slot_idx and kv_pos")
+    if isinstance(cache, PagedKVCache):
+        pool, bt = cache.cache, cache.block_tables
+        ops.scatter_rows_paged(((pool.k, kk.to(pool.k.dtype)), (pool.v, vv.to(pool.v.dtype))),
+                               slot_idx, bt, **masks)
+        out = ops.paged_attention(q.transpose(1, 2), pool.k.to(q.dtype), pool.v.to(q.dtype),
+                                  positions, kv_pos, bt)
+        return out.transpose(1, 2).reshape(b, k, -1) @ p.wo
     if cache is not None:
-        if slot_idx is None or kv_pos is None:
-            raise ValueError("a cached attention needs slot_idx and kv_pos")
         ops.scatter_rows(((cache.k, kk.to(cache.k.dtype)), (cache.v, vv.to(cache.v.dtype))),
-                         slot_idx)
+                         slot_idx, **masks)
         k_full, v_full, kv_positions = cache.k, cache.v, kv_pos
     else:
         k_full, v_full, kv_positions = kk, vv, positions

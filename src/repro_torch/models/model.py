@@ -12,8 +12,10 @@ the segment; here a Python loop over the layers does.  Cache modes
   * ``decode``  -- one diffusion iteration: only the active rows scattered,
     the whole cache attended.
 
-The KV cache is ``KVCache(k, v)`` of ``[G, B, S, Hkv, Dh]`` planes; layer g
-reads and writes the views ``k[g]``/``v[g]`` in place.
+The KV cache is ``KVCache(k, v)`` of ``[G, B, S, Hkv, Dh]`` planes, or of
+``[G, P, ps, Hkv, Dh]`` page pools shared by every slot and addressed through
+``ForwardCtx.block_tables`` (paged serving); layer g reads and writes the
+views ``k[g]``/``v[g]`` in place.
 """
 from __future__ import annotations
 
@@ -25,7 +27,13 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import Attention, KVCache, _param, self_attention
+from repro_torch.models.attention import (
+    Attention,
+    KVCache,
+    PagedKVCache,
+    _param,
+    self_attention,
+)
 from repro_torch.models.common import mlp_apply, padded_vocab, rms_norm, rope_tables
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -51,6 +59,12 @@ class ForwardCtx:
     mode: str = "nocache"                      # nocache | prefill | decode
     kv_pos: Optional[torch.Tensor] = None      # [B, S] int32 cache validity (-1 invalid)
     slot_idx: Optional[torch.Tensor] = None    # [B, K] int32 cache rows to scatter
+    block_tables: Optional[torch.Tensor] = None   # [B, n_vp] int32 page map: the cache
+                                                  # is a pool (its dim 1 is the page size)
+    scatter_mask: Optional[torch.Tensor] = None   # [B] bool: rows whose K/V scatters
+                                                  # land (mixed-mode cadence)
+    refresh_mask: Optional[torch.Tensor] = None   # [B, K] bool: tokens whose K/V
+                                                  # scatters land (partial refresh)
 
 
 class MLP(nn.Module):
@@ -109,10 +123,18 @@ class Model(nn.Module):
                 p.normal_(0.0, std, generator=generator)
         return self
 
-    def init_cache(self, batch: int, seq_len: int) -> KVCache:
-        """Zeroed KV planes ``[G, B, S, Hkv, Dh]`` in the parameter dtype."""
+    def init_cache(self, batch: int, seq_len: int, *, kv_pages: int = 0,
+                   page_size: int = 0) -> KVCache:
+        """Zeroed KV planes in the parameter dtype: ``[G, B, S, Hkv, Dh]``, or
+        with ``kv_pages`` the page pool ``[G, kv_pages, page_size, Hkv, Dh]``
+        shared by every slot (page 0 is the garbage page)."""
         cfg = self.cfg
-        shape = (self.n_groups, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        if kv_pages:
+            if page_size <= 0 or seq_len % page_size:
+                raise ValueError(f"page_size {page_size} must divide the sequence {seq_len}")
+            shape = (self.n_groups, kv_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        else:
+            shape = (self.n_groups, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=self.dtype, device=self.device),
                        torch.zeros(shape, dtype=self.dtype, device=self.device))
 
@@ -137,8 +159,11 @@ class Model(nn.Module):
         for g in range(group_lo, group_hi):
             layer = self.layers[g]
             kv = KVCache(cache.k[g], cache.v[g]) if use_cache else None
+            if kv is not None and ctx.block_tables is not None:
+                kv = PagedKVCache(kv, ctx.block_tables)
             h = h + self_attention(
                 layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), ctx.positions,
-                cache=kv, slot_idx=ctx.slot_idx, kv_pos=ctx.kv_pos, rope=rope)
+                cache=kv, slot_idx=ctx.slot_idx, kv_pos=ctx.kv_pos, rope=rope,
+                scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask)
             h = h + mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps))
         return h

@@ -145,7 +145,7 @@ def test_cadence_matches_reference():
 
 
 @pytest.mark.parametrize("change", [
-    dict(temperature=0.7), dict(sparse_attention=True), dict(cache_prompt_interval=2),
+    dict(temperature=0.7), dict(sparse_attention=True),
     dict(window_blocks=1), dict(block_causal=True), dict(mode="beam"),
 ], ids=lambda c: next(iter(c)))
 def test_features_outside_the_slice_raise(change):
@@ -155,8 +155,8 @@ def test_features_outside_the_slice_raise(change):
         tmake(tm, gen, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(kv_cache_dtype="int8"), dict(paged=True)],
-                         ids=["int8_kv", "paged"])
+@pytest.mark.parametrize("kw", [dict(kv_cache_dtype="int8"), dict(gather_refresh=True)],
+                         ids=["int8_kv", "gather_refresh"])
 def test_engine_options_outside_the_slice_raise(kw):
     _, _, tm = models("llada-8b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -13,9 +13,9 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.importance import importance
-from repro_torch.kernels.scatter_kv import scatter_rows
+from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
+from repro_torch.kernels.importance import importance, variation
+from repro_torch.kernels.scatter_kv import scatter_rows, scatter_rows_paged
 
 ATOL = 2e-5   # f32: the two sides sum the softmax in different orders
 
@@ -134,13 +134,20 @@ def test_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises: it never computes on the CPU."""
     x = torch.zeros(1, 2, 4, 8)
     pos = torch.zeros(1, 4, dtype=torch.int32)
+    bt = torch.zeros(1, 1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(x, x, x, pos, pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_attention(x, torch.zeros(2, 4, 2, 8), torch.zeros(2, 4, 2, 8), pos, pos, bt)
     with pytest.raises(ValueError, match="CUDA"):
         scatter_rows(((torch.zeros(1, 4, 8), torch.zeros(1, 2, 8)),),
                      torch.zeros(1, 2, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
-        importance(torch.zeros(1, 2, 8), torch.zeros(1, 2, 8), torch.zeros(1, 2), alpha=0.5)
+        scatter_rows_paged(((torch.zeros(2, 4, 8), torch.zeros(1, 2, 8)),),
+                           torch.zeros(1, 2, dtype=torch.int32), bt)
+    for fn in (importance, variation):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(torch.zeros(1, 2, 8), torch.zeros(1, 2, 8), torch.zeros(1, 2), alpha=0.5)
 
 
 def test_ops_refuse_mixed_devices():
@@ -155,6 +162,115 @@ def test_library_is_keyed_by_sources():
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert path == build.library_path()
     assert set(build.SOURCES) <= {p.name for p in build.CSRC.iterdir()}
+
+
+# ---------------------------------------------------------------------------
+# serving kernels: paged attention, paged and masked scatter, variation
+# ---------------------------------------------------------------------------
+def _paged_layout(seed, page_size, b=3, n_vp=5, num_pages=17):
+    """Block tables over a shuffled physical page order with some unmapped
+    pages (row 2 has none mapped), and kv_pos with a left-pad prompt start."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(np.arange(1, num_pages))[: b * n_vp].astype(np.int32)
+    bt = perm.reshape(b, n_vp)
+    bt[0, 0] = -1
+    bt[1, 3:] = -1
+    bt[2, :] = -1
+    t_total = n_vp * page_size
+    pos = np.tile(np.arange(t_total, dtype=np.int32), (b, 1))
+    kv_pos = np.where(pos >= np.array([[3], [page_size + 2], [0]]), pos, -1).astype(np.int32)
+    return rng, bt, kv_pos, t_total
+
+
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_paged_attention_matches_reference(page_size, hq, hkv, impl):
+    rng, bt, kv_pos, t_total = _paged_layout(page_size + hkv, page_size)
+    pool_k, pool_v = (rng.standard_normal((17, page_size, hkv, 32), np.float32) for _ in "kv")
+    q = rng.standard_normal((3, hq, 8, 32), np.float32)
+    q_pos = rng.integers(0, t_total, (3, 8)).astype(np.int32)
+    want = np.asarray(jops.paged_attention(
+        *(jnp.asarray(a) for a in (q, pool_k, pool_v, q_pos, kv_pos, bt)),
+        page_size=page_size, impl=impl))
+    got = ops.paged_attention(*(torch.from_numpy(a) for a in (q, pool_k, pool_v, q_pos,
+                                                              kv_pos, bt)))
+    assert got.shape == (3, hq, 8, 32) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    assert np.all(got.numpy()[2] == 0.0)       # nothing mapped: every row writes 0
+
+
+MASKS = [(None, None), ("row", None), (None, "token"), ("row", "token")]
+
+
+def _masks(rng, b, k, which):
+    row = (np.arange(b) % 2 == 0) if which[0] else None
+    tok = np.tile(np.arange(k) % 2 == 0, (b, 1)) if which[1] else None
+    return row, tok
+
+
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("which", MASKS, ids=["plain", "row", "token", "row+token"])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_paged_scatter_matches_reference(page_size, which, impl):
+    """Bit-exact on every real page.  Page 0 is the garbage page: the
+    reference also writes masked rows there, the port does not write them;
+    it is never read unmasked."""
+    rng, bt, _, t_total = _paged_layout(page_size, page_size)
+    pool = rng.standard_normal((17, page_size, 2, 16), np.float32)
+    new = rng.standard_normal((3, 6, 2, 16), np.float32)
+    idx = np.stack([rng.permutation(t_total)[:6] for _ in range(3)]).astype(np.int32)
+    mapped = 2 * page_size + 1                  # on row 0's mapped page 2: written in every case
+    idx[0] = [mapped] + [i for i in idx[0] if i != mapped][:5]
+    row, tok = _masks(rng, 3, 6, which)
+    want = np.asarray(jops.scatter_rows_paged(
+        jnp.asarray(pool), jnp.asarray(new), jnp.asarray(idx), jnp.asarray(bt),
+        page_size=page_size, impl=impl,
+        row_mask=None if row is None else jnp.asarray(row),
+        token_mask=None if tok is None else jnp.asarray(tok)))
+    got = torch.from_numpy(pool.copy())
+    ops.scatter_rows_paged(((got, torch.from_numpy(new)),), torch.from_numpy(idx),
+                           torch.from_numpy(bt),
+                           row_mask=None if row is None else torch.from_numpy(row),
+                           token_mask=None if tok is None else torch.from_numpy(tok))
+    np.testing.assert_array_equal(got.numpy()[1:], want[1:])
+    assert not np.array_equal(want[1:], pool[1:]), "the case wrote nothing"
+
+
+@pytest.mark.parametrize("which", MASKS[1:], ids=["row", "token", "row+token"])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_masked_scatter_matches_reference(which, impl):
+    rng = np.random.default_rng(len(which[0] or "") + len(which[1] or ""))
+    cache = rng.standard_normal((3, 20, 2, 16), np.float32)
+    new = rng.standard_normal((3, 5, 2, 16), np.float32)
+    idx = np.stack([rng.permutation(20)[:5] for _ in range(3)]).astype(np.int32)
+    row, tok = _masks(rng, 3, 5, which)
+    want = np.asarray(jops.scatter_rows(
+        jnp.asarray(cache), jnp.asarray(new), jnp.asarray(idx), impl=impl,
+        row_mask=None if row is None else jnp.asarray(row),
+        token_mask=None if tok is None else jnp.asarray(tok)))
+    got = torch.from_numpy(cache.copy())
+    ops.scatter_rows(((got, torch.from_numpy(new)),), torch.from_numpy(idx),
+                     row_mask=None if row is None else torch.from_numpy(row),
+                     token_mask=None if tok is None else torch.from_numpy(tok))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("alpha", [0.0, 0.5])
+def test_variation_matches_reference(impl, alpha):
+    rng = np.random.default_rng(int(alpha * 10) + 7)
+    hn = rng.standard_normal((3, 24, 64), np.float32)
+    ho = rng.standard_normal((3, 24, 64), np.float32)
+    ho[1, 5] = 0.0                              # a cold (never observed) cached row
+    conf = rng.uniform(size=(3, 24)).astype(np.float32)
+    want = np.asarray(jops.variation_score(jnp.asarray(hn), jnp.asarray(ho), jnp.asarray(conf),
+                                           alpha=alpha, impl=impl))
+    got = ops.variation_score(torch.from_numpy(hn), torch.from_numpy(ho),
+                              torch.from_numpy(conf), alpha=alpha)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    assert got[1, 5].item() == pytest.approx(alpha * conf[1, 5] + (1 - alpha), rel=1e-6)
 
 
 @pytest.fixture
@@ -202,3 +318,26 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
     got = importance(hn, ho, conf, alpha=0.5)
     want = ref.importance_reference(hn, ho, conf, 0.5)
     assert ((got - want).abs() / want.abs()).max().item() <= 1e-5
+    ho[0, 3] = 0.0
+    got = variation(hn, ho, conf, alpha=0.5)
+    want = ref.variation_reference(hn, ho, conf, 0.5)
+    assert ((got - want).abs() / want.abs()).max().item() <= 1e-5
+    for ps in (8, 16):
+        bt = torch.randperm(15, generator=g, device=cuda_device)[:10].add(1).int().view(2, 5)
+        bt[0, 1] = -1
+        pool_k = torch.randn(16, ps, 2, 64, generator=g, device=cuda_device).to(dtype)
+        pool_v = torch.randn(16, ps, 2, 64, generator=g, device=cuda_device).to(dtype)
+        q = torch.randn(2, 4, 8, 64, generator=g, device=cuda_device).to(dtype)
+        q_pos = torch.arange(8, dtype=torch.int32, device=cuda_device).repeat(2, 1)
+        kv_pos = torch.arange(5 * ps, dtype=torch.int32, device=cuda_device).repeat(2, 1)
+        got = paged_flash_attention(q, pool_k, pool_v, q_pos, kv_pos, bt)
+        want = ref.paged_attention_reference(q, pool_k, pool_v, q_pos, kv_pos, bt)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        new = torch.randn(2, 6, 2, 64, generator=g, device=cuda_device).to(dtype)
+        idx = torch.stack([torch.randperm(5 * ps, generator=g, device=cuda_device)[:6]
+                           for _ in range(2)]).int()
+        keep = torch.rand(2, 6, generator=g, device=cuda_device) < 0.5
+        got = pool_k.clone()
+        scatter_rows_paged(((got, new),), idx, bt, keep)
+        want = ref.scatter_rows_paged_reference(pool_k.clone(), new, idx, bt, keep)
+        assert torch.equal(got[1:], want[1:])
