@@ -13,19 +13,31 @@ no result):
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the offline and serving paths' shapes, in float32 and bfloat16,
    with kernel, plain and library times and the bound from bytes and
-   operations;
-4. cross-device checks on a reduced LLaDA in float32, the card (kernels)
+   operations (the copy-on-write fork also: in place, no pool-sized
+   allocation, aliased lists refused); the threefry key chain's known
+   answers on the card, a draw of the sampled path's shape with bits equal
+   to the CPU's, and the draw's time;
+4. cross-device checks on reduced models in float32, the card (kernels)
    against the CPU (plain versions): offline ES generation (greedy tokens
-   equal, final-block confidences within 1e-4), and a staggered request
-   trace through the paged ``StreamScheduler`` with early advance, parallel
+   equal, final-block confidences within 1e-4); a staggered request trace
+   through the paged ``StreamScheduler`` with early advance, parallel
    decoding (so blocks fill early and rows advance before their phase wrap)
-   and the adaptive cache (every request's tokens equal);
+   and the adaptive cache (every request's tokens equal); sampled serving
+   with prefix sharing on LLaDA and Dream (top-p), two duplicate-prompt
+   cohorts forking (tokens equal on the card, the CPU and the card's
+   unshared run); sampled preemption (tokens equal the uninterrupted run);
+   quarantine of a row with NaN written into its page;
 5. offline path: LLaDA-8B at full width in bfloat16 (random weights from a
    seeded generator on the card), ES generation, with each kernel's
    launches counted over that run;
 6. serving path: the same model through the paged ``StreamScheduler``
    (early advance, adaptive cache) with staggered requests, launches
-   counted over that run.
+   counted over that run;
+7. sampled serving: Dream-7B at full width in bfloat16 through the paged
+   scheduler, temperature 0.2 and top-p 0.95, the same requests three
+   times: with prefix sharing (7a: the copy-on-write fork runs), with
+   preemption on a tight pool (7b: a class-1 arrival spills a class-0
+   resident, which resumes) and with neither (7c).
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -59,6 +71,7 @@ REPLACES = {
     "scatter_rows_paged": "src/repro/kernels/scatter_kv.py:78",
     "importance": "src/repro/kernels/importance.py:30",
     "variation": "src/repro/kernels/importance.py:66",
+    "fork_pages": "src/repro/kernels/scatter_kv.py:122",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -67,6 +80,7 @@ SOURCES = {
     "scatter_rows_paged": "src/repro_torch/kernels/csrc/scatter_kv.cu",
     "importance": "src/repro_torch/kernels/csrc/importance.cu",
     "variation": "src/repro_torch/kernels/csrc/importance.cu",
+    "fork_pages": "src/repro_torch/kernels/csrc/scatter_kv.cu",
 }
 # the serving path's shapes: 4 slots of prompt 128 + gen 64 tokens, blocks of
 # 32, partial refreshes of ceil(0.25 * (192 - 32)) = 40 tokens
@@ -101,6 +115,12 @@ def _is_flush(ev) -> bool:
     return "bitwise_not" in ev.name
 
 
+def _is_copy(ev) -> bool:
+    """A host-device copy (the fork wrapper uploads its page list): not a
+    kernel's time."""
+    return "Memcpy" in ev.name
+
+
 def device_ms(fn, n: int = 20) -> tuple[float, float]:
     """(device ms per call, wall ms per call).  Device: the profiler's kernel
     records over ``n`` calls, each after an L2 flush, the flushes left out.
@@ -129,7 +149,8 @@ def device_ms(fn, n: int = 20) -> tuple[float, float]:
             torch.cuda.synchronize()
         evs = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
         flushes = sum(map(_is_flush, evs))
-        timed = [ev.time_range.elapsed_us() for ev in evs if not _is_flush(ev)]
+        timed = [ev.time_range.elapsed_us() for ev in evs
+                 if not _is_flush(ev) and not _is_copy(ev)]
         if flushes == n and timed and len(timed) % n == 0:
             return sum(timed) / n / 1e3, wall
         TIMER_FALLBACKS.append((flushes, len(timed)))
@@ -436,8 +457,147 @@ def check_variation(ref, variation, gen):
     return out
 
 
+# (arch, layer groups, KV heads) of the pools the fork copies
+FORK_ARCHS = (("llada", 32, 32), ("dream", 28, 4))
+
+
+def fork_lists(gen, n_pages: int, f: int):
+    """``f`` real (src, dst) pairs over distinct pages 1..n_pages-1 in
+    shuffled order, padded to a multiple of 8 with (0, 0) pairs placed at
+    shuffled positions, as the scheduler's fork list."""
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1).tolist()
+    real = list(zip(perm[:f], perm[f:2 * f]))
+    pairs = real + [(0, 0)] * (-(-f // 8) * 8 - f)
+    order = torch.randperm(len(pairs), generator=gen, device="cuda").tolist()
+    pairs = [pairs[i] for i in order]
+    return [a for a, _ in pairs], [b for _, b in pairs], real
+
+
+def check_fork(ref, fork_pages, gen):
+    """The copy-on-write fork on the serving pool's shapes: every destination
+    page equals its source bit for bit, every other page is unchanged, the
+    pools stay where they are, the call allocates less than a page, and
+    aliased or out-of-range lists are refused."""
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        for arch, g, hkv in FORK_ARCHS:
+            for ps in (16, 8):
+                n_pages = SLOTS * (T_TOTAL // ps) + 1
+                kp = torch.randn(g, n_pages, ps, hkv, 128, generator=gen, device="cuda").to(dt)
+                vp = torch.randn(g, n_pages, ps, hkv, 128, generator=gen, device="cuda").to(dt)
+                page_bytes = ps * hkv * 128 * kp.element_size()
+                for f in (1, 8, 14, 24):
+                    label = f"{arch} F={f} ps={ps}"
+                    src, dst, real = fork_lists(gen, n_pages, f)
+                    k0, v0, ptrs = kp.clone(), vp.clone(), (kp.data_ptr(), vp.data_ptr())
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    mem0 = torch.cuda.memory_allocated()
+                    fork_pages(kp, vp, src, dst)
+                    torch.cuda.synchronize()
+                    grew = torch.cuda.max_memory_allocated() - mem0
+                    if grew >= page_bytes:
+                        raise AssertionError(f"fork_pages {label} {dt}: allocated {grew} bytes, "
+                                             f"a page is {page_bytes}")
+                    if (kp.data_ptr(), vp.data_ptr()) != ptrs:
+                        raise AssertionError(f"fork_pages {label}: the pools moved")
+                    s_t = torch.tensor([a for a, _ in real], device="cuda")
+                    d_t = torch.tensor([b for _, b in real], device="cuda")
+                    others = torch.ones(n_pages, dtype=torch.bool, device="cuda")
+                    others[d_t] = False
+                    for got, before in ((kp, k0), (vp, v0)):
+                        if not torch.equal(got[:, d_t], before[:, s_t]):
+                            raise AssertionError(f"fork_pages {label} {dt}: a destination "
+                                                 "differs from its source")
+                        if not torch.equal(got[:, others], before[:, others]):
+                            raise AssertionError(f"fork_pages {label} {dt}: a page that is "
+                                                 "not a destination changed")
+                    src_t = torch.tensor(src, device="cuda")
+                    dst_t = torch.tensor(dst, device="cuda")
+                    want = ref.fork_pages_reference(k0.clone(), src_t, dst_t)
+                    if not torch.equal(kp, want):
+                        raise AssertionError(f"fork_pages {label} {dt}: differs from the plain "
+                                             "version")
+                    for bad in ((src + [real[0][1]], dst + [real[0][0]]),   # aliased pages
+                                ([1], [n_pages])):                          # out of range
+                        try:
+                            fork_pages(kp, vp, *bad)
+                        except ValueError:
+                            continue
+                        raise AssertionError(f"fork_pages {label}: {bad} was not refused")
+                    ms, wall = device_ms(lambda: fork_pages(kp, vp, src, dst))
+                    plain_ms, _ = device_ms(lambda: (ref.fork_pages_reference(kp, src_t, dst_t),
+                                                     ref.fork_pages_reference(vp, src_t, dst_t)))
+                    lib_ms, _ = device_ms(lambda: (kp.index_copy_(1, d_t, kp.index_select(1, s_t)),
+                                                   vp.index_copy_(1, d_t, vp.index_select(1, s_t))))
+                    # each real page read once and written once, in every
+                    # layer group of both pools
+                    bms, by = bound(2 * f * g * 2 * page_bytes, 0.0, dt)
+                    out.append(dict(kernel="fork_pages", case=label, dtype=str(dt),
+                                    max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall,
+                                    plain_ms=plain_ms, library_ms=lib_ms,
+                                    library="index_select + index_copy_ (K and V)",
+                                    bound_ms=bms, bound_by=by, pairs=f,
+                                    padded_pairs=len(src), peak_growth_bytes=grew))
+    return out
+
+
+# the sampled path's draw: 4 slots, a 32-row block, Dream-7B's padded vocab
+DRAW_SHAPE = (SLOTS, BLOCK, 152_320)
+THREEFRY_VECTOR = ((0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0))
+# computed with jax 0.9.0 (jax_threefry_partitionable on): fold_in(fold_in(
+# PRNGKey(7), 3), 5) and jax.random.bits of that key at shape (2, 4)
+FOLD_IN_7_3_5 = [2377693112, 978177622]
+BITS_2X4 = [[285167447, 3080411661, 4150754849, 720547295],
+            [2102982906, 2372589642, 1213476380, 3361849757]]
+
+
+def check_threefry(gen):
+    """The threefry key chain on the card: Random123's known answer, the
+    reference's fold_in and bits on one key, and a draw of the sampled
+    path's shape with bits equal to the CPU's.  Then the draw's time:
+    Gumbel noise + argmax alone, and the whole sampled confidence (with
+    top-p) beside the greedy one, at that shape."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.core import sampler as smp
+
+    words = [torch.tensor(w, dtype=torch.int64, device="cuda") for w in THREEFRY_VECTOR[0]]
+    got = tuple(int(x) for x in prng.threefry2x32(*words))
+    if got != THREEFRY_VECTOR[1]:
+        raise AssertionError(f"threefry2x32 known answer: {got}")
+    key = prng.fold_in(prng.fold_in(prng.prng_key(7, device="cuda"), 3), 5)
+    if key.tolist() != FOLD_IN_7_3_5:
+        raise AssertionError(f"fold_in(fold_in(key(7), 3), 5) = {key.tolist()}")
+    if prng.random_bits(key, (2, 4)).tolist() != BITS_2X4:
+        raise AssertionError("random_bits at (2, 4) differs from the reference's")
+    keys = prng.row_keys(prng.prng_key(0, device="cuda"),
+                         torch.arange(SLOTS, dtype=torch.int32, device="cuda"),
+                         torch.tensor([0, 5, 64, 1000], dtype=torch.int32, device="cuda"))
+    card = prng.random_bits(keys, DRAW_SHAPE[1:]).cpu()
+    cpu = prng.random_bits(keys.cpu(), DRAW_SHAPE[1:])
+    if not torch.equal(card, cpu):
+        raise AssertionError(f"random_bits {DRAW_SHAPE}: card and CPU differ in "
+                             f"{int((card != cpu).sum())} elements")
+    gumbel_err = (prng.gumbel(keys, DRAW_SHAPE[1:]).cpu()
+                  - prng.gumbel(keys.cpu(), DRAW_SHAPE[1:])).abs().max().item()
+    logits = torch.randn(DRAW_SHAPE, generator=gen, device="cuda") * 4
+    sampled = configs.GenerationConfig(temperature=0.2, top_p=0.95)
+    greedy = configs.GenerationConfig()
+    vocab = 152_064
+    draw_ms, draw_wall = device_ms(lambda: prng.categorical(keys, logits), n=5)
+    sampler_ms, sampler_wall = device_ms(
+        lambda: smp.confidence_and_pred(keys, logits, sampled, vocab, vocab), n=5)
+    greedy_ms, greedy_wall = device_ms(
+        lambda: smp.confidence_and_pred(None, logits, greedy, vocab, vocab), n=5)
+    return dict(known_answers=True, bits_card_equal_cpu=True, draw_shape=list(DRAW_SHAPE),
+                gumbel_card_vs_cpu_max_abs=gumbel_err, draw_ms=draw_ms, draw_wall_ms=draw_wall,
+                sampler_top_p_ms=sampler_ms, sampler_top_p_wall_ms=sampler_wall,
+                greedy_ms=greedy_ms, greedy_wall_ms=greedy_wall)
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6: the engine and the scheduler
+# phases 4-7: the engine and the scheduler
 # ---------------------------------------------------------------------------
 def cross_device_check():
     from repro_torch import configs
@@ -531,6 +691,183 @@ def cross_device_serving():
                 early_advances_cpu=outs["cpu"][1].stats.early_advances,
                 passes=card_sched.engine.pass_counts,
                 distinct_ids=len({int(t) for r in outs["cpu"][0] for t in r.output}))
+
+
+def reduced_models(arch: str) -> dict:
+    """A reduced 4-layer model on the CPU, weight matrices x10 (random init
+    repeats one id), and its copy on the card."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)), n_layers=4)
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if p.dim() >= 2:
+                p.mul_(10.0)
+    card = Model(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return {"cpu": cpu, "cuda": card}
+
+
+def check_drained(sched, reqs, n_tokens=None) -> None:
+    """Every request finished cleanly and every page came back."""
+    for r in reqs:
+        if r.error is not None or r.output is None:
+            raise AssertionError(f"request {r.request_id}: error {r.error!r}")
+        if n_tokens is not None and r.output.shape != (n_tokens,):
+            raise AssertionError(f"request {r.request_id}: output shape {r.output.shape}")
+        if (r.output == sched.engine.mask_id).any():
+            raise AssertionError(f"request {r.request_id}: a [mask] id is left in the output")
+    al = sched.allocator
+    if al.free_pages != al.num_pages - 1 or sched.stats.pages_in_use or sched.cohorts:
+        raise AssertionError("the pool did not get every page back after the drain")
+
+
+# reduced sampled serving: 16-token prompts, two blocks of 8, a prompt
+# refresh every 4 iterations (so cohorts fork after their first draws)
+SAMPLED_SERVE = dict(mode="es", gen_length=16, block_length=8, prompt_refresh_period=4,
+                     block_refresh_period=3)
+
+
+def cross_device_sampled_serving() -> dict:
+    """Sampled serving with prefix sharing on reduced LLaDA and Dream (top-p):
+    two duplicate-prompt cohorts and one other request, all admitted in one
+    cycle.  Every request's tokens on the card equal the CPU's and the card's
+    unshared run; the cohorts forked and every page came back."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.runtime import Request, StreamScheduler
+
+    out = {}
+    for arch, sampling in (("llada-8b", dict(temperature=0.8)),
+                           ("dream-7b", dict(temperature=0.7, top_p=0.9))):
+        models = reduced_models(arch)
+        gen_cfg = configs.GenerationConfig(
+            skip_stages=(configs.SkipStage(1, 0.5), configs.SkipStage(2, 0.5)),
+            **SAMPLED_SERVE, **sampling)
+        rng = np.random.default_rng(SEED)
+        a, b, c = (rng.integers(3, models["cpu"].cfg.vocab_size, n).astype(np.int32)
+                   for n in (16, 12, 9))
+        prompts = (a, a, b, b, c)
+
+        def run(dev, sharing):
+            sched = StreamScheduler(models[dev], gen_cfg, device=dev, max_slots=5,
+                                    prompt_len=16, paged=True, page_size=8,
+                                    prefix_sharing=sharing)
+            reqs = [Request(prompt=p.copy(), sample_seed=100 + i) for i, p in enumerate(prompts)]
+            for r in reqs:
+                sched.submit(r)
+            sched.drain()
+            check_drained(sched, reqs, gen_cfg.gen_length)
+            return [r.output for r in reqs], sched
+        cpu_out, cpu_sched = run("cpu", True)
+        card_out, card_sched = run("cuda", True)
+        solo_out, _ = run("cuda", False)
+        for i, (x, y, z) in enumerate(zip(cpu_out, card_out, solo_out)):
+            if not (np.array_equal(x, y) and np.array_equal(y, z)):
+                raise AssertionError(f"{arch} sampled serving, request {i}: card {y}, CPU {x}, "
+                                     f"card unshared {z}")
+        if not (card_sched.stats.cow_forks > 0 and cpu_sched.stats.cow_forks > 0):
+            raise AssertionError(f"{arch} sampled serving: no copy-on-write fork")
+        if np.array_equal(card_out[0], card_out[1]):
+            raise AssertionError(f"{arch}: two seeds of one prompt sampled the same tokens")
+        out[arch] = dict(requests=len(prompts), tokens_equal=True,
+                         cow_forks=card_sched.stats.cow_forks,
+                         cow_forks_cpu=cpu_sched.stats.cow_forks,
+                         distinct_ids=len({int(t) for o in card_out for t in o}))
+    return out
+
+
+def cross_device_preemption() -> dict:
+    """Sampled reduced Dream on a pool that holds one request: the
+    higher-class arrival spills the resident, which resumes later; both
+    requests' tokens equal their uninterrupted offline runs, on the card and
+    on the CPU."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+    from repro_torch.runtime import Request, StreamScheduler
+
+    models = reduced_models("dream-7b")
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=16, block_length=8, skip_stages=(configs.SkipStage(1, 0.5),),
+        prompt_refresh_period=8, block_refresh_period=4, temperature=0.8)
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [rng.integers(3, models["cpu"].cfg.vocab_size, 16).astype(np.int32)
+               for _ in range(2)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        sched = StreamScheduler(models[dev], gen_cfg, device=dev, max_slots=2, prompt_len=16,
+                                paged=True, page_size=8, kv_pages=5, preemption=True)
+        low = Request(prompt=prompts[0].copy(), priority=0, sample_seed=11)
+        high = Request(prompt=prompts[1].copy(), priority=1, sample_seed=22)
+        sched.submit(low)
+        sched.step()
+        sched.submit(high)
+        sched.drain()
+        check_drained(sched, (low, high), gen_cfg.gen_length)
+        if sched.stats.preemptions < 1 or len(sched.stats.resume_waits) != sched.stats.preemptions:
+            raise AssertionError(f"preemption on {dev}: {sched.stats.gauges()}")
+        outs[dev] = ([low.output, high.output], sched.stats.gauges())
+    offline = make_engine(models["cuda"], gen_cfg, device="cuda", paged=True, page_size=8)
+    ref = offline.generate(torch.from_numpy(np.stack(prompts)),
+                           sample_seeds=torch.tensor([11, 22])).cpu().numpy()[:, 16:]
+    for i in range(2):
+        if not (np.array_equal(outs["cuda"][0][i], ref[i])
+                and np.array_equal(outs["cpu"][0][i], ref[i])):
+            raise AssertionError(f"preempted serving, request {i}: card {outs['cuda'][0][i]}, "
+                                 f"CPU {outs['cpu'][0][i]}, uninterrupted {ref[i]}")
+    g = outs["cuda"][1]
+    return dict(tokens_equal_uninterrupted=True, preemptions=g["preemptions"],
+                pages_spilled=g["pages_spilled"], resume_p50_s=g["resume_p50"])
+
+
+def cross_device_quarantine() -> dict:
+    """NaN written into one slot's private page on the card: that request is
+    quarantined with ``PoisonedRequest``, the bystander's sampled tokens
+    equal its solo offline run, and no non-finite value is left in the pool."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+    from repro_torch.runtime import PoisonedRequest, Request, StreamScheduler
+
+    model = reduced_models("llada-8b")["cuda"]
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=16, block_length=8, skip_stages=(configs.SkipStage(1, 0.5),),
+        prompt_refresh_period=8, block_refresh_period=4, temperature=0.8)
+    rng = np.random.default_rng(SEED + 3)
+    victim, bystander = (Request(prompt=rng.integers(3, model.cfg.vocab_size, 16)
+                                 .astype(np.int32), sample_seed=s) for s in (1, 2))
+    sched = StreamScheduler(model, gen_cfg, device="cuda", max_slots=2, prompt_len=16,
+                            paged=True, page_size=8)
+    sched.submit(victim)
+    sched.submit(bystander)
+    sched.step()
+    for _ in range(60):                  # re-inject until a decode reads it
+        if sched.stats.poisoned_requests:
+            break
+        page = int(sched.state.block_tables[0, int(sched.state.bs[0]) // 8])
+        if sched.allocator.refcount(page) != 1:
+            raise AssertionError("the poisoned page is not the victim's own")
+        sched.state.cache.k[:, page] = float("nan")
+        sched.step()
+    sched.drain()
+    if not isinstance(victim.error, PoisonedRequest) or victim.output is not None:
+        raise AssertionError(f"the poisoned request was not quarantined: {victim.error!r}")
+    check_drained(sched, (bystander,), gen_cfg.gen_length)
+    ref = make_engine(model, gen_cfg, device="cuda", paged=True, page_size=8).generate(
+        torch.from_numpy(bystander.prompt[None]), sample_seeds=torch.tensor([2]))
+    if not np.array_equal(bystander.output, ref.cpu().numpy()[0, 16:]):
+        raise AssertionError("the bystander's tokens changed next to the poisoned row")
+    for pool in (sched.state.cache.k, sched.state.cache.v):
+        if not torch.isfinite(pool).all():
+            raise AssertionError("a non-finite value survived the quarantine in the pool")
+    return dict(poisoned_requests=sched.stats.poisoned_requests, bystander_equal=True,
+                pool_finite=True)
 
 
 def llada_8b():
@@ -666,6 +1003,170 @@ def serving_path(model, kernel_fns):
                 passes=dict(sched.engine.pass_counts), launches=launches, profile=profile)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: sampled serving of Dream-7B at full width
+# ---------------------------------------------------------------------------
+# (submit step, prompt, priority): two duplicate-prompt cohorts (A, B) in
+# the first cycle, then two priority classes arriving every 5 steps
+DREAM_PLAN = ((0, "A", 0), (0, "A", 0), (0, "B", 0), (0, "B", 0), (5, "C", 1), (10, "D", 0),
+              (15, "E", 1), (20, "F", 0))
+DREAM_PROMPTS = dict(A=128, B=96, C=64, D=128, E=32, F=100)
+# 7b's pool: the four first requests take 44 pages (12 + 12 + 10 + 10), so
+# the class-1 arrival can only enter by spilling a class-0 resident
+DREAM_PREEMPT_PAGES = 45
+
+
+def dream_7b():
+    """Dream-7B at full width in bf16, random weights from a seeded
+    generator on the card."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(configs.get_config("dream-7b"),
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+class SamplerTimer:
+    """Wall time of every sampled-confidence call of the engine on the path,
+    from CUDA events around each call (the card's time from the call's first
+    kernel to its last, gaps the host leaves included)."""
+
+    def __init__(self):
+        from repro_torch.core import sampler
+        self.sampler, self.orig, self.spans = sampler, sampler.confidence_and_pred, []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig(*args, **kw)
+            end.record()
+            self.spans.append((start, end))
+            return out
+        self.sampler.confidence_and_pred = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.sampler.confidence_and_pred = self.orig
+
+    def total_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.spans)
+
+
+def dream_gen_config(cfg):
+    """The serving cadence of phase 6, sampled as Dream decodes (temperature
+    0.2, top-p 0.95)."""
+    from repro_torch import configs
+
+    return configs.GenerationConfig(
+        mode="es", gen_length=GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2,
+        temperature=0.2, top_p=0.95)
+
+
+def dream_trace(sched, prompts: dict, plan=DREAM_PLAN):
+    """Submits the plan's requests at their steps and drains; returns the
+    requests in plan order and the largest number of shared mappings seen."""
+    from repro_torch.runtime import Request
+
+    reqs = [Request(prompt=prompts[name].copy(), priority=prio, sample_seed=1000 + i)
+            for i, (_, name, prio) in enumerate(plan)]
+    last = max(at for at, _, _ in plan)
+    step = peak_shared = 0
+    while step <= last or sched.has_work():
+        for (at, _, _), r in zip(plan, reqs):
+            if at == step:
+                sched.submit(r)
+        sched.step()
+        peak_shared = max(peak_shared, sched.stats.shared_mappings)
+        step += 1
+    return reqs, peak_shared
+
+
+def dream_serving(model, kernel_fns) -> dict:
+    """7a with prefix sharing, 7b with preemption on a tight pool, 7c with
+    neither (run before 7a and after 7b), on one model and one request plan
+    (the reference refuses preemption together with sharing), after a
+    warm-up run of the plan.  Launches and the sampler's time are counted
+    per run."""
+    import numpy as np
+
+    from repro_torch.runtime import StreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = dream_gen_config(cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = {k: rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for k, n in DREAM_PROMPTS.items()}
+    # 7c runs first and last: the two bracket the other runs, so a cost of
+    # the options shows apart from the order the runs go in
+    runs = {"7c first": {}, "7a": dict(prefix_sharing=True),
+            "7b": dict(preemption=True, kv_pages=DREAM_PREEMPT_PAGES), "7c": {}}
+
+    def make(kw):
+        return StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS, prompt_len=PROMPT,
+                               paged=True, page_size=16, early_advance=True, **kw)
+    # warm-up with the whole plan: allocator growth and first-use costs
+    # would otherwise land on whichever run goes first
+    dream_trace(make({}), prompts)
+    out, outputs = {}, {}
+    for name, kw in runs.items():
+        sched = make(kw)
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timer = SamplerTimer()
+        t0 = time.perf_counter()
+        with timer:
+            reqs, peak_shared = dream_trace(sched, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_drained(sched, reqs, GEN)
+        st = sched.stats
+        outputs[name] = [r.output for r in reqs]
+        out[name] = dict(
+            options=kw, steps=st.steps, passes=dict(sched.engine.pass_counts), wall_s=wall,
+            tokens_per_s=len(reqs) * GEN / wall, ms_per_step=wall / st.steps * 1e3,
+            latency_p50_s=st.latency_pct(50), latency_p95_s=st.latency_pct(95),
+            pages_total=st.pages_total, peak_pages_in_use=st.peak_pages_in_use,
+            resident_peak=st.resident_peak, cow_forks=st.cow_forks,
+            peak_shared_mappings=peak_shared, preemptions=st.preemptions,
+            pages_spilled=st.pages_spilled, resumes=len(st.resume_waits),
+            resume_p50_s=st.resume_p50,
+            cache_hit_fraction=st.cache_hit_fraction,
+            launches={n: fn.launches for n, fn in kernel_fns.items()},
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            sampler_calls=len(timer.spans), sampler_ms_per_step=timer.total_ms() / st.steps)
+    if out["7a"]["cow_forks"] <= 0 or out["7a"]["launches"]["fork_pages"] < 1:
+        raise AssertionError(f"7a: no copy-on-write fork on the path: {out['7a']}")
+    if out["7b"]["preemptions"] < 1 or out["7b"]["resumes"] < 1:
+        raise AssertionError(f"7b: no preemption and resume: {out['7b']}")
+    for name in ("7c first", "7a", "7b"):
+        same = [np.array_equal(x, y) for x, y in zip(outputs[name], outputs["7c"])]
+        out[name]["share_equal_to_7c"] = sum(same) / len(same)
+    if out["7c first"]["share_equal_to_7c"] != 1.0:
+        raise AssertionError("two runs of 7c decoded different tokens")
+    for name in ("7a", "7c"):
+        again: list = []
+        out[name]["profile"] = profile_run(
+            lambda: again.extend(dream_trace(make(runs[name]), prompts)[0]))
+        out[name]["repeat_equal"] = all(np.array_equal(a.output, b) for a, b in
+                                        zip(again, outputs[name]))
+    return dict(arch=cfg.name, dtype=str(model.dtype), layers=cfg.n_layers, d_model=cfg.d_model,
+                weights_gb=sum(nbytes(p) for p in model.parameters()) / 1e9, slots=SLOTS,
+                prompt_len=PROMPT, page_size=16, gen_length=GEN,
+                block_length=BLOCK, temperature=gen_cfg.temperature, top_p=gen_cfg.top_p,
+                plan=[list(p) for p in DREAM_PLAN], prompt_lens=DREAM_PROMPTS, runs=out)
+
+
 def profile_run(fn, top: int = 8) -> dict:
     """Where one run's time goes on the device: the share of the wall time
     some kernel was running, and the kernels with the most device time."""
@@ -708,7 +1209,7 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
     from repro_torch.kernels.importance import importance, variation
-    from repro_torch.kernels.scatter_kv import scatter_rows, scatter_rows_paged
+    from repro_torch.kernels.scatter_kv import fork_pages, scatter_rows, scatter_rows_paged
 
     print(sh(build.nvcc(), "--version").splitlines()[-1])
     try:
@@ -719,7 +1220,7 @@ def main() -> int:
     kernel_fns = {"flash_attention": flash_attention,
                   "paged_flash_attention": paged_flash_attention,
                   "scatter_rows": scatter_rows, "scatter_rows_paged": scatter_rows_paged,
-                  "importance": importance, "variation": variation}
+                  "importance": importance, "variation": variation, "fork_pages": fork_pages}
 
     # phase 2: build
     lib_path, build_s = build.build()
@@ -737,6 +1238,7 @@ def main() -> int:
     cases += check_paged_flash(ref, paged_flash_attention, gen)
     cases += check_paged_scatter(ref, scatter_rows_paged, gen)
     cases += check_variation(ref, variation, gen)
+    cases += check_fork(ref, fork_pages, gen)
     print(f"timer: {len(TIMER_FALLBACKS)} incomplete profiler traces {TIMER_FALLBACKS[:20]}, "
           f"{len(EVENT_TIMED)} measurements timed by CUDA events")
     for c in cases:           # below the bound, the timer and not the kernel is at fault
@@ -750,12 +1252,20 @@ def main() -> int:
         print(f"{c['kernel']:21s} {c['case']:34s} {c['dtype']:15s} err {c['max_abs_err']:.2e} "
               f"ms {c['ms']:.4f} (wall {c['wall_ms']:.4f}) plain {c['plain_ms']:.4f} "
               f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']})")
+    threefry = check_threefry(gen)
+    print(f"threefry: {json.dumps(threefry)}")
 
     # phase 4: cross-device engine and scheduler checks
     cross = cross_device_check()
     print(f"cross-device: {json.dumps(cross)}")
     cross_serving = cross_device_serving()
     print(f"cross-device serving: {json.dumps(cross_serving)}")
+    cross_sampled = cross_device_sampled_serving()
+    print(f"cross-device sampled serving with prefix sharing: {json.dumps(cross_sampled)}")
+    cross_preempt = cross_device_preemption()
+    print(f"cross-device preemption: {json.dumps(cross_preempt)}")
+    cross_quarantine = cross_device_quarantine()
+    print(f"quarantine: {json.dumps(cross_quarantine)}")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
     model, init_s = llada_8b()
@@ -763,6 +1273,15 @@ def main() -> int:
     print(f"offline path: {json.dumps(run)}")
     serving = serving_path(model, kernel_fns)
     print(f"serving path: {json.dumps(serving)}")
+    del model
+    torch.cuda.empty_cache()
+
+    # phase 7: sampled serving of Dream-7B at full width
+    dream, dream_init_s = dream_7b()
+    sampled = dream_serving(dream, kernel_fns)
+    sampled["init_s"] = dream_init_s
+    for name, r in sampled["runs"].items():
+        print(f"dream-7b {name}: {json.dumps(r)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
     # kernel: bf16 attention and K/V, f32 hidden states; launches from the
@@ -772,15 +1291,18 @@ def main() -> int:
                 "scatter_rows": ("llada block K=32", torch.bfloat16),
                 "scatter_rows_paged": ("llada block K=32 ps=16 mask=none", torch.bfloat16),
                 "importance": (f"llada stage1 K=32 B={SLOTS}", torch.float32),
-                "variation": (f"llada partial [{SLOTS}, {T_TOTAL}, 4096]", torch.float32)}
+                "variation": (f"llada partial [{SLOTS}, {T_TOTAL}, 4096]", torch.float32),
+                # 7a forks cohort A's 8 and cohort B's 6 shared pages in one launch
+                "fork_pages": ("dream F=14 ps=16", torch.bfloat16)}
     kernels = []
     for name, (case, dt) in headline.items():
         c = next(c for c in cases if c["kernel"] == name and c["case"] == case
                  and c["dtype"] == str(dt))
-        path = serving if serving["launches"][name] else run
+        launches = (sampled["runs"]["7a"]["launches"][name] if name == "fork_pages"
+                    else (serving if serving["launches"][name] else run)["launches"][name])
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=path["launches"][name],
+            launches=launches,
             max_abs_err=max(x["max_abs_err"] for x in cases if x["kernel"] == name),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
@@ -789,8 +1311,11 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
              ptxas=ptxas, timer_fallbacks=TIMER_FALLBACKS, event_timed=len(EVENT_TIMED),
-             cases=cases, cross_device=cross, cross_device_serving=cross_serving,
-             offline_path=run, serving_path=serving, kernels=kernels),
+             cases=cases, threefry=threefry, cross_device=cross,
+             cross_device_serving=cross_serving, cross_device_sampled=cross_sampled,
+             cross_device_preemption=cross_preempt, quarantine=cross_quarantine,
+             offline_path=run, serving_path=serving, dream_sampled_serving=sampled,
+             kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

@@ -38,17 +38,29 @@ does not own unwritten, and its outputs merge per row.  Rows advance their
 block the moment it unmasks with ``early_advance``; the lifetime ``iters``
 then jumps to the offline numbering.
 
-Greedy decoding only; sampling and the other beyond-paper features raise
+Sampling (``temperature > 0``) draws with the reference's per-row key chain
+``fold_in(fold_in(key, sample_seed[b]), iters[b])`` (``core.prng``): a
+request's stream depends only on its own seed and lifetime iteration, so a
+served request replays offline bit for bit, whatever shares the batch.
+
+Page operations for the scheduler (paged serving): ``fork_pages`` (the
+copy-on-write copy behind prefix sharing, a hand-written kernel on the
+card), ``spill_pages``/``restore_pages`` (preemption) and ``scrub_pages``
+(quarantine), all in place on the K and V pools.
+
+The beyond-paper features outside the port so far raise
 ``NotImplementedError`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import GenerationConfig
+from repro_torch.core import prng
 from repro_torch.core import sampler as smp
 from repro_torch.core.schedule import (
     BLOCK_REFRESH,
@@ -57,6 +69,7 @@ from repro_torch.core.schedule import (
     SKIP_DECODE,
     Segment,
     branch_index,
+    prompt_refresh_pred,
     resolve_segments,
 )
 from repro_torch.device import resolve_device
@@ -95,7 +108,9 @@ class EngineState(NamedTuple):
     phase: torch.Tensor              # [B] int32 within-block iteration phase
     iters: torch.Tensor              # [B] int32 lifetime iteration counter
     active: torch.Tensor             # [B] bool: slot holds a live request
+    key: torch.Tensor                # [2] int64 base sampling key (never split)
     prompt_start: torch.Tensor       # [B] int32 first real (non-pad) prompt position
+    sample_seeds: torch.Tensor       # [B] int32 per-request seed folded into the key
     block_tables: Optional[torch.Tensor] = None   # [B, T / page_size] int32 (paged)
     feat: Optional[torch.Tensor] = None           # [B, T, d] f32 (adaptive cache)
     conf_full: Optional[torch.Tensor] = None      # [B, T] f32 (adaptive cache)
@@ -123,9 +138,6 @@ def _row_scatter(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> tor
 def _unsupported(gen: GenerationConfig, kv_cache_dtype, gather_refresh) -> Optional[str]:
     if gen.mode not in MODES:
         return f"mode={gen.mode!r} (one of {MODES})"
-    if gen.temperature > 0:
-        return ("temperature > 0: sampled decoding needs the reference's threefry "
-                "key chain (ROADMAP.md Queue A5)")
     for flag, what in ((gen.sparse_attention, "sparse_attention"),
                        (gen.windowed, "window_blocks"),
                        (gen.block_causal, "block_causal"),
@@ -227,11 +239,18 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def generate(self, prompt: torch.Tensor,
-                 prompt_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 prompt_start: Optional[torch.Tensor] = None, *,
+                 key: Optional[torch.Tensor] = None,
+                 sample_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Generates ``gen.gen_length`` tokens after ``prompt [B, P]``;
         returns the ``[B, P + gen_length]`` int32 tokens.  ``prompt_start
         [B]`` masks each row's left-pad prompt positions out of attention
-        (the serving runtime's variable-length-prompt contract)."""
+        (the serving runtime's variable-length-prompt contract).  ``key`` is
+        the base sampling key (``prng.prng_key(0)`` by default); row ``b``
+        draws with ``fold_in(fold_in(key, sample_seeds[b]), iteration)``, and
+        ``sample_seeds`` defaults to the row index, so duplicate prompts
+        sample distinct completions.  Pass a request's serving seed to replay
+        it."""
         gen = self.gen
         b, p = prompt.shape
         lb = gen.block_length
@@ -243,6 +262,7 @@ class DiffusionEngine:
         if prompt_start is None:
             prompt_start = torch.zeros((b,), dtype=torch.int32, device=self.device)
         prompt_start = prompt_start.to(device=self.device, dtype=torch.int32)
+        key, seeds = self._key_and_seeds(b, key, sample_seeds)
         bt = self._identity_block_tables(b, t_total) if self.paged else None
         # the KV cache and the adaptive cache's planes carry across blocks;
         # each block's first iteration is a prefill that rewrites the K/V
@@ -251,7 +271,8 @@ class DiffusionEngine:
         self.iterations = 0
         for blk in range(gen.gen_length // lb):
             self.last_state = self._run_block(tokens, cache, feat, conf_full, p + blk * lb,
-                                              blk * gen.resolved_steps(), prompt_start, bt)
+                                              blk * gen.resolved_steps(), prompt_start, bt,
+                                              key, seeds)
             tokens, feat, conf_full = (self.last_state.tokens, self.last_state.feat,
                                        self.last_state.conf_full)
         return tokens
@@ -264,16 +285,19 @@ class DiffusionEngine:
 
     @torch.no_grad()
     def prefill(self, st: BlockState, bs: int) -> BlockState:
-        """Cache initialization / prompt refresh as a standalone step."""
+        """Cache initialization / prompt refresh as a standalone step.  A
+        sampled draw uses the reference's defaults for standalone steps: the
+        base key ``PRNGKey(0)``, row index seeds and iteration ``st.t``."""
         bs_rows, pstart, bt = self._offline_rows(st, bs)
-        return self._apply_unmask(st, bs_rows, *self._prefill_step(st, bs_rows, pstart, bt))
+        return self._apply_unmask(st, bs_rows, *self._prefill_step(st, bs_rows, pstart, bt,
+                                                                   self._standalone_keys(st)))
 
     @torch.no_grad()
     def decode_iteration(self, st: BlockState, bs: int) -> BlockState:
         """One steady-state ES iteration (paper Alg. 1): skip decode."""
         bs_rows, pstart, bt = self._offline_rows(st, bs)
-        return self._apply_unmask(st, bs_rows,
-                                  *self._decode_step(st, bs_rows, pstart, bt, skip=True))
+        return self._apply_unmask(st, bs_rows, *self._decode_step(
+            st, bs_rows, pstart, bt, self._standalone_keys(st), skip=True))
 
     # ------------------------------------------------------------------
     # per-block loop
@@ -316,14 +340,39 @@ class DiffusionEngine:
         bt = self._identity_block_tables(b, t_total) if self.paged else None
         return bs_rows, pstart, bt
 
+    # ------------------------------------------------------------------
+    # sampling keys
+    # ------------------------------------------------------------------
+    def _key_and_seeds(self, b: int, key, seeds):
+        """(base key [2], seeds [B]) on the engine's device, with the
+        reference's defaults: ``PRNGKey(0)`` and the row index."""
+        key = prng.prng_key(0) if key is None else key
+        if seeds is None:
+            seeds = torch.arange(b, dtype=torch.int32)
+        return (key.to(device=self.device, dtype=torch.int64),
+                torch.as_tensor(seeds).to(device=self.device, dtype=torch.int32))
+
+    def _row_keys(self, key, seeds, iters) -> Optional[torch.Tensor]:
+        """[B, 2] draw keys ``fold_in(fold_in(key, seeds[b]), iters[b])``, or
+        None at temperature 0, where nothing is drawn."""
+        if self.gen.temperature <= 0:
+            return None
+        iters = torch.as_tensor(iters, device=self.device).expand(seeds.shape)
+        return prng.row_keys(key, seeds, iters)
+
+    def _standalone_keys(self, st: BlockState) -> Optional[torch.Tensor]:
+        key, seeds = self._key_and_seeds(st.tokens.shape[0], None, None)
+        return self._row_keys(key, seeds, st.t)
+
     def _run_block(self, tokens, cache, feat, conf_full, bs: int, iters0: int,
-                   prompt_start, bt) -> BlockState:
+                   prompt_start, bt, key, seeds) -> BlockState:
         gen = self.gen
         st = self._block_state(tokens, cache, feat, conf_full)
         bs_rows = torch.full((tokens.shape[0],), bs, dtype=torch.int32, device=self.device)
         max_steps = gen.resolved_steps() + 1
         while st.t == 0 or (st.t < max_steps and self._any_masked(st, bs)):
-            outs = self._iteration_outputs(st, bs_rows, iters0 + st.t, prompt_start, bt)
+            keys = self._row_keys(key, seeds, iters0 + st.t)
+            outs = self._iteration_outputs(st, bs_rows, iters0 + st.t, prompt_start, bt, keys)
             st = self._apply_unmask(st, bs_rows, *outs)
             self.iterations += 1
         return st
@@ -332,20 +381,20 @@ class DiffusionEngine:
         lb = self.gen.block_length
         return bool((st.tokens[:, bs:bs + lb] == self.mask_id).any().item())
 
-    def _iteration_outputs(self, st: BlockState, bs, iters: int, prompt_start, bt):
+    def _iteration_outputs(self, st: BlockState, bs, iters: int, prompt_start, bt, keys):
         """Branch-dispatched compute for one denoising iteration at phase
-        ``st.t`` and lifetime iteration ``iters``.  Returns ``(cache, conf,
-        pred, hidden, feat, stats)``."""
+        ``st.t`` and lifetime iteration ``iters``, drawing with ``keys``.
+        Returns ``(cache, conf, pred, hidden, feat, stats)``."""
         if self.gen.mode == "vanilla":
-            conf, pred = self._vanilla_compute(st, bs)
+            conf, pred = self._vanilla_compute(st, bs, keys)
             return st.cache, conf, pred, st.hidden, st.feat, None
         branch = branch_index(self.gen, st.t, iters)
         self.pass_counts[PASSES[branch]] += 1
         if branch == PREFILL:
-            return self._prefill_step(st, bs, prompt_start, bt)
+            return self._prefill_step(st, bs, prompt_start, bt, keys)
         if branch == PARTIAL:
-            return self._partial_refresh_step(st, bs, prompt_start, bt)
-        return self._decode_step(st, bs, prompt_start, bt, skip=branch != BLOCK_REFRESH)
+            return self._partial_refresh_step(st, bs, prompt_start, bt, keys)
+        return self._decode_step(st, bs, prompt_start, bt, keys, skip=branch != BLOCK_REFRESH)
 
     def _apply_unmask(self, st: BlockState, bs, cache, conf, pred, hidden, feat=None,
                       stats=None, active: Optional[torch.Tensor] = None) -> BlockState:
@@ -366,9 +415,11 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     # serving
     # ------------------------------------------------------------------
-    def init_engine_state(self, batch: int, prompt_len: int) -> EngineState:
+    def init_engine_state(self, batch: int, prompt_len: int,
+                          key: Optional[torch.Tensor] = None) -> EngineState:
         """All-idle slot state for ``batch`` slots; ``prompt_len`` fixes the
-        padded prompt region, so the sequence is ``prompt_len + gen_length``."""
+        padded prompt region, so the sequence is ``prompt_len + gen_length``.
+        ``key`` is the base sampling key (``prng.prng_key(0)`` by default)."""
         t_total = prompt_len + self.gen.gen_length
         dev = self.device
         tokens = torch.full((batch, t_total), self.mask_id, dtype=torch.int32, device=dev)
@@ -385,7 +436,8 @@ class DiffusionEngine:
             bs=torch.full((batch,), prompt_len, dtype=torch.int32, device=dev),
             blocks_left=zeros(torch.int32), phase=zeros(torch.int32),
             iters=zeros(torch.int32), active=zeros(torch.bool),
-            prompt_start=zeros(torch.int32), block_tables=bt,
+            key=self._key_and_seeds(batch, key, None)[0],
+            prompt_start=zeros(torch.int32), sample_seeds=zeros(torch.int32), block_tables=bt,
             feat=bst.feat, conf_full=bst.conf_full,
             cache_refreshed=zeros(torch.int32), cache_eligible=zeros(torch.int32),
             poisoned=zeros(torch.bool))
@@ -400,11 +452,12 @@ class DiffusionEngine:
         bs = state.bs
         st = BlockState(state.tokens, state.cache, state.conf, state.pred, state.hidden,
                         state.phase, state.feat, state.conf_full)
+        keys = self._row_keys(state.key, state.sample_seeds, state.iters)
         if gen.mode == "vanilla":
-            conf, pred = self._vanilla_compute(st, bs)
+            conf, pred = self._vanilla_compute(st, bs, keys)
             outs = (st.cache, conf, pred, st.hidden, st.feat, None)
         else:
-            outs = self._mixed_step_outputs(state, st)
+            outs = self._mixed_step_outputs(state, st, keys)
         stats = outs[5]
         st = self._apply_unmask(st, bs, *outs[:5], active=state.active)
 
@@ -441,13 +494,14 @@ class DiffusionEngine:
             phase=torch.where(adv, 0, phase),
             iters=torch.where(adv, state.iters - phase_used + steps_pb,
                               state.iters + state.active.int()),
-            active=state.active & ~finished,
-            prompt_start=state.prompt_start, block_tables=state.block_tables,
+            active=state.active & ~finished, key=state.key,
+            prompt_start=state.prompt_start, sample_seeds=state.sample_seeds,
+            block_tables=state.block_tables,
             feat=st.feat, conf_full=st.conf_full,
             cache_refreshed=cache_refreshed, cache_eligible=cache_eligible,
             poisoned=poisoned)
 
-    def _mixed_step_outputs(self, state: EngineState, st: BlockState):
+    def _mixed_step_outputs(self, state: EngineState, st: BlockState, keys):
         """Up to four passes, in the reference's order (skip decode, block
         refresh, prefill, partial refresh), each run only when some active
         row is in its branch and masked to those rows.  Rows a pass does not
@@ -469,11 +523,11 @@ class DiffusionEngine:
             cst = st._replace(cache=carry[0], conf=carry[1], pred=carry[2], hidden=carry[3],
                               feat=carry[4])
             if code == PREFILL:
-                out = self._prefill_step(cst, bs, pstart, bt, row_mask=mask)
+                out = self._prefill_step(cst, bs, pstart, bt, keys, row_mask=mask)
             elif code == PARTIAL:
-                out = self._partial_refresh_step(cst, bs, pstart, bt, row_mask=mask)
+                out = self._partial_refresh_step(cst, bs, pstart, bt, keys, row_mask=mask)
             else:
-                out = self._decode_step(cst, bs, pstart, bt, skip=code == SKIP_DECODE,
+                out = self._decode_step(cst, bs, pstart, bt, keys, skip=code == SKIP_DECODE,
                                         row_mask=mask)
             carry = _merge_step_outputs(mask, carry, out)
         return carry
@@ -481,7 +535,7 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     # branches
     # ------------------------------------------------------------------
-    def _prefill_step(self, st: BlockState, bs, prompt_start, bt,
+    def _prefill_step(self, st: BlockState, bs, prompt_start, bt, keys,
                       row_mask: Optional[torch.Tensor] = None):
         """Full forward over the whole sequence: rebuilds the KV cache and
         the block's confidence/prediction/indicator caches (cache init and
@@ -507,7 +561,7 @@ class DiffusionEngine:
                 feat = h.float()
             if seg.keep_k is not None:
                 hidden.append(_row_gather(h, cols).float())
-        conf, pred = self._confidence(st, bs, model.logits(_row_gather(h, cols)))
+        conf, pred = self._confidence(st, bs, model.logits(_row_gather(h, cols)), keys)
         stats = None
         if self.adaptive_cache:
             # a full refresh recomputes every eligible past token
@@ -515,11 +569,12 @@ class DiffusionEngine:
             stats = torch.stack([n_el, n_el], dim=1)
         return st.cache, conf, pred, tuple(hidden), feat, stats
 
-    def _decode_step(self, st: BlockState, bs, prompt_start, bt, *, skip: bool,
+    def _decode_step(self, st: BlockState, bs, prompt_start, bt, keys, *, skip: bool,
                      row_mask: Optional[torch.Tensor] = None):
         """One diffusion iteration on the current block (paper Alg. 1).
         ``skip=True`` applies the early-skip schedule; ``skip=False`` is the
-        block refresh (all block rows computed)."""
+        block refresh (all block rows computed).  A sampled draw's noise
+        follows the rows in their top-k selection order, as the reference's."""
         model, gen = self.model, self.gen
         b, t_total = st.tokens.shape
         h = model.embed_tokens(_row_gather(st.tokens, self._block_cols(bs)))
@@ -544,7 +599,7 @@ class DiffusionEngine:
                     s_idx = torch.gather(s_idx, 1, sel)
                     h = _row_gather(h, sel)
         conf_new, pred_new = smp.confidence_and_pred(
-            model.logits(h), self.cfg.vocab_size, self.mask_id)
+            keys, model.logits(h), gen, self.cfg.vocab_size, self.mask_id)
         conf = _row_scatter(st.conf, conf_new, s_idx)
         pred = _row_scatter(st.pred, pred_new, s_idx)
         return st.cache, conf, pred, tuple(hidden), st.feat, None
@@ -561,7 +616,7 @@ class DiffusionEngine:
             eligible &= (bt >= 0).repeat_interleave(self.page_size, dim=1)
         return eligible
 
-    def _partial_refresh_step(self, st: BlockState, bs, prompt_start, bt,
+    def _partial_refresh_step(self, st: BlockState, bs, prompt_start, bt, keys,
                               row_mask: Optional[torch.Tensor] = None):
         """Partial prompt refresh (branch 3, adaptive feature cache): probe
         the shallow groups over the whole sequence, score each past token's
@@ -598,25 +653,92 @@ class DiffusionEngine:
         model.run_layers(_row_gather(h_probe, sel), dctx, st.cache, group_lo=gp,
                          group_hi=model.n_groups)
         # 4. the block refresh on the partially refreshed caches
-        out = self._decode_step(st, bs, prompt_start, bt, skip=False, row_mask=row_mask)
+        out = self._decode_step(st, bs, prompt_start, bt, keys, skip=False, row_mask=row_mask)
         stats = torch.stack([tok_ok.sum(dim=1), eligible.sum(dim=1)], dim=1).int()
         return out[:4] + (feat, stats)
 
-    def _vanilla_compute(self, st: BlockState, bs):
+    def _vanilla_compute(self, st: BlockState, bs, keys):
         """Full-sequence forward, no caches (the original LLaDA loop)."""
         model = self.model
         b, t_total = st.tokens.shape
         h = model.run_layers(model.embed_tokens(st.tokens),
                              ForwardCtx(self._rows(b, t_total)))
-        return self._confidence(st, bs, model.logits(_row_gather(h, self._block_cols(bs))))
+        return self._confidence(st, bs, model.logits(_row_gather(h, self._block_cols(bs))),
+                                keys)
 
-    def _confidence(self, st: BlockState, bs, logits_blk: torch.Tensor):
+    def _confidence(self, st: BlockState, bs, logits_blk: torch.Tensor, keys):
         if self.disallow_eos:
             masked = (_row_gather(st.tokens, self._block_cols(bs)) == self.mask_id).int()
             rev = masked.flip(1).cumsum(1).flip(1)
             logits_blk = smp.disallow_premature_eos(logits_blk, (rev - masked) > 0,
                                                     self.eos_id)
-        return smp.confidence_and_pred(logits_blk, self.cfg.vocab_size, self.mask_id)
+        return smp.confidence_and_pred(keys, logits_blk, self.gen, self.cfg.vocab_size,
+                                       self.mask_id)
+
+    # ------------------------------------------------------------------
+    # page operations of the scheduler (paged serving)
+    # ------------------------------------------------------------------
+    def _pools(self, state: EngineState) -> tuple[torch.Tensor, torch.Tensor]:
+        if not self.paged:
+            raise ValueError("page operations need the paged KV pool (paged=True)")
+        return state.cache.k, state.cache.v
+
+    def _page_index(self, pages) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(pages, np.int64).ravel(), device=self.device)
+
+    def fork_pages(self, state: EngineState, src: Sequence[int],
+                   dst: Sequence[int]) -> EngineState:
+        """Copy-on-write fork: physical page ``src[i]`` is copied onto
+        ``dst[i]`` in the K and V pools of every layer, in place (one kernel
+        launch on the card).  The scheduler calls it right before a refresh
+        would scatter diverged content into a page shared by several slots,
+        then repoints the forking slot's block table at ``dst``.  The lists
+        are padded to a multiple of 8 with ``(0, 0)`` no-ops, as the
+        reference pads them; a real destination may not also be a source."""
+        src = np.asarray(src, np.int32).ravel()
+        dst = np.asarray(dst, np.int32).ravel()
+        if src.shape != dst.shape:
+            raise ValueError(f"fork_pages: {src.size} sources but {dst.size} destinations")
+        if src.size:
+            pad = np.zeros(-(-src.size // 8) * 8 - src.size, np.int32)
+            ops.fork_pages(*self._pools(state), np.concatenate([src, pad]),
+                           np.concatenate([dst, pad]))
+        return state
+
+    def spill_pages(self, state: EngineState, pages: Sequence[int]):
+        """The exact bytes of physical ``pages`` (in that order) from the K
+        and V pools, copied to host memory: ``(k, v)``, each ``[G, n, ps,
+        Hkv, Dh]``.  The pool is not modified; the pages can be released as
+        soon as this returns."""
+        idx = self._page_index(pages)
+        return tuple(pool.index_select(1, idx).to("cpu", copy=True)
+                     for pool in self._pools(state))
+
+    def restore_pages(self, state: EngineState, pages: Sequence[int], data) -> EngineState:
+        """Writes a ``spill_pages`` snapshot back onto physical ``pages``
+        (same order as the spill), in place."""
+        idx = self._page_index(pages)
+        for pool, d in zip(self._pools(state), data):
+            if d.shape[1] != idx.numel():
+                raise ValueError(f"restore_pages: snapshot of {d.shape[1]} pages, "
+                                 f"not {idx.numel()}")
+            pool.index_copy_(1, idx, d.to(device=pool.device, dtype=pool.dtype))
+        return state
+
+    def scrub_pages(self, state: EngineState, pages: Sequence[int]) -> EngineState:
+        """Zeroes physical ``pages`` in the K and V pools, in place: a
+        quarantined row's non-finite K/V must not outlive it."""
+        idx = self._page_index(pages)
+        if idx.numel():
+            for pool in self._pools(state):
+                pool.index_fill_(1, idx, 0)
+        return state
+
+    def prompt_refresh_rows(self, phases) -> np.ndarray:
+        """[B] bool: which slots' next step is a prompt refresh, the only
+        branch that scatters into the row's prompt pages, given the slots'
+        phases.  The scheduler keys copy-on-write forks on it."""
+        return np.asarray(prompt_refresh_pred(self.gen, np.asarray(phases, np.int64)), bool)
 
 
 def _merge_step_outputs(mask: torch.Tensor, old, new):

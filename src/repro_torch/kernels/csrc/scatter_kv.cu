@@ -1,4 +1,5 @@
-// In-place KV-cache row scatter, written by hand for Hopper (sm_90a).
+// In-place KV-cache row scatter and copy-on-write page fork, written by hand
+// for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/scatter_kv.py, scatter_kv_kernel -- the K/V
 // write of ES-dLLM's Alg. 1: cache[b, idx[b, k]] = new[b, k], for the rows an
@@ -34,6 +35,19 @@
 // the reference; every pointer and the row size are multiples of 16 bytes
 // (any cache with H*D*elem a multiple of 16 and a 16-byte-aligned base),
 // else the call is refused.
+//
+// Fork (repro_fork_pages) replaces src/repro/kernels/scatter_kv.py,
+// fork_pages_kernel -- the copy-on-write copy behind prefix page sharing:
+// pool[g, dst[f]] = pool[g, src[f]] for every layer group g and pair f, in the
+// K and the V pool [G, P, ps, Hkv, Dh], in place (the TPU kernel aliases the
+// pool through input_output_aliases and routes pages by scalar prefetch).
+// What bounds it: data movement only, 2 * F * G * 2 planes * page bytes (a
+// read and a write of each page), so HBM bandwidth.  The design gives each
+// (pair, layer group, plane) one thread block, which streams the page with
+// 16-byte loads, four in flight per thread before their stores.  A pair with
+// src == dst (the (0, 0) pads of a fork list) writes nothing.  Race-free
+// only because no real destination is also a source of the same call; the
+// wrapper checks that on the host, and that every page is in [0, P).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -68,8 +82,51 @@ __global__ void __launch_bounds__(kThreads)
   for (long long i = threadIdx.x; i < row_bytes / 16; i += kThreads) dst[i] = src[i];
 }
 
+constexpr int kForkUnroll = 4;
+
+__global__ void __launch_bounds__(kThreads)
+    fork_pages_kernel(char* k, char* v, const int* src, const int* dst, int P,
+                      long long page_bytes) {
+  const int f = blockIdx.x, g = blockIdx.y;
+  char* pool = blockIdx.z ? v : k;
+  const int s = src[f], d = dst[f];
+  if (s == d || s < 0 || d < 0 || s >= P || d >= P) return;
+  const uint4* from = reinterpret_cast<const uint4*>(pool + ((long long)g * P + s) * page_bytes);
+  uint4* to = reinterpret_cast<uint4*>(pool + ((long long)g * P + d) * page_bytes);
+  const long long n = page_bytes / 16;
+  for (long long i = threadIdx.x; i < n; i += kForkUnroll * kThreads) {
+    uint4 r[kForkUnroll];
+#pragma unroll
+    for (int u = 0; u < kForkUnroll; ++u) {
+      const long long j = i + (long long)u * kThreads;
+      if (j < n) r[u] = from[j];
+    }
+#pragma unroll
+    for (int u = 0; u < kForkUnroll; ++u) {
+      const long long j = i + (long long)u * kThreads;
+      if (j < n) to[j] = r[u];
+    }
+  }
+}
+
 }  // namespace
 }  // namespace repro_torch
+
+// k, v: the K and V pools, same shape, each [G, P, page_bytes].  src/dst:
+// [F] int32 page pairs.  Returns a cudaError_t code (0 = launched), or -1
+// for arguments the kernel does not take.
+extern "C" int repro_fork_pages(void* k, void* v, const void* src, const void* dst, int F,
+                                int G, int P, long long page_bytes, void* stream) {
+  using namespace repro_torch;
+  if (F <= 0 || G <= 0 || G > 65535 || P <= 0 || page_bytes <= 0) return -1;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+                          static_cast<uintptr_t>(page_bytes);
+  if (align % 16 != 0) return -1;
+  fork_pages_kernel<<<dim3(F, G, 2), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<char*>(k), static_cast<char*>(v), static_cast<const int*>(src),
+      static_cast<const int*>(dst), P, page_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // pairs: 1 (c0/n0) or 2 (c0/n0 and c1/n1, same shapes).  keep: null or
 // [B, K] bytes.  block_tables: null (caches are [B, S, row]) or [B, S /

@@ -14,6 +14,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
 from repro_torch.kernels.importance import importance, variation
+from repro_torch.kernels.scatter_kv import check_fork_lists
+from repro_torch.kernels.scatter_kv import fork_pages as fork_pages_kernel
 from repro_torch.kernels.scatter_kv import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.scatter_kv import scatter_rows_paged as scatter_rows_paged_kernel
 
@@ -109,6 +111,20 @@ def scatter_rows_paged(pairs, idx: torch.Tensor, block_tables: torch.Tensor, *,
             ref.scatter_rows_paged_reference(pool, new, idx, block_tables, keep)
 
 
+def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst) -> None:
+    """In place, for the K and V pools ``[G, P, ps, ...]``: the copy-on-write
+    copy ``pool[:, dst[f]] = pool[:, src[f]]`` of host-side page lists;
+    ``(p, p)`` pairs (the ``(0, 0)`` pads) write nothing.  Raises
+    ``ValueError`` if a page is out of range or a real destination is also a
+    source.  One kernel launch on the card."""
+    if _on_card(k, v):
+        fork_pages_kernel(k, v, src, dst)
+        return
+    src, dst = check_fork_lists(src, dst, k.shape[1])
+    for pool in (k, v):
+        ref.fork_pages_reference(pool, torch.from_numpy(src), torch.from_numpy(dst))
+
+
 def importance_score(
     h_new: torch.Tensor,    # [B, K, d]
     h_old: torch.Tensor,    # [B, K, d]
@@ -138,4 +154,4 @@ def variation_score(
 
 
 __all__ = ["attention", "paged_attention", "scatter_rows", "scatter_rows_paged",
-           "importance_score", "variation_score"]
+           "fork_pages", "importance_score", "variation_score"]

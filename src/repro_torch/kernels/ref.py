@@ -151,6 +151,20 @@ def scatter_rows_paged_reference(
     return pool
 
 
+def fork_pages_reference(
+    pool: torch.Tensor,        # [G, P, ps, ...]
+    src: torch.Tensor,         # [F] int page ids
+    dst: torch.Tensor,         # [F] int page ids
+) -> torch.Tensor:
+    """In place: ``pool[:, dst[f]] = pool[:, src[f]]``.  Every source page is
+    gathered before any destination is written, so a destination that is also
+    a source would still read its old bytes; ``(p, p)`` pairs rewrite a page
+    with itself.  Returns ``pool``."""
+    src, dst = src.long(), dst.long()
+    pool[:, dst] = pool[:, src]
+    return pool
+
+
 def importance_reference(
     h_new: torch.Tensor,       # [B, K, d]
     h_old: torch.Tensor,       # [B, K, d]

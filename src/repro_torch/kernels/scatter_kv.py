@@ -1,16 +1,19 @@
-"""Wrappers of the hand-written in-place row-scatter kernel (``csrc/scatter_kv.cu``).
+"""Wrappers of the hand-written in-place row-scatter and page-fork kernels
+(``csrc/scatter_kv.cu``).
 
 ``scatter_rows`` is the counterpart of the reference's ``scatter_kv_kernel``
 (a dense cache), ``scatter_rows_paged`` of its ``paged_scatter_kv_kernel``
-(a page pool through a block table).  Both write into the tensors they are
-given (no copy, as the TPU kernels' ``input_output_aliases``), launch one
-kernel for K and V, and take CUDA tensors only; ``ops`` sends CPU tensors to
-the plain versions in ``ref``.
+(a page pool through a block table) and ``fork_pages`` of its
+``fork_pages_kernel`` (the copy-on-write page copy).  All write into the
+tensors they are given (no copy, as the TPU kernels' ``input_output_aliases``),
+launch one kernel for K and V, and take CUDA tensors only; ``ops`` sends CPU
+tensors to the plain versions in ``ref``.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -101,3 +104,57 @@ def scatter_rows_paged(
 
 
 scatter_rows_paged.launches = 0
+
+
+def check_fork_lists(src, dst, num_pages: int) -> tuple[np.ndarray, np.ndarray]:
+    """The fork's contract on its host-side page lists, as int32 arrays:
+    equal lengths, every page in ``[0, num_pages)``, and no real destination
+    (a pair with ``src != dst``) that is also a source of the same call, so
+    the in-place copies cannot race.  Raises ``ValueError`` otherwise."""
+    src = np.asarray(src, np.int64).ravel()
+    dst = np.asarray(dst, np.int64).ravel()
+    if src.shape != dst.shape:
+        raise ValueError(f"fork_pages: {src.size} sources but {dst.size} destinations")
+    bad = [int(p) for p in np.concatenate([src, dst]) if not 0 <= p < num_pages]
+    if bad:
+        raise ValueError(f"fork_pages: pages {sorted(set(bad))} outside [0, {num_pages})")
+    real = src != dst
+    aliased = set(dst[real].tolist()) & set(src.tolist())
+    if aliased:
+        raise ValueError(f"fork_pages: destination pages {sorted(aliased)} are also sources")
+    if len(set(dst[real].tolist())) != int(real.sum()):
+        raise ValueError("fork_pages: a destination page appears twice")
+    return src.astype(np.int32), dst.astype(np.int32)
+
+
+def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst) -> None:
+    """In place, for the K and V pools ``[G, P, ps, ...]`` (one shape and
+    dtype): ``pool[:, dst[f]] = pool[:, src[f]]``.  ``src`` and ``dst`` are
+    host-side page lists (checked by :func:`check_fork_lists`); ``(p, p)``
+    pairs write nothing.  One launch copies every pair in every layer group
+    of both pools, with 16-byte copies, so a page must span a multiple of 16
+    bytes and the pools must start 16-byte aligned."""
+    for t in (k, v):
+        if not t.is_cuda or t.device != k.device:
+            raise ValueError(f"fork_pages: pools must be CUDA tensors on {k.device}")
+        if not t.is_contiguous() or t.shape != k.shape or t.dtype != k.dtype:
+            raise ValueError("fork_pages: pools must be contiguous and match in shape and dtype")
+    if k.dim() < 3:
+        raise ValueError(f"fork_pages: a pool is [G, P, ps, ...], got {tuple(k.shape)}")
+    g, p = k.shape[:2]
+    src, dst = check_fork_lists(src, dst, p)
+    if src.size == 0:
+        return
+    page_bytes = k[0, 0].numel() * k.element_size()
+    if page_bytes % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"fork_pages: pages of {page_bytes} bytes or pool starts not "
+                         "aligned to 16 bytes")
+    pairs = torch.from_numpy(np.stack([src, dst])).to(k.device)
+    status = build.library().repro_fork_pages(
+        k.data_ptr(), v.data_ptr(), pairs[0].data_ptr(), pairs[1].data_ptr(), src.size, g, p,
+        page_bytes, build.stream_ptr(k.device))
+    build.check(status, "fork_pages")
+    fork_pages.launches += 1
+
+
+fork_pages.launches = 0

@@ -7,6 +7,10 @@ size unless ``--full``).
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 8 \\
       --paged --page-size 8 --early-advance --prompt-refresh-period 4 \\
       --cache-prompt-interval 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged \\
+      --page-size 8 --prefix-sharing --dup-prompts --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged \\
+      --page-size 8 --preemption --priority-classes 2 --kv-pages 9 --requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --full --dtype bfloat16 \\
       --paged --early-advance --requests 16 --batch 4 --prompt-len 128 \\
       --gen-length 64 --block-length 32
@@ -29,11 +33,9 @@ from repro_torch.models import Model
 from repro_torch.runtime import ConfigError, Request, StreamScheduler
 
 # reference flags outside this slice: (flag, attribute, value that is in the slice)
-_OUTSIDE = (("--prefix-sharing", "prefix_sharing", False),
-            ("--gather-refresh", "gather_refresh", False),
+_OUTSIDE = (("--gather-refresh", "gather_refresh", False),
             ("--window-blocks", "window_blocks", 0),
             ("--lazy-reserve", "lazy_reserve", False),
-            ("--preemption", "preemption", False),
             ("--block-causal", "block_causal", False),
             ("--shards", "shards", 1),
             ("--placement", "placement", "least_loaded"),
@@ -79,11 +81,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="spread requests round-robin over this many admission classes")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="per-request SLO budget from arrival")
-    ap.add_argument("--prefix-sharing", action="store_true")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="same-cycle duplicate prompts map the same physical prompt "
+                         "pages (requires --paged)")
+    ap.add_argument("--dup-prompts", action="store_true",
+                    help="submit one prompt duplicated --requests times (the "
+                         "prefix-sharing workload)")
     ap.add_argument("--gather-refresh", action="store_true")
     ap.add_argument("--window-blocks", type=int, default=0)
     ap.add_argument("--lazy-reserve", action="store_true")
-    ap.add_argument("--preemption", action="store_true")
+    ap.add_argument("--preemption", action="store_true",
+                    help="a higher-class arrival short of pages may spill a lower-class "
+                         "resident to host memory at its block boundary and resume it "
+                         "later (requires --paged)")
     ap.add_argument("--block-causal", action="store_true")
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--placement", default="least_loaded")
@@ -105,6 +115,14 @@ def validate(args: argparse.Namespace) -> None:
         raise ConfigError(f"--priority-classes must be >= 1, got {args.priority_classes}")
     if args.deadline_s is not None and args.deadline_s <= 0:
         raise ConfigError(f"--deadline-s must be positive, got {args.deadline_s}")
+    if args.prefix_sharing and not args.paged:
+        raise ConfigError("--prefix-sharing requires --paged: it shares pool pages")
+    if args.preemption and not args.paged:
+        raise ConfigError("--preemption requires --paged: spilling moves pool pages, "
+                          "dense KV rows cannot be released")
+    if args.preemption and args.prefix_sharing:
+        raise ConfigError("--preemption is incompatible with --prefix-sharing: a spill "
+                          "releases pages other requests may still map")
 
 
 def main(argv=None) -> list[Request]:
@@ -134,12 +152,19 @@ def main(argv=None) -> list[Request]:
     server = StreamScheduler(model, gen, max_slots=args.batch, prompt_len=args.prompt_len,
                              stream_cb=stream_cb, paged=args.paged,
                              page_size=args.page_size, kv_pages=args.kv_pages,
+                             prefix_sharing=args.prefix_sharing, preemption=args.preemption,
                              early_advance=args.early_advance, device=device)
     rng = np.random.default_rng(args.seed)
+    if args.dup_prompts:
+        dup_prompt = rng.integers(3, cfg.vocab_size, args.prompt_len).astype(np.int32)
     for i in range(args.requests):
-        plen = int(rng.integers(8, args.prompt_len + 1))
-        server.submit(Request(prompt=rng.integers(3, cfg.vocab_size, plen).astype(np.int32),
-                              priority=i % args.priority_classes, deadline_s=args.deadline_s))
+        if args.dup_prompts:
+            prompt = dup_prompt.copy()
+        else:
+            plen = int(rng.integers(8, args.prompt_len + 1))
+            prompt = rng.integers(3, cfg.vocab_size, plen).astype(np.int32)
+        server.submit(Request(prompt=prompt, priority=i % args.priority_classes,
+                              deadline_s=args.deadline_s))
 
     done = server.drain()
     st = server.stats
@@ -155,8 +180,15 @@ def main(argv=None) -> list[Request]:
     if args.paged:
         line += (f"  peak_pages={st.peak_pages_in_use}/{st.pages_total}"
                  f"  concurrency_peak={st.resident_peak}")
+        if args.prefix_sharing:
+            line += f"  cow_forks={st.cow_forks}"
+    if args.preemption:
+        line += (f"  preemptions={st.preemptions}  pages_spilled={st.pages_spilled}"
+                 f"  resume_p50={st.resume_p50:.3f}s")
     if args.deadline_s is not None:
         line += f"  deadline_rejects={st.deadline_rejects}"
+    if st.poisoned_requests:
+        line += f"  poisoned_requests={st.poisoned_requests}"
     print(line)
     ok = [r for r in done if r.output is not None]
     if ok:

@@ -12,9 +12,9 @@ strings:
   * ``DeadlineUnmeetable``— SLO admission verdict: the request cannot finish
                             inside its ``deadline_s`` given the measured
                             per-step cost.  Stored on ``Request.error``.
-  * ``PoisonedRequest``   — the request produced non-finite activations.
-                            The port has no quarantine yet: the scheduler
-                            raises it (ROADMAP.md).
+  * ``PoisonedRequest``   — the request produced non-finite activations
+                            and was quarantined.  Stored on
+                            ``Request.error``.
   * ``DrainStalled``      — the drain watchdog detected zero forward
                             progress (or blew its step/wall budget); names
                             the stuck slots and their phases.
@@ -54,9 +54,10 @@ class DeadlineUnmeetable(SchedulerError):
 
 
 class PoisonedRequest(SchedulerError):
-    """The request produced non-finite logits/hidden state.  The reference
-    quarantines it; the port's scheduler raises this until quarantine is
-    ported (ROADMAP.md)."""
+    """The request produced non-finite logits/hidden state and was
+    quarantined: retired unserved, its slot reset and its private pages
+    scrubbed.  Attached to ``Request.error`` and counted in
+    ``poisoned_requests``."""
 
     def __init__(self, request_id: int, slot: int, step: int):
         self.request_id = request_id

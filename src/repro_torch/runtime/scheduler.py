@@ -11,27 +11,42 @@ and does all control flow on the host:
   A request with ``deadline_s`` that cannot finish in time, given the
   measured per-step cost, is retired with ``DeadlineUnmeetable``;
 * **paged KV** (``paged=True``): the engine's caches are one page pool; the
-  ``PageAllocator`` gates admission on the pages a request needs from its
-  actual prompt length and requested blocks, maps them into the slot's
-  block-table row, and takes them back when the request retires;
+  refcounted ``PageAllocator`` gates admission on the pages a request needs
+  from its actual prompt length and requested blocks, maps them into the
+  slot's block-table row, and takes them back when the request retires;
+* **prefix page sharing** (``prefix_sharing=True``, paged): requests
+  admitted in the same cycle with an identical prompt (and prompt length
+  and block budget) map the first one's full prompt pages read-only.
+  Attention is bidirectional, so prompt K/V depend on the whole sequence:
+  greedy duplicates stay identical and share for life, while sampled ones
+  diverge at their first draw, so each follower holds copy-on-write reserve
+  pages from admission and the scheduler forks the shared pages onto them
+  (``engine.fork_pages``) right before the first refresh after divergence;
+* **preemption** (``preemption=True``, paged, not with sharing): a higher
+  class short of pages or slots spills a strictly lower-class resident at
+  its block boundary (its page bytes and row to host memory, its pages
+  freed) and the victim resumes later, on its own draw keys, exactly as an
+  uninterrupted run;
+* **quarantine**: a row that goes non-finite is retired with a typed
+  ``PoisonedRequest``, its slot reset and its private pages scrubbed before
+  they return to the free list; shared pages stay intact;
 * **streaming and retirement**: completed blocks go to ``Request.stream_cb``
   and the scheduler-wide callback; a finished request frees its slot and
   pages at once;
-* **stats**: latency, goodput, page gauges and the adaptive cache's
-  refresh counters;
+* **stats**: latency, goodput, page, sharing and failure gauges, and the
+  adaptive cache's refresh counters;
 * ``drain()`` with a watchdog that raises ``DrainStalled`` on zero progress.
 
 Where the reference rebuilds its immutable state with ``.at[slot].set``, the
 port writes the slot's row of the card's tensors in place.  The host reads
 the card twice per step: the engine's read of which passes the step runs,
 and one read of the per-row counters after it.  The slots' phases, which
-admission needs, are kept on the host from that second read.
+admission, preemption and the copy-on-write fork need, are kept on the host
+from that second read.
 
-Outside this slice (each raises ``ConfigError`` or ``NotImplementedError`` at
-construction, see ROADMAP.md): prefix sharing and its copy-on-write fork,
-preemption, lazy page reservation, and sampling.  A request whose row goes
-non-finite raises ``PoisonedRequest`` from ``step`` (the reference
-quarantines it).
+Outside the port so far (each raises ``ConfigError`` at construction, see
+ROADMAP.md): lazy page reservation and the persistent cross-request prefix
+store of block-causal mode.
 """
 from __future__ import annotations
 
@@ -44,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import GenerationConfig
+from repro_torch.core import prng
 from repro_torch.core.engine import DiffusionEngine
 from repro_torch.models.model import Model
 from repro_torch.runtime.errors import (
@@ -64,9 +80,13 @@ class SchedulerStats:
     steps: int = 0                       # engine steps run
     wall_s: float = 0.0                  # serving-loop wall: admission + engine.step
     latencies_s: list = dataclasses.field(default_factory=list)
-    pages_in_use: int = 0                # paged: pool pages held by resident requests
+    # paged gauges: pages_in_use counts physical pages, a page shared by
+    # several slots once
+    pages_in_use: int = 0                # pool pages with at least one claim
     pages_total: int = 0                 # allocatable pages (excl. garbage page)
     peak_pages_in_use: int = 0
+    shared_mappings: int = 0             # extra block-table claims on shared pages
+    cow_forks: int = 0                   # pages copied by copy-on-write forks
     resident_peak: int = 0               # max concurrently admitted requests
     early_advances: int = 0              # block advances before the aligned boundary
     admission_waits: list = dataclasses.field(default_factory=list)
@@ -75,7 +95,13 @@ class SchedulerStats:
     cache_refreshed_total: int = 0
     cache_eligible_total: int = 0
     refresh_event_tokens: list = dataclasses.field(default_factory=list)
+    # failure handling: a preemption spills one victim (all its pages);
+    # resume_waits measures spill to re-admission
+    preemptions: int = 0
+    pages_spilled: int = 0
+    resume_waits: list = dataclasses.field(default_factory=list)
     deadline_rejects: int = 0
+    poisoned_requests: int = 0           # rows quarantined by the non-finite detector
 
     @property
     def goodput(self) -> float:
@@ -98,8 +124,21 @@ class SchedulerStats:
     def tokens_refreshed_p50(self) -> float:
         return _pct(self.refresh_event_tokens, 50)
 
+    @property
+    def resume_p50(self) -> float:
+        """Median seconds a preempted request spent parked on the host."""
+        return _pct(self.resume_waits, 50)
+
     def latency_pct(self, pct: float) -> float:
         return _pct(self.latencies_s, pct)
+
+    def gauges(self) -> dict:
+        """Point-in-time gauge snapshot."""
+        return {name: getattr(self, name) for name in (
+            "pages_in_use", "pages_total", "peak_pages_in_use", "shared_mappings",
+            "cow_forks", "resident_peak", "early_advances", "admission_wait_p50",
+            "cache_hit_fraction", "tokens_refreshed_p50", "preemptions", "pages_spilled",
+            "resume_p50", "deadline_rejects", "poisoned_requests")}
 
 
 def _pct(xs: list, pct: float) -> float:
@@ -107,17 +146,30 @@ def _pct(xs: list, pct: float) -> float:
 
 
 class PageAllocator:
-    """Host-side free list over the shared KV pool.  Page 0 is the garbage
-    page (unmapped block-table entries write to it) and is never handed out;
-    pages 1..num_pages-1 are allocatable.  Each page carries one claim while
-    allocated; releasing a page without a claim raises ``LedgerError``."""
+    """Host-side refcounted free list over the shared KV pool.  Page 0 is the
+    garbage page (unmapped block-table entries write to it) and is never
+    handed out; pages 1..num_pages-1 are allocatable.
+
+    ``alloc`` hands pages out at refcount 1; ``share`` adds a read-only claim
+    (prefix sharing: refcount > 1 means a scatter of diverged content must
+    fork the page first); ``release`` drops one claim and frees the page
+    when the last one dies.  ``used_pages`` counts physical pages, a shared
+    page once.  Operating on a page with no live claim raises
+    ``LedgerError``.
+
+    The allocator also keeps the same-cycle prefix index: full prompt pages
+    registered under a content key at admission, so duplicates admitted in
+    the same cycle map the same pages.  The scheduler clears it at the end
+    of every admission cycle (bidirectional attention: pages written by
+    slots admitted in different cycles are never equal)."""
 
     def __init__(self, num_pages: int):
         if num_pages < 2:
             raise ConfigError("the pool needs the garbage page and at least one real page")
         self.num_pages = num_pages
         self._free = list(range(num_pages - 1, 0, -1))   # pop() -> low ids first
-        self._claimed = [False] * num_pages
+        self._refcount = [0] * num_pages
+        self._prefix: dict = {}          # content key -> (owner slot, [(vp, page)])
 
     @property
     def free_pages(self) -> int:
@@ -127,20 +179,84 @@ class PageAllocator:
     def used_pages(self) -> int:
         return (self.num_pages - 1) - len(self._free)
 
+    @property
+    def shared_mappings(self) -> int:
+        """Extra claims created by sharing (sum of refcount - 1 over pages)."""
+        return sum(rc - 1 for rc in self._refcount if rc > 1)
+
+    def refcount(self, page: int) -> int:
+        return self._refcount[page]
+
     def alloc(self, n: int) -> Optional[list[int]]:
         if n > len(self._free):
             return None
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
-            self._claimed[p] = True
+            self._refcount[p] = 1
         return pages
 
-    def release(self, pages: list[int]) -> None:
+    def _check_live(self, page: int, op: str) -> None:
+        rc = self._refcount[page]
+        if rc < 0:
+            raise LedgerError(f"negative refcount {rc} on page {page} (ledger corrupted)")
+        if rc == 0:
+            verb = "double release of" if op == "release" else "share-after-free on"
+            raise LedgerError(f"{verb} page {page}: no live claim")
+
+    def share(self, pages: list[int]) -> None:
+        """Adds one read-only claim per page."""
         for p in pages:
-            if not self._claimed[p]:
-                raise LedgerError(f"double release of page {p}: no live claim")
-            self._claimed[p] = False
-            self._free.append(p)
+            self._check_live(p, "share")
+            self._refcount[p] += 1
+
+    def release(self, pages: list[int]) -> int:
+        """Drops one claim per page; the last claim frees the page.  Returns
+        the number of pages physically freed."""
+        freed = 0
+        for p in pages:
+            self._check_live(p, "release")
+            self._refcount[p] -= 1
+            if self._refcount[p] == 0:
+                self._free.append(p)
+                freed += 1
+        return freed
+
+    def register_prefix(self, key, payload) -> None:
+        """Registers ``payload = (owner slot, [(vp, page)])`` under ``key``."""
+        self._prefix[key] = payload
+
+    def lookup_prefix(self, key):
+        return self._prefix.get(key)
+
+    def clear_prefix_index(self) -> None:
+        self._prefix.clear()
+
+    def drop_prefix_entries(self, pages: set) -> int:
+        """Drops every index entry that maps any of ``pages`` (quarantine: a
+        poisoned row's pages must not stay reachable); returns the number of
+        entries dropped."""
+        hit = [k for k, (_, page_map) in self._prefix.items()
+               if any(pg in pages for _, pg in page_map)]
+        for k in hit:
+            del self._prefix[k]
+        return len(hit)
+
+
+@dataclasses.dataclass(eq=False)
+class _SpilledRequest:
+    """A preempted request parked on the host, captured at its block
+    boundary (phase 0): the next step of both the parked and an
+    uninterrupted run is a full refresh, which rebuilds the confidence,
+    prediction and indicator caches from the tokens and the K/V, so only the
+    fields below must survive.  It holds no allocator claim while parked."""
+    req: Request
+    seq: int                 # submission order (FIFO within a class on resume)
+    n_blocks: int            # admission-time block budget
+    vps: list                # mapped virtual pages at spill time, in order
+    kv_data: tuple           # engine.spill_pages: (k, v), one page per entry of vps
+    row: dict                # the slot's per-row fields
+    streamed: int            # blocks already streamed
+    spill_s: float           # clock at spill (resume_waits gauge)
 
 
 class StreamScheduler:
@@ -154,22 +270,30 @@ class StreamScheduler:
         max_slots: int = 8,
         prompt_len: int = 64,
         pad_id: int = 0,
+        seed: int = 0,                      # base sampling key prng_key(seed)
         stream_cb: Optional[StreamCallback] = None,
         clock=time.monotonic,
         paged: bool = False,
         page_size: int = 16,
         kv_pages: Optional[int] = None,     # None => dense-equivalent pool
+        prefix_sharing: bool = False,       # same-cycle prompt-page sharing (paged)
         early_advance: bool = False,        # per-row cadence: any-iteration
                                             # admission + immediate block advance
-        prefix_sharing: bool = False,
         lazy_reserve: bool = False,
-        preemption: bool = False,
+        preemption: bool = False,           # spill lower classes to host (paged)
         **engine_kw,
     ):
-        for flag, what in ((prefix_sharing, "prefix_sharing (and its copy-on-write fork)"),
-                           (lazy_reserve, "lazy_reserve"), (preemption, "preemption")):
-            if flag:
-                raise ConfigError(f"{what} is outside this slice of the port (ROADMAP.md)")
+        if lazy_reserve:
+            raise ConfigError("lazy_reserve is outside the port so far (ROADMAP.md)")
+        if prefix_sharing and not paged:
+            raise ConfigError("prefix_sharing shares pool pages: it requires paged=True")
+        if preemption and not paged:
+            raise ConfigError("preemption=True requires paged=True: spilling moves pool "
+                              "pages, dense KV rows cannot be released")
+        if preemption and prefix_sharing:
+            raise ConfigError("preemption=True is incompatible with prefix_sharing: a spill "
+                              "releases the victim's pages, which sharing may have mapped "
+                              "into co-resident slots")
         if gen.gen_length % gen.block_length:
             raise ConfigError("gen_length must be a multiple of block_length")
         self.gen = gen
@@ -179,6 +303,8 @@ class StreamScheduler:
         self.clock = clock
         self.paged = paged
         self.page_size = page_size
+        self.prefix_sharing = prefix_sharing
+        self.preemption = preemption
         self.early_advance = early_advance
         t_total = prompt_len + gen.gen_length
         self.allocator: Optional[PageAllocator] = None
@@ -196,13 +322,22 @@ class StreamScheduler:
         self.engine = DiffusionEngine(model, gen, early_advance=early_advance, **engine_kw)
         self.device = self.engine.device
         self.n_blocks = gen.gen_length // gen.block_length
-        self.state = self.engine.init_engine_state(max_slots, prompt_len)
+        self.state = self.engine.init_engine_state(max_slots, prompt_len, prng.prng_key(seed))
         self._phases = np.zeros((max_slots,), np.int32)   # host copy of state.phase
         self.queue: deque[Request] = deque()
         self.slot_req: list[Optional[Request]] = [None] * max_slots
         self.slot_streamed: list[int] = [0] * max_slots
         self.slot_blocks: list[int] = [0] * max_slots   # blocks this request asked for
+        # one entry per page claim the slot holds (shared pages included)
         self.slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
+        self.slot_order: list[int] = [0] * max_slots    # admission sequence number
+        self._admit_seq = 0
+        # preempted requests parked on the host; they compete with the queue
+        # by (priority, submission order)
+        self._spilled: list[_SpilledRequest] = []
+        # sharing cohorts: {"owner": slot, "slots": {slot: [(vp, page)]},
+        # "reserve": {slot: [pages]}, "born": step of admission}
+        self.cohorts: list[dict] = []
         self._submit_seq = 0
         self._seq: dict[int, int] = {}      # request_id -> submission seq
         # measured per-step wall (EWMA): the deadline admission estimate
@@ -272,16 +407,44 @@ class StreamScheduler:
         return first_vp, last_vp
 
     def _admit(self) -> None:
-        """Fill free slots from the queue, highest priority first and FIFO
-        within a class; in paged mode the head waits (no overtaking) until
-        retirements return enough pages.  An admitted slot's phase is 0, so
-        its next step prefills it."""
+        """Fill free slots, highest priority first and FIFO within a class;
+        parked (preempted) requests compete under the same order.  In paged
+        mode the head waits (no overtaking) until enough pages are free, or,
+        with ``preemption``, spills strictly lower classes to make room.  An
+        admitted slot's phase is 0, so its next step prefills it.
+
+        With ``prefix_sharing`` a request's full prompt pages are indexed by
+        content; a same-cycle duplicate (identical prompt bytes, prompt
+        length and block budget) maps the first one's pages read-only and
+        allocates only its private pages, plus, when sampling, as many
+        copy-on-write reserve pages as it shares, so the fork before its
+        first refresh never waits on the free list."""
         free = [i for i, r in enumerate(self.slot_req) if r is None]
+        if not (self.queue or self._spilled) or (not free and not self.preemption):
+            return
         st = self.state
         t_total = self.prompt_len + self.gen.gen_length
         now = self.clock()
-        while self.queue and free:
-            req = min(self.queue, key=lambda r: (-r.priority, self._seq[r.request_id]))
+        sampled = self.gen.temperature > 0
+        cycle_cohorts: dict = {}            # share key -> cohort (this cycle only)
+        while self.queue or self._spilled:
+            cands = [(-r.priority, self._seq[r.request_id], r) for r in self.queue]
+            cands += [(-rec.req.priority, rec.seq, rec) for rec in self._spilled]
+            neg_prio, _, top = min(cands, key=lambda c: c[:2])
+            if not free:
+                # slot-starved: spill one lower-class victim for its slot
+                if not self._try_preempt(0, -neg_prio, free):
+                    break
+            if isinstance(top, _SpilledRequest):
+                got = self.allocator.alloc(len(top.vps))
+                if got is None and self._try_preempt(len(top.vps), top.req.priority, free):
+                    got = self.allocator.alloc(len(top.vps))
+                if got is None:
+                    break                   # page-gated: retry next step
+                self._spilled.remove(top)
+                self._resume_into(free.pop(0), top, got, now)
+                continue
+            req = top
             if req.deadline_s is not None:
                 waited = now - req.arrival_s
                 est = self._estimate_service_s(self._req_blocks(req))
@@ -292,12 +455,35 @@ class StreamScheduler:
             n_blocks = self._req_blocks(req)
             p = np.asarray(req.prompt, np.int32)[-self.prompt_len:]
             pages: list[int] = []
+            shared_map: list[tuple[int, int]] = []    # [(vp, physical page)]
+            reserve: list[int] = []
+            share_key = share_hit = None
             if self.allocator is not None:
                 first_vp, last_vp = self._pages_needed(len(p), n_blocks)
-                got = self.allocator.alloc(last_vp - first_vp)
-                if got is None:
-                    break                   # page-gated: retry next step
-                pages = got
+                need = last_vp - first_vp
+                vp0 = -(-(self.prompt_len - len(p)) // self.page_size)   # first full prompt page
+                vp1 = self.prompt_len // self.page_size
+                if self.prefix_sharing and vp1 > vp0:
+                    share_key = (p.tobytes(), len(p), n_blocks)
+                    share_hit = self.allocator.lookup_prefix(share_key)
+                if share_hit is not None:
+                    owner_slot, owner_map = share_hit
+                    shared_map = list(owner_map)
+                    n_res = len(shared_map) if sampled else 0
+                    n_priv = need - len(shared_map)
+                    self.allocator.share([pg for _, pg in shared_map])
+                    got = self.allocator.alloc(n_priv + n_res)
+                    if got is None:
+                        self.allocator.release([pg for _, pg in shared_map])
+                        break               # page-gated: retry next step
+                    pages, reserve = got[:n_priv], got[n_priv:]
+                else:
+                    got = self.allocator.alloc(need)
+                    if got is None and self._try_preempt(need, req.priority, free):
+                        got = self.allocator.alloc(need)
+                    if got is None:
+                        break               # page-gated: retry next step
+                    pages = got
             slot = free.pop(0)
             self.queue.remove(req)
             row = np.full((t_total,), self.engine.mask_id, np.int32)
@@ -311,6 +497,8 @@ class StreamScheduler:
             st.iters[slot] = 0
             st.active[slot] = True
             st.prompt_start[slot] = self.prompt_len - len(p) if self.paged else 0
+            st.sample_seeds[slot] = (req.sample_seed if req.sample_seed is not None
+                                     else req.request_id)
             if st.feat is not None:
                 # a recycled slot must not inherit the previous request's
                 # probe features, confidences or refresh counters
@@ -320,15 +508,39 @@ class StreamScheduler:
                 st.cache_eligible[slot] = 0
             if self.allocator is not None:
                 bt_row = np.full((t_total // self.page_size,), -1, np.int32)
-                bt_row[first_vp:last_vp] = pages
+                shared_vps = {vp for vp, _ in shared_map}
+                bt_row[[vp for vp in range(first_vp, last_vp) if vp not in shared_vps]] = pages
+                for vp, pg in shared_map:
+                    bt_row[vp] = pg
                 st.block_tables[slot] = torch.from_numpy(bt_row).to(self.device)
-                self.slot_pages[slot] = pages
+                # one claim per mapped page; reserves are claims too, held by
+                # the cohort until a fork or retirement consumes them
+                self.slot_pages[slot] = pages + [pg for _, pg in shared_map]
+                if share_hit is not None:
+                    cohort = cycle_cohorts.get(share_key)
+                    if cohort is None:
+                        cohort = {"owner": owner_slot, "slots": {owner_slot: list(owner_map)},
+                                  "reserve": {}, "born": self.stats.steps}
+                        self.cohorts.append(cohort)
+                        cycle_cohorts[share_key] = cohort
+                    cohort["slots"][slot] = list(shared_map)
+                    if reserve:
+                        cohort["reserve"][slot] = reserve
+                elif share_key is not None:
+                    self.allocator.register_prefix(
+                        share_key, (slot, [(vp, int(bt_row[vp])) for vp in range(vp0, vp1)]))
+                self.slot_order[slot] = self._admit_seq
+                self._admit_seq += 1
                 self._page_gauges()
             self.slot_blocks[slot] = n_blocks
             req.admit_s = now
             self.stats.admission_waits.append(now - req.arrival_s)
             self.slot_req[slot] = req
             self.slot_streamed[slot] = 0
+        if self.allocator is not None:
+            # bidirectional attention: the index only describes this cycle
+            self.allocator.clear_prefix_index()
+            self.stats.shared_mappings = self.allocator.shared_mappings
         self.stats.resident_peak = max(self.stats.resident_peak,
                                        sum(r is not None for r in self.slot_req))
 
@@ -336,23 +548,126 @@ class StreamScheduler:
         self.stats.pages_in_use = self.allocator.used_pages
         self.stats.peak_pages_in_use = max(self.stats.peak_pages_in_use,
                                            self.stats.pages_in_use)
+        self.stats.shared_mappings = self.allocator.shared_mappings
+
+    # ------------------------------------------------------------------
+    # priority preemption: spill to host memory and resume
+    # ------------------------------------------------------------------
+    def _try_preempt(self, need: int, priority: int, free: list) -> bool:
+        """Spills residents of a strictly lower class until the free list
+        covers ``need`` pages (``need == 0``: until one slot is free).
+        Victims are taken lowest class first and youngest first within a
+        class, and only at their block boundary (phase 0), where the parked
+        row's next step is the full refresh an uninterrupted run would take.
+        Returns whether the need is met."""
+        if not self.preemption or self.allocator is None:
+            return False
+        victims = [s for s, r in enumerate(self.slot_req)
+                   if r is not None and r.priority < priority and self._phases[s] == 0]
+        if not victims:
+            return False
+        victims.sort(key=lambda s: (self.slot_req[s].priority, -self.slot_order[s]))
+        if need > 0 and self.allocator.free_pages + sum(
+                len(self.slot_pages[s]) for s in victims) < need:
+            return False                     # even spilling every victim won't fit
+        now = self.clock()
+        spilled_any = False
+        for s in victims:
+            if (need > 0 and self.allocator.free_pages >= need) or (need == 0 and spilled_any):
+                break
+            self._spill_slot(s, now)
+            free.append(s)
+            spilled_any = True
+        return self.allocator.free_pages >= need if need > 0 else spilled_any
+
+    def _spill_slot(self, slot: int, now: float) -> None:
+        """Parks a resident on the host: its mapped page bytes and per-row
+        fields are copied off the card, every allocator claim is released,
+        and the row is deactivated and unmapped."""
+        st = self.state
+        req = self.slot_req[slot]
+        bt = st.block_tables[slot].cpu().numpy()
+        vps = [int(v) for v in np.nonzero(bt >= 0)[0]]
+        pages = [int(bt[vp]) for vp in vps]
+        counters = torch.stack([st.bs[slot], st.blocks_left[slot], st.iters[slot],
+                                st.prompt_start[slot], st.sample_seeds[slot]]).tolist()
+        row = dict(zip(("bs", "blocks_left", "iters", "prompt_start", "sample_seeds"),
+                       counters))
+        # copies: the slot's row is rewritten as soon as another request takes it
+        row["tokens"] = st.tokens[slot].to("cpu", copy=True)
+        if st.feat is not None:
+            # the adaptive cache's planes carry across refreshes, so unlike
+            # conf/pred/hidden they must round-trip
+            for name in ("feat", "conf_full", "cache_refreshed", "cache_eligible"):
+                row[name] = getattr(st, name)[slot].to("cpu", copy=True)
+        self._spilled.append(_SpilledRequest(
+            req=req, seq=self._seq[req.request_id], n_blocks=self.slot_blocks[slot],
+            vps=vps, kv_data=self.engine.spill_pages(st, pages), row=row,
+            streamed=self.slot_streamed[slot], spill_s=now))
+        self.allocator.release(self.slot_pages[slot])
+        self.slot_pages[slot] = []
+        st.active[slot] = False
+        st.block_tables[slot] = -1
+        self.slot_req[slot] = None
+        self.stats.preemptions += 1
+        self.stats.pages_spilled += len(pages)
+        self.stats.pages_in_use = self.allocator.used_pages
+
+    def _resume_into(self, slot: int, rec: _SpilledRequest, got: list, now: float) -> None:
+        """Re-admits a parked request: its page bytes go onto the fresh
+        pages ``got``, mapped at the same virtual pages, and every per-row
+        field comes back, at phase 0 and the same lifetime ``iters``, so the
+        request resumes on the draw keys an uninterrupted run would use."""
+        st = self.state
+        self.engine.restore_pages(st, got, rec.kv_data)
+        bt_row = np.full(((self.prompt_len + self.gen.gen_length) // self.page_size,), -1,
+                         np.int32)
+        bt_row[rec.vps] = got
+        st.block_tables[slot] = torch.from_numpy(bt_row).to(self.device)
+        for name, value in rec.row.items():
+            getattr(st, name)[slot] = value.to(self.device) if torch.is_tensor(value) else value
+        st.phase[slot] = 0
+        self._phases[slot] = 0
+        st.active[slot] = True
+        st.poisoned[slot] = False
+        self.slot_req[slot] = rec.req
+        self.slot_blocks[slot] = rec.n_blocks
+        self.slot_streamed[slot] = rec.streamed
+        self.slot_pages[slot] = list(got)
+        self.slot_order[slot] = self._admit_seq
+        self._admit_seq += 1
+        self.stats.resume_waits.append(now - rec.spill_s)
+        self._page_gauges()
 
     # ------------------------------------------------------------------
     # the serving loop
     # ------------------------------------------------------------------
     def has_work(self) -> bool:
-        return bool(self.queue) or any(r is not None for r in self.slot_req)
+        return bool(self.queue) or bool(self._spilled) or any(
+            r is not None for r in self.slot_req)
 
     def step(self) -> bool:
         """One engine iteration (+ bookkeeping).  Returns False and does
         nothing when there is neither queued nor resident work."""
         t0 = self.clock()           # admission work is wall time
+        resident = np.asarray([r is not None for r in self.slot_req])
+        if (self.queue or self._spilled) and self._phases.any() and not resident.any():
+            # quarantine can retire the last resident mid-block and freeze
+            # every phase off the boundary; with nobody resident the phases
+            # mean nothing, but the aligned admission gate reads them
+            self._phases[:] = 0
+            self.state.phase.zero_()
         if self.early_advance or bool((self._phases == 0).all()):
             self._admit()
         phases = self._phases.copy()
         resident = np.asarray([r is not None for r in self.slot_req])
         if not resident.any():
             return False
+        # rows whose next step is a prompt refresh, the only branch that
+        # scatters into the row's prompt pages
+        refresh_rows = self.engine.prompt_refresh_rows(phases) & resident
+        if self.cohorts and refresh_rows.any():
+            self._cow_fork_before_refresh(refresh_rows)
         pre = self.state
         self.state = self.engine.step(pre)
         # one read of the per-row counters: it waits for the step to finish
@@ -370,10 +685,9 @@ class StreamScheduler:
         self.stats.cache_refreshed_total += int(d_r.sum())
         self.stats.cache_eligible_total += int(d_e.sum())
         self.stats.refresh_event_tokens.extend(d_r[d_e > 0].tolist())
-        for slot in np.nonzero(poisoned)[0]:
-            req = self.slot_req[slot]
-            raise PoisonedRequest(-1 if req is None else req.request_id, int(slot),
-                                  self.stats.steps)
+        if poisoned.any():
+            # before retirement: a poisoned row must never reach streaming
+            self._quarantine([int(s) for s in np.nonzero(poisoned)[0]])
         if self.early_advance:
             steps_pb = self.gen.resolved_steps()
             adv = (bl < pre_bl) & resident
@@ -383,6 +697,87 @@ class StreamScheduler:
         elif bool((phase == 0).all()):
             self._finish_cycle(bl, active)
         return True
+
+    # ------------------------------------------------------------------
+    # copy-on-write
+    # ------------------------------------------------------------------
+    def _release_cohort_claims(self, slot: int) -> None:
+        """Takes ``slot`` out of its cohort, releasing its unused reserve;
+        a cohort left with one member dissolves."""
+        for cohort in list(self.cohorts):
+            if slot in cohort["slots"]:
+                del cohort["slots"][slot]
+                reserve = cohort["reserve"].pop(slot, [])
+                if reserve:
+                    self.allocator.release(reserve)
+                if len(cohort["slots"]) <= 1:
+                    self._dissolve_cohort(cohort)
+
+    def _dissolve_cohort(self, cohort: dict) -> None:
+        """Drops a cohort whose membership fell to one: its shared pages are
+        the survivor's own now, so it never forks and its reserve goes back."""
+        for reserve in cohort["reserve"].values():
+            self.allocator.release(reserve)
+        cohort["reserve"] = {}
+        self.cohorts.remove(cohort)
+
+    def _cow_fork_before_refresh(self, refresh_rows: np.ndarray) -> None:
+        """An upcoming refresh scatters recomputed prompt K/V into the
+        refreshing row's mapped pages.  Greedy cohorts stay identical (the
+        same trajectory, so the same bytes), and share for life; sampled
+        ones diverged at their first draw, so on the first step after
+        admission on which any member refreshes, every follower's shared
+        pages are copied onto its reserve (one ``fork_pages`` launch for all
+        cohorts) and its block table repointed."""
+        if self.gen.temperature <= 0:
+            return
+        bt = self.state.block_tables.cpu().numpy()
+        all_src: list[int] = []
+        all_dst: list[int] = []
+        for cohort in list(self.cohorts):
+            if self.stats.steps <= cohort["born"]:
+                continue            # the admission prefill itself: nothing drawn yet
+            if not any(refresh_rows[s] for s in cohort["slots"]):
+                continue
+            for slot in [s for s in cohort["slots"] if s != cohort["owner"]]:
+                mapping = cohort["slots"].pop(slot)
+                src = [pg for _, pg in mapping]
+                dst = cohort["reserve"].pop(slot, [])
+                if len(dst) != len(src):
+                    raise LedgerError(f"slot {slot}: {len(dst)} reserve pages for "
+                                      f"{len(src)} shared pages")
+                for (vp, _), pg in zip(mapping, dst):
+                    bt[slot, vp] = pg
+                sp = self.slot_pages[slot]
+                for s_pg, d_pg in zip(src, dst):
+                    sp[sp.index(s_pg)] = d_pg
+                self.allocator.release(src)          # drop the read-only claims
+                self.stats.cow_forks += len(src)
+                all_src += src
+                all_dst += dst
+            self._dissolve_cohort(cohort)
+        if all_src:
+            self.engine.fork_pages(self.state, all_src, all_dst)
+            self.state.block_tables.copy_(torch.from_numpy(bt))
+        self.stats.shared_mappings = self.allocator.shared_mappings
+        self.stats.pages_in_use = self.allocator.used_pages
+
+    # ------------------------------------------------------------------
+    # retirement
+    # ------------------------------------------------------------------
+    def _free_slot_pages(self, slot: int) -> None:
+        """Releases every claim of ``slot`` (its cohort reserve included)
+        and unmaps its row: a freed page may be handed out next step, and a
+        stale mapping would let the idle slot write it."""
+        if self.allocator is None:
+            return
+        if self.slot_pages[slot]:
+            self.allocator.release(self.slot_pages[slot])
+            self.slot_pages[slot] = []
+            self.state.block_tables[slot] = -1
+        self._release_cohort_claims(slot)
+        self.stats.pages_in_use = self.allocator.used_pages
+        self.stats.shared_mappings = self.allocator.shared_mappings
 
     def _finish_cycle(self, blocks_left: np.ndarray, active: np.ndarray) -> None:
         """Stream newly completed blocks, retire finished requests, recycle
@@ -415,20 +810,56 @@ class StreamScheduler:
             self.stats.latencies_s.append(req.latency_s)
             self._completed.append(req)
             self.slot_req[slot] = None
-            if self.allocator is not None:
-                # unmap the slot's row: a freed page may be handed out next
-                # step, and a stale mapping would let the idle slot write it
-                self.allocator.release(self.slot_pages[slot])
-                self.slot_pages[slot] = []
-                self.state.block_tables[slot] = -1
-                self.stats.pages_in_use = self.allocator.used_pages
+            self._free_slot_pages(slot)
+
+    def _quarantine(self, slots: list[int]) -> None:
+        """Retires rows the engine's non-finite detector flagged: a typed
+        ``PoisonedRequest``, the slot reset, its pages freed.  Pages the row
+        held alone (refcount 1) are zeroed before they return to the free
+        list, so a later owner never reads the non-finite bytes; a shared
+        page is left intact (greedy sharers go non-finite together and are
+        quarantined in the same sweep; sampled cohorts forked before any
+        diverged write).  Co-resident rows never read the row: attention
+        reads only the reader's own block table or cache row."""
+        st = self.state
+        now = self.clock()
+        for slot in slots:
+            req = self.slot_req[slot]
+            if req is not None:
+                req.error = PoisonedRequest(req.request_id, slot, self.stats.steps)
+                req.finish_s = now
+                req.latency_s = now - req.arrival_s
+                self.stats.poisoned_requests += 1
+                self._completed.append(req)
+                self.slot_req[slot] = None
+            if self.allocator is not None and self.slot_pages[slot]:
+                private = [pg for pg in self.slot_pages[slot]
+                           if self.allocator.refcount(pg) == 1]
+                if private:
+                    self.engine.scrub_pages(st, private)
+                self.allocator.drop_prefix_entries(set(self.slot_pages[slot]))
+            self._free_slot_pages(slot)
+            # reset the device row: no non-finite value survives in a plane
+            # a later occupant could carry over
+            st.tokens[slot] = self.engine.mask_id
+            st.conf[slot] = 0.0
+            st.pred[slot] = 0
+            for h in st.hidden:
+                h[slot] = 0.0
+            if st.feat is not None:
+                st.feat[slot] = 0.0
+                st.conf_full[slot] = 0.0
+            st.active[slot] = False
+            st.poisoned[slot] = False
+            self.slot_streamed[slot] = 0
 
     def drain(self, *, max_steps: Optional[int] = None,
               max_wall_s: Optional[float] = None) -> list[Request]:
-        """Run until the queue and the slots are empty; returns the retired
-        requests (read ``Request.output`` / ``Request.error``).  Raises
-        ``DrainStalled`` when ``max_steps`` or ``max_wall_s`` runs out with
-        work left, or after ``_drain_patience`` steps with no progress."""
+        """Run until the queue, the parked requests and the slots are empty;
+        returns the retired requests (read ``Request.output`` /
+        ``Request.error``).  Raises ``DrainStalled`` when ``max_steps`` or
+        ``max_wall_s`` runs out with work left, or after ``_drain_patience``
+        steps with no progress."""
         t_start = self.clock()
         steps = idle = 0
         snap = self._progress_snapshot()
@@ -455,7 +886,7 @@ class StreamScheduler:
         s = self.stats
         return (s.completed, s.tokens_out, tuple(self.slot_streamed),
                 sum(r is not None for r in self.slot_req), len(self.queue),
-                s.deadline_rejects)
+                len(self._spilled), s.deadline_rejects, s.poisoned_requests, s.preemptions)
 
     def _stuck_slots(self) -> list:
         phases = self.state.phase.cpu().numpy()

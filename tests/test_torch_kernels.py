@@ -15,7 +15,7 @@ from repro.kernels import ops as jops
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
 from repro_torch.kernels.importance import importance, variation
-from repro_torch.kernels.scatter_kv import scatter_rows, scatter_rows_paged
+from repro_torch.kernels.scatter_kv import fork_pages, scatter_rows, scatter_rows_paged
 
 ATOL = 2e-5   # f32: the two sides sum the softmax in different orders
 
@@ -341,3 +341,15 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
         scatter_rows_paged(((got, new),), idx, bt, keep)
         want = ref.scatter_rows_paged_reference(pool_k.clone(), new, idx, bt, keep)
         assert torch.equal(got[1:], want[1:])
+    # the copy-on-write fork: in place, (0, 0) pads, aliased lists refused
+    pools = [torch.randn(3, 16, 8, 2, 64, generator=g, device=cuda_device).to(dtype)
+             for _ in "kv"]
+    src, dst = [4, 0, 9, 0, 2, 0, 0, 0], [11, 0, 5, 0, 13, 0, 0, 0]
+    want = [ref.fork_pages_reference(p.clone(), torch.tensor(src), torch.tensor(dst))
+            for p in (t.cpu() for t in pools)]
+    ptrs = [p.data_ptr() for p in pools]
+    fork_pages(*pools, src, dst)
+    assert [p.data_ptr() for p in pools] == ptrs
+    assert all(torch.equal(p.cpu(), w) for p, w in zip(pools, want))
+    with pytest.raises(ValueError, match="also sources"):
+        fork_pages(*pools, [4, 11], [11, 12])

@@ -10,7 +10,8 @@ on top of it, on reduced LLaDA-8B (4 layers, as in ``test_torch_engine``):
   dense and paged, with both ``early_advance`` settings (weights x10 for
   non-degenerate tokens), equals the port's own offline replay, and every
   page returns to the allocator;
-* what this slice leaves out raises.
+* what the port leaves out raises, and the launcher takes the sharing and
+  preemption flags.
 """
 import jax
 import jax.numpy as jnp
@@ -29,7 +30,6 @@ from repro_torch.runtime import (
     DrainStalled,
     LedgerError,
     PageAllocator,
-    PoisonedRequest,
     Request,
     StreamScheduler,
 )
@@ -177,33 +177,12 @@ def test_streaming_callbacks_and_gauges():
     assert sched.stats.goodput > 0 and sched.stats.latency_pct(95) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(prefix_sharing=True), dict(preemption=True),
-                                dict(lazy_reserve=True)],
-                         ids=lambda k: next(iter(k)))
+@pytest.mark.parametrize("kw", [dict(lazy_reserve=True)], ids=lambda k: next(iter(k)))
 def test_serving_options_outside_the_slice_raise(kw):
     _, _, tm = models("llada-8b")
     with pytest.raises(ConfigError, match="ROADMAP"):
         StreamScheduler(tm, gen_configs(**SERVE)[1], device="cpu", paged=True, page_size=PS,
                         prompt_len=PL, **kw)
-
-
-def test_sampled_serving_raises():
-    _, _, tm = models("llada-8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamScheduler(tm, gen_configs(temperature=0.7, **SERVE)[1], device="cpu",
-                        prompt_len=PL)
-
-
-def test_poisoned_row_raises():
-    """A non-finite row is never carried silently: ``step`` raises."""
-    _, _, tm = models("llada-8b")
-    sched = StreamScheduler(tm, gen_configs(**SERVE)[1], device="cpu", max_slots=2,
-                            prompt_len=PL)
-    sched.submit(Request(prompt=np.arange(3, 19, dtype=np.int32)))
-    sched.step()
-    sched.state.cache.k[:, 0] = float("nan")
-    with pytest.raises(PoisonedRequest, match="slot 0"):
-        sched.step()
 
 
 def test_drain_watchdog_deadline_and_ledger():
@@ -239,7 +218,33 @@ def test_serve_launcher_on_the_cpu(capsys):
     assert out.count("[stream]") == 6 and "deadline_rejects=0" in out
 
 
-@pytest.mark.parametrize("flag", [["--prefix-sharing"], ["--preemption"], ["--lazy-reserve"],
+@pytest.mark.parametrize("argv,out", [
+    (["--prefix-sharing", "--dup-prompts", "--requests", "4", "--batch", "4"],
+     "cow_forks=0"),
+    (["--preemption", "--priority-classes", "2", "--requests", "4", "--batch", "2",
+      "--kv-pages", "5"], "preemptions="),
+], ids=["prefix_sharing", "preemption"])
+def test_serve_launcher_sharing_and_preemption(argv, out, capsys):
+    done = serve.main(["--device", "cpu", "--gen-length", "16", "--block-length", "8",
+                       "--prompt-len", "16", "--paged", "--page-size", "8", *argv])
+    assert len(done) == 4 and all(r.error is None and r.output.shape == (16,) for r in done)
+    if "--dup-prompts" in argv:
+        assert len({r.prompt.tobytes() for r in done}) == 1
+    printed = capsys.readouterr().out
+    assert "served 4 requests" in printed and out in printed
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--preemption"], "requires --paged"),
+    (["--prefix-sharing"], "requires --paged"),
+    (["--paged", "--preemption", "--prefix-sharing"], "incompatible"),
+], ids=["preemption_dense", "sharing_dense", "preemption_and_sharing"])
+def test_serve_launcher_refuses_bad_combinations(flags, why):
+    with pytest.raises(ConfigError, match=why):
+        serve.main(["--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flag", [["--lazy-reserve"],
                                   ["--gather-refresh"], ["--block-causal"],
                                   ["--window-blocks", "1"], ["--shards", "2"],
                                   ["--runtime", "batch"]], ids=lambda f: f[0])
