@@ -14,9 +14,10 @@ no result):
    card, at the offline and serving paths' shapes, in float32 and bfloat16,
    with kernel, plain and library times and the bound from bytes and
    operations (the copy-on-write fork also: in place, no pool-sized
-   allocation, aliased lists refused); the threefry key chain's known
-   answers on the card, a draw of the sampled path's shape with bits equal
-   to the CPU's, and the draw's time;
+   allocation, aliased lists refused; the SSD chunk step at mamba2-370m's
+   decode, prefill, two-group and ragged shapes); the threefry key chain's
+   known answers on the card, a draw of the sampled path's shape with bits
+   equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
    against the CPU (plain versions): offline ES generation (greedy tokens
    equal, final-block confidences within 1e-4); a staggered request trace
@@ -26,7 +27,8 @@ no result):
    with prefix sharing on LLaDA and Dream (top-p), two duplicate-prompt
    cohorts forking (tokens equal on the card, the CPU and the card's
    unshared run); sampled preemption (tokens equal the uninterrupted run);
-   quarantine of a row with NaN written into its page;
+   quarantine of a row with NaN written into its page; reduced mamba2-370m
+   es greedy and sampled, and served on dense slots (tokens equal);
 5. offline path: LLaDA-8B at full width in bfloat16 (random weights from a
    seeded generator on the card), ES generation, with each kernel's
    launches counted over that run;
@@ -37,7 +39,10 @@ no result):
    scheduler, temperature 0.2 and top-p 0.95, the same requests three
    times: with prefix sharing (7a: the copy-on-write fork runs), with
    preemption on a tight pool (7b: a class-1 arrival spills a class-0
-   resident, which resumes) and with neither (7c).
+   resident, which resumes) and with neither (7c);
+8. Mamba-2: mamba2-370m at full width in bfloat16 (seeded random weights
+   on the card), offline es and dualcache generation and the dense-slot
+   ``StreamScheduler`` with early advance, through the SSD chunk kernel.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -72,6 +77,7 @@ REPLACES = {
     "importance": "src/repro/kernels/importance.py:30",
     "variation": "src/repro/kernels/importance.py:66",
     "fork_pages": "src/repro/kernels/scatter_kv.py:122",
+    "ssd_chunks": "src/repro/kernels/ssd_scan.py:70",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -81,6 +87,7 @@ SOURCES = {
     "importance": "src/repro_torch/kernels/csrc/importance.cu",
     "variation": "src/repro_torch/kernels/csrc/importance.cu",
     "fork_pages": "src/repro_torch/kernels/csrc/scatter_kv.cu",
+    "ssd_chunks": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 # the serving path's shapes: 4 slots of prompt 128 + gen 64 tokens, blocks of
 # 32, partial refreshes of ceil(0.25 * (192 - 32)) = 40 tokens
@@ -542,6 +549,90 @@ def check_fork(ref, fork_pages, gen):
     return out
 
 
+# mamba2-370m's mixer: 32 heads of 64, d_state 128, one B/C group, chunk 64
+SSD_H, SSD_P, SSD_N, SSD_CHUNK = 32, 64, 128, 64
+
+
+def ssd_inputs(gen, b, l, g, dt_type):
+    """The chunk step's inputs as the mixer makes them: x [B, L, H, P],
+    softplus dt f32, a_log f32, and B, C as strided views of one [B, L, 2GN]
+    activation."""
+    x = (torch.randn(b, l, SSD_H, SSD_P, generator=gen, device="cuda") * 0.5).to(dt_type)
+    dt = F.softplus(torch.randn(b, l, SSD_H, generator=gen, device="cuda") - 1.0)
+    a_log = torch.randn(SSD_H, generator=gen, device="cuda") * 0.3
+    bc = (torch.randn(b, l, 2 * g * SSD_N, generator=gen, device="cuda") * 0.5).to(dt_type)
+    bm = bc[..., :g * SSD_N].reshape(b, l, g, SSD_N)
+    cm = bc[..., g * SSD_N:].reshape(b, l, g, SSD_N)
+    return x, dt, a_log, bm, cm
+
+
+def ssd_bound(x, dt, a_log, bm, cm, outs, chunk) -> tuple[float, str]:
+    """Least time of the chunk step: each input read once and each output
+    written once, against the products the unmasked half needs per (b, h,
+    chunk): C B^T over the Q(Q+1)/2 pairs i >= j (on B/C's type, so bf16
+    tensor-core peak for bf16 inputs), the scores times x*dt over the same
+    pairs and the Q x N x P contribution (f32 operands: x*dt is f32)."""
+    b, l, h, p = x.shape
+    n = bm.shape[3]
+    blocks = b * h * (l // chunk)
+    pairs = chunk * (chunk + 1) / 2
+    t_cb = blocks * 2.0 * pairs * n / PEAK_FLOPS[bm.dtype] * 1e3
+    t_f32 = blocks * (2.0 * pairs * p + 2.0 * chunk * n * p) / PEAK_FLOPS[torch.float32] * 1e3
+    moved = nbytes(x, dt, a_log, *outs) + 2 * bm.numel() * bm.element_size()
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_cb + t_f32 else (t_cb + t_f32, "operations")
+
+
+def check_ssd(ref, ops, ssd_chunks, gen):
+    """The SSD chunk kernel against ``ref.ssd_chunks`` on all four outputs,
+    f32 and bf16: at the decode shape (a 32-row block, one chunk of 32), the
+    prefill shape (192 positions, three chunks of 64), two B/C groups, and a
+    ragged L of 150 (padded to 192 by ``ops.ssd``, whose output on the card
+    is also held against the sequential oracle)."""
+    out = []
+    for dt_type in (torch.float32, torch.bfloat16):
+        for label, b, l, g, chunk in ((f"decode [{SLOTS}, {BLOCK}] G=1", SLOTS, BLOCK, 1, BLOCK),
+                                      (f"prefill [{SLOTS}, {T_TOTAL}] G=1", SLOTS, T_TOTAL, 1,
+                                       SSD_CHUNK),
+                                      (f"prefill [{SLOTS}, {T_TOTAL}] G=2", SLOTS, T_TOTAL, 2,
+                                       SSD_CHUNK),
+                                      (f"ragged [{SLOTS}, 150] G=1", SLOTS, 150, 1, SSD_CHUNK)):
+            args = ssd_inputs(gen, b, l, g, dt_type)
+            if l % chunk:                    # what ops.ssd does: zero-dt rows to a multiple
+                y_ops, s_ops = ops.ssd(*args, chunk=chunk)
+                y_seq, s_seq = ref.ssd_reference(*args)
+                for name, got, want in (("y", y_ops, y_seq), ("state", s_ops, s_seq)):
+                    tol = 2e-2 if (name == "y" and dt_type == torch.bfloat16) else 1e-3
+                    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+                        raise AssertionError(f"ops.ssd {label} {dt_type}: {name} differs from "
+                                             f"the sequential oracle by "
+                                             f"{(got.float() - want.float()).abs().max().item()}")
+                pad = -l % chunk
+                x, dt, a_log, bm, cm = args
+                x, dt, bm, cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                                 for t in (x, dt, bm, cm))
+                args = (x, dt, a_log, bm, cm)
+            got = ssd_chunks(*args, chunk=chunk)
+            want = ref.ssd_chunks(*args, chunk)
+            errs = []
+            for name, gt, wt in zip(("y_intra", "contrib", "decay", "cs"), got, want):
+                tol = 1e-2 if (name == "y_intra" and dt_type == torch.bfloat16) else 1e-4
+                diff = (gt.float() - wt.float()).abs()
+                if not (torch.isfinite(gt).all() and (diff <= tol + tol * wt.float().abs()).all()):
+                    raise AssertionError(f"ssd_chunks {label} {dt_type}: {name} max abs err "
+                                         f"{diff.max().item()} (tolerance {tol} abs + {tol} rel)")
+                errs.append(diff.max().item())
+            ms, wall = device_ms(lambda: ssd_chunks(*args, chunk=chunk))
+            plain_ms, _ = device_ms(lambda: ref.ssd_chunks(*args, chunk))
+            bms, by = ssd_bound(*args, got, chunk)
+            out.append(dict(kernel="ssd_chunks", case=label, dtype=str(dt_type),
+                            max_abs_err=max(errs), errs=dict(zip(("y_intra", "contrib", "decay",
+                                                                  "cs"), errs)),
+                            tol="1e-4 abs + 1e-4 rel (y_intra bf16: 1e-2)", ms=ms, wall_ms=wall,
+                            plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+    return out
+
+
 # the sampled path's draw: 4 slots, a 32-row block, Dream-7B's padded vocab
 DRAW_SHAPE = (SLOTS, BLOCK, 152_320)
 THREEFRY_VECTOR = ((0x13198A2E, 0x03707344, 0x243F6A88, 0x85A308D3), (0xC4923A9C, 0x483DF7A0))
@@ -870,6 +961,55 @@ def cross_device_quarantine() -> dict:
                 pool_finite=True)
 
 
+def cross_device_mamba() -> dict:
+    """Reduced 4-layer mamba2-370m (skip stages at layers 1 and 2): offline
+    es generation greedy and sampled, and a staggered trace through the
+    dense-slot scheduler with early advance; every token on the card equals
+    the CPU's."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+    from repro_torch.runtime import StreamScheduler
+
+    models = reduced_models("mamba2-370m")
+    stages = (configs.SkipStage(1, 0.5), configs.SkipStage(2, 0.5))
+    prompt = torch.randint(3, models["cpu"].cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(SEED + 4))
+    out = {}
+    for name, kw in (("greedy", {}), ("sampled", dict(temperature=0.8))):
+        gen_cfg = configs.GenerationConfig(mode="es", gen_length=16, block_length=8,
+                                           skip_stages=stages, **kw)
+        toks = {dev: make_engine(models[dev], gen_cfg, device=dev).generate(prompt).cpu()
+                for dev in ("cpu", "cuda")}
+        if not torch.equal(toks["cpu"], toks["cuda"]):
+            raise AssertionError(f"mamba2 {name}: card tokens {toks['cuda']} differ from the "
+                                 f"CPU's {toks['cpu']}")
+        out[name] = dict(tokens_equal=True, distinct_ids=len(torch.unique(toks["cpu"][:, 16:])))
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=16, block_length=8, skip_stages=stages, prompt_refresh_period=4,
+        block_refresh_period=3, parallel_decoding=True, pd_threshold=0.5)
+    rng = np.random.default_rng(SEED)
+    lens, max_new = (16, 5, 12, 9, 16, 3), (None, 8, None, None, 8, None)
+    prompts = [rng.integers(3, models["cpu"].cfg.vocab_size, n).astype(np.int32) for n in lens]
+    served = {}
+    for dev in ("cpu", "cuda"):
+        sched = StreamScheduler(models[dev], gen_cfg, device=dev, max_slots=3, prompt_len=16,
+                                early_advance=True)
+        served[dev] = (serve_trace(sched, prompts, max_new, every=2), sched)
+    for a, b in zip(served["cpu"][0], served["cuda"][0]):
+        if a.output is None or not np.array_equal(a.output, b.output):
+            raise AssertionError(f"mamba2 serving: card tokens {b.output} differ from the "
+                                 f"CPU's {a.output}")
+    card = served["cuda"][1]
+    if card.stats.early_advances == 0:
+        raise AssertionError("mamba2 serving made no early advance")
+    out["serving"] = dict(requests=len(prompts), tokens_equal=True,
+                          early_advances=card.stats.early_advances,
+                          passes=dict(card.engine.pass_counts))
+    return out
+
+
 def llada_8b():
     """LLaDA-8B at full width in bf16, random weights from a seeded generator
     on the card."""
@@ -962,7 +1102,7 @@ def serving_path(model, kernel_fns):
         return StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
                                prompt_len=PROMPT, paged=True, page_size=16,
                                early_advance=True)
-    serve_trace(make(), prompts[:2], max_new[:2], every=5)     # warm-up
+    serve_trace(make(), prompts[:1], max_new[:1], every=5)     # warm-up
     torch.cuda.synchronize()
     sched = make()
     for fn in kernel_fns.values():
@@ -1167,31 +1307,173 @@ def dream_serving(model, kernel_fns) -> dict:
                 plan=[list(p) for p in DREAM_PLAN], prompt_lens=DREAM_PROMPTS, runs=out)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: mamba2-370m at full width, offline and served
+# ---------------------------------------------------------------------------
+def mamba2_370m():
+    """mamba2-370m at full width and depth in bf16, random weights from a
+    seeded generator on the card."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(configs.get_config("mamba2-370m"),
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def mamba_offline(model, kernel_fns) -> dict:
+    """Offline es and dualcache, batch 4, prompt 128, gen 64 in blocks of 32,
+    greedy.  After a warm-up of each, four timed ``generate`` calls in turns
+    (es, dualcache, dualcache, es: host time drifts within a call), each
+    with its launches counted from 0; then one profiled call of each."""
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+
+    cfg = model.cfg
+    batch, prompt_len = SLOTS, PROMPT
+    prompt = torch.randint(3, cfg.vocab_size, (batch, prompt_len), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    engines = {}
+    for mode in ("es", "dualcache"):
+        gen_cfg = configs.GenerationConfig(
+            mode=mode, gen_length=GEN, block_length=BLOCK,
+            skip_stages=configs.default_skip_stages(cfg.n_layers) if mode == "es" else (),
+            prompt_refresh_period=32, block_refresh_period=4)
+        engines[mode] = make_engine(model, gen_cfg, device="cuda")
+        engines[mode].generate(prompt)                     # warm-up
+    torch.cuda.synchronize()
+    walls = {mode: [] for mode in engines}
+    out, launches, passes = {}, {}, {}
+    for mode in ("es", "dualcache", "dualcache", "es"):
+        engine = engines[mode]
+        engine.pass_counts = {k: 0 for k in engine.pass_counts}
+        for fn in kernel_fns.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tokens = engine.generate(prompt)
+        torch.cuda.synchronize()
+        walls[mode].append(time.perf_counter() - t0)
+        launches[mode] = {name: fn.launches for name, fn in kernel_fns.items()}
+        passes[mode] = dict(engine.pass_counts)
+        if mode in out and not torch.equal(tokens, out[mode]):
+            raise AssertionError(f"mamba2 {mode}: a repeated greedy generate gave other tokens")
+        out[mode] = tokens
+    result = {}
+    for mode, engine in engines.items():
+        gen_tok = out[mode][:, prompt_len:]
+        if (out[mode].shape != (batch, prompt_len + GEN)
+                or (gen_tok == engine.mask_id).any().item()
+                or not ((gen_tok >= 0) & (gen_tok < cfg.vocab_size)).all().item()):
+            raise AssertionError(f"mamba2 {mode}: output {tuple(out[mode].shape)}, a [mask] id "
+                                 "or an id outside the vocabulary")
+        for name in ("ssd_chunks", "importance") if mode == "es" else ("ssd_chunks",):
+            if launches[mode][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the mamba2 {mode} path")
+        iters = engine.iterations
+        profile = profile_run(lambda: engine.generate(prompt))
+        mean = sum(walls[mode]) / len(walls[mode])
+        result[mode] = dict(
+            mode=mode, batch=batch, prompt_len=prompt_len, gen_length=GEN, block_length=BLOCK,
+            segments=[dataclasses.asdict(s) for s in engine.segments], iterations=iters,
+            passes=passes[mode], wall_s_runs=walls[mode], ms_per_generate=mean * 1e3,
+            ms_per_iteration=mean / iters * 1e3, tokens_per_s=batch * GEN / mean,
+            distinct_ids=len(torch.unique(gen_tok)), launches=launches[mode],
+            launches_per_iteration=profile["kernels_launched"] / iters, profile=profile)
+    result["es_over_dualcache_ms"] = (result["es"]["ms_per_generate"]
+                                      / result["dualcache"]["ms_per_generate"])
+    return result
+
+
+def mamba_serving(model, kernel_fns) -> dict:
+    """The dense-slot scheduler at full width: 4 slots, the phase-6 trace (8
+    requests, prompts of 32-128 tokens, 32 or 64 new, one every 5 steps),
+    early advance, prompt refresh every 8, block refresh every 4 (no
+    adaptive cache: it is outside the SSM slice)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.runtime import StreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=8, block_refresh_period=4)
+    rng = np.random.default_rng(SEED)
+    lens = (32, 64, 96, 128, 32, 64, 96, 128)
+    max_new = (64, 32, 64, 32, 32, 64, 32, 64)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def make():
+        return StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
+                               prompt_len=PROMPT, early_advance=True)
+    serve_trace(make(), prompts[:1], max_new[:1], every=5)     # warm-up
+    torch.cuda.synchronize()
+    sched = make()
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reqs = serve_trace(sched, prompts, max_new, every=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    for r, n in zip(reqs, max_new):
+        if r.error is not None or r.output is None or r.output.shape != (n,):
+            raise AssertionError(f"mamba2 request {r.request_id}: {r.error!r} {r.output}")
+        if (r.output == sched.engine.mask_id).any():
+            raise AssertionError(f"mamba2 request {r.request_id}: a [mask] id is left")
+    for name in ("ssd_chunks", "importance"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the mamba2 serving path")
+    again: list = []
+    profile = profile_run(lambda: again.extend(serve_trace(make(), prompts, max_new, every=5)))
+    for a, b in zip(reqs, again):
+        if not np.array_equal(a.output, b.output):
+            raise AssertionError("a repeated greedy mamba2 serving run gave other tokens")
+    st = sched.stats
+    return dict(slots=SLOTS, prompt_len=PROMPT, gen_length=GEN, block_length=BLOCK,
+                requests=len(reqs), prompt_lens=list(lens), max_new_tokens=list(max_new),
+                submit_every=5, steps=st.steps, wall_s=wall, serve_wall_s=st.wall_s,
+                tokens_per_s=sum(max_new) / wall, ms_per_step=wall / st.steps * 1e3,
+                latency_p50_s=st.latency_pct(50), latency_p95_s=st.latency_pct(95),
+                resident_peak=st.resident_peak, early_advances=st.early_advances,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                passes=dict(sched.engine.pass_counts), launches=launches,
+                launches_per_step=profile["kernels_launched"] / st.steps, profile=profile)
+
+
 def profile_run(fn, top: int = 8) -> dict:
     """Where one run's time goes on the device: the share of the wall time
-    some kernel was running, and the kernels with the most device time."""
+    some kernel was running, and the kernels with the most device time.
+    Read from the raw Kineto records: the profiler's own event list
+    (``prof.events()``) builds a tree that takes minutes for a run of a
+    million kernels."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+           for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
     busy, end = 0.0, float("-inf")
-    for a, b in spans:                       # union of the kernels' intervals
+    for a, b in sorted((s, s + d) for _, s, d in evs):     # union of the kernels' intervals
         if b > end:
             busy += b - max(a, end)
             end = b
     by_name: dict[str, list] = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_name.setdefault(ev.name[:60], [0.0, 0])
-            rec[0] += ev.time_range.elapsed_us()
-            rec[1] += 1
+    for name, _, d in evs:
+        rec = by_name.setdefault(name[:60], [0.0, 0])
+        rec[0] += d
+        rec[1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
-                device_busy_share=busy / wall_us, kernels_launched=len(spans),
+                device_busy_share=busy / wall_us, kernels_launched=len(evs),
                 top=[dict(name=n, ms=us / 1e3, count=c) for n, (us, c) in ranked])
 
 
@@ -1206,10 +1488,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
     from repro_torch.kernels.importance import importance, variation
     from repro_torch.kernels.scatter_kv import fork_pages, scatter_rows, scatter_rows_paged
+    from repro_torch.kernels.ssd_scan import ssd_chunks
 
     print(sh(build.nvcc(), "--version").splitlines()[-1])
     try:
@@ -1220,7 +1503,17 @@ def main() -> int:
     kernel_fns = {"flash_attention": flash_attention,
                   "paged_flash_attention": paged_flash_attention,
                   "scatter_rows": scatter_rows, "scatter_rows_paged": scatter_rows_paged,
-                  "importance": importance, "variation": variation, "fork_pages": fork_pages}
+                  "importance": importance, "variation": variation, "fork_pages": fork_pages,
+                  "ssd_chunks": ssd_chunks}
+
+    phase_s: dict = {}                    # wall seconds of each phase
+    t_phase = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
 
     # phase 2: build
     lib_path, build_s = build.build()
@@ -1229,6 +1522,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
     print("\n".join(ptxas))
+    lap("1-2")
 
     # phase 3: kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1239,6 +1533,7 @@ def main() -> int:
     cases += check_paged_scatter(ref, scatter_rows_paged, gen)
     cases += check_variation(ref, variation, gen)
     cases += check_fork(ref, fork_pages, gen)
+    cases += check_ssd(ref, ops, ssd_chunks, gen)
     print(f"timer: {len(TIMER_FALLBACKS)} incomplete profiler traces {TIMER_FALLBACKS[:20]}, "
           f"{len(EVENT_TIMED)} measurements timed by CUDA events")
     for c in cases:           # below the bound, the timer and not the kernel is at fault
@@ -1254,6 +1549,7 @@ def main() -> int:
               f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']})")
     threefry = check_threefry(gen)
     print(f"threefry: {json.dumps(threefry)}")
+    lap("3")
 
     # phase 4: cross-device engine and scheduler checks
     cross = cross_device_check()
@@ -1266,6 +1562,9 @@ def main() -> int:
     print(f"cross-device preemption: {json.dumps(cross_preempt)}")
     cross_quarantine = cross_device_quarantine()
     print(f"quarantine: {json.dumps(cross_quarantine)}")
+    cross_mamba = cross_device_mamba()
+    print(f"cross-device mamba2: {json.dumps(cross_mamba)}")
+    lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
     model, init_s = llada_8b()
@@ -1275,6 +1574,7 @@ def main() -> int:
     print(f"serving path: {json.dumps(serving)}")
     del model
     torch.cuda.empty_cache()
+    lap("5-6")
 
     # phase 7: sampled serving of Dream-7B at full width
     dream, dream_init_s = dream_7b()
@@ -1282,6 +1582,21 @@ def main() -> int:
     sampled["init_s"] = dream_init_s
     for name, r in sampled["runs"].items():
         print(f"dream-7b {name}: {json.dumps(r)}")
+    del dream
+    torch.cuda.empty_cache()
+    lap("7")
+
+    # phase 8: mamba2-370m at full width, offline es and dualcache, and served
+    mamba, mamba_init_s = mamba2_370m()
+    mamba_runs = mamba_offline(mamba, kernel_fns)
+    mamba_runs["serving"] = mamba_serving(mamba, kernel_fns)
+    mamba_runs["init_s"] = mamba_init_s
+    mamba_runs["weights_gb"] = sum(nbytes(p) for p in mamba.parameters()) / 1e9
+    for name in ("es", "dualcache", "serving"):
+        print(f"mamba2-370m {name}: {json.dumps(mamba_runs[name])}")
+    print(f"mamba2-370m es / dualcache ms per generate: {mamba_runs['es_over_dualcache_ms']}")
+    lap("8")
+    print(f"phase seconds: {json.dumps(phase_s)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
     # kernel: bf16 attention and K/V, f32 hidden states; launches from the
@@ -1293,13 +1608,18 @@ def main() -> int:
                 "importance": (f"llada stage1 K=32 B={SLOTS}", torch.float32),
                 "variation": (f"llada partial [{SLOTS}, {T_TOTAL}, 4096]", torch.float32),
                 # 7a forks cohort A's 8 and cohort B's 6 shared pages in one launch
-                "fork_pages": ("dream F=14 ps=16", torch.bfloat16)}
+                "fork_pages": ("dream F=14 ps=16", torch.bfloat16),
+                "ssd_chunks": (f"decode [{SLOTS}, {BLOCK}] G=1", torch.bfloat16)}
     kernels = []
     for name, (case, dt) in headline.items():
         c = next(c for c in cases if c["kernel"] == name and c["case"] == case
                  and c["dtype"] == str(dt))
-        launches = (sampled["runs"]["7a"]["launches"][name] if name == "fork_pages"
-                    else (serving if serving["launches"][name] else run)["launches"][name])
+        if name == "fork_pages":
+            launches = sampled["runs"]["7a"]["launches"][name]
+        elif name == "ssd_chunks":                  # the offline es run of phase 8
+            launches = mamba_runs["es"]["launches"][name]
+        else:
+            launches = (serving if serving["launches"][name] else run)["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches,
@@ -1310,12 +1630,13 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+             phase_s=phase_s,
              ptxas=ptxas, timer_fallbacks=TIMER_FALLBACKS, event_timed=len(EVENT_TIMED),
              cases=cases, threefry=threefry, cross_device=cross,
              cross_device_serving=cross_serving, cross_device_sampled=cross_sampled,
              cross_device_preemption=cross_preempt, quarantine=cross_quarantine,
-             offline_path=run, serving_path=serving, dream_sampled_serving=sampled,
-             kernels=kernels),
+             cross_device_mamba=cross_mamba, offline_path=run, serving_path=serving,
+             dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])
     print(json.dumps({"kernels": kernels}))

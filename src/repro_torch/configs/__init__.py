@@ -1,4 +1,4 @@
-"""Architecture config registry of the port: the two paper models.
+"""Architecture config registry of the port: the two paper models and Mamba-2.
 
 ``get_config(arch_id)`` returns the published configuration; ``reduced(cfg)``
 returns the same small variant the reference package's ``reduced`` builds, so
@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import dream_7b, llada_8b  # noqa: F401  (registers)
+from repro_torch.configs import dream_7b, llada_8b, mamba2_370m  # noqa: F401  (registers)
 from repro_torch.configs.base import (  # noqa: F401
     GenerationConfig,
     ModelConfig,

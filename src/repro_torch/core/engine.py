@@ -16,7 +16,8 @@ every position is unmasked.
 Where the reference traces a ``lax.while_loop`` over iterations with a
 ``lax.switch`` over the branches, the port runs a Python loop whose exit
 check reads one host scalar per iteration, and branches in Python on the
-phase.  The KV cache planes are updated in place by the scatter kernel.
+phase.  The KV cache planes are updated in place by the scatter kernel; an
+SSM stack's caches (state, conv tail, block buffer) are written in place too.
 
 Paged KV (``paged=True``): the K/V caches are one pool ``[G, P, ps, Hkv,
 Dh]`` shared by every slot and addressed through a per-slot block table
@@ -75,6 +76,8 @@ from repro_torch.core.schedule import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.attention import KVCache
+from repro_torch.models.common import row_gather, row_scatter
+from repro_torch.models.mamba import SSMCache
 from repro_torch.models.model import ForwardCtx, Model
 
 MODES = ("vanilla", "dualcache", "es")
@@ -84,7 +87,8 @@ PASSES = {SKIP_DECODE: "skip", BLOCK_REFRESH: "noskip", PREFILL: "prefill",
 
 class BlockState(NamedTuple):
     tokens: torch.Tensor             # [B, T] int32
-    cache: Optional[KVCache]         # K/V planes or pools (None for vanilla)
+    cache: Optional[KVCache | SSMCache]   # K/V planes or pools, or the SSM caches
+                                          # (None for vanilla)
     conf: torch.Tensor               # [B, Lb] f32 confidence cache
     pred: torch.Tensor               # [B, Lb] int32 predicted-token cache
     hidden: tuple                    # per skip stage: [B, Lb, d] f32 indicator cache
@@ -99,7 +103,7 @@ class EngineState(NamedTuple):
     """Slot-addressable serving state: the block caches plus per-slot
     progress, every per-request quantity a ``[B]`` tensor."""
     tokens: torch.Tensor             # [B, T] int32
-    cache: Optional[KVCache]
+    cache: Optional[KVCache | SSMCache]
     conf: torch.Tensor               # [B, Lb]
     pred: torch.Tensor               # [B, Lb]
     hidden: tuple
@@ -117,22 +121,6 @@ class EngineState(NamedTuple):
     cache_refreshed: Optional[torch.Tensor] = None   # [B] int32 cumulative tokens refreshed
     cache_eligible: Optional[torch.Tensor] = None    # [B] int32 cumulative eligible tokens
     poisoned: Optional[torch.Tensor] = None       # [B] bool: a non-finite value was seen
-
-
-def _row_gather(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """buf[b, idx[b, k]] for [B, N] or [B, N, d] buffers."""
-    idx = idx.long()
-    if buf.dim() == 2:
-        return torch.gather(buf, 1, idx)
-    return torch.gather(buf, 1, idx[..., None].expand(-1, -1, buf.shape[-1]))
-
-
-def _row_scatter(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Out of place: a copy of ``buf`` with ``buf[b, idx[b, k]] = new[b, k]``."""
-    idx = idx.long()
-    if buf.dim() == 3:
-        idx = idx[..., None].expand(-1, -1, buf.shape[-1])
-    return buf.scatter(1, idx, new.to(buf.dtype))
 
 
 def _unsupported(gen: GenerationConfig, kv_cache_dtype, gather_refresh) -> Optional[str]:
@@ -177,6 +165,10 @@ class DiffusionEngine:
             raise ValueError("gen_length must be a multiple of block_length")
         if paged and (gen.mode == "vanilla" or page_size <= 0):
             raise ValueError("paged KV needs a cached engine mode and page_size > 0")
+        if model.ssm and (paged or gen.adaptive_cache):
+            raise NotImplementedError(
+                f"{'paged KV' if paged else 'the adaptive feature cache'} on an SSM stack "
+                f"is outside the port so far (ROADMAP.md open items)")
         self.model = model
         self.cfg = model.cfg
         self.gen = gen
@@ -302,7 +294,7 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     # per-block loop
     # ------------------------------------------------------------------
-    def _init_cache(self, b: int, t_total: int) -> Optional[KVCache]:
+    def _init_cache(self, b: int, t_total: int) -> Optional[KVCache | SSMCache]:
         if self.gen.mode == "vanilla":
             return None
         if self.paged:
@@ -312,7 +304,7 @@ class DiffusionEngine:
             kv_pages = self.kv_pages or b * (t_total // self.page_size) + 1
             return self.model.init_cache(b, t_total, kv_pages=kv_pages,
                                          page_size=self.page_size)
-        return self.model.init_cache(b, t_total)
+        return self.model.init_cache(b, t_total, block_len=self.gen.block_length)
 
     def _feature_planes(self, b: int, t_total: int):
         if not self.adaptive_cache:
@@ -399,7 +391,7 @@ class DiffusionEngine:
     def _apply_unmask(self, st: BlockState, bs, cache, conf, pred, hidden, feat=None,
                       stats=None, active: Optional[torch.Tensor] = None) -> BlockState:
         cols = self._block_cols(bs)
-        blk_tok = _row_gather(st.tokens, cols)
+        blk_tok = row_gather(st.tokens, cols)
         sel = smp.select_unmask(conf, blk_tok == self.mask_id, self.gen, self.n_per_step)
         if active is not None:
             sel = sel & active[:, None]
@@ -477,7 +469,7 @@ class DiffusionEngine:
         # no-ops.
         phase_used = state.phase
         phase = (phase_used + 1) % steps_pb
-        blk_done = ~(_row_gather(st.tokens, self._block_cols(bs)) == self.mask_id).any(dim=1)
+        blk_done = ~(row_gather(st.tokens, self._block_cols(bs)) == self.mask_id).any(dim=1)
         adv = state.active & blk_done
         if not self.early_advance:
             adv = adv & (phase == 0)
@@ -546,11 +538,12 @@ class DiffusionEngine:
         b, t_total = st.tokens.shape
         cols = self._block_cols(bs)
         if row_mask is None:
-            st.cache.k.zero_()
-            st.cache.v.zero_()
+            for plane in st.cache:
+                plane.zero_()
         pos = self._rows(b, t_total)
         ctx = ForwardCtx(pos, "prefill", kv_pos=self._kv_pos(prompt_start, t_total),
-                         slot_idx=pos, block_tables=bt, scatter_mask=row_mask)
+                         slot_idx=pos, block_tables=bt, scatter_mask=row_mask,
+                         block_start=bs)
         h = model.embed_tokens(st.tokens)
         hidden, feat = [], st.feat
         for seg in self.segments:
@@ -560,8 +553,8 @@ class DiffusionEngine:
                 # the baseline the next partial refresh measures variation against
                 feat = h.float()
             if seg.keep_k is not None:
-                hidden.append(_row_gather(h, cols).float())
-        conf, pred = self._confidence(st, bs, model.logits(_row_gather(h, cols)), keys)
+                hidden.append(row_gather(h, cols).float())
+        conf, pred = self._confidence(st, bs, model.logits(row_gather(h, cols)), keys)
         stats = None
         if self.adaptive_cache:
             # a full refresh recomputes every eligible past token
@@ -577,31 +570,31 @@ class DiffusionEngine:
         follows the rows in their top-k selection order, as the reference's."""
         model, gen = self.model, self.gen
         b, t_total = st.tokens.shape
-        h = model.embed_tokens(_row_gather(st.tokens, self._block_cols(bs)))
+        h = model.embed_tokens(row_gather(st.tokens, self._block_cols(bs)))
         s_idx = self._rows(b, gen.block_length)
         kv_pos = self._kv_pos(prompt_start, t_total)
         hidden = list(st.hidden)
         for seg in self.segments:
             rows = bs[:, None] + s_idx
             ctx = ForwardCtx(rows, "decode", kv_pos=kv_pos, slot_idx=rows, block_tables=bt,
-                             scatter_mask=row_mask)
+                             scatter_mask=row_mask, block_idx=s_idx)
             h = model.run_layers(h, ctx, st.cache, group_lo=seg.group_lo,
                                  group_hi=seg.group_hi)
             if seg.keep_k is not None:
                 i = seg.stage_idx
                 hf = h.float()
                 scores = ops.importance_score(
-                    hf, _row_gather(hidden[i], s_idx), _row_gather(st.conf, s_idx),
+                    hf, row_gather(hidden[i], s_idx), row_gather(st.conf, s_idx),
                     alpha=gen.alpha)
-                hidden[i] = _row_scatter(hidden[i], hf, s_idx)
+                hidden[i] = row_scatter(hidden[i], hf, s_idx)
                 if skip:
                     sel = _top_k(scores, seg.keep_k)
                     s_idx = torch.gather(s_idx, 1, sel)
-                    h = _row_gather(h, sel)
+                    h = row_gather(h, sel)
         conf_new, pred_new = smp.confidence_and_pred(
             keys, model.logits(h), gen, self.cfg.vocab_size, self.mask_id)
-        conf = _row_scatter(st.conf, conf_new, s_idx)
-        pred = _row_scatter(st.pred, pred_new, s_idx)
+        conf = row_scatter(st.conf, conf_new, s_idx)
+        pred = row_scatter(st.pred, pred_new, s_idx)
         return st.cache, conf, pred, tuple(hidden), st.feat, None
 
     def _cache_eligible(self, bs, prompt_start, bt, t_total: int) -> torch.Tensor:
@@ -650,7 +643,7 @@ class DiffusionEngine:
         sel = sel.int()
         dctx = ForwardCtx(sel, "decode", kv_pos=kv_pos, slot_idx=sel, block_tables=bt,
                           scatter_mask=row_mask, refresh_mask=tok_ok)
-        model.run_layers(_row_gather(h_probe, sel), dctx, st.cache, group_lo=gp,
+        model.run_layers(row_gather(h_probe, sel), dctx, st.cache, group_lo=gp,
                          group_hi=model.n_groups)
         # 4. the block refresh on the partially refreshed caches
         out = self._decode_step(st, bs, prompt_start, bt, keys, skip=False, row_mask=row_mask)
@@ -663,12 +656,12 @@ class DiffusionEngine:
         b, t_total = st.tokens.shape
         h = model.run_layers(model.embed_tokens(st.tokens),
                              ForwardCtx(self._rows(b, t_total)))
-        return self._confidence(st, bs, model.logits(_row_gather(h, self._block_cols(bs))),
+        return self._confidence(st, bs, model.logits(row_gather(h, self._block_cols(bs))),
                                 keys)
 
     def _confidence(self, st: BlockState, bs, logits_blk: torch.Tensor, keys):
         if self.disallow_eos:
-            masked = (_row_gather(st.tokens, self._block_cols(bs)) == self.mask_id).int()
+            masked = (row_gather(st.tokens, self._block_cols(bs)) == self.mask_id).int()
             rev = masked.flip(1).cumsum(1).flip(1)
             logits_blk = smp.disallow_premature_eos(logits_blk, (rev - masked) > 0,
                                                     self.eos_id)
@@ -744,8 +737,8 @@ class DiffusionEngine:
 def _merge_step_outputs(mask: torch.Tensor, old, new):
     """Per-row merge of one pass's ``(cache, conf, pred, hidden, feat,
     stats)`` into the carried tuple: rows in ``mask`` take the pass's
-    results.  The KV cache is taken as it is: the pass's scatters already
-    left the other rows unwritten."""
+    results.  The cache is taken as it is: the pass's K/V scatters and SSM
+    cache writes already left the other rows unwritten."""
     o_cache, o_conf, o_pred, o_hidden, o_feat, o_stats = old
     n_cache, n_conf, n_pred, n_hidden, n_feat, n_stats = new
     m1, m2 = mask[:, None], mask[:, None, None]

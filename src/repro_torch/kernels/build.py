@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "scatter_kv.cu", "importance.cu")
+SOURCES = ("flash_attention.cu", "scatter_kv.cu", "importance.cu", "ssd_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +39,8 @@ SIGNATURES = {
     "repro_scatter_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P],
     "repro_fork_pages": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "repro_importance": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "repro_ssd_chunk": [_I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
 }
 
 

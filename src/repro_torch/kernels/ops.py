@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
@@ -18,6 +19,7 @@ from repro_torch.kernels.scatter_kv import check_fork_lists
 from repro_torch.kernels.scatter_kv import fork_pages as fork_pages_kernel
 from repro_torch.kernels.scatter_kv import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.scatter_kv import scatter_rows_paged as scatter_rows_paged_kernel
+from repro_torch.kernels.ssd_scan import ssd_chunks as ssd_chunks_kernel
 
 
 def _on_card(*tensors: Optional[torch.Tensor]) -> bool:
@@ -153,5 +155,49 @@ def variation_score(
     return ref.variation_reference(h_new, h_old, conf, alpha, eps)
 
 
+def ssd(
+    x: torch.Tensor,         # [B, L, H, P]
+    dt: torch.Tensor,        # [B, L, H] f32, positive
+    a_log: torch.Tensor,     # [H] f32
+    bmat: torch.Tensor,      # [B, L, G, N]
+    cmat: torch.Tensor,      # [B, L, G, N]
+    *,
+    chunk: int = 64,
+    init_state: Optional[torch.Tensor] = None,   # [B, H, N, P] f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan (Mamba-2) -> ``(y [B, L, H, P] in x's dtype, final
+    state [B, H, N, P] f32)``.  The reference's chunk choice and zero-``dt``
+    padding (a zero-dt row is an exact no-op: decay 1, contribution 0); the
+    chunk step is one kernel launch on the card; the recurrence across
+    chunks ``S_c = decay_c S_{c-1} + contrib_c`` (``init_state`` folded into
+    chunk 0), the states entering each chunk and ``y_inter = (C exp(cs)) @
+    S_in`` are plain PyTorch, as the reference leaves them to XLA."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    ck = min(chunk, l) if l % min(chunk, l) == 0 else chunk
+    pad = -l % ck
+    if pad:
+        x, dt, bmat, cmat = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                             for t in (x, dt, bmat, cmat))
+    if _on_card(x, dt, a_log, bmat, cmat, init_state):
+        y_intra, contrib, decay, cs = ssd_chunks_kernel(x.contiguous(), dt.contiguous(),
+                                                        a_log, bmat, cmat, chunk=ck)
+    else:
+        y_intra, contrib, decay, cs = ref.ssd_chunks(x, dt, a_log, bmat, cmat, ck)
+    l_p, nc = l + pad, (l + pad) // ck
+    if init_state is None:
+        init_state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    states, s = [], init_state
+    for c in range(nc):
+        s = decay[:, c, :, None, None] * s + contrib[:, c]
+        states.append(s)
+    s_in = torch.stack([init_state] + states[:-1], dim=1)            # [B, nC, H, N, P]
+    cm = cmat.float().repeat_interleave(h // g, dim=2).reshape(b, nc, ck, h, n)
+    cm = cm * torch.exp(cs).reshape(b, nc, ck, h)[..., None]
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp", cm, s_in).reshape(b, l_p, h, p)
+    y = y_intra.float() + y_inter
+    return y[:, :l].to(x.dtype), states[-1]
+
+
 __all__ = ["attention", "paged_attention", "scatter_rows", "scatter_rows_paged",
-           "fork_pages", "importance_score", "variation_score"]
+           "fork_pages", "importance_score", "variation_score", "ssd"]

@@ -196,3 +196,73 @@ def variation_reference(
     no = (ho * ho).sum(dim=-1)
     cos = dot / ((nn * no).sqrt() + eps)
     return alpha * conf.float() + (1.0 - alpha) * (1.0 - cos)
+
+
+def ssd_chunks(
+    x: torch.Tensor,           # [B, L, H, P], L % chunk == 0
+    dt: torch.Tensor,          # [B, L, H] positive (post-softplus)
+    a_log: torch.Tensor,       # [H]   A = -exp(a_log)
+    bmat: torch.Tensor,        # [B, L, G, N]
+    cmat: torch.Tensor,        # [B, L, G, N]
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The SSD chunk step for every (b, h, chunk) at once, in f32: with
+    ``cs`` the inclusive cumsum of ``dt * A`` within the chunk,
+
+        y_intra = ((C B^T) * L) (x dt),  L[i, j] = exp(cs_i - cs_j) for i >= j, else 0
+        contrib = sum_i exp(cs_Q - cs_i) dt_i B_i (x) x_i,   decay = exp(cs_Q)
+
+    Head h reads B/C group ``h // (H / G)``.  Returns ``(y_intra [B, L, H, P]
+    in x's dtype, contrib [B, nC, H, N, P], decay [B, nC, H], cs [B, L, H])``,
+    the last three f32."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    if l % chunk:
+        raise ValueError(f"ssd_chunks: L={l} is not a multiple of chunk={chunk}")
+    nc, hpg = l // chunk, h // g
+    a = -torch.exp(a_log.float())
+    xr = x.float().reshape(b, nc, chunk, h, p)
+    dtr = dt.float().reshape(b, nc, chunk, h)
+    br = bmat.float().reshape(b, nc, chunk, g, n).repeat_interleave(hpg, dim=3)
+    cr = cmat.float().reshape(b, nc, chunk, g, n).repeat_interleave(hpg, dim=3)
+    cs = torch.cumsum(dtr * a, dim=2)                                 # [B, nC, Q, H]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    # exp of the i < j entries may overflow to inf: the select drops it
+    lmat = torch.where(tri[:, :, None], torch.exp(cs[:, :, :, None, :] - cs[:, :, None, :, :]),
+                       0.0)                                           # [B, nC, Q, Q, H]
+    scores = torch.einsum("bcqhn,bckhn->bcqkh", cr, br) * lmat
+    xdt = xr * dtr[..., None]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", scores, xdt)
+    bscale = br * torch.exp(cs[:, :, -1:, :] - cs)[..., None]
+    contrib = torch.einsum("bcqhn,bcqhp->bchnp", bscale, xdt)
+    return (y.reshape(b, l, h, p).to(x.dtype), contrib, torch.exp(cs[:, :, -1, :]),
+            cs.reshape(b, l, h))
+
+
+def ssd_reference(
+    x: torch.Tensor,           # [B, L, H, P]
+    dt: torch.Tensor,          # [B, L, H]
+    a_log: torch.Tensor,       # [H]
+    bmat: torch.Tensor,        # [B, L, G, N]
+    cmat: torch.Tensor,        # [B, L, G, N]
+    init_state: torch.Tensor | None = None,   # [B, H, N, P] f32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sequential SSD recurrence (Mamba-2), the oracle of the chunked scan:
+
+        S_i = exp(dt_i A) S_{i-1} + dt_i B_i x_i^T,   y_i = C_i^T S_i
+
+    Returns ``(y [B, L, H, P] in x's dtype, final state [B, H, N, P] f32)``."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    a = -torch.exp(a_log.float())
+    bm = bmat.float().repeat_interleave(h // g, dim=2)
+    cm = cmat.float().repeat_interleave(h // g, dim=2)
+    state = (torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for i in range(l):
+        dt_i = dt[:, i].float()
+        state = (torch.exp(dt_i * a)[..., None, None] * state
+                 + dt_i[..., None, None] * bm[:, i, :, :, None] * x[:, i].float()[:, :, None, :])
+        ys.append(torch.einsum("bhn,bhnp->bhp", cm[:, i], state))
+    return torch.stack(ys, dim=1).to(x.dtype), state

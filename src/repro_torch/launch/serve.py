@@ -11,6 +11,8 @@ size unless ``--full``).
       --page-size 8 --prefix-sharing --dup-prompts --requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged \\
       --page-size 8 --preemption --priority-classes 2 --kv-pages 9 --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-370m \\
+      --requests 6 --batch 3 --early-advance --gen-length 16 --block-length 8
   PYTHONPATH=src python -m repro_torch.launch.serve --full --dtype bfloat16 \\
       --paged --early-advance --requests 16 --batch 4 --prompt-len 128 \\
       --gen-length 64 --block-length 32
@@ -120,6 +122,12 @@ def validate(args: argparse.Namespace) -> None:
     if args.preemption and not args.paged:
         raise ConfigError("--preemption requires --paged: spilling moves pool pages, "
                           "dense KV rows cannot be released")
+    if configs.get_config(args.arch).family == "ssm" and (
+            args.paged or args.prefix_sharing or args.preemption
+            or args.cache_prompt_interval > 1):
+        raise ConfigError("--paged, --prefix-sharing, --preemption and the adaptive cache "
+                          "(--cache-prompt-interval > 1) on an SSM stack are outside the "
+                          "port so far (ROADMAP.md)")
     if args.preemption and args.prefix_sharing:
         raise ConfigError("--preemption is incompatible with --prefix-sharing: a spill "
                           "releases pages other requests may still map")

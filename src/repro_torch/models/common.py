@@ -1,4 +1,5 @@
-"""Shared building blocks: RMSNorm, RoPE, the gated MLP, vocab padding.
+"""Shared building blocks: RMSNorm (plain and gated), RoPE, the gated MLP,
+vocab padding, per-row gathers and scatters.
 
 Plain PyTorch functions with the reference's numerics: f32 statistics in
 the norm, f32 rotation angles in RoPE, results cast back to the input dtype.
@@ -28,6 +29,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, scale: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Mamba-2 output norm: ``rms_norm(x * silu(gate))``, the gate's silu in f32."""
+    return rms_norm(x * F.silu(gate.float()).to(x.dtype), scale, eps)
 
 
 def rope_tables(
@@ -79,3 +86,19 @@ def apply_rope(
 def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU (both paper models): ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
     return (F.silu(x @ params.w_gate) * (x @ params.w_up)) @ params.w_down
+
+
+def row_gather(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """buf[b, idx[b, k]] for [B, N] or [B, N, d] buffers."""
+    idx = idx.long()
+    if buf.dim() == 2:
+        return torch.gather(buf, 1, idx)
+    return torch.gather(buf, 1, idx[..., None].expand(-1, -1, buf.shape[-1]))
+
+
+def row_scatter(buf: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Out of place: a copy of ``buf`` with ``buf[b, idx[b, k]] = new[b, k]``."""
+    idx = idx.long()
+    if buf.dim() == 3:
+        idx = idx[..., None].expand(-1, -1, buf.shape[-1])
+    return buf.scatter(1, idx, new.to(buf.dtype))

@@ -1,0 +1,147 @@
+"""Mamba-2 (SSD) mixer layer of the port.
+
+The reference's ``repro.models.mamba``: separate z / x / BC / dt
+projections, a depthwise causal conv over x and BC, the chunked SSD scan
+(``ops.ssd``, the hand-written chunk kernel on the card), the D skip, the
+gated RMSNorm and the output projection.  A decode resumes from a cached
+state and conv tail at the block start, so one diffusion iteration replays
+only the current block; a prefill also captures that state (``capture_pos``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.attention import _param
+from repro_torch.models.common import gated_rms_norm
+
+
+class SSMState(NamedTuple):
+    state: torch.Tensor       # [B, H, N, P] f32: SSD state at the block start
+    conv_tail: torch.Tensor   # [B, W-1, conv_ch]: conv inputs just before the block
+
+
+def mamba_dims(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    return dict(d_inner=d_inner, n_heads=d_inner // s.headdim,
+                conv_ch=d_inner + 2 * s.n_groups * s.d_state)
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> SSMState:
+    s = cfg.ssm
+    dims = mamba_dims(cfg)
+    return SSMState(
+        torch.zeros((batch, dims["n_heads"], s.d_state, s.headdim), dtype=torch.float32,
+                    device=device),
+        torch.zeros((batch, s.conv_width - 1, dims["conv_ch"]), dtype=dtype, device=device))
+
+
+class Mixer(nn.Module):
+    """The mixer's parameters in the reference's layout (``x @ W``).  The
+    per-head ``a_log``, ``dt_bias`` and ``d_skip`` stay f32 whatever the
+    parameter dtype, as in the reference."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        s, d = cfg.ssm, cfg.d_model
+        dims = mamba_dims(cfg)
+        d_inner, n_heads = dims["d_inner"], dims["n_heads"]
+        d_bc = 2 * s.n_groups * s.d_state
+        self.z_proj = _param((d, d_inner), device, dtype)
+        self.x_proj = _param((d, d_inner), device, dtype)
+        self.bc_proj = _param((d, d_bc), device, dtype)
+        self.dt_proj = _param((d, n_heads), device, dtype)
+        self.conv_x = _param((s.conv_width, d_inner), device, dtype)
+        self.conv_bc = _param((s.conv_width, d_bc), device, dtype)
+        self.conv_xb = _param((d_inner,), device, dtype)
+        self.conv_bcb = _param((d_bc,), device, dtype)
+        self.a_log = _param((n_heads,), device, torch.float32)
+        self.dt_bias = _param((n_heads,), device, torch.float32)
+        self.d_skip = _param((n_heads,), device, torch.float32)
+        self.norm_scale = _param((d_inner,), device, dtype)
+        self.out_proj = _param((d_inner, d), device, dtype)
+
+
+def _causal_conv(xbc: torch.Tensor, tail: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
+    """Depthwise causal conv1d over ``xbc [B, L, C]``; ``tail [B, W-1, C]``
+    holds the inputs just before the span (zeros at the sequence start).
+    The reference's loop over the taps, in its order.  Returns ``(out [B, L,
+    C], new tail [B, W-1, C])``."""
+    width, length = w.shape[0], xbc.shape[1]
+    full = torch.cat([tail.to(xbc.dtype), xbc], dim=1)              # [B, W-1+L, C]
+    out = torch.zeros_like(xbc)
+    for i in range(width):
+        out = out + full[:, i:i + length] * w[i]
+    return out + b, full[:, full.shape[1] - (width - 1):]
+
+
+def mamba_apply(
+    mixer: Mixer,
+    cfg: ModelConfig,
+    x: torch.Tensor,                              # [B, L, d], a contiguous span
+    *,
+    state: Optional[SSMState] = None,             # resume point (decode); None = sequence start
+    capture_pos: Optional[torch.Tensor] = None,   # [B] int: also return the state there
+) -> tuple[torch.Tensor, SSMState, Optional[SSMState]]:
+    """Runs the mixer over a span.  Returns ``(y [B, L, d], the state after
+    the span, the state at capture_pos or None)``.  The capture re-runs the
+    scan with ``dt`` zeroed at positions >= ``capture_pos`` (zero-dt steps are
+    exact no-ops), which takes a per-row capture position without slicing,
+    and takes the conv tail of the inputs just before it."""
+    s = cfg.ssm
+    dims = mamba_dims(cfg)
+    d_inner, n_heads = dims["d_inner"], dims["n_heads"]
+    g, n = s.n_groups, s.d_state
+    b, l, _ = x.shape
+    z = x @ mixer.z_proj
+    x_in = x @ mixer.x_proj
+    bc_in = x @ mixer.bc_proj
+    dt_raw = x @ mixer.dt_proj
+    if state is None:
+        tail = torch.zeros((b, s.conv_width - 1, dims["conv_ch"]), dtype=x_in.dtype,
+                           device=x.device)
+        init = None
+    else:
+        tail, init = state.conv_tail, state.state
+    x_conv, tail_x = _causal_conv(x_in, tail[..., :d_inner], mixer.conv_x, mixer.conv_xb)
+    bc_conv, tail_bc = _causal_conv(bc_in, tail[..., d_inner:], mixer.conv_bc, mixer.conv_bcb)
+    xs = F.silu(x_conv).reshape(b, l, n_heads, s.headdim)
+    bc = F.silu(bc_conv)
+    bmat = bc[..., :g * n].reshape(b, l, g, n)
+    cmat = bc[..., g * n:].reshape(b, l, g, n)
+    dt = F.softplus(dt_raw.float() + mixer.dt_bias)                  # [B, L, H]
+
+    y, final_state = ops.ssd(xs, dt, mixer.a_log, bmat, cmat, chunk=s.chunk, init_state=init)
+    y = y + xs * mixer.d_skip[None, None, :, None]      # f32: d_skip is f32, as in the reference
+    y = gated_rms_norm(y.reshape(b, l, d_inner), z, mixer.norm_scale, cfg.rms_eps)
+    out = y @ mixer.out_proj.to(y.dtype)
+
+    captured = None
+    if capture_pos is not None:
+        span = torch.arange(l, device=x.device)[None, :, None]
+        dt_masked = torch.where(span < capture_pos[:, None, None], dt, 0.0)
+        _, cap_state = ops.ssd(xs, dt_masked, mixer.a_log, bmat, cmat, chunk=s.chunk,
+                               init_state=init)
+        # the conv inputs [capture_pos - W + 1, capture_pos), zeros before the span
+        full = torch.cat([tail.to(x_in.dtype), torch.cat([x_in, bc_in], dim=-1)], dim=1)
+        cols = capture_pos.long()[:, None] + torch.arange(s.conv_width - 1, device=x.device)
+        cap_tail = torch.gather(full, 1, cols[..., None].expand(-1, -1, full.shape[-1]))
+        captured = SSMState(cap_state, cap_tail)
+    return out, SSMState(final_state, torch.cat([tail_x, tail_bc], dim=-1)), captured
+
+
+class SSMCache(NamedTuple):
+    """The SSM stack's caches, stacked ``[G, ...]`` over the layers
+    (``Model.init_cache``), each row a slot: the SSD state and conv tail at
+    the current block start (``SSMState``'s fields) and ``ssmh``, the block
+    rows a decode rebuilds the contiguous block from (the reference's
+    dense-rejoin buffer)."""
+    state: torch.Tensor       # [G, B, H, N, P] f32
+    conv_tail: torch.Tensor   # [G, B, W-1, conv_ch]
+    ssmh: torch.Tensor        # [G, B, Lb, d]

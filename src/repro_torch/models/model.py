@@ -1,4 +1,5 @@
-"""The port's model: dense, attention-only, period-1 stacks (LLaDA, Dream).
+"""The port's model: period-1 stacks, attention-only (LLaDA, Dream) or pure
+SSM (Mamba-2).
 
 ``run_layers(h, ctx, cache, group_lo, group_hi)`` runs a *segment* of the
 stack, so the engine can stop at a skip layer, shrink the active set and
@@ -6,16 +7,28 @@ continue, as in the reference, where a ``lax.scan`` over layer groups runs
 the segment; here a Python loop over the layers does.  Cache modes
 (``ForwardCtx.mode``):
 
-  * ``nocache`` -- the vanilla engine: fresh K/V, no cache;
+  * ``nocache`` -- the vanilla engine: fresh K/V, the full SSD scan, no cache;
   * ``prefill`` -- write-through: every row scattered into the KV cache,
-    which is then attended;
+    which is then attended; an SSM layer captures its state and conv tail
+    at the block start and the block rows of its output into ``ssmh``;
   * ``decode``  -- one diffusion iteration: only the active rows scattered,
-    the whole cache attended.
+    the whole cache attended; an SSM layer scatters the active rows into
+    ``ssmh``, runs the mixer over that whole block from the cached
+    block-start state and gathers the active rows back (the reference's
+    dense rejoin).
 
 The KV cache is ``KVCache(k, v)`` of ``[G, B, S, Hkv, Dh]`` planes, or of
 ``[G, P, ps, Hkv, Dh]`` page pools shared by every slot and addressed through
 ``ForwardCtx.block_tables`` (paged serving); layer g reads and writes the
-views ``k[g]``/``v[g]`` in place.
+views ``k[g]``/``v[g]`` in place.  An SSM stack's cache is ``SSMCache``
+(``state``, ``conv_tail``, ``ssmh``), written in place too; under a
+``scatter_mask`` only the owned rows are written.
+
+Prefill stores each SSM layer's *output* block rows in ``ssmh``, while a
+decode scatters the layer's *input* rows into it and runs the mixer on that
+buffer as the layer's input: the reference does so
+(``repro/models/model.py:_apply_ssm``), and the port mirrors it so that its
+tokens stay equal to the reference's (ROADMAP.md Queue C).
 """
 from __future__ import annotations
 
@@ -34,20 +47,29 @@ from repro_torch.models.attention import (
     _param,
     self_attention,
 )
-from repro_torch.models.common import mlp_apply, padded_vocab, rms_norm, rope_tables
+from repro_torch.models.common import (
+    mlp_apply,
+    padded_vocab,
+    rms_norm,
+    rope_tables,
+    row_gather,
+    row_scatter,
+)
+from repro_torch.models.mamba import Mixer, SSMCache, SSMState, init_ssm_state, mamba_apply
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError for archs outside this slice of the port."""
+    """Raises NotImplementedError for archs outside the port so far."""
     kinds = {cfg.layer_kind(l) for l in range(cfg.n_layers)}
-    if (cfg.pattern_period != 1 or kinds != {"attn"} or cfg.moe is not None
-            or cfg.sliding_window or cfg.tie_embeddings or cfg.logit_softcap
-            or cfg.act != "silu"):
+    ssm_only = kinds == {"ssm"} and cfg.family == "ssm" and cfg.ssm is not None
+    if (cfg.pattern_period != 1 or not (kinds == {"attn"} or ssm_only) or cfg.moe is not None
+            or cfg.sliding_window or cfg.logit_softcap or cfg.act != "silu"):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers dense, attention-only, period-1 stacks "
-            f"(LLaDA-8B, Dream-7B); see ROADMAP.md Queue A for the other families")
+            f"{cfg.name}: the port covers period-1 stacks that are dense attention-only "
+            f"(LLaDA-8B, Dream-7B) or pure SSM (Mamba2-370M); see ROADMAP.md Queue A for "
+            f"the other families")
     for field in ("param_dtype", "compute_dtype"):
         if getattr(cfg, field) not in DTYPES:
             raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: float32 or bfloat16")
@@ -65,6 +87,10 @@ class ForwardCtx:
                                                   # land (mixed-mode cadence)
     refresh_mask: Optional[torch.Tensor] = None   # [B, K] bool: tokens whose K/V
                                                   # scatters land (partial refresh)
+    block_idx: Optional[torch.Tensor] = None      # [B, K] int32 block-local rows (SSM
+                                                  # decode: the dense rejoin)
+    block_start: Optional[torch.Tensor] = None    # [B] int32 block start (SSM prefill:
+                                                  # the state capture)
 
 
 class MLP(nn.Module):
@@ -76,12 +102,28 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """``ln1`` + attention + ``ln2`` + MLP, or for a pure SSM stack ``ln1`` +
+    mixer (no FFN, as the reference decides for ``family="ssm"``)."""
+
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), device, dtype)
+        if cfg.family == "ssm":
+            self.mixer = Mixer(cfg, device, dtype)
+            return
         self.attn = Attention(cfg, device, dtype)
         self.ln2 = _param((cfg.d_model,), device, dtype)
         self.ffn = MLP(cfg.d_model, cfg.d_ff, device, dtype)
+
+
+def _store(dst: torch.Tensor, new: torch.Tensor, row_mask: Optional[torch.Tensor]) -> None:
+    """In place ``dst[:] = new`` on the rows of ``row_mask`` (all rows without
+    one): a pass leaves the SSM caches of the rows it does not own as they
+    were, as the reference's per-row merge of a pass's outputs does."""
+    new = new.to(dst.dtype)
+    if row_mask is not None:
+        new = torch.where(row_mask.view((-1,) + (1,) * (new.dim() - 1)), new, dst)
+    dst.copy_(new)
 
 
 class Model(nn.Module):
@@ -97,38 +139,57 @@ class Model(nn.Module):
         self.dtype = DTYPES[cfg.param_dtype]
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.n_groups = cfg.n_layers           # period 1: one layer per group
+        self.ssm = cfg.family == "ssm"
         vp = padded_vocab(cfg)
         self.embed = _param((vp, cfg.d_model), self.device, self.dtype)
         self.final_norm = _param((cfg.d_model,), self.device, self.dtype)
-        self.lm_head = _param((cfg.d_model, vp), self.device, self.dtype)
+        # tied embeddings: the head is embed.T, there is no lm_head
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _param((cfg.d_model, vp), self.device, self.dtype))
         self.layers = nn.ModuleList(
             Block(cfg, self.device, self.dtype) for _ in range(cfg.n_layers))
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Random init with the reference's scheme (normal x 0.02, output
-        projections 0.02/sqrt(2L), norms 1, biases 0) but torch's numbers:
+        projections 0.02/sqrt(2L), norms 1, biases 0; the mixer's conv taps x
+        0.2, ``a_log`` 0, ``dt_bias`` -1, ``d_skip`` 1) but torch's numbers:
         the values differ from ``repro``'s for the same seed.  ``generator``
         lives on the model's device, so a model on the card is initialised
         there."""
         out_scale = 0.02 / max(2.0 * self.cfg.n_layers, 1.0) ** 0.5
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("final_norm", "ln1", "ln2"):
+            if leaf in ("final_norm", "ln1", "ln2", "norm_scale", "d_skip"):
                 p.fill_(1.0)
-            elif leaf in ("bq", "bk", "bv"):
+            elif leaf in ("bq", "bk", "bv", "conv_xb", "conv_bcb", "a_log"):
                 p.zero_()
+            elif leaf == "dt_bias":
+                p.fill_(-1.0)
             else:
-                std = out_scale if leaf in ("wo", "w_down") else 0.02
+                std = {"wo": out_scale, "w_down": out_scale, "out_proj": out_scale,
+                       "conv_x": 0.2, "conv_bc": 0.2}.get(leaf, 0.02)
                 p.normal_(0.0, std, generator=generator)
         return self
 
-    def init_cache(self, batch: int, seq_len: int, *, kv_pages: int = 0,
-                   page_size: int = 0) -> KVCache:
-        """Zeroed KV planes in the parameter dtype: ``[G, B, S, Hkv, Dh]``, or
-        with ``kv_pages`` the page pool ``[G, kv_pages, page_size, Hkv, Dh]``
-        shared by every slot (page 0 is the garbage page)."""
+    def init_cache(self, batch: int, seq_len: int, *, block_len: int = 0, kv_pages: int = 0,
+                   page_size: int = 0) -> KVCache | SSMCache:
+        """Zeroed caches.  Attention: KV planes in the parameter dtype, ``[G,
+        B, S, Hkv, Dh]``, or with ``kv_pages`` the page pool ``[G, kv_pages,
+        page_size, Hkv, Dh]`` shared by every slot (page 0 is the garbage
+        page).  SSM: ``SSMCache`` with ``block_len`` rows of ``ssmh`` per
+        slot; there is no paged layout (nothing grows with the sequence)."""
         cfg = self.cfg
+        if self.ssm:
+            if kv_pages or block_len <= 0:
+                raise ValueError("an SSM cache is dense and needs block_len > 0")
+            base = init_ssm_state(cfg, batch, self.dtype, self.device)
+            g = self.n_groups
+            return SSMCache(
+                base.state[None].repeat(g, 1, 1, 1, 1),
+                base.conv_tail[None].repeat(g, 1, 1, 1),
+                torch.zeros((g, batch, block_len, cfg.d_model), dtype=self.dtype,
+                            device=self.device))
         if kv_pages:
             if page_size <= 0 or seq_len % page_size:
                 raise ValueError(f"page_size {page_size} must divide the sequence {seq_len}")
@@ -143,17 +204,23 @@ class Model(nn.Module):
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, self.final_norm, self.cfg.rms_eps)
-        return h @ self.lm_head.to(h.dtype)
+        head = self.embed.T if self.lm_head is None else self.lm_head
+        return h @ head.to(h.dtype)
 
-    def run_layers(self, h: torch.Tensor, ctx: ForwardCtx, cache: Optional[KVCache] = None,
-                   *, group_lo: int = 0, group_hi: Optional[int] = None) -> torch.Tensor:
+    def run_layers(self, h: torch.Tensor, ctx: ForwardCtx,
+                   cache: Optional[KVCache | SSMCache] = None, *, group_lo: int = 0,
+                   group_hi: Optional[int] = None) -> torch.Tensor:
         """Runs layers ``[group_lo, group_hi)`` on ``h [B, K, d]``; in the
-        prefill/decode modes the cache planes are updated in place."""
+        prefill/decode modes the caches are updated in place."""
         cfg = self.cfg
         group_hi = self.n_groups if group_hi is None else group_hi
         if not 0 <= group_lo < group_hi <= self.n_groups:
             raise ValueError(f"bad layer segment [{group_lo}, {group_hi})")
         use_cache = ctx.mode in ("prefill", "decode") and cache is not None
+        if self.ssm:
+            for g in range(group_lo, group_hi):
+                h = self._apply_ssm(self.layers[g], g, h, ctx, cache if use_cache else None)
+            return h
         rope = rope_tables(ctx.positions, cfg.head_dim, theta=cfg.rope_theta,
                            fraction=cfg.rope_fraction)
         for g in range(group_lo, group_hi):
@@ -166,4 +233,36 @@ class Model(nn.Module):
                 cache=kv, slot_idx=ctx.slot_idx, kv_pos=ctx.kv_pos, rope=rope,
                 scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask)
             h = h + mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps))
+        return h
+
+    def _apply_ssm(self, layer: Block, g: int, h: torch.Tensor, ctx: ForwardCtx,
+                   cache: Optional[SSMCache]) -> torch.Tensor:
+        """One SSM layer, the reference's ``_apply_ssm``: decode rebuilds the
+        block from ``ssmh`` and resumes from the block-start state, prefill
+        captures that state and the block rows of the layer's output."""
+        cfg = self.cfg
+        if ctx.mode == "decode" and cache is not None:
+            if ctx.block_idx is None:
+                raise ValueError("an SSM decode needs block_idx")
+            full_in = row_scatter(cache.ssmh[g], h, ctx.block_idx)
+            y_full, _, _ = mamba_apply(
+                layer.mixer, cfg, rms_norm(full_in, layer.ln1, cfg.rms_eps),
+                state=SSMState(cache.state[g], cache.conv_tail[g]))
+            h = h + row_gather(y_full, ctx.block_idx).to(h.dtype)
+            _store(cache.ssmh[g], full_in, ctx.scatter_mask)   # the state stays at block start
+            return h
+        capture = None
+        if ctx.mode == "prefill" and cache is not None:
+            if ctx.block_start is None:
+                raise ValueError("an SSM prefill needs block_start")
+            capture = ctx.block_start
+        y, _, captured = mamba_apply(layer.mixer, cfg, rms_norm(h, layer.ln1, cfg.rms_eps),
+                                     capture_pos=capture)
+        h = h + y.to(h.dtype)
+        if capture is not None:
+            lb = cache.ssmh.shape[2]
+            cols = capture[:, None] + torch.arange(lb, dtype=capture.dtype, device=h.device)
+            _store(cache.state[g], captured.state, ctx.scatter_mask)
+            _store(cache.conv_tail[g], captured.conv_tail, ctx.scatter_mask)
+            _store(cache.ssmh[g], row_gather(h, cols), ctx.scatter_mask)
         return h

@@ -44,9 +44,12 @@ and one read of the per-row counters after it.  The slots' phases, which
 admission, preemption and the copy-on-write fork need, are kept on the host
 from that second read.
 
+An SSM stack (Mamba-2) serves on dense slots, with early advance or without.
+
 Outside the port so far (each raises ``ConfigError`` at construction, see
-ROADMAP.md): lazy page reservation and the persistent cross-request prefix
-store of block-causal mode.
+ROADMAP.md): lazy page reservation, the persistent cross-request prefix
+store of block-causal mode, and paged KV, prefix sharing and preemption on an
+SSM stack (the engine raises ``NotImplementedError`` for its adaptive cache).
 """
 from __future__ import annotations
 
@@ -285,6 +288,9 @@ class StreamScheduler:
     ):
         if lazy_reserve:
             raise ConfigError("lazy_reserve is outside the port so far (ROADMAP.md)")
+        if model.ssm and (paged or prefix_sharing or preemption):
+            raise ConfigError("paged KV, prefix sharing and preemption on an SSM stack are "
+                              "outside the port so far (ROADMAP.md): it serves on dense slots")
         if prefix_sharing and not paged:
             raise ConfigError("prefix_sharing shares pool pages: it requires paged=True")
         if preemption and not paged:

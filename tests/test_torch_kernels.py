@@ -16,6 +16,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
 from repro_torch.kernels.importance import importance, variation
 from repro_torch.kernels.scatter_kv import fork_pages, scatter_rows, scatter_rows_paged
+from repro_torch.kernels.ssd_scan import ssd_chunks
 
 ATOL = 2e-5   # f32: the two sides sum the softmax in different orders
 
@@ -353,3 +354,20 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
     assert all(torch.equal(p.cpu(), w) for p, w in zip(pools, want))
     with pytest.raises(ValueError, match="also sources"):
         fork_pages(*pools, [4, 11], [11, 12])
+    # the SSD chunk step, B and C strided views of one projection as in the
+    # mixer: one chunk of 32 (the decode block), and two groups over three
+    # chunks of 16.  y_intra is rounded to the dtype once; the rest is f32.
+    for b, l, h, p, grp, n, ck in ((2, 32, 4, 64, 1, 128, 32), (2, 48, 4, 16, 2, 8, 16)):
+        x = (torch.randn(b, l, h, p, generator=g, device=cuda_device) * 0.5).to(dtype)
+        dt = torch.nn.functional.softplus(torch.randn(b, l, h, generator=g, device=cuda_device))
+        a_log = torch.randn(h, generator=g, device=cuda_device) * 0.3
+        bc = (torch.randn(b, l, 2 * grp * n, generator=g, device=cuda_device) * 0.5).to(dtype)
+        bm, cm = (t.reshape(b, l, grp, n) for t in (bc[..., :grp * n], bc[..., grp * n:]))
+        got = ssd_chunks(x, dt, a_log, bm, cm, chunk=ck)
+        want = ref.ssd_chunks(x, dt, a_log, bm, cm, ck)
+        for i, (gt, wt) in enumerate(zip(got, want)):
+            assert gt.dtype == wt.dtype and gt.shape == wt.shape
+            t = 2e-2 if (i == 0 and dtype == torch.bfloat16) else 1e-4
+            torch.testing.assert_close(gt.float(), wt.float(), atol=t, rtol=t)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_chunks(x, dt, a_log, bm, cm, chunk=32)

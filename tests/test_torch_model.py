@@ -42,7 +42,7 @@ def _close(got: torch.Tensor, want, atol=ATOL):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-370m"])
 def test_configs_match_reference(arch):
     full_j, full_t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(full_j) == dataclasses.asdict(full_t)
