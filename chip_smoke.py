@@ -13,9 +13,11 @@ no result):
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the offline and serving paths' shapes, in float32 and bfloat16,
    with kernel, plain and library times and the bound from bytes and
-   operations (the copy-on-write fork also: in place, no pool-sized
-   allocation, aliased lists refused; the SSD chunk step at mamba2-370m's
-   decode, prefill, two-group and ragged shapes); the threefry key chain's
+   operations (attention: each case's body, tensor-core or CUDA-core, and
+   KV split count, with split cases on long caches; the copy-on-write fork
+   also: in place, no pool-sized allocation, aliased lists refused; the SSD
+   chunk step at mamba2-370m's decode, prefill, two-group and ragged
+   shapes); the threefry key chain's
    known answers on the card, a draw of the sampled path's shape with bits
    equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -43,6 +45,10 @@ no result):
 8. Mamba-2: mamba2-370m at full width in bfloat16 (seeded random weights
    on the card), offline es and dualcache generation and the dense-slot
    ``StreamScheduler`` with early advance, through the SSD chunk kernel.
+
+On phases 5, 6 and 7 every attention launch must take the tensor-core body,
+and phases 5 and 6 must keep one attention launch per call.  Each path
+profile sums the device time of the port's kernels over its whole trace.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -184,14 +190,52 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+ATTENTION = ("flash_attention", "paged_flash_attention")
+BODIES = ("tensor_core", "cuda_core")
+# attention launches of one offline generate (phase 5) and one serving trace
+# (phase 6) with the CUDA-core body, one per attention call: the tensor-core
+# body must keep one launch per call
+LAUNCHES_OFFLINE_GENERATE = 2048
+LAUNCHES_SERVING_TRACE = 7872
+
+
+def zero_counts(kernel_fns) -> None:
+    for fn in kernel_fns.values():
+        fn.launches = 0
+    for name in ATTENTION:
+        for body in BODIES:
+            setattr(kernel_fns[name], f"{body}_launches", 0)
+
+
+def counts(kernel_fns) -> dict:
+    """Each kernel's launches, and each attention body's."""
+    out = {name: fn.launches for name, fn in kernel_fns.items()}
+    for name in ATTENTION:
+        for body in BODIES:
+            out[f"{name} {body}"] = getattr(kernel_fns[name], f"{body}_launches")
+    return out
+
+
+def check_tensor_core_path(launches: dict, where: str) -> None:
+    """Every attention launch of a bf16 full-width path went through the
+    tensor-core body."""
+    for name in ATTENTION:
+        if launches[f"{name} tensor_core"] != launches[name]:
+            raise AssertionError(f"{where}: {launches[name]} {name} launches, only "
+                                 f"{launches[name + ' tensor_core']} on the tensor-core body")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels vs plain versions
 # ---------------------------------------------------------------------------
 def flash_cases():
     """(label, B, Hq, Hkv, Lq, Lkv, D, pad, dtype, mask kwargs, kv_pos edits).
     pad > 0 takes q/k/v as the first D columns of rows D + pad wide, so their
-    strides are not 16-byte multiples; that and D outside {32, 64, 128} take
-    the kernel's element-wise K/V staging."""
+    strides are not 16-byte multiples; that, f32, or D not a multiple of 16
+    take the CUDA-core body.  One batch entry and few blocks make the
+    tensor-core body split a long KV cache: at Lkv 1580, two splits of 13
+    tiles (832 rows), the last ragged (748), with the edits masking all of
+    split 0."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for lq, what in ((192, "prefill"), (32, "block"), (16, "skip1"), (8, "skip2")):
@@ -201,13 +245,20 @@ def flash_cases():
         cases.append(("dream gqa masked", 2, 28, 4, 32, 192, 128, 0, dt, {"causal": True}, True))
         cases.append(("dream gqa window+anchor+bc", 2, 28, 4, 32, 192, 128, 0, dt,
                       {"window": 24, "anchor": 16, "bc_start": 128, "bc_block": 32}, True))
+        cases.append(("llada split masked+ragged", 1, 32, 32, 32, 1580, 128, 0, dt,
+                      {"causal": True}, "split"))
+        cases.append(("dream gqa split masked+ragged", 1, 28, 4, 32, 1580, 128, 0, dt,
+                      {"causal": True}, "split"))
         cases.append(("D=80 block", 2, 32, 32, 32, 192, 80, 0, dt, {}, False))
         cases.append(("D=96 gqa masked", 2, 28, 4, 32, 192, 96, 0, dt, {"causal": True}, True))
+        cases.append(("D=72 block", 2, 32, 32, 32, 192, 72, 0, dt, {}, False))
         cases.append(("llada block unaligned strides", 2, 32, 32, 32, 192, 128, 2, dt, {}, False))
     return cases
 
 
 def check_flash(ref, flash_attention, gen):
+    from repro_torch.kernels.flash_attention import plan
+
     out = []
     for label, b, hq, hkv, lq, lkv, d, pad, dt, kw, edit in flash_cases():
         # the main path's layouts: q and the cache as [B, L, H, D], viewed [B, H, L, D]
@@ -217,10 +268,14 @@ def check_flash(ref, flash_attention, gen):
         q, k, v = rows(lq, hq), rows(lkv, hkv), rows(lkv, hkv)
         q_pos = torch.arange(lkv - lq, lkv, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
         kv_pos = torch.arange(lkv, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
-        if edit:
+        if edit is True:
             kv_pos[:, 5:9] = -1          # evicted / unfilled rows
             kv_pos[1, 100:140] = -1
+        if edit == "split":
+            kv_pos[:, :832] = -1         # split 0 has no valid key
+        if edit:
             q_pos[0, 3] = -1             # with causal: a query row with nothing valid
+        pl = plan(q, k, v, lkv, hkv)
         got = flash_attention(q, k, v, q_pos, kv_pos, **kw)
         want = ref.attention_reference(q, k, v, q_pos, kv_pos, **kw)
         err = (got.float() - want.float()).abs().max().item()
@@ -228,7 +283,10 @@ def check_flash(ref, flash_attention, gen):
         if not err <= tol:
             raise AssertionError(f"flash_attention {label} {dt}: max abs err {err} > {tol}")
         if edit and kw.get("causal") and got[0, :, 3].abs().max().item() != 0.0:
-            raise AssertionError("flash_attention: a fully masked row must be 0")
+            raise AssertionError(f"flash_attention {label}: a fully masked row must be 0")
+        if (edit == "split" and pl.body == "tensor_core"
+                and ref.split_bounds(lkv, pl.n_splits)[:1] != [(0, 832)]):
+            raise AssertionError(f"flash_attention {label}: {pl}, not split at row 832")
         ms, wall = device_ms(lambda: flash_attention(q, k, v, q_pos, kv_pos, **kw))
         plain_ms, _ = device_ms(lambda: ref.attention_reference(q, k, v, q_pos, kv_pos, **kw))
         mask = ref.attention_mask(q_pos, kv_pos, **kw)[:, None]
@@ -241,7 +299,7 @@ def check_flash(ref, flash_attention, gen):
         bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, got), flops, dt)
         out.append(dict(kernel="flash_attention", case=label, dtype=str(dt), max_abs_err=err,
                         tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=bms, bound_by=by))
+                        bound_ms=bms, bound_by=by, body=pl.body, n_splits=pl.n_splits))
     return out
 
 
@@ -323,14 +381,49 @@ def serving_layout(gen, ps):
 
 
 def check_paged_flash(ref, paged_flash_attention, gen):
+    """The serving layouts at page sizes 16 and 8, then one long Dream slot
+    (1600 virtual rows) that the tensor-core body splits at row 832, split
+    0 on unmapped pages only, split 1 ragged."""
+    from repro_torch.kernels.flash_attention import plan
+
+    def case(label, q, kp, vp, q_pos, kv_pos, bt):
+        dt, (hq, hkv, ps) = q.dtype, (q.shape[1], kp.shape[2], kp.shape[1])
+        args = (q, kp, vp, q_pos, kv_pos, bt)
+        pl = plan(q, kp, vp, kv_pos.shape[1], hkv, ps)
+        got = paged_flash_attention(*args)
+        want = ref.paged_attention_reference(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        if not err <= tol:
+            raise AssertionError(f"paged_flash_attention {label} {dt}: max abs err {err} > {tol}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"paged_flash_attention {label}: non-finite output")
+        ms, wall = device_ms(lambda: paged_flash_attention(*args))
+        plain_ms, _ = device_ms(lambda: ref.paged_attention_reference(*args))
+        mask = ref.attention_mask(q_pos, ref.paged_kv_mask(bt, kv_pos, ps))[:, None]
+
+        def library():            # two calls: gather the pages, then SDPA
+            k = ref.gather_pages(kp, bt).transpose(1, 2)
+            v = ref.gather_pages(vp, bt).transpose(1, 2)
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=hq != hkv)
+        lib_ms, _ = device_ms(library)
+        n_mapped = int((bt >= 0).sum().item())
+        page_bytes = ps * hkv * 128 * kp.element_size()
+        flops = 4.0 * hq * 128 * mask.sum().item()
+        bms, by = bound(nbytes(q, q_pos, kv_pos, bt, got) + 2 * n_mapped * page_bytes, flops, dt)
+        return pl, dict(kernel="paged_flash_attention", case=label, dtype=str(dt),
+                        max_abs_err=err, tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                        library_ms=lib_ms, library="gather_pages + scaled_dot_product_attention",
+                        bound_ms=bms, bound_by=by, mapped_pages=n_mapped, body=pl.body,
+                        n_splits=pl.n_splits)
+
     out = []
     for dt in (torch.float32, torch.bfloat16):
         for arch, hq, hkv in (("llada", 32, 32), ("dream gqa", 28, 4)):
             for ps in (16, 8):
                 for lq, what in ((32, "block"), (8, "skip2"), (40, "partial"), (192, "prefill")):
-                    if arch != "llada" and what in ("skip2", "partial"):
+                    if arch != "llada" and what == "partial":
                         continue
-                    label = f"{arch} {what} Lq={lq} ps={ps}"
                     bt, kv_pos, n_pages = serving_layout(gen, ps)
                     kp = torch.randn(n_pages, ps, hkv, 128, generator=gen, device="cuda").to(dt)
                     vp = torch.randn(n_pages, ps, hkv, 128, generator=gen, device="cuda").to(dt)
@@ -339,38 +432,22 @@ def check_paged_flash(ref, paged_flash_attention, gen):
                     # the block's positions, or every position for a prefill
                     first = PROMPT if lq < T_TOTAL else 0
                     q_pos = torch.arange(first, first + lq, dtype=torch.int32, device="cuda")
-                    q_pos = q_pos[None].repeat(SLOTS, 1)
-                    args = (q, kp, vp, q_pos, kv_pos, bt)
-                    got = paged_flash_attention(*args)
-                    want = ref.paged_attention_reference(*args)
-                    err = (got.float() - want.float()).abs().max().item()
-                    tol = 1e-4 if dt == torch.float32 else 2e-2
-                    if not err <= tol:
-                        raise AssertionError(f"paged_flash_attention {label} {dt}: max abs "
-                                             f"err {err} > {tol}")
-                    if not torch.isfinite(got).all():
-                        raise AssertionError(f"paged_flash_attention {label}: non-finite output")
-                    ms, wall = device_ms(lambda: paged_flash_attention(*args))
-                    plain_ms, _ = device_ms(lambda: ref.paged_attention_reference(*args))
-                    mkv = ref.paged_kv_mask(bt, kv_pos, ps)
-                    mask = ref.attention_mask(q_pos, mkv)[:, None]
-
-                    def library():            # two calls: gather the pages, then SDPA
-                        k = ref.gather_pages(kp, bt).transpose(1, 2)
-                        v = ref.gather_pages(vp, bt).transpose(1, 2)
-                        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                              enable_gqa=hq != hkv)
-                    lib_ms, _ = device_ms(library)
-                    n_mapped = int((bt >= 0).sum().item())
-                    page_bytes = ps * hkv * 128 * kp.element_size()
-                    flops = 4.0 * hq * 128 * mask.sum().item()
-                    bms, by = bound(nbytes(q, q_pos, kv_pos, bt, got) + 2 * n_mapped * page_bytes,
-                                    flops, dt)
-                    out.append(dict(kernel="paged_flash_attention", case=label, dtype=str(dt),
-                                    max_abs_err=err, tol=tol, ms=ms, wall_ms=wall,
-                                    plain_ms=plain_ms, library_ms=lib_ms,
-                                    library="gather_pages + scaled_dot_product_attention",
-                                    bound_ms=bms, bound_by=by, mapped_pages=n_mapped))
+                    out.append(case(f"{arch} {what} Lq={lq} ps={ps}", q, kp, vp,
+                                    q_pos[None].repeat(SLOTS, 1), kv_pos, bt)[1])
+        for ps in (16, 8):
+            label, n_vp = f"dream gqa split Lq=32 ps={ps}", 1600 // ps
+            bt = (torch.randperm(n_vp, generator=gen, device="cuda") + 1).int().view(1, n_vp)
+            bt[0, : 832 // ps] = -1                    # split 0: nothing mapped
+            kv_pos = torch.arange(1600, dtype=torch.int32, device="cuda")[None].contiguous()
+            kv_pos[0, 1500:] = -1
+            kp, vp = (torch.randn(n_vp + 1, ps, 4, 128, generator=gen, device="cuda").to(dt)
+                      for _ in "kv")
+            q = torch.randn(1, 32, 28, 128, generator=gen, device="cuda").to(dt).transpose(1, 2)
+            q_pos = torch.arange(1568, 1600, dtype=torch.int32, device="cuda")[None].contiguous()
+            pl, rec = case(label, q, kp, vp, q_pos, kv_pos, bt)
+            if dt == torch.bfloat16 and ref.split_bounds(1600, pl.n_splits)[:1] != [(0, 832)]:
+                raise AssertionError(f"paged_flash_attention {label}: {pl}, not split at 832")
+            out.append(rec)
     return out
 
 
@@ -1040,14 +1117,13 @@ def main_path(model, init_s, kernel_fns):
     engine = make_engine(model, gen_cfg, device="cuda")
     engine.generate(prompt)                       # warm-up: cuBLAS handles, allocator
     torch.cuda.synchronize()
-    for fn in kernel_fns.values():
-        fn.launches = 0
+    zero_counts(kernel_fns)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = engine.generate(prompt)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    launches = counts(kernel_fns)
     repeats = [wall]                    # host time varies: the spread of a few runs
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1105,14 +1181,13 @@ def serving_path(model, kernel_fns):
     serve_trace(make(), prompts[:1], max_new[:1], every=5)     # warm-up
     torch.cuda.synchronize()
     sched = make()
-    for fn in kernel_fns.values():
-        fn.launches = 0
+    zero_counts(kernel_fns)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reqs = serve_trace(sched, prompts, max_new, every=5)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    launches = counts(kernel_fns)
     peak_mem = torch.cuda.max_memory_allocated() / 1e9
     for r, n in zip(reqs, max_new):
         if r.output is None or r.output.shape != (n,):
@@ -1259,8 +1334,7 @@ def dream_serving(model, kernel_fns) -> dict:
     out, outputs = {}, {}
     for name, kw in runs.items():
         sched = make(kw)
-        for fn in kernel_fns.values():
-            fn.launches = 0
+        zero_counts(kernel_fns)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         timer = SamplerTimer()
@@ -1282,7 +1356,7 @@ def dream_serving(model, kernel_fns) -> dict:
             pages_spilled=st.pages_spilled, resumes=len(st.resume_waits),
             resume_p50_s=st.resume_p50,
             cache_hit_fraction=st.cache_hit_fraction,
-            launches={n: fn.launches for n, fn in kernel_fns.items()},
+            launches=counts(kernel_fns),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
             sampler_calls=len(timer.spans), sampler_ms_per_step=timer.total_ms() / st.steps)
     if out["7a"]["cow_forks"] <= 0 or out["7a"]["launches"]["fork_pages"] < 1:
@@ -1350,13 +1424,12 @@ def mamba_offline(model, kernel_fns) -> dict:
     for mode in ("es", "dualcache", "dualcache", "es"):
         engine = engines[mode]
         engine.pass_counts = {k: 0 for k in engine.pass_counts}
-        for fn in kernel_fns.values():
-            fn.launches = 0
+        zero_counts(kernel_fns)
         t0 = time.perf_counter()
         tokens = engine.generate(prompt)
         torch.cuda.synchronize()
         walls[mode].append(time.perf_counter() - t0)
-        launches[mode] = {name: fn.launches for name, fn in kernel_fns.items()}
+        launches[mode] = counts(kernel_fns)
         passes[mode] = dict(engine.pass_counts)
         if mode in out and not torch.equal(tokens, out[mode]):
             raise AssertionError(f"mamba2 {mode}: a repeated greedy generate gave other tokens")
@@ -1413,14 +1486,13 @@ def mamba_serving(model, kernel_fns) -> dict:
     serve_trace(make(), prompts[:1], max_new[:1], every=5)     # warm-up
     torch.cuda.synchronize()
     sched = make()
-    for fn in kernel_fns.values():
-        fn.launches = 0
+    zero_counts(kernel_fns)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reqs = serve_trace(sched, prompts, max_new, every=5)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernel_fns.items()}
+    launches = counts(kernel_fns)
     for r, n in zip(reqs, max_new):
         if r.error is not None or r.output is None or r.output.shape != (n,):
             raise AssertionError(f"mamba2 request {r.request_id}: {r.error!r} {r.output}")
@@ -1472,9 +1544,17 @@ def profile_run(fn, top: int = 8) -> dict:
         rec[0] += d
         rec[1] += 1
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    port: dict[str, list] = {}          # the port's kernels, by symbol and template arguments
+    for name, _, d in evs:
+        if "repro_torch" in name:
+            key = name.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
+            rec = port.setdefault(key, [0.0, 0])
+            rec[0] += d
+            rec[1] += 1
     return dict(profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 device_busy_share=busy / wall_us, kernels_launched=len(evs),
-                top=[dict(name=n, ms=us / 1e3, count=c) for n, (us, c) in ranked])
+                top=[dict(name=n, ms=us / 1e3, count=c) for n, (us, c) in ranked],
+                port_kernels={n: dict(ms=us / 1e3, count=c) for n, (us, c) in port.items()})
 
 
 def main() -> int:
@@ -1544,9 +1624,14 @@ def main() -> int:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         if "+" in c.get("library", ""):
             lib += " (2 calls)"
-        print(f"{c['kernel']:21s} {c['case']:34s} {c['dtype']:15s} err {c['max_abs_err']:.2e} "
-              f"ms {c['ms']:.4f} (wall {c['wall_ms']:.4f}) plain {c['plain_ms']:.4f} "
-              f"library {lib} bound {c['bound_ms']:.4f} ({c['bound_by']})")
+        body = f" {c['body']} x{c['n_splits']}" if "body" in c else ""
+        print(f"{c['kernel']:21s} {c['case']:34s} {c['dtype']:15s}{body} "
+              f"err {c['max_abs_err']:.2e} ms {c['ms']:.4f} (wall {c['wall_ms']:.4f}) "
+              f"plain {c['plain_ms']:.4f} library {lib} bound {c['bound_ms']:.4f} "
+              f"({c['bound_by']})")
+    slower = [f"{c['kernel']} {c['case']}" for c in cases if c.get("body") == "tensor_core"
+              and c["library_ms"] is not None and c["ms"] > c["library_ms"]]
+    print(f"tensor-core attention cases slower than their library call: {slower}")
     threefry = check_threefry(gen)
     print(f"threefry: {json.dumps(threefry)}")
     lap("3")
@@ -1572,6 +1657,14 @@ def main() -> int:
     print(f"offline path: {json.dumps(run)}")
     serving = serving_path(model, kernel_fns)
     print(f"serving path: {json.dumps(serving)}")
+    check_tensor_core_path(run["launches"], "phase 5")
+    check_tensor_core_path(serving["launches"], "phase 6")
+    if run["launches"]["flash_attention"] != LAUNCHES_OFFLINE_GENERATE:
+        raise AssertionError(f"phase 5: {run['launches']['flash_attention']} attention "
+                             f"launches per generate, not {LAUNCHES_OFFLINE_GENERATE}")
+    if serving["launches"]["paged_flash_attention"] != LAUNCHES_SERVING_TRACE:
+        raise AssertionError(f"phase 6: {serving['launches']['paged_flash_attention']} "
+                             f"attention launches per trace, not {LAUNCHES_SERVING_TRACE}")
     del model
     torch.cuda.empty_cache()
     lap("5-6")
@@ -1582,6 +1675,7 @@ def main() -> int:
     sampled["init_s"] = dream_init_s
     for name, r in sampled["runs"].items():
         print(f"dream-7b {name}: {json.dumps(r)}")
+        check_tensor_core_path(r["launches"], f"phase 7 {name}")
     del dream
     torch.cuda.empty_cache()
     lap("7")

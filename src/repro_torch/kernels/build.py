@@ -36,6 +36,8 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                               _I, _F, _I, _I, _I, _I, _I, _P],
+    "repro_flash_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                                 _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "repro_scatter_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P],
     "repro_fork_pages": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "repro_importance": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P],

@@ -1,27 +1,127 @@
-"""Wrappers of the hand-written flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrappers of the hand-written flash-attention kernels (``csrc/flash_attention.cu``).
 
 ``flash_attention`` is the counterpart of the reference's
 ``flash_attention_kernel`` (a dense cache); ``paged_flash_attention`` of its
 ``paged_flash_attention_kernel`` (a page pool read through a block table).
-Both launch the same kernel body and take CUDA tensors only; ``ops`` sends
-CPU tensors to the plain versions in ``ref``.
+Both take CUDA tensors only; ``ops`` sends CPU tensors to the plain versions
+in ``ref``.
+
+Two kernel bodies compute the same function, and :func:`plan` picks one from
+the arguments alone, the same way every time (no failure is caught):
+
+* ``"tensor_core"``: bf16, head_dim a multiple of 16 up to 128, every q/k/v
+  stride and base a multiple of 16 bytes.  One block per (batch, KV head, up
+  to 64 packed (query head, query row) rows, KV split); with few rows,
+  ``ks`` warps share each 16-row slab of it; a long cache is split and the
+  splits are merged inside the launch by the last block to finish.
+* ``"cuda_core"``: everything else (f32, other head dims, strides that are
+  not 16-byte multiples), one block per (batch, query head, 8 rows).
+
+Each wrapper counts its launches (``launches``) and, beside them, the
+launches of each body (``tensor_core_launches``, ``cuda_core_launches``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+TILE = ref.SPLIT_TILE      # KV rows per tile and packed query rows per block (tensor-core body)
+WAVE = 132                 # SMs of an H100 SXM
+# blocks the planner aims for: half a wave.  Measured on the H100 at the
+# paths' shapes, more, shorter blocks (more key-split warps or KV splits)
+# lose more to their fixed costs than their parallelism wins (PERF.md)
+TARGET_BLOCKS = WAVE // 2
+MAX_SPLITS = 32            # the kernel's limit on splits per (batch, KV head, row tile)
+MAX_SPLIT_PAGES = 1024     # block-table entries one split stages in shared memory
+# the last block's merge costs more than walking a short split (timed on the
+# H100, PERF.md): a split under 8 tiles loses more than its extra blocks win
+MIN_SPLIT_TILES = 8
+
+# per device: int32 counters of the split merge, zero between launches
+_COUNTERS: dict = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    body: str              # "tensor_core" or "cuda_core"
+    n_splits: int = 1      # KV splits per (batch, KV head, row tile) (tensor-core body)
+    split_tiles: int = 0   # 64-row KV tiles per split (the last split may hold fewer)
+    row_tiles: int = 0     # blocks of 64 / ks packed (query head, query row) rows per KV head
+    ks: int = 1            # warps sharing a 16-row slab, each scoring 64 / ks keys a tile
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_splits(n_blocks: int, lkv: int, page_size: int = 0) -> tuple[int, int]:
+    """``(n_splits, split_tiles)`` for a grid of ``n_blocks`` blocks per
+    split: each split a run of ``split_tiles`` whole 64-row tiles (the last
+    one ragged), none empty.  The fewest splits that reach
+    ``TARGET_BLOCKS`` blocks, or as many as ``lkv`` allows, with at least
+    ``MIN_SPLIT_TILES`` tiles a split and at most ``MAX_SPLITS`` splits.  In
+    paged mode a split's pages must fit the kernel's shared page table, which
+    may call for more splits (then more than ``MAX_SPLITS`` can come out)."""
+    n_tiles = -(-lkv // TILE)
+    cap = (MAX_SPLIT_PAGES - 1) * page_size // TILE if page_size else n_tiles
+    fewest = max(1, -(-n_tiles // cap))
+    top = max(fewest, min(MAX_SPLITS, n_tiles // MIN_SPLIT_TILES))
+    want = min(max(-(-TARGET_BLOCKS // n_blocks), fewest), top)
+
+    def tiles_for(s):          # the split length giving exactly s splits, if one does
+        t = -(-n_tiles // s)
+        return t if -(-n_tiles // t) == s and t <= cap else None
+    for s in [*range(want, top + 1), *range(want - 1, 0, -1)]:
+        t = tiles_for(s)
+        if t is not None:
+            return s, t
+    return 1, max(n_tiles, 1)
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    nbytes = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * nbytes % 16 == 0 for s in t.stride()[:-1])
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lkv: int, hkv: int,
+         page_size: int = 0) -> Plan:
+    """The body and split plan a call takes, from its arguments alone.
+    ``k``/``v`` are the cache (dense) or the pools (paged, ``page_size > 0``)."""
+    b, hq, lq, d = q.shape
+    if (q.dtype != torch.bfloat16 or d % 16 or d > MAX_HEAD_DIM
+            or not all(_aligned(t) for t in (q, k, v))):
+        return Plan("cuda_core")
+    # key-split warps: enough that no warp of a block is idle, then more
+    # while the grid is under TARGET_BLOCKS
+    rows = (hq // hkv) * lq                      # packed rows per KV head
+    ks = 4 if rows <= 16 else 2 if rows <= 32 else 1
+    while ks < 4 and b * hkv * -(-rows * ks // TILE) < TARGET_BLOCKS:
+        ks *= 2
+    row_tiles = -(-rows * ks // TILE)
+    n_splits, split_tiles = plan_splits(b * hkv * row_tiles, lkv, page_size)
+    if n_splits > MAX_SPLITS:
+        return Plan("cuda_core")
+    return Plan("tensor_core", n_splits, split_tiles, row_tiles, ks)
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device``, made (and zeroed)
+    once; every launch that uses them leaves them at zero."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size, mask):
-    """Checks what both modes share, allocates the output, launches and
-    counts the launch on ``fn``."""
+    """Checks what both modes share, allocates the output, launches the body
+    that :func:`plan` picks and counts the launch on ``fn``."""
     name = fn.__name__
     b, hq, lq, d = q.shape
     hkv = k.shape[-2] if bt is not None else k.shape[1]
@@ -44,14 +144,32 @@ def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size
         return out
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k_strides, *v_strides,
                                        *out.stride()[:3])
-    status = build.library().repro_flash_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q_pos.data_ptr(), kv_pos.data_ptr(), None if bt is None else bt.data_ptr(),
-        page_size, ctypes.addressof(strides), b, hq, hkv, lq, lkv, d, 1.0 / math.sqrt(d),
-        int(mask.get("window", 0)), int(mask.get("anchor", 0)), int(mask.get("causal", False)),
-        int(mask.get("bc_start", 0)), int(mask.get("bc_block", 0)),
-        build.stream_ptr(q.device))
-    build.check(status, name)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q_pos.data_ptr(),
+            kv_pos.data_ptr(), None if bt is None else bt.data_ptr(), page_size,
+            ctypes.addressof(strides), b, hq, hkv, lq, lkv, d, 1.0 / math.sqrt(d),
+            int(mask.get("window", 0)), int(mask.get("anchor", 0)),
+            int(mask.get("causal", False)), int(mask.get("bc_start", 0)),
+            int(mask.get("bc_block", 0)))
+    p = plan(q, k, v, lkv, hkv, page_size)
+    if p.body == "tensor_core":
+        part_o = part_ml = counters = None
+        if p.n_splits > 1:
+            n_work = b * hkv * p.row_tiles
+            parts = n_work * p.n_splits * TILE      # a work item's partials have room for 64 rows
+            part_o = torch.empty(parts * d, dtype=torch.float32, device=q.device)
+            part_ml = torch.empty(parts * 2, dtype=torch.float32, device=q.device)
+            counters = _counters(q.device, n_work)
+        status = build.library().repro_flash_attention_tc(
+            *args, p.ks, p.n_splits, p.split_tiles,
+            *(None if t is None else t.data_ptr() for t in (part_o, part_ml, counters)),
+            build.stream_ptr(q.device))
+        build.check(status, name)
+        fn.tensor_core_launches += 1
+    else:
+        status = build.library().repro_flash_attention(_DTYPES[q.dtype], *args,
+                                                       build.stream_ptr(q.device))
+        build.check(status, name)
+        fn.cuda_core_launches += 1
     fn.launches += 1
     return out
 
@@ -79,9 +197,6 @@ def flash_attention(
     return _launch(flash_attention, q, k, v, q_pos, kv_pos, k.stride()[:3], v.stride()[:3],
                    lkv, None, 0, dict(window=window, anchor=anchor, causal=causal,
                                       bc_start=bc_start, bc_block=bc_block))
-
-
-flash_attention.launches = 0
 
 
 def paged_flash_attention(
@@ -115,4 +230,5 @@ def paged_flash_attention(
                    v_strides, n_vp * ps, block_tables, ps, {})
 
 
-paged_flash_attention.launches = 0
+for _fn in (flash_attention, paged_flash_attention):
+    _fn.launches = _fn.tensor_core_launches = _fn.cuda_core_launches = 0

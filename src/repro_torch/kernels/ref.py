@@ -11,6 +11,8 @@ import math
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.0 / math.log(2.0)
+SPLIT_TILE = 64       # KV rows per tile of the split-KV attention kernel
 
 
 def attention_mask(
@@ -111,6 +113,84 @@ def paged_attention_reference(
     k = gather_pages(k_pool, block_tables).transpose(1, 2)
     v = gather_pages(v_pool, block_tables).transpose(1, 2)
     return attention_reference(q, k, v, q_pos, kv_pos)
+
+
+def split_bounds(lkv: int, n_splits: int, tile: int = SPLIT_TILE) -> list[tuple[int, int]]:
+    """The KV ranges ``[start, end)`` of ``n_splits`` splits of whole
+    ``tile``-row tiles, ``ceil(n_tiles / n_splits)`` tiles each and the last
+    ragged, as the split-KV kernel walks them.  Raises when that length gives
+    another number of splits (one would be empty)."""
+    n_tiles = max(1, -(-lkv // tile))
+    per = -(-n_tiles // n_splits)
+    if n_splits < 1 or -(-n_tiles // per) != n_splits:
+        raise ValueError(f"{n_splits} splits of whole {tile}-row tiles do not fit "
+                         f"{lkv} KV rows without an empty split")
+    return [(s * per * tile, min((s + 1) * per * tile, lkv)) for s in range(n_splits)]
+
+
+def attention_split_reference(
+    q: torch.Tensor,           # [B, Hq, Lq, D]
+    k: torch.Tensor,           # [B, Hkv, Lkv, D]
+    v: torch.Tensor,           # [B, Hkv, Lkv, D]
+    q_pos: torch.Tensor,       # [B, Lq]
+    kv_pos: torch.Tensor,      # [B, Lkv]
+    *,
+    n_splits: int,
+    window: int = 0,
+    anchor: int = 0,
+    causal: bool = False,
+    bc_start: int = 0,
+    bc_block: int = 0,
+) -> torch.Tensor:
+    """:func:`attention_reference` by the split-KV kernel's algebra, in f32:
+    each split of :func:`split_bounds` gives its unnormalised output ``O``,
+    row max ``m`` and sum ``l`` (scores in the exp2 domain), and the splits
+    merge by log-sum-exp in split order -- weight ``2^(m_s - max m) / sum_s
+    2^(m_s - max m) l_s``, 0 for a split with ``l = 0``; a row with nothing
+    valid in any split gives 0.  Returns ``q.dtype`` ``[B, Hq, Lq, D]``."""
+    group = q.shape[1] // k.shape[1]
+    scale_log2 = LOG2E / math.sqrt(q.shape[-1])
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale_log2
+    mask = attention_mask(q_pos, kv_pos, window=window, anchor=anchor, causal=causal,
+                          bc_start=bc_start, bc_block=bc_block)[:, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    parts = []
+    for start, end in split_bounds(k.shape[2], n_splits):
+        s, mk = scores[..., start:end], mask[..., start:end]
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(mk, torch.exp2(s - m), 0.0)
+        parts.append((torch.einsum("bhqk,bhkd->bhqd", p, vv[:, :, start:end]), m,
+                      p.sum(dim=-1, keepdim=True)))
+    m_all = torch.stack([m for _, m, _ in parts]).amax(dim=0)
+    weights = [torch.where(l > 0, torch.exp2(m - m_all), 0.0) for _, m, l in parts]
+    total = sum(w * l for w, (_, _, l) in zip(weights, parts))
+    inv = torch.where(total > 0, 1.0 / total, 0.0)
+    out = torch.zeros_like(parts[0][0])
+    for w, (o, _, _) in zip(weights, parts):
+        out = out + (w * inv) * o
+    return out.to(q.dtype)
+
+
+def paged_attention_split_reference(
+    q: torch.Tensor,              # [B, Hq, Lq, D]
+    k_pool: torch.Tensor,         # [P, ps, Hkv, D]
+    v_pool: torch.Tensor,
+    q_pos: torch.Tensor,          # [B, Lq]
+    kv_pos: torch.Tensor,         # [B, n_vp * ps]
+    block_tables: torch.Tensor,   # [B, n_vp]
+    *,
+    n_splits: int,
+) -> torch.Tensor:
+    """:func:`paged_attention_reference` by the split-KV algebra of
+    :func:`attention_split_reference`: the splits run over virtual KV rows,
+    rows of unmapped pages masked (a split of unmapped pages only weighs 0)."""
+    ps = k_pool.shape[1]
+    kv_pos = paged_kv_mask(block_tables, kv_pos, ps)
+    k = gather_pages(k_pool, block_tables).transpose(1, 2)
+    v = gather_pages(v_pool, block_tables).transpose(1, 2)
+    return attention_split_reference(q, k, v, q_pos, kv_pos, n_splits=n_splits)
 
 
 def scatter_rows_reference(

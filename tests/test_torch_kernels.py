@@ -13,7 +13,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention, plan
 from repro_torch.kernels.importance import importance, variation
 from repro_torch.kernels.scatter_kv import fork_pages, scatter_rows, scatter_rows_paged
 from repro_torch.kernels.ssd_scan import ssd_chunks
@@ -304,6 +304,27 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
         got = flash_attention(q, k, v, q_pos, kv_pos, **kw)
         want = ref.attention_reference(q, k, v, q_pos, kv_pos, **kw)
         assert (got.float() - want.float()).abs().max().item() <= tol
+    # split-KV on the tensor-core body: one batch entry, 1580 KV rows in
+    # splits of whole tiles (the last ragged), split 0 fully masked, and a
+    # query row with nothing valid; MHA (8 heads: 3 splits) and Dream's 28/4
+    # GQA (2 splits)
+    for hq, hkv in ((8, 8), (28, 4)):
+        q = torch.randn(1, 32, hq, 128, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+        k, v = (torch.randn(1, 1580, hkv, 128, generator=g, device=cuda_device).to(dtype)
+                .transpose(1, 2) for _ in "kv")
+        q_pos = torch.arange(1548, 1580, dtype=torch.int32, device=cuda_device)[None].contiguous()
+        kv_pos = torch.arange(1580, dtype=torch.int32, device=cuda_device)[None].contiguous()
+        kv_pos[:, :832] = -1
+        q_pos[0, 3] = -1
+        pl = plan(q, k, v, 1580, hkv)
+        assert pl.body == ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+        assert pl.body == "cuda_core" or (
+            pl.n_splits >= 2 and ref.split_bounds(1580, pl.n_splits)[0][1] <= 832)
+        for _ in range(2):                          # the merge counters are left at 0
+            got = flash_attention(q, k, v, q_pos, kv_pos, causal=True)
+            want = ref.attention_reference(q, k, v, q_pos, kv_pos, causal=True)
+            assert (got.float() - want.float()).abs().max().item() <= tol
+            assert got[0, :, 3].abs().max().item() == 0.0
     cache = torch.randn(2, 40, 4, 32, generator=g, device=cuda_device).to(dtype)
     new = torch.randn(2, 6, 4, 32, generator=g, device=cuda_device).to(dtype)
     idx = torch.stack([torch.randperm(40, generator=g, device=cuda_device)[:6]
@@ -333,6 +354,22 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
         kv_pos = torch.arange(5 * ps, dtype=torch.int32, device=cuda_device).repeat(2, 1)
         got = paged_flash_attention(q, pool_k, pool_v, q_pos, kv_pos, bt)
         want = ref.paged_attention_reference(q, pool_k, pool_v, q_pos, kv_pos, bt)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        # one Dream slot (28/4 GQA) over 1600 virtual rows in two splits at
+        # row 832: split 0 on unmapped pages only, split 1 ragged
+        n_vp = 1600 // ps
+        gbt = (torch.randperm(n_vp, generator=g, device=cuda_device) + 1).int().view(1, n_vp)
+        gbt[0, : 832 // ps] = -1
+        gk, gv = (torch.randn(n_vp + 1, ps, 4, 128, generator=g,
+                              device=cuda_device).to(dtype) for _ in "kv")
+        q = torch.randn(1, 28, 32, 128, generator=g, device=cuda_device).to(dtype)
+        gq_pos = torch.arange(1568, 1600, dtype=torch.int32, device=cuda_device)[None].contiguous()
+        gkv_pos = torch.arange(1600, dtype=torch.int32, device=cuda_device)[None].contiguous()
+        gkv_pos[0, 1500:] = -1
+        pl = plan(q, gk, gv, 1600, 4, ps)
+        assert pl.body == "cuda_core" or ref.split_bounds(1600, pl.n_splits)[0] == (0, 832)
+        got = paged_flash_attention(q, gk, gv, gq_pos, gkv_pos, gbt)
+        want = ref.paged_attention_reference(q, gk, gv, gq_pos, gkv_pos, gbt)
         assert (got.float() - want.float()).abs().max().item() <= tol
         new = torch.randn(2, 6, 2, 64, generator=g, device=cuda_device).to(dtype)
         idx = torch.stack([torch.randperm(5 * ps, generator=g, device=cuda_device)[:6]
