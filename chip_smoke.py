@@ -17,7 +17,9 @@ no result):
    KV split count, with split cases on long caches; the copy-on-write fork
    also: in place, no pool-sized allocation, aliased lists refused; the SSD
    chunk step at mamba2-370m's decode, prefill, two-group and ragged
-   shapes); the threefry key chain's
+   shapes, bf16 on the tensor-core body and f32 on the CUDA-core body, each
+   heads-per-block choice timed at the decode and prefill shapes); the
+   threefry key chain's
    known answers on the card, a draw of the sampled path's shape with bits
    equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -47,7 +49,9 @@ no result):
    ``StreamScheduler`` with early advance, through the SSD chunk kernel.
 
 On phases 5, 6 and 7 every attention launch must take the tensor-core body,
-and phases 5 and 6 must keep one attention launch per call.  Each path
+and phases 5 and 6 must keep one attention launch per call; on phase 8
+every SSD chunk launch must take the tensor-core body, and an offline es
+``generate`` must keep its 3,168 of them.  Each path
 profile sums the device time of the port's kernels over its whole trace.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
@@ -191,26 +195,31 @@ def nbytes(*ts) -> int:
 
 
 ATTENTION = ("flash_attention", "paged_flash_attention")
+TWO_BODIES = ATTENTION + ("ssd_chunks",)     # kernels with a tensor-core and a CUDA-core body
 BODIES = ("tensor_core", "cuda_core")
 # attention launches of one offline generate (phase 5) and one serving trace
 # (phase 6) with the CUDA-core body, one per attention call: the tensor-core
 # body must keep one launch per call
 LAUNCHES_OFFLINE_GENERATE = 2048
 LAUNCHES_SERVING_TRACE = 7872
+# SSD chunk launches of one offline es mamba2 generate (phase 8), as the
+# CUDA-core body made them: one per decode pass and two per prefill in each
+# layer; the tensor-core body must keep them
+SSD_LAUNCHES_ES_GENERATE = 3168
 
 
 def zero_counts(kernel_fns) -> None:
     for fn in kernel_fns.values():
         fn.launches = 0
-    for name in ATTENTION:
+    for name in TWO_BODIES:
         for body in BODIES:
             setattr(kernel_fns[name], f"{body}_launches", 0)
 
 
 def counts(kernel_fns) -> dict:
-    """Each kernel's launches, and each attention body's."""
+    """Each kernel's launches, and each body's of the kernels that have two."""
     out = {name: fn.launches for name, fn in kernel_fns.items()}
-    for name in ATTENTION:
+    for name in TWO_BODIES:
         for body in BODIES:
             out[f"{name} {body}"] = getattr(kernel_fns[name], f"{body}_launches")
     return out
@@ -223,6 +232,14 @@ def check_tensor_core_path(launches: dict, where: str) -> None:
         if launches[f"{name} tensor_core"] != launches[name]:
             raise AssertionError(f"{where}: {launches[name]} {name} launches, only "
                                  f"{launches[name + ' tensor_core']} on the tensor-core body")
+
+
+def check_ssd_tensor_core_path(launches: dict, where: str) -> None:
+    """Every SSD chunk launch of a bf16 full-width mamba2 path went through
+    the tensor-core body, and there was one."""
+    n, tc = launches["ssd_chunks"], launches["ssd_chunks tensor_core"]
+    if n <= 0 or tc != n:
+        raise AssertionError(f"{where}: {n} ssd_chunks launches, {tc} on the tensor-core body")
 
 
 # ---------------------------------------------------------------------------
@@ -655,9 +672,16 @@ def ssd_bound(x, dt, a_log, bm, cm, outs, chunk) -> tuple[float, str]:
     pairs = chunk * (chunk + 1) / 2
     t_cb = blocks * 2.0 * pairs * n / PEAK_FLOPS[bm.dtype] * 1e3
     t_f32 = blocks * (2.0 * pairs * p + 2.0 * chunk * n * p) / PEAK_FLOPS[torch.float32] * 1e3
-    moved = nbytes(x, dt, a_log, *outs) + 2 * bm.numel() * bm.element_size()
-    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_bytes = ssd_bytes_bound(x, dt, a_log, bm, cm, outs)
     return (t_bytes, "bytes") if t_bytes >= t_cb + t_f32 else (t_cb + t_f32, "operations")
+
+
+def ssd_bytes_bound(x, dt, a_log, bm, cm, outs) -> float:
+    """ms to read each input of the chunk step once and write each output
+    once at the HBM rate: the bound when every product runs on the bf16
+    tensor cores, as in the tensor-core body."""
+    moved = nbytes(x, dt, a_log, *outs) + 2 * bm.numel() * bm.element_size()
+    return moved / PEAK_BYTES_PER_S * 1e3
 
 
 def check_ssd(ref, ops, ssd_chunks, gen):
@@ -665,7 +689,12 @@ def check_ssd(ref, ops, ssd_chunks, gen):
     f32 and bf16: at the decode shape (a 32-row block, one chunk of 32), the
     prefill shape (192 positions, three chunks of 64), two B/C groups, and a
     ragged L of 150 (padded to 192 by ``ops.ssd``, whose output on the card
-    is also held against the sequential oracle)."""
+    is also held against the sequential oracle).  bf16 must take the
+    tensor-core body, f32 the CUDA-core body.  At the bf16 decode and G=1
+    prefill shapes every heads-per-block choice is timed, and each must give
+    the planner's bits."""
+    from repro_torch.kernels.ssd_scan import HEADS_PER_BLOCK, plan
+
     out = []
     for dt_type in (torch.float32, torch.bfloat16):
         for label, b, l, g, chunk in ((f"decode [{SLOTS}, {BLOCK}] G=1", SLOTS, BLOCK, 1, BLOCK),
@@ -689,7 +718,13 @@ def check_ssd(ref, ops, ssd_chunks, gen):
                 x, dt, bm, cm = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
                                  for t in (x, dt, bm, cm))
                 args = (x, dt, a_log, bm, cm)
+            pl = plan(args[0], args[3], chunk, args[4])
+            body = "tensor_core" if dt_type == torch.bfloat16 else "cuda_core"
+            before = getattr(ssd_chunks, f"{body}_launches")
             got = ssd_chunks(*args, chunk=chunk)
+            if pl.body != body or getattr(ssd_chunks, f"{body}_launches") != before + 1:
+                raise AssertionError(f"ssd_chunks {label} {dt_type}: planned {pl}, not the "
+                                     f"{body} body")
             want = ref.ssd_chunks(*args, chunk)
             errs = []
             for name, gt, wt in zip(("y_intra", "contrib", "decay", "cs"), got, want):
@@ -699,6 +734,16 @@ def check_ssd(ref, ops, ssd_chunks, gen):
                     raise AssertionError(f"ssd_chunks {label} {dt_type}: {name} max abs err "
                                          f"{diff.max().item()} (tolerance {tol} abs + {tol} rel)")
                 errs.append(diff.max().item())
+            hb_ms = None
+            if body == "tensor_core" and g == 1 and not label.startswith("ragged"):
+                hb_ms = {}
+                for hb in HEADS_PER_BLOCK:
+                    again = ssd_chunks(*args, chunk=chunk, heads_per_block=hb)
+                    if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                        raise AssertionError(f"ssd_chunks {label}: {hb} heads a block gave "
+                                             f"other bits than {pl.heads_per_block}")
+                    hb_ms[hb], _ = device_ms(
+                        lambda: ssd_chunks(*args, chunk=chunk, heads_per_block=hb))
             ms, wall = device_ms(lambda: ssd_chunks(*args, chunk=chunk))
             plain_ms, _ = device_ms(lambda: ref.ssd_chunks(*args, chunk))
             bms, by = ssd_bound(*args, got, chunk)
@@ -706,7 +751,9 @@ def check_ssd(ref, ops, ssd_chunks, gen):
                             max_abs_err=max(errs), errs=dict(zip(("y_intra", "contrib", "decay",
                                                                   "cs"), errs)),
                             tol="1e-4 abs + 1e-4 rel (y_intra bf16: 1e-2)", ms=ms, wall_ms=wall,
-                            plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by))
+                            plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                            bytes_bound_ms=ssd_bytes_bound(*args, got), body=pl.body,
+                            heads_per_block=pl.heads_per_block, hb_ms=hb_ms))
     return out
 
 
@@ -1624,11 +1671,18 @@ def main() -> int:
         lib = "-" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
         if "+" in c.get("library", ""):
             lib += " (2 calls)"
-        body = f" {c['body']} x{c['n_splits']}" if "body" in c else ""
+        body = ""
+        if "heads_per_block" in c:
+            body = f" {c['body']} hb{c['heads_per_block']}"
+        elif "body" in c:
+            body = f" {c['body']} x{c['n_splits']}"
         print(f"{c['kernel']:21s} {c['case']:34s} {c['dtype']:15s}{body} "
               f"err {c['max_abs_err']:.2e} ms {c['ms']:.4f} (wall {c['wall_ms']:.4f}) "
               f"plain {c['plain_ms']:.4f} library {lib} bound {c['bound_ms']:.4f} "
               f"({c['bound_by']})")
+        if c.get("hb_ms"):
+            print(f"{'':21s} heads a block: {json.dumps(c['hb_ms'])} (bytes-only bound "
+                  f"{c['bytes_bound_ms']:.4f})")
     slower = [f"{c['kernel']} {c['case']}" for c in cases if c.get("body") == "tensor_core"
               and c["library_ms"] is not None and c["ms"] > c["library_ms"]]
     print(f"tensor-core attention cases slower than their library call: {slower}")
@@ -1688,6 +1742,10 @@ def main() -> int:
     mamba_runs["weights_gb"] = sum(nbytes(p) for p in mamba.parameters()) / 1e9
     for name in ("es", "dualcache", "serving"):
         print(f"mamba2-370m {name}: {json.dumps(mamba_runs[name])}")
+        check_ssd_tensor_core_path(mamba_runs[name]["launches"], f"phase 8 {name}")
+    if mamba_runs["es"]["launches"]["ssd_chunks"] != SSD_LAUNCHES_ES_GENERATE:
+        raise AssertionError(f"phase 8: {mamba_runs['es']['launches']['ssd_chunks']} SSD "
+                             f"launches per es generate, not {SSD_LAUNCHES_ES_GENERATE}")
     print(f"mamba2-370m es / dualcache ms per generate: {mamba_runs['es_over_dualcache_ms']}")
     lap("8")
     print(f"phase seconds: {json.dumps(phase_s)}")

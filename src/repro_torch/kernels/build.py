@@ -32,6 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+WAVE = 132                 # SMs of an H100 SXM: one block on each is a wave
 # name -> argtypes of the C entry points (all return an int status)
 SIGNATURES = {
     "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
@@ -43,6 +44,8 @@ SIGNATURES = {
     "repro_importance": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "repro_ssd_chunk": [_I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P],
+    "repro_ssd_chunk_tc": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
 }
 
 
@@ -121,3 +124,11 @@ def check(status: int, name: str) -> None:
 def stream_ptr(device) -> int:
     """PyTorch's current stream on ``device``, for the C entry points."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t`` starts on a 16-byte boundary and each of its strides but
+    the last is a multiple of 16 bytes: its rows can be copied 16 bytes at
+    a time (``cp.async``), as the tensor-core bodies do."""
+    nbytes = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * nbytes % 16 == 0 for s in t.stride()[:-1])

@@ -34,11 +34,10 @@ from repro_torch.kernels import build, ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 TILE = ref.SPLIT_TILE      # KV rows per tile and packed query rows per block (tensor-core body)
-WAVE = 132                 # SMs of an H100 SXM
 # blocks the planner aims for: half a wave.  Measured on the H100 at the
 # paths' shapes, more, shorter blocks (more key-split warps or KV splits)
 # lose more to their fixed costs than their parallelism wins (PERF.md)
-TARGET_BLOCKS = WAVE // 2
+TARGET_BLOCKS = build.WAVE // 2
 MAX_SPLITS = 32            # the kernel's limit on splits per (batch, KV head, row tile)
 MAX_SPLIT_PAGES = 1024     # block-table entries one split stages in shared memory
 # the last block's merge costs more than walking a short split (timed on the
@@ -83,18 +82,13 @@ def plan_splits(n_blocks: int, lkv: int, page_size: int = 0) -> tuple[int, int]:
     return 1, max(n_tiles, 1)
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    nbytes = t.element_size()
-    return t.data_ptr() % 16 == 0 and all(s * nbytes % 16 == 0 for s in t.stride()[:-1])
-
-
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lkv: int, hkv: int,
          page_size: int = 0) -> Plan:
     """The body and split plan a call takes, from its arguments alone.
     ``k``/``v`` are the cache (dense) or the pools (paged, ``page_size > 0``)."""
     b, hq, lq, d = q.shape
     if (q.dtype != torch.bfloat16 or d % 16 or d > MAX_HEAD_DIM
-            or not all(_aligned(t) for t in (q, k, v))):
+            or not all(build.aligned16(t) for t in (q, k, v))):
         return Plan("cuda_core")
     # key-split warps: enough that no warp of a block is idle, then more
     # while the grid is under TARGET_BLOCKS

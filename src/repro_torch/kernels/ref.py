@@ -319,6 +319,50 @@ def ssd_chunks(
             cs.reshape(b, l, h))
 
 
+def ssd_chunks_tc(
+    x: torch.Tensor,           # [B, L, H, P] bf16, L % chunk == 0
+    dt: torch.Tensor,          # [B, L, H] f32
+    a_log: torch.Tensor,       # [H] f32
+    bmat: torch.Tensor,        # [B, L, G, N] bf16
+    cmat: torch.Tensor,        # [B, L, G, N] bf16
+    chunk: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ssd_chunks`` with the roundings of the tensor-core body: the
+    products take bf16 operands and sum in f32.  The f32 operands, y_intra's
+    left one (the decayed, dt-weighted scores ``(C B^T * exp(cs_i - cs_j)) *
+    dt_j``) and contrib's right one (``x * exp(cs_Q - cs_q) dt_q``), are each
+    split into a bf16 high part and the bf16 rounding of what it missed, and
+    the two products are added; x, B and C are bf16 already.  The same
+    outputs, types and layouts as ``ssd_chunks``."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    if l % chunk:
+        raise ValueError(f"ssd_chunks_tc: L={l} is not a multiple of chunk={chunk}")
+    nc, hpg = l // chunk, h // g
+    bf16 = torch.bfloat16
+    a = -torch.exp(a_log.float())
+    xr = x.float().reshape(b, nc, chunk, h, p)
+    dtr = dt.float().reshape(b, nc, chunk, h)
+    br = bmat.float().reshape(b, nc, chunk, g, n).repeat_interleave(hpg, dim=3)
+    cr = cmat.float().reshape(b, nc, chunk, g, n).repeat_interleave(hpg, dim=3)
+    cs = torch.cumsum(dtr * a, dim=2)                                 # [B, nC, Q, H]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    scores = torch.einsum("bcqhn,bckhn->bcqkh", cr, br)
+    decayed = (scores * torch.exp(cs[:, :, :, None, :] - cs[:, :, None, :, :])
+               * dtr[:, :, None, :, :])
+    def split(v):
+        hi = v.to(bf16).float()
+        return hi, (v - hi).to(bf16).float()
+    left_hi, left_lo = split(torch.where(tri[:, :, None], decayed, 0.0))
+    y = (torch.einsum("bcqkh,bckhp->bcqhp", left_hi, xr)
+         + torch.einsum("bcqkh,bckhp->bcqhp", left_lo, xr))
+    right_hi, right_lo = split(xr * (torch.exp(cs[:, :, -1:, :] - cs) * dtr)[..., None])
+    contrib = (torch.einsum("bcqhn,bcqhp->bchnp", br, right_hi)
+               + torch.einsum("bcqhn,bcqhp->bchnp", br, right_lo))
+    return (y.reshape(b, l, h, p).to(x.dtype), contrib, torch.exp(cs[:, :, -1, :]),
+            cs.reshape(b, l, h))
+
+
 def ssd_reference(
     x: torch.Tensor,           # [B, L, H, P]
     dt: torch.Tensor,          # [B, L, H]

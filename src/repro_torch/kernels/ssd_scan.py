@@ -5,8 +5,23 @@
 state contribution, its total decay and the within-chunk cumsum.  It takes
 CUDA tensors only; ``ops.ssd`` sends CPU tensors to ``ref.ssd_chunks`` and
 does the padding and the recurrence across chunks.
+
+Two kernel bodies compute the same function, and :func:`plan` picks one from
+the arguments alone, the same way every time (no failure is caught):
+
+* ``"tensor_core"``: bf16 x, B and C, a chunk of 16, 32, 48 or 64, N and P
+  multiples of 16, x, B and C on 16-byte boundaries with 16-byte row
+  strides.  One block per (chunk, batch row, ``heads_per_block`` heads of one
+  B/C group), which share one C B^T; its numerics are ``ref.ssd_chunks_tc``.
+* ``"cuda_core"``: everything else (f32, other chunks or widths, unaligned
+  B/C views), one block per (batch row, head, chunk).
+
+``ssd_chunks`` counts its launches (``launches``) and, beside them, the
+launches of each body (``tensor_core_launches``, ``cuda_core_launches``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -14,12 +29,53 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232_448       # bytes of dynamic shared memory a block can have on sm_90
+TC_CHUNKS = (16, 32, 48, 64)     # chunks the tensor-core body takes
+# blocks of the tensor-core body resident at once: 256 threads at up to 128
+# registers each take half an SM's registers
+RESIDENT_BLOCKS = 2 * build.WAVE
+HEADS_PER_BLOCK = (1, 2, 4, 8)   # what the planner picks from (a warp scans each head)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    body: str                  # "tensor_core" or "cuda_core"
+    heads_per_block: int = 1   # heads of one B/C group per block (tensor-core body)
 
 
 def smem_bytes(chunk: int, n: int, p: int) -> int:
-    """The kernel's shared memory: x*dt, B and C and the score tile (rows
-    padded by one) and three per-position vectors, all f32."""
+    """The CUDA-core body's shared memory: x*dt, B and C and the score tile
+    (rows padded by one) and three per-position vectors, all f32."""
     return 4 * (chunk * p + 2 * chunk * (n + 1) + chunk * (chunk + 1) + 3 * chunk)
+
+
+def smem_bytes_tc(chunk: int, n: int, p: int, heads_per_block: int) -> int:
+    """The tensor-core body's shared memory: cs, dt and exp(cs_Q - cs) dt of
+    each head (f32), B and C, and each head's x (bf16, rows padded by 8)."""
+    hb = heads_per_block
+    return 12 * hb * chunk + 2 * (2 * chunk * (n + 8) + hb * chunk * (p + 8))
+
+
+def plan(x: torch.Tensor, bmat: torch.Tensor, chunk: int,
+         cmat: torch.Tensor | None = None) -> Plan:
+    """The body a call takes, and its heads per block, from the arguments
+    alone.  The tensor-core body's heads per block: the fewest of
+    ``HEADS_PER_BLOCK`` that divide the heads of a group and bring the grid
+    within one wave of resident blocks (``RESIDENT_BLOCKS``), else the most
+    that divide them.  Timed on the H100 (PERF.md): a second wave costs more
+    than sharing B, C and C B^T saves, and below it fewer heads a block are
+    faster (mamba2-370m: 1 at decode, 128 blocks; 2 at prefill, 192)."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    if (x.dtype != torch.bfloat16 or bmat.dtype != torch.bfloat16 or chunk not in TC_CHUNKS
+            or n % 16 or p % 16 or h % g
+            or not all(build.aligned16(t) for t in (x, bmat, bmat if cmat is None else cmat))
+            or smem_bytes_tc(chunk, n, p, 1) > SMEM_LIMIT):
+        return Plan("cuda_core")
+    blocks = b * (l // chunk) * h           # at one head a block
+    fits = [c for c in HEADS_PER_BLOCK
+            if (h // g) % c == 0 and smem_bytes_tc(chunk, n, p, c) <= SMEM_LIMIT]
+    one_wave = [c for c in fits if blocks // c <= RESIDENT_BLOCKS]
+    return Plan("tensor_core", one_wave[0] if one_wave else fits[-1])
 
 
 def ssd_chunks(
@@ -30,10 +86,13 @@ def ssd_chunks(
     cmat: torch.Tensor,     # [B, L, G, N] as bmat, same strides
     *,
     chunk: int,
+    heads_per_block: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns ``(y_intra [B, L, H, P] in x's dtype, contrib [B, nC, H, N, P],
     decay [B, nC, H], cs [B, L, H])``, the last three f32; ``L`` must be a
-    multiple of ``chunk`` (``ops.ssd`` pads)."""
+    multiple of ``chunk`` (``ops.ssd`` pads).  ``heads_per_block`` overrides
+    the planner's for the tensor-core body (to time the choices); the body
+    stays the planner's."""
     name = "ssd_chunks"
     for arg, t in (("x", x), ("dt", dt), ("a_log", a_log), ("bmat", bmat), ("cmat", cmat)):
         if not t.is_cuda or t.device != x.device:
@@ -60,22 +119,35 @@ def ssd_chunks(
                          f"got {stride} and {cmat.stride()}")
     if chunk <= 0 or l % chunk:
         raise ValueError(f"{name}: L={l} is not a multiple of chunk={chunk}")
-    if smem_bytes(chunk, n, p) > SMEM_LIMIT:
+    pl = plan(x, bmat, chunk, cmat)
+    if pl.body == "cuda_core" and smem_bytes(chunk, n, p) > SMEM_LIMIT:
         raise ValueError(f"{name}: chunk {chunk}, N {n}, P {p} need "
                          f"{smem_bytes(chunk, n, p)} bytes of shared memory (> {SMEM_LIMIT})")
+    hb = pl.heads_per_block if heads_per_block is None else heads_per_block
+    if pl.body == "tensor_core" and ((h // g) % hb or smem_bytes_tc(chunk, n, p, hb)
+                                     > SMEM_LIMIT):
+        raise ValueError(f"{name}: {hb} heads a block do not divide the {h // g} heads of a "
+                         f"group or do not fit in shared memory")
     nc = l // chunk
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     contrib = torch.empty((b, nc, h, n, p), **f32)
     decay = torch.empty((b, nc, h), **f32)
     cs = torch.empty((b, l, h), **f32)
-    status = build.library().repro_ssd_chunk(
-        _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), bmat.data_ptr(),
-        cmat.data_ptr(), stride[1], y.data_ptr(), contrib.data_ptr(), decay.data_ptr(),
-        cs.data_ptr(), b, l, h, p, g, n, chunk, build.stream_ptr(x.device))
-    build.check(status, name)
+    args = (x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+            stride[1], y.data_ptr(), contrib.data_ptr(), decay.data_ptr(), cs.data_ptr(), b, l,
+            h, p, g, n, chunk)
+    if pl.body == "tensor_core":
+        status = build.library().repro_ssd_chunk_tc(*args, hb, build.stream_ptr(x.device))
+        build.check(status, name)
+        ssd_chunks.tensor_core_launches += 1
+    else:
+        status = build.library().repro_ssd_chunk(_DTYPES[x.dtype], *args,
+                                                 build.stream_ptr(x.device))
+        build.check(status, name)
+        ssd_chunks.cuda_core_launches += 1
     ssd_chunks.launches += 1
     return y, contrib, decay, cs
 
 
-ssd_chunks.launches = 0
+ssd_chunks.launches = ssd_chunks.tensor_core_launches = ssd_chunks.cuda_core_launches = 0

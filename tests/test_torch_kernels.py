@@ -16,6 +16,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention, plan
 from repro_torch.kernels.importance import importance, variation
 from repro_torch.kernels.scatter_kv import fork_pages, scatter_rows, scatter_rows_paged
+from repro_torch.kernels.ssd_scan import plan as ssd_plan
 from repro_torch.kernels.ssd_scan import ssd_chunks
 
 ATOL = 2e-5   # f32: the two sides sum the softmax in different orders
@@ -392,15 +393,22 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
     with pytest.raises(ValueError, match="also sources"):
         fork_pages(*pools, [4, 11], [11, 12])
     # the SSD chunk step, B and C strided views of one projection as in the
-    # mixer: one chunk of 32 (the decode block), and two groups over three
-    # chunks of 16.  y_intra is rounded to the dtype once; the rest is f32.
-    for b, l, h, p, grp, n, ck in ((2, 32, 4, 64, 1, 128, 32), (2, 48, 4, 16, 2, 8, 16)):
+    # mixer: one chunk of 32 (the decode block), three chunks of 64 (the
+    # prefill), and two groups over three chunks of 16 (N 8: the CUDA-core
+    # body).  y_intra is rounded to the dtype once; the rest is f32.  bf16 at
+    # N 128 takes the tensor-core body, f32 the CUDA-core body.
+    for b, l, h, p, grp, n, ck in ((2, 32, 4, 64, 1, 128, 32), (2, 192, 8, 64, 1, 128, 64),
+                                   (2, 48, 4, 16, 2, 8, 16)):
         x = (torch.randn(b, l, h, p, generator=g, device=cuda_device) * 0.5).to(dtype)
         dt = torch.nn.functional.softplus(torch.randn(b, l, h, generator=g, device=cuda_device))
         a_log = torch.randn(h, generator=g, device=cuda_device) * 0.3
         bc = (torch.randn(b, l, 2 * grp * n, generator=g, device=cuda_device) * 0.5).to(dtype)
         bm, cm = (t.reshape(b, l, grp, n) for t in (bc[..., :grp * n], bc[..., grp * n:]))
+        body = "tensor_core" if dtype == torch.bfloat16 and n == 128 else "cuda_core"
+        assert ssd_plan(x, bm, ck, cm).body == body
+        before = getattr(ssd_chunks, f"{body}_launches")
         got = ssd_chunks(x, dt, a_log, bm, cm, chunk=ck)
+        assert getattr(ssd_chunks, f"{body}_launches") == before + 1
         want = ref.ssd_chunks(x, dt, a_log, bm, cm, ck)
         for i, (gt, wt) in enumerate(zip(got, want)):
             assert gt.dtype == wt.dtype and gt.shape == wt.shape
