@@ -18,8 +18,11 @@ no result):
    also: in place, no pool-sized allocation, aliased lists refused; the SSD
    chunk step at mamba2-370m's decode, prefill, two-group and ragged
    shapes, bf16 on the tensor-core body and f32 on the CUDA-core body, each
-   heads-per-block choice timed at the decode and prefill shapes); the
-   threefry key chain's
+   heads-per-block choice timed at the decode and prefill shapes; the K/V
+   scatters at LLaDA's 8 KB and Dream's 1 KB rows, dense and paged, under
+   the serving masks, each with its block shape; the host µs and the
+   kernels of one masked ``ops.scatter_rows_paged`` call, which must be
+   1); the threefry key chain's
    known answers on the card, a draw of the sampled path's shape with bits
    equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -320,36 +323,69 @@ def check_flash(ref, flash_attention, gen):
     return out
 
 
+# (arch, KV heads): LLaDA's 32 KV heads (8 KB bf16 rows), Dream's 4 (1 KB)
+SCATTER_ARCHS = (("llada", 32), ("dream", 4))
+
+
 def check_scatter(ref, scatter_rows, gen):
+    """The offline path's dense K/V scatter at LLaDA's and Dream's row
+    widths: a prefill, the block and the two skip stages, and the block
+    under both serving masks."""
+    from repro_torch.kernels.scatter_kv import plan
+
     out = []
-    b, s, h, d = 2, 192, 32, 128
+    b, s, d = 2, 192, 128
     for dt in (torch.float32, torch.bfloat16):
-        for kk, what in ((192, "prefill"), (32, "block"), (16, "skip1"), (8, "skip2")):
-            label = f"llada {what} K={kk}"
-            kc = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
-            vc = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
-            kn = torch.randn(b, kk, h, d, generator=gen, device="cuda").to(dt)
-            vn = torch.randn(b, kk, h, d, generator=gen, device="cuda").to(dt)
-            idx = torch.stack([torch.randperm(s, generator=gen, device="cuda")[:kk]
-                               for _ in range(b)]).to(torch.int32)
-            want_k = ref.scatter_rows_reference(kc.clone(), kn, idx)
-            want_v = ref.scatter_rows_reference(vc.clone(), vn, idx)
-            got_k, got_v = kc.clone(), vc.clone()
-            scatter_rows(((got_k, kn), (got_v, vn)), idx)
-            if not (torch.equal(got_k, want_k) and torch.equal(got_v, want_v)):
-                raise AssertionError(f"scatter_rows {label} {dt}: not bit-exact")
-            ms, wall = device_ms(lambda: scatter_rows(((got_k, kn), (got_v, vn)), idx))
-            plain_ms, _ = device_ms(lambda: (ref.scatter_rows_reference(got_k, kn, idx),
-                                             ref.scatter_rows_reference(got_v, vn, idx)))
-            flat = (idx.long() + torch.arange(b, device="cuda")[:, None] * s).reshape(-1)
-            fk, fv = got_k.view(b * s, h, d), got_v.view(b * s, h, d)
-            lib_ms, _ = device_ms(lambda: (fk.index_copy_(0, flat, kn.view(b * kk, h, d)),
-                                           fv.index_copy_(0, flat, vn.view(b * kk, h, d))))
-            # each fresh row read once and written once, plus the indices
-            bms, by = bound(2 * nbytes(kn, vn) + nbytes(idx), 0.0, dt)
-            out.append(dict(kernel="scatter_rows", case=label, dtype=str(dt), max_abs_err=0.0,
-                            tol=0.0, ms=ms, wall_ms=wall, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bms, bound_by=by))
+        for arch, h in SCATTER_ARCHS:
+            for kk, what, masks in ((192, "prefill", "none"), (32, "block", "none"),
+                                    (16, "skip1", "none"), (8, "skip2", "none"),
+                                    (32, "block", "row+token")):
+                label = f"{arch} {what} K={kk}" + ("" if masks == "none" else f" mask={masks}")
+                kc = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+                vc = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dt)
+                kn = torch.randn(b, kk, h, d, generator=gen, device="cuda").to(dt)
+                vn = torch.randn(b, kk, h, d, generator=gen, device="cuda").to(dt)
+                idx = torch.stack([torch.randperm(s, generator=gen, device="cuda")[:kk]
+                                   for _ in range(b)]).to(torch.int32)
+                mk = {}
+                if masks != "none":
+                    mk = dict(row_mask=torch.tensor([True, False], device="cuda"),
+                              token_mask=torch.rand(b, kk, generator=gen, device="cuda") < 0.5)
+                want = (ref.scatter_rows_reference(kc.clone(), kn, idx, **mk),
+                        ref.scatter_rows_reference(vc.clone(), vn, idx, **mk))
+
+                def run(got):
+                    scatter_rows(((got[0], kn), (got[1], vn)), idx, **mk)
+
+                def same(got):
+                    return all(torch.equal(g, w) for g, w in zip(got, want))
+                got = (kc.clone(), vc.clone())
+                run(got)
+                if not same(got):
+                    raise AssertionError(f"scatter_rows {label} {dt}: not bit-exact")
+                ms, wall = device_ms(lambda: run(got))
+                plain_ms, _ = device_ms(lambda: (
+                    ref.scatter_rows_reference(got[0], kn, idx, **mk),
+                    ref.scatter_rows_reference(got[1], vn, idx, **mk)))
+                sel = ref.keep_mask(idx, mk.get("row_mask"), mk.get("token_mask"))
+                sel = torch.ones_like(idx, dtype=torch.bool) if sel is None else sel
+                flat = (idx.long() + torch.arange(b, device="cuda")[:, None] * s)[sel]
+                fk, fv = got[0].view(b * s, h, d), got[1].view(b * s, h, d)
+                sk, sv = kn[sel], vn[sel]
+                lib_ms, _ = device_ms(lambda: (fk.index_copy_(0, flat, sk),
+                                               fv.index_copy_(0, flat, sv)))
+                row_bytes = h * d * kn.element_size()
+                n_rows = int(sel.sum().item())
+                # each written fresh row read once and written once (K and V),
+                # plus the indices and the masks
+                moved = 2 * 2 * n_rows * row_bytes + nbytes(idx, *mk.values())
+                bms, by = bound(moved, 0.0, dt)
+                rec = dict(kernel="scatter_rows", case=label, dtype=str(dt), max_abs_err=0.0,
+                           tol=0.0, ms=ms, wall_ms=wall, plain_ms=plain_ms, library_ms=lib_ms,
+                           library="index_copy_ (K and V)", bound_ms=bms, bound_by=by,
+                           rows_written=n_rows, row_bytes=row_bytes,
+                           plan=dataclasses.asdict(plan(b, kk, 2, row_bytes)))
+                out.append(rec)
     return out
 
 
@@ -469,15 +505,23 @@ def check_paged_flash(ref, paged_flash_attention, gen):
 
 
 def check_paged_scatter(ref, scatter_rows_paged, gen):
+    """The serving path's paged K/V scatter at LLaDA's and Dream's row
+    widths over the serving layout: the block with no mask, the mixed-mode
+    row mask and a partial refresh's token mask; the partial refresh's 40
+    tokens; a prefill.  Masks go in as the serving path passes them."""
+    from repro_torch.kernels.scatter_kv import plan
+
     out = []
-    h, d = 32, 128
+    d = 128
     for dt in (torch.float32, torch.bfloat16):
         for ps in (16, 8):
-            for kk, what in ((32, "block"), (40, "partial"), (192, "prefill")):
-                for masks in ("none", "row", "token"):
-                    if what != "block" and masks != "none":
-                        continue
-                    label = f"llada {what} K={kk} ps={ps} mask={masks}"
+            for arch, h in SCATTER_ARCHS:
+                if arch == "dream" and ps != 16:
+                    continue
+                for kk, what, masks in ((32, "block", "none"), (32, "block", "row"),
+                                        (32, "block", "token"), (40, "partial", "none"),
+                                        (40, "partial", "row+token"), (192, "prefill", "none")):
+                    label = f"{arch} {what} K={kk} ps={ps} mask={masks}"
                     bt, _, n_pages = serving_layout(gen, ps)
                     kc = torch.randn(n_pages, ps, h, d, generator=gen, device="cuda").to(dt)
                     vc = torch.randn(n_pages, ps, h, d, generator=gen, device="cuda").to(dt)
@@ -490,44 +534,107 @@ def check_paged_scatter(ref, scatter_rows_paged, gen):
                         idx = torch.stack([torch.randperm(T_TOTAL, generator=gen,
                                                           device="cuda")[:kk]
                                            for _ in range(SLOTS)]).to(torch.int32)
-                    keep = None
-                    if masks == "row":
-                        keep = torch.tensor([True, False, True, False], device="cuda")[:, None]
-                        keep = keep.expand(SLOTS, kk).contiguous()
-                    elif masks == "token":
-                        keep = torch.rand(SLOTS, kk, generator=gen, device="cuda") < 0.5
-                    want_k = ref.scatter_rows_paged_reference(kc.clone(), kn, idx, bt, keep)
-                    want_v = ref.scatter_rows_paged_reference(vc.clone(), vn, idx, bt, keep)
-                    got_k, got_v = kc.clone(), vc.clone()
-                    scatter_rows_paged(((got_k, kn), (got_v, vn)), idx, bt, keep)
+                    mk = {}
+                    if "row" in masks:
+                        mk["row_mask"] = torch.tensor([True, False, True, False], device="cuda")
+                    if "token" in masks:
+                        mk["token_mask"] = torch.rand(SLOTS, kk, generator=gen,
+                                                      device="cuda") < 0.5
+                    want = (ref.scatter_rows_paged_reference(kc.clone(), kn, idx, bt, **mk),
+                            ref.scatter_rows_paged_reference(vc.clone(), vn, idx, bt, **mk))
+
+                    def run(got):
+                        scatter_rows_paged(((got[0], kn), (got[1], vn)), idx, bt, **mk)
+
                     # page 0 takes every row of an unmapped page: garbage, never read
-                    if not (torch.equal(got_k[1:], want_k[1:])
-                            and torch.equal(got_v[1:], want_v[1:])):
+                    def same(got):
+                        return all(torch.equal(g[1:], w[1:]) for g, w in zip(got, want))
+                    got = (kc.clone(), vc.clone())
+                    run(got)
+                    if not same(got):
                         raise AssertionError(f"scatter_rows_paged {label} {dt}: not bit-exact")
-                    ms, wall = device_ms(lambda: scatter_rows_paged(((got_k, kn), (got_v, vn)),
-                                                                    idx, bt, keep))
+                    ms, wall = device_ms(lambda: run(got))
                     plain_ms, _ = device_ms(lambda: (
-                        ref.scatter_rows_paged_reference(got_k, kn, idx, bt, keep),
-                        ref.scatter_rows_paged_reference(got_v, vn, idx, bt, keep)))
-                    sel = torch.ones_like(idx, dtype=torch.bool) if keep is None else keep
+                        ref.scatter_rows_paged_reference(got[0], kn, idx, bt, **mk),
+                        ref.scatter_rows_paged_reference(got[1], vn, idx, bt, **mk)))
+                    sel = ref.keep_mask(idx, mk.get("row_mask"), mk.get("token_mask"))
+                    sel = torch.ones_like(idx, dtype=torch.bool) if sel is None else sel
                     page = torch.gather(bt.long(), 1, idx.long() // ps).clamp(min=0)
                     dest = (page * ps + idx.long() % ps)[sel]
-                    fk, fv = got_k.view(-1, h, d), got_v.view(-1, h, d)
+                    fk, fv = got[0].view(-1, h, d), got[1].view(-1, h, d)
                     sk, sv = kn[sel], vn[sel]
                     lib_ms, _ = device_ms(lambda: (fk.index_copy_(0, dest, sk),
                                                    fv.index_copy_(0, dest, sv)))
                     n_rows = int(sel.sum().item())
                     row_bytes = h * d * kn.element_size()
                     # each kept fresh row read once and written once (K and V),
-                    # plus the indices, the table and the mask
-                    moved = 2 * 2 * n_rows * row_bytes + nbytes(idx, bt) + (
-                        0 if keep is None else nbytes(keep))
+                    # plus the indices, the table and the masks
+                    moved = 2 * 2 * n_rows * row_bytes + nbytes(idx, bt, *mk.values())
                     bms, by = bound(moved, 0.0, dt)
-                    out.append(dict(kernel="scatter_rows_paged", case=label, dtype=str(dt),
-                                    max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall,
-                                    plain_ms=plain_ms, library_ms=lib_ms,
-                                    library="index_copy_ (K and V)", bound_ms=bms,
-                                    bound_by=by, rows_written=n_rows))
+                    rec = dict(kernel="scatter_rows_paged", case=label, dtype=str(dt),
+                               max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall,
+                               plain_ms=plain_ms, library_ms=lib_ms,
+                               library="index_copy_ (K and V)", bound_ms=bms, bound_by=by,
+                               rows_written=n_rows, row_bytes=row_bytes,
+                               plan=dataclasses.asdict(plan(SLOTS, kk, 2, row_bytes)))
+                    out.append(rec)
+    return out
+
+
+def scatter_host_cost(ops, gen) -> dict:
+    """The host side of one ``ops.scatter_rows_paged`` call as the serving
+    path makes it, at LLaDA's served block shape (4 slots, 32 tokens, bf16,
+    pages of 16), with a row mask and with row and token masks: host µs per
+    call, the mean over 1,000 calls with one synchronize at the end, in
+    three rounds that alternate the two (host time drifts within a
+    process), and the device records one call makes (kernels, copies and
+    sets alike), the most of three profiler windows of the call between 32
+    L2 flushes before and 32 after.  The profiler loses or shifts records
+    at the edges of a window (phase 3's incomplete traces): the flushes
+    take that.  A flush is told apart by its size, not its name alone: it
+    rewrites 256 MB, over 0.1 ms, where a kernel on a mask or an index
+    takes a few µs, so a ``bitwise_not`` the call itself launched still
+    counts."""
+    cuda = torch.autograd.DeviceType.CUDA
+    bt, _, n_pages = serving_layout(gen, 16)
+    kc, vc = (torch.randn(n_pages, 16, 32, 128, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in "kv")
+    kn, vn = (torch.randn(SLOTS, BLOCK, 32, 128, generator=gen, device="cuda").to(torch.bfloat16)
+              for _ in "kv")
+    idx = torch.stack([torch.randperm(T_TOTAL, generator=gen, device="cuda")[:BLOCK]
+                       for _ in range(SLOTS)]).to(torch.int32)
+    row = torch.tensor([True, False, True, False], device="cuda")
+    tok = torch.rand(SLOTS, BLOCK, generator=gen, device="cuda") < 0.5
+    masks = {"row": dict(row_mask=row), "row+token": dict(row_mask=row, token_mask=tok)}
+    rounds: dict = {name: [] for name in masks}
+    for _ in range(3):
+        for name, mk in masks.items():
+            for _ in range(50):
+                ops.scatter_rows_paged(((kc, kn), (vc, vn)), idx, bt, **mk)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                ops.scatter_rows_paged(((kc, kn), (vc, vn)), idx, bt, **mk)
+            torch.cuda.synchronize()
+            rounds[name].append((time.perf_counter() - t0) / 1000 * 1e6)
+    out = {}
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for name, mk in masks.items():
+        windows = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(32):
+                    flush_l2()
+                ops.scatter_rows_paged(((kc, kn), (vc, vn)), idx, bt, **mk)
+                for _ in range(32):
+                    flush_l2()
+                torch.cuda.synchronize()
+            windows.append(sum(1 for e in prof.profiler.kineto_results.events()
+                               if e.device_type() == cuda and not (
+                                   "bitwise_not" in e.name() and e.duration_ns() > 20_000)))
+        out[name] = dict(host_us_per_call=sorted(rounds[name])[1], host_us_rounds=rounds[name],
+                         kernels_per_call=max(windows), windows=windows)
     return out
 
 
@@ -1262,7 +1369,8 @@ def serving_path(model, kernel_fns):
                 pages_total=st.pages_total, peak_pages_in_use=st.peak_pages_in_use,
                 resident_peak=st.resident_peak, early_advances=st.early_advances,
                 cache_hit_fraction=st.cache_hit_fraction, peak_mem_gb=peak_mem,
-                passes=dict(sched.engine.pass_counts), launches=launches, profile=profile)
+                passes=dict(sched.engine.pass_counts), launches=launches, profile=profile,
+                kernels_per_step=profile["kernels_launched"] / st.steps)
 
 
 # ---------------------------------------------------------------------------
@@ -1421,6 +1529,8 @@ def dream_serving(model, kernel_fns) -> dict:
             lambda: again.extend(dream_trace(make(runs[name]), prompts)[0]))
         out[name]["repeat_equal"] = all(np.array_equal(a.output, b) for a, b in
                                         zip(again, outputs[name]))
+        out[name]["kernels_per_step"] = (out[name]["profile"]["kernels_launched"]
+                                         / out[name]["steps"])
     return dict(arch=cfg.name, dtype=str(model.dtype), layers=cfg.n_layers, d_model=cfg.d_model,
                 weights_gb=sum(nbytes(p) for p in model.parameters()) / 1e9, slots=SLOTS,
                 prompt_len=PROMPT, page_size=16, gen_length=GEN,
@@ -1598,10 +1708,13 @@ def profile_run(fn, top: int = 8) -> dict:
             rec = port.setdefault(key, [0.0, 0])
             rec[0] += d
             rec[1] += 1
+    scatter = [(us, c) for n, (us, c) in port.items() if n.startswith("scatter_rows_kernel")]
     return dict(profiled_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
                 device_busy_share=busy / wall_us, kernels_launched=len(evs),
                 top=[dict(name=n, ms=us / 1e3, count=c) for n, (us, c) in ranked],
-                port_kernels={n: dict(ms=us / 1e3, count=c) for n, (us, c) in port.items()})
+                port_kernels={n: dict(ms=us / 1e3, count=c) for n, (us, c) in port.items()},
+                scatter_ms=sum(us for us, _ in scatter) / 1e3,
+                scatter_launches=sum(c for _, c in scatter))
 
 
 def main() -> int:
@@ -1676,6 +1789,8 @@ def main() -> int:
             body = f" {c['body']} hb{c['heads_per_block']}"
         elif "body" in c:
             body = f" {c['body']} x{c['n_splits']}"
+        elif "plan" in c:
+            body = " {threads}x{rows_per_block}x{chunk_bytes}".format(**c["plan"])
         print(f"{c['kernel']:21s} {c['case']:34s} {c['dtype']:15s}{body} "
               f"err {c['max_abs_err']:.2e} ms {c['ms']:.4f} (wall {c['wall_ms']:.4f}) "
               f"plain {c['plain_ms']:.4f} library {lib} bound {c['bound_ms']:.4f} "
@@ -1688,6 +1803,12 @@ def main() -> int:
     print(f"tensor-core attention cases slower than their library call: {slower}")
     threefry = check_threefry(gen)
     print(f"threefry: {json.dumps(threefry)}")
+    scatter_host = scatter_host_cost(ops, gen)
+    print(f"ops.scatter_rows_paged per call: {json.dumps(scatter_host)}")
+    for name, r in scatter_host.items():
+        if r["kernels_per_call"] != 1:
+            raise AssertionError(f"ops.scatter_rows_paged with mask {name}: "
+                                 f"{r['kernels_per_call']} kernels a call, not 1")
     lap("3")
 
     # phase 4: cross-device engine and scheduler checks
@@ -1787,6 +1908,7 @@ def main() -> int:
              cases=cases, threefry=threefry, cross_device=cross,
              cross_device_serving=cross_serving, cross_device_sampled=cross_sampled,
              cross_device_preemption=cross_preempt, quarantine=cross_quarantine,
+             scatter_host=scatter_host,
              cross_device_mamba=cross_mamba, offline_path=run, serving_path=serving,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))

@@ -39,7 +39,8 @@ SIGNATURES = {
                               _I, _F, _I, _I, _I, _I, _I, _P],
     "repro_flash_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                                  _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
-    "repro_scatter_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _P],
+    "repro_scatter_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I,
+                           _I, _P],
     "repro_fork_pages": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
     "repro_importance": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "repro_ssd_chunk": [_I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -121,9 +122,12 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {status}")
 
 
-def stream_ptr(device) -> int:
-    """PyTorch's current stream on ``device``, for the C entry points."""
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current stream on the CUDA ``device`` (a tensor's), as the
+    ``cudaStream_t`` the C entry points take.  Read raw, as PyTorch's own
+    generated kernels read it: ``torch.cuda.current_stream`` builds a
+    ``Stream`` object per call, host time every launch pays."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def aligned16(t: torch.Tensor) -> bool:

@@ -9,20 +9,39 @@
 // path).  The TPU kernels route each row by scalar prefetch and update the
 // cache in place through input_output_aliases.
 //
-// What bounds it on this card: pure data movement -- it reads K fresh rows
-// and writes them once, so memory bandwidth and, at decode sizes (a few
-// hundred KB), launch latency bound it.  The design writes straight into the
-// cache the caller passes (no copy of the cache, as the TPU's aliasing
-// does): one thread block per (row k, batch b, tensor) copies the row's
-// H*D contiguous elements with 16-byte loads and stores.  K and V go in one
-// launch (gridDim.z = 2).
+// What bounds it on this card: data movement -- it reads K fresh rows and
+// writes them once -- but at the paths' sizes (0.1-4 MB) the bytes take
+// well under 2 us at 3.35 TB/s, so what a call costs is the launch and the
+// device-memory latencies it waits for one after the other.  The design
+// writes straight into the cache the caller passes (no copy of the cache,
+// as the TPU's aliasing does) and keeps that chain short:
 //
-// keep (optional, [B, K] bytes): a token whose keep byte is 0 is not
-// written.  It carries the reference's row_mask (rows a mixed-mode pass
-// does not own) and token_mask (the adaptive cache's partial refresh).  The
-// reference gathers the old rows and writes them back (dense) or routes
-// unowned rows to the garbage page (paged); an in-place kernel gets the same
-// cache by skipping the write, without the extra gather.
+//   * source loads first: the address of new[b, k] depends only on the
+//     block and thread index, so every thread issues all its 16-byte loads
+//     of the row (kLoads = 4 of them, unrolled into registers, as inline asm
+//     the compiler cannot sink below the branches) before it reads the masks,
+//     idx and, paged, bt.  The idx -> bt chain then overlaps the data load
+//     instead of preceding it; a token the masks drop has cost one read.
+//     The mask bytes and idx are read independently of each other (no
+//     short-circuit chain), and bt as soon as idx is known.
+//   * the block shape comes from the caller (kernels/scatter_kv.py::plan):
+//     a row is cut into pieces of chunk_bytes, one group of threads moves
+//     one piece (threads / rows_per_block threads, kLoads loads each), and a
+//     block moves rows_per_block pieces.  The planner gives a row one group
+//     of up to 256 threads (a row past 16 KB is cut into pieces; cutting a
+//     decode's few rows across more blocks was timed and did not pay; nor
+//     did fewer or more loads a thread) and packs the 1 KB rows
+//     of Dream's 4 KV heads several to a block at prefill sizes.  The grid
+//     is one-dimensional over the pieces, ordered (token, tensor, piece of
+//     the row), so K and V of a token share a block's idx and bt reads.
+//
+// Masks (optional): row_mask [B] bytes (rows a mixed-mode pass does not own)
+// and token_mask [B, K] bytes (the adaptive cache's partial refresh).  A
+// token is written only where both pass, as the reference's keep =
+// row_mask[:, None] & token_mask.  The reference gathers the old rows and
+// writes them back (dense) or routes unowned rows to the garbage page
+// (paged); an in-place kernel gets the same cache by skipping the write,
+// without the extra gather.
 //
 // Paged mode (bt != null): a row of an unmapped page (bt < 0) lands on the
 // garbage page 0, as on the TPU.  Several blocks may then write one garbage
@@ -48,6 +67,7 @@
 // src == dst (the (0, 0) pads of a fork list) writes nothing.  Race-free
 // only because no real destination is also a source of the same call; the
 // wrapper checks that on the host, and that every page is in [0, P).
+#include <limits.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -56,30 +76,69 @@ namespace repro_torch {
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kLoads = 4;   // 16-byte loads a thread keeps in flight
 
 struct Pair {
   char* cache;      // dense [B, S, row_bytes]; paged [P * ps, row_bytes]
   const char* src;  // [B, K, row_bytes]
 };
 
-__global__ void __launch_bounds__(kThreads)
-    scatter_rows_kernel(Pair p0, Pair p1, const int* idx, const uint8_t* keep, const int* bt,
-                        int S, int K, int P, int ps, long long row_bytes) {
-  const int k = blockIdx.x, b = blockIdx.y;
-  const Pair p = blockIdx.z ? p1 : p0;
-  const long long tok = (long long)b * K + k;
-  if (keep != nullptr && keep[tok] == 0) return;
-  const int row = idx[tok];
-  if (row < 0 || row >= S) return;
-  long long dest = (long long)b * S + row;
-  if (bt != nullptr) {
-    const int page = max(bt[(long long)b * (S / ps) + row / ps], 0);  // unmapped: page 0
-    if (page >= P) return;
-    dest = (long long)page * ps + row % ps;
+// 16 bytes from device memory, issued where it stands: volatile asm is not
+// moved below the branches that follow it
+__device__ __forceinline__ uint4 load16(const uint4* p) {
+  uint4 r;
+  asm volatile("ld.global.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
+}
+
+// A scatter's arguments, as the entry point resolved them
+struct ScatterArgs {
+  Pair p0, p1;
+  const int* idx;            // [B, K]
+  const uint8_t* row_mask;   // [B] or null
+  const uint8_t* token_mask; // [B, K] or null
+  const int* bt;             // [B, S / ps] or null (dense)
+  int pairs, S, K, P, ps;
+  long long row_vecs;        // 16-byte vectors of a row
+  int pieces, splits, group, rows_per_block;
+};
+
+// One group of `group` threads per row piece; piece = (tok * pairs + z) *
+// splits + split, and thread t of a group moves the 16-byte vectors split *
+// group * kLoads + t + u * group (u < kLoads) of its row that lie inside it.
+__global__ void __launch_bounds__(kThreads) scatter_rows_kernel(const ScatterArgs a) {
+  const int piece = blockIdx.x * a.rows_per_block + threadIdx.x / a.group;
+  if (piece >= a.pieces) return;
+  const int row = piece / a.splits, tok = row / a.pairs;
+  const Pair p = (row - tok * a.pairs) ? a.p1 : a.p0;
+  const long long v0 =
+      (long long)(piece - row * a.splits) * a.group * kLoads + threadIdx.x % a.group;
+  const uint4* src = reinterpret_cast<const uint4*>(p.src) + tok * a.row_vecs;
+  uint4 r[kLoads];
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const long long v = v0 + (long long)u * a.group;
+    if (v < a.row_vecs) r[u] = load16(src + v);
   }
-  uint4* dst = reinterpret_cast<uint4*>(p.cache + dest * row_bytes);
-  const uint4* src = reinterpret_cast<const uint4*>(p.src + tok * row_bytes);
-  for (long long i = threadIdx.x; i < row_bytes / 16; i += kThreads) dst[i] = src[i];
+  const int b = tok / a.K;
+  const bool keep_row = a.row_mask == nullptr || a.row_mask[b] != 0;
+  const bool keep_tok = a.token_mask == nullptr || a.token_mask[tok] != 0;
+  const int i = a.idx[tok];
+  if (i < 0 || i >= a.S) return;
+  long long dest = (long long)b * a.S + i;
+  if (a.bt != nullptr) {
+    const int page = max(a.bt[(long long)b * (a.S / a.ps) + i / a.ps], 0);  // unmapped: page 0
+    if (page >= a.P) return;
+    dest = (long long)page * a.ps + i % a.ps;
+  }
+  if (!(keep_row & keep_tok)) return;
+  uint4* dst = reinterpret_cast<uint4*>(p.cache) + dest * a.row_vecs;
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const long long v = v0 + (long long)u * a.group;
+    if (v < a.row_vecs) dst[v] = r[u];
+  }
 }
 
 constexpr int kForkUnroll = 4;
@@ -128,28 +187,45 @@ extern "C" int repro_fork_pages(void* k, void* v, const void* src, const void* d
   return static_cast<int>(cudaGetLastError());
 }
 
-// pairs: 1 (c0/n0) or 2 (c0/n0 and c1/n1, same shapes).  keep: null or
-// [B, K] bytes.  block_tables: null (caches are [B, S, row]) or [B, S /
-// page_size] int32 (caches are pools [num_pages, page_size, row]).
-// Returns a cudaError_t code (0 = launched), or -1 for arguments the kernel
-// does not take (among them pointers or a row size that are not 16-byte
-// multiples).
+// pairs: 1 (c0/n0) or 2 (c0/n0 and c1/n1, same shapes).  row_mask: null or
+// [B] bytes; token_mask: null or [B, K] bytes.  block_tables: null (caches
+// are [B, S, row]) or [B, S / page_size] int32 (caches are pools
+// [num_pages, page_size, row]).  threads, rows_per_block, chunk_bytes: the
+// block shape (kernels/scatter_kv.py::plan): rows_per_block groups of
+// threads / rows_per_block threads, each moving chunk_bytes = 16 * kLoads *
+// group bytes of a row.  Returns a
+// cudaError_t code (0 = launched), or -1 for arguments the kernel does not
+// take (among them pointers or a row size that are not 16-byte multiples).
 extern "C" int repro_scatter_rows(void* c0, const void* n0, void* c1, const void* n1,
-                                  const void* idx, const void* keep, const void* block_tables,
-                                  int pairs, int B, int S, int K, int num_pages, int page_size,
-                                  long long row_bytes, void* stream) {
+                                  const void* idx, const void* row_mask,
+                                  const void* token_mask, const void* block_tables, int pairs,
+                                  int B, int S, int K, int num_pages, int page_size,
+                                  long long row_bytes, int threads, int rows_per_block,
+                                  int chunk_bytes, void* stream) {
   using namespace repro_torch;
-  if (pairs < 1 || pairs > 2 || B <= 0 || K <= 0 || B > 65535 || row_bytes <= 0) return -1;
+  if (pairs < 1 || pairs > 2 || B <= 0 || K <= 0 || S < 0 || row_bytes <= 0) return -1;
   if (block_tables != nullptr && (page_size <= 0 || S % page_size != 0 || num_pages <= 0))
     return -1;
+  if (threads < 1 || threads > kThreads || rows_per_block < 1 || threads % rows_per_block != 0)
+    return -1;
+  const int group = threads / rows_per_block;
+  if (chunk_bytes != 16 * kLoads * group) return -1;
   const Pair p0{static_cast<char*>(c0), static_cast<const char*>(n0)};
   const Pair p1 = pairs == 2 ? Pair{static_cast<char*>(c1), static_cast<const char*>(n1)} : p0;
   const uintptr_t align = reinterpret_cast<uintptr_t>(c0) | reinterpret_cast<uintptr_t>(n0) |
                           reinterpret_cast<uintptr_t>(p1.cache) |
                           reinterpret_cast<uintptr_t>(p1.src) | static_cast<uintptr_t>(row_bytes);
   if (align % 16 != 0) return -1;
-  scatter_rows_kernel<<<dim3(K, B, pairs), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, static_cast<const int*>(idx), static_cast<const uint8_t*>(keep),
-      static_cast<const int*>(block_tables), S, K, num_pages, page_size, row_bytes);
+  const long long splits = (row_bytes + chunk_bytes - 1) / chunk_bytes;
+  const long long pieces = (long long)B * K * pairs * splits;
+  if (pieces > INT_MAX - rows_per_block) return -1;   // the grid and piece indices are ints
+  const int blocks = static_cast<int>((pieces + rows_per_block - 1) / rows_per_block);
+  const ScatterArgs a{p0, p1, static_cast<const int*>(idx),
+                      static_cast<const uint8_t*>(row_mask),
+                      static_cast<const uint8_t*>(token_mask),
+                      static_cast<const int*>(block_tables), pairs, S, K, num_pages, page_size,
+                      row_bytes / 16, static_cast<int>(pieces), static_cast<int>(splits), group,
+                      rows_per_block};
+  scatter_rows_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

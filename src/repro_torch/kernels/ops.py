@@ -23,11 +23,12 @@ from repro_torch.kernels.ssd_scan import ssd_chunks as ssd_chunks_kernel
 
 
 def _on_card(*tensors: Optional[torch.Tensor]) -> bool:
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cuda"}:
+    ts = [t for t in tensors if t is not None]
+    if ts and all(t.is_cuda for t in ts):
         return True
-    if kinds == {"cpu"}:
+    if ts and all(t.is_cpu for t in ts):
         return False
+    kinds = {t.device.type for t in ts}
     raise ValueError(f"tensors on {sorted(kinds)}: all must be on one CUDA device or the CPU")
 
 
@@ -67,20 +68,6 @@ def paged_attention(
     return ref.paged_attention_reference(q, k_pool, v_pool, q_pos, kv_pos, block_tables)
 
 
-def _keep(row_mask: Optional[torch.Tensor], token_mask: Optional[torch.Tensor],
-          idx: torch.Tensor) -> Optional[torch.Tensor]:
-    """[B, K] bool: the tokens a scatter writes (both masks must pass), or
-    None when every token is written."""
-    if row_mask is None and token_mask is None:
-        return None
-    keep = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
-    if row_mask is not None:
-        keep = keep & row_mask[:, None]
-    if token_mask is not None:
-        keep = keep & token_mask
-    return keep
-
-
 def scatter_rows(pairs, idx: torch.Tensor, *, row_mask: Optional[torch.Tensor] = None,
                  token_mask: Optional[torch.Tensor] = None) -> None:
     """In place, for one or two ``(cache [B, S, ...], new [B, K, ...])``
@@ -88,13 +75,12 @@ def scatter_rows(pairs, idx: torch.Tensor, *, row_mask: Optional[torch.Tensor] =
     ``idx`` holds distinct in-range rows per batch entry.  ``row_mask [B]``
     (rows a mixed-mode pass does not own) and ``token_mask [B, K]`` (tokens
     a partial refresh leaves alone) leave the cache unwritten where False.
-    One kernel launch on the card."""
-    keep = _keep(row_mask, token_mask, idx)
-    if _on_card(idx, keep, *(t for pair in pairs for t in pair)):
-        scatter_rows_kernel(pairs, idx, keep)
+    One kernel launch on the card, which takes the masks itself."""
+    if _on_card(idx, row_mask, token_mask, *pairs[0], *pairs[-1]):
+        scatter_rows_kernel(pairs, idx, row_mask=row_mask, token_mask=token_mask)
     else:
         for cache, new in pairs:
-            ref.scatter_rows_reference(cache, new, idx, keep)
+            ref.scatter_rows_reference(cache, new, idx, row_mask, token_mask)
 
 
 def scatter_rows_paged(pairs, idx: torch.Tensor, block_tables: torch.Tensor, *,
@@ -105,12 +91,12 @@ def scatter_rows_paged(pairs, idx: torch.Tensor, block_tables: torch.Tensor, *,
     positions ``i = idx[b, k]``; a row of an unmapped page lands on the
     garbage page 0.  The masks work as in :func:`scatter_rows`.  One kernel
     launch on the card."""
-    keep = _keep(row_mask, token_mask, idx)
-    if _on_card(idx, block_tables, keep, *(t for pair in pairs for t in pair)):
-        scatter_rows_paged_kernel(pairs, idx, block_tables, keep)
+    if _on_card(idx, block_tables, row_mask, token_mask, *pairs[0], *pairs[-1]):
+        scatter_rows_paged_kernel(pairs, idx, block_tables, row_mask=row_mask,
+                                  token_mask=token_mask)
     else:
         for pool, new in pairs:
-            ref.scatter_rows_paged_reference(pool, new, idx, block_tables, keep)
+            ref.scatter_rows_paged_reference(pool, new, idx, block_tables, row_mask, token_mask)
 
 
 def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst) -> None:

@@ -193,16 +193,33 @@ def paged_attention_split_reference(
     return attention_split_reference(q, k, v, q_pos, kv_pos, n_splits=n_splits)
 
 
+def keep_mask(idx: torch.Tensor, row_mask: torch.Tensor | None,
+          token_mask: torch.Tensor | None) -> torch.Tensor | None:
+    """[B, K] bool: the tokens a scatter writes, ``row_mask[:, None] &
+    token_mask`` as the reference builds it, or None when every token is
+    written."""
+    if row_mask is None and token_mask is None:
+        return None
+    keep = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    if row_mask is not None:
+        keep = keep & row_mask[:, None]
+    if token_mask is not None:
+        keep = keep & token_mask
+    return keep
+
+
 def scatter_rows_reference(
     cache: torch.Tensor,       # [B, S, ...]
     new: torch.Tensor,         # [B, K, ...]
     idx: torch.Tensor,         # [B, K] int, unique per row
-    keep: torch.Tensor | None = None,   # [B, K] bool: False tokens are not written
+    row_mask: torch.Tensor | None = None,     # [B] bool: rows not written where False
+    token_mask: torch.Tensor | None = None,   # [B, K] bool: tokens not written where False
 ) -> torch.Tensor:
-    """In place: ``cache[b, idx[b, k]] = new[b, k]`` where ``keep``; returns
-    ``cache``."""
+    """In place: ``cache[b, idx[b, k]] = new[b, k]`` where ``row_mask[b]``
+    and ``token_mask[b, k]`` pass; returns ``cache``."""
     rows = torch.arange(cache.shape[0], device=cache.device)[:, None].expand(idx.shape)
     idx, new = idx.long(), new.to(cache.dtype)
+    keep = keep_mask(idx, row_mask, token_mask)
     if keep is not None:
         rows, idx, new = rows[keep], idx[keep], new[keep]
     cache[rows, idx] = new
@@ -214,16 +231,18 @@ def scatter_rows_paged_reference(
     new: torch.Tensor,            # [B, K, ...]
     idx: torch.Tensor,            # [B, K] int absolute positions, unique per row
     block_tables: torch.Tensor,   # [B, n_vp] int, -1 unmapped
-    keep: torch.Tensor | None = None,   # [B, K] bool: False tokens are not written
+    row_mask: torch.Tensor | None = None,     # [B] bool: rows not written where False
+    token_mask: torch.Tensor | None = None,   # [B, K] bool: tokens not written where False
 ) -> torch.Tensor:
     """In place: ``pool[bt[b, i // ps], i % ps] = new[b, k]`` for ``i =
-    idx[b, k]`` where ``keep``; a row of an unmapped page lands on the
-    garbage page 0.  Returns ``pool``."""
+    idx[b, k]`` where both masks pass; a row of an unmapped page lands on
+    the garbage page 0.  Returns ``pool``."""
     ps = pool.shape[1]
     idx = idx.long()
     page = torch.gather(block_tables.long(), 1, torch.div(idx, ps, rounding_mode="floor"))
     dest = page.clamp(min=0) * ps + idx % ps
     new = new.to(pool.dtype)
+    keep = keep_mask(idx, row_mask, token_mask)
     if keep is not None:
         dest, new = dest[keep], new[keep]
     row = tuple(pool.shape[2:])

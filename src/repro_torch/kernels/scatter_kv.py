@@ -7,10 +7,14 @@
 ``fork_pages_kernel`` (the copy-on-write page copy).  All write into the
 tensors they are given (no copy, as the TPU kernels' ``input_output_aliases``),
 launch one kernel for K and V, and take CUDA tensors only; ``ops`` sends CPU
-tensors to the plain versions in ``ref``.
+tensors to the plain versions in ``ref``.  The scatters take the serving
+path's ``row_mask`` and ``token_mask`` themselves, so a masked scatter is
+one launch; :func:`plan` gives their block shape.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -18,49 +22,105 @@ import torch
 
 from repro_torch.kernels import build
 
+MAX_THREADS = 256           # threads of a block (the kernel's launch bound)
+LOADS = 4                   # 16-byte loads a thread keeps in flight (the kernel's kLoads)
+GRID_LIMIT = 2**31 - 1      # gridDim.x, and the kernel's int piece indices
 
-def _launch(fn, pairs, idx, keep, bt, s, num_pages, page_size):
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A scatter's block shape: a row is cut into pieces of ``chunk_bytes``
+    (the last piece of a row may be shorter); a group of ``threads //
+    rows_per_block`` threads moves one piece, each thread ``LOADS`` 16-byte
+    vectors; a block moves ``rows_per_block`` pieces."""
+    threads: int
+    rows_per_block: int
+    chunk_bytes: int
+
+    @property
+    def group(self) -> int:
+        return self.threads // self.rows_per_block
+
+    def blocks(self, b: int, k: int, pairs: int, row_bytes: int) -> int:
+        """The launch's grid: every piece of the ``b * k * pairs`` rows."""
+        splits = -(-row_bytes // self.chunk_bytes)
+        return -(-(b * k * pairs * splits) // self.rows_per_block)
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, k: int, pairs: int, row_bytes: int) -> Plan:
+    """The block shape of a scatter of ``b * k`` tokens' rows of ``row_bytes``
+    (a multiple of 16) into ``pairs`` caches: a group of up to
+    ``MAX_THREADS`` threads moves a row with ``LOADS`` 16-byte loads a
+    thread (a row longer than 16 KB is cut into pieces of 16 KB); pieces
+    pack into a block, a power of two of them, as long as the grid keeps a
+    wave of blocks (``build.WAVE``: 1 KB rows at prefill sizes).  On the
+    H100, 4 loads a thread won or tied at every decode shape timed, and
+    cutting the few rows of a decode across more blocks did not pay
+    (PERF.md)."""
+    if row_bytes <= 0 or row_bytes % 16 or min(b, k, pairs) <= 0:
+        raise ValueError(f"scatter plan: no block shape for b={b} k={k} pairs={pairs} "
+                         f"row_bytes={row_bytes}")
+    group = min(MAX_THREADS, _pow2(-(-(row_bytes // 16) // LOADS)))
+    chunk = 16 * LOADS * group
+    pieces = b * k * pairs * -(-row_bytes // chunk)
+    rows_per_block = _pow2(max(1, min(MAX_THREADS // group, pieces // build.WAVE)) + 1) // 2
+    if pieces + rows_per_block > GRID_LIMIT:
+        raise ValueError(f"scatter plan: {pieces} row pieces exceed the grid")
+    return Plan(group * rows_per_block, rows_per_block, chunk)
+
+
+def _launch(fn, pairs, idx, row_mask, token_mask, bt, s, num_pages, page_size):
     """Checks what both modes share, launches and counts the launch on
-    ``fn``.  ``s`` is the number of rows ``idx`` may address per batch entry."""
+    ``fn``.  ``s`` is the number of rows ``idx`` may address per batch entry.
+    Each refusal raises ``ValueError``; the checks read each tensor's
+    properties once, as the serving path calls this in every layer."""
     name = fn.__name__
     if not 1 <= len(pairs) <= 2:
         raise ValueError(f"{name}: one or two (cache, new) pairs")
-    cache0, new0 = pairs[0]
-    b = idx.shape[0] if idx.dim() == 2 else -1
-    k = idx.shape[1] if idx.dim() == 2 else -1
-    row_shape = tuple(new0.shape[2:])
-    for cache, new in pairs:
-        for arg, t in (("cache", cache), ("new", new)):
-            if not t.is_cuda or t.device != cache0.device:
-                raise ValueError(f"{name}: {arg} must be a CUDA tensor on {cache0.device}")
-            if not t.is_contiguous():
-                raise ValueError(f"{name}: {arg} must be contiguous")
-        if cache.shape != cache0.shape or cache.dtype != cache0.dtype:
-            raise ValueError(f"{name}: the caches must match in shape and dtype")
-        if (new.dtype != cache.dtype or new.shape != (b, k) + row_shape
-                or tuple(cache.shape[2:]) != row_shape):
-            raise ValueError(f"{name}: new {tuple(new.shape)} {new.dtype} does not "
-                             f"fit cache {tuple(cache.shape)} {cache.dtype} and idx [B, K]")
-    for arg, t, dtype in (("idx", idx, torch.int32), ("keep", keep, torch.bool),
-                          ("block_tables", bt, torch.int32)):
-        if t is None:
-            continue
-        if t.dtype != dtype or t.dim() != 2 or t.shape[0] != b or not t.is_contiguous() \
-                or t.device != cache0.device:
-            raise ValueError(f"{name}: {arg} must be contiguous {dtype} [{b}, ...] on the card")
-    if keep is not None and keep.shape != (b, k):
-        raise ValueError(f"{name}: keep must be [{b}, {k}]")
-    if k == 0:
+    (c0, n0), (c1, n1) = pairs[0], pairs[-1]
+    card = c0.get_device()                      # -1 off the card
+    for arg, t in (("cache", c0), ("new", n0), ("cache", c1), ("new", n1)):
+        if card < 0 or t.get_device() != card:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor on {c0.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    shape, dtype = c0.shape, c0.dtype
+    if c1.shape != shape or c1.dtype != dtype:
+        raise ValueError(f"{name}: the caches must match in shape and dtype")
+    b, k = idx.shape if idx.dim() == 2 else (-1, -1)
+    new_shape = (b, k) + shape[2:]
+    if n0.shape != new_shape or n0.dtype != dtype or n1.shape != new_shape or n1.dtype != dtype:
+        bad = n0 if n0.shape != new_shape or n0.dtype != dtype else n1
+        raise ValueError(f"{name}: new {tuple(bad.shape)} {bad.dtype} does not "
+                         f"fit cache {tuple(shape)} {dtype} and idx [B, K]")
+    for arg, t, want_dtype, want in (("idx", idx, torch.int32, (b, k)),
+                                     ("block_tables", bt, torch.int32, None),
+                                     ("row_mask", row_mask, torch.bool, (b,)),
+                                     ("token_mask", token_mask, torch.bool, (b, k))):
+        if t is not None and (
+                t.dtype != want_dtype or t.get_device() != card or not t.is_contiguous()
+                or (t.shape != want if want else t.dim() != 2 or t.shape[0] != b)):
+            raise ValueError(f"{name}: {arg} must be contiguous {want_dtype} "
+                             f"{list(want or (b, '...'))} on the card, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if b * k == 0:
         return
-    row_bytes = new0[0, 0].numel() * new0.element_size()
-    (c1, n1) = pairs[1] if len(pairs) == 2 else (cache0, new0)
-    if row_bytes % 16 or any(t.data_ptr() % 16 for pair in pairs for t in pair):
+    row_bytes = n0.numel() // (b * k) * n0.element_size()
+    ptrs = (c0.data_ptr(), n0.data_ptr(), c1.data_ptr(), n1.data_ptr())
+    if row_bytes % 16 or (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) % 16:
         raise ValueError(f"{name}: rows of {row_bytes} bytes or tensor starts not "
                          "aligned to 16 bytes")
+    pl = plan(b, k, len(pairs), row_bytes)
     status = build.library().repro_scatter_rows(
-        cache0.data_ptr(), new0.data_ptr(), c1.data_ptr(), n1.data_ptr(), idx.data_ptr(),
-        None if keep is None else keep.data_ptr(), None if bt is None else bt.data_ptr(),
-        len(pairs), b, s, k, num_pages, page_size, row_bytes, build.stream_ptr(cache0.device))
+        *ptrs, idx.data_ptr(), None if row_mask is None else row_mask.data_ptr(),
+        None if token_mask is None else token_mask.data_ptr(),
+        None if bt is None else bt.data_ptr(), len(pairs), b, s, k, num_pages, page_size,
+        row_bytes, pl.threads, pl.rows_per_block, pl.chunk_bytes, build.stream_ptr(c0.device))
     build.check(status, name)
     fn.launches += 1
 
@@ -68,20 +128,23 @@ def _launch(fn, pairs, idx, keep, bt, s, num_pages, page_size):
 def scatter_rows(
     pairs: Sequence[tuple[torch.Tensor, torch.Tensor]],   # 1 or 2 (cache, new)
     idx: torch.Tensor,                                      # [B, K] int32
-    keep: Optional[torch.Tensor] = None,                    # [B, K] bool
+    *,
+    row_mask: Optional[torch.Tensor] = None,                # [B] bool
+    token_mask: Optional[torch.Tensor] = None,              # [B, K] bool
 ) -> None:
     """In place, for each ``(cache [B, S, ...], new [B, K, ...])`` pair:
-    ``cache[b, idx[b, k]] = new[b, k]`` where ``keep[b, k]`` (all tokens
-    without ``keep``).  Both pairs (K and V) go in one launch and must match
-    in shape and dtype.  ``idx`` must hold distinct rows per batch entry, all
-    in ``[0, S)``.  Rows move as 16-byte chunks, so a row of ``cache`` must
-    span a multiple of 16 bytes and every tensor must start 16-byte aligned;
-    other inputs raise."""
+    ``cache[b, idx[b, k]] = new[b, k]`` where ``row_mask[b]`` and
+    ``token_mask[b, k]`` pass (every token without masks).  Both pairs (K
+    and V) go in one launch and must match in shape and dtype.  ``idx`` must
+    hold distinct rows per batch entry, all in ``[0, S)``.  Rows move as
+    16-byte chunks, so a row of ``cache`` must span a multiple of 16 bytes
+    and every tensor must start 16-byte aligned; other inputs raise.  The
+    masks are contiguous bool tensors on the card; nothing is copied."""
     cache0 = pairs[0][0]
     if cache0.shape[0] != idx.shape[0]:
         raise ValueError(f"scatter_rows: cache {tuple(cache0.shape)} and idx "
                          f"{tuple(idx.shape)} differ in batch")
-    _launch(scatter_rows, pairs, idx, keep, None, cache0.shape[1], 0, 0)
+    _launch(scatter_rows, pairs, idx, row_mask, token_mask, None, cache0.shape[1], 0, 0)
 
 
 scatter_rows.launches = 0
@@ -91,15 +154,17 @@ def scatter_rows_paged(
     pairs: Sequence[tuple[torch.Tensor, torch.Tensor]],   # 1 or 2 (pool, new)
     idx: torch.Tensor,                                      # [B, K] int32 positions
     block_tables: torch.Tensor,                             # [B, n_vp] int32, -1 unmapped
-    keep: Optional[torch.Tensor] = None,                    # [B, K] bool
+    *,
+    row_mask: Optional[torch.Tensor] = None,                # [B] bool
+    token_mask: Optional[torch.Tensor] = None,              # [B, K] bool
 ) -> None:
     """In place, for each ``(pool [P, ps, ...], new [B, K, ...])`` pair:
     ``pool[bt[b, i // ps], i % ps] = new[b, k]`` for ``i = idx[b, k]`` where
-    ``keep[b, k]``.  A row of an unmapped page (``bt < 0``) lands on the
+    the masks pass.  A row of an unmapped page (``bt < 0``) lands on the
     garbage page 0.  The same layout rules as :func:`scatter_rows`."""
     pool0 = pairs[0][0]
     ps = pool0.shape[1]
-    _launch(scatter_rows_paged, pairs, idx, keep, block_tables,
+    _launch(scatter_rows_paged, pairs, idx, row_mask, token_mask, block_tables,
             block_tables.shape[-1] * ps, pool0.shape[0], ps)
 
 

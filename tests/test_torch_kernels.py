@@ -16,6 +16,7 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention, plan
 from repro_torch.kernels.importance import importance, variation
 from repro_torch.kernels.scatter_kv import fork_pages, scatter_rows, scatter_rows_paged
+from repro_torch.kernels.scatter_kv import plan as scatter_plan
 from repro_torch.kernels.ssd_scan import plan as ssd_plan
 from repro_torch.kernels.ssd_scan import ssd_chunks
 
@@ -326,15 +327,42 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
             want = ref.attention_reference(q, k, v, q_pos, kv_pos, causal=True)
             assert (got.float() - want.float()).abs().max().item() <= tol
             assert got[0, :, 3].abs().max().item() == 0.0
-    cache = torch.randn(2, 40, 4, 32, generator=g, device=cuda_device).to(dtype)
-    new = torch.randn(2, 6, 4, 32, generator=g, device=cuda_device).to(dtype)
-    idx = torch.stack([torch.randperm(40, generator=g, device=cuda_device)[:6]
-                       for _ in range(2)]).to(torch.int32)
-    got = cache.clone()
-    scatter_rows(((got, new),), idx)
-    assert torch.equal(got, ref.scatter_rows_reference(cache.clone(), new, idx))
+    # the dense scatter: a small row; Dream's 4 KV heads of 128 (1 KB rows in
+    # bf16) under the serving masks; LLaDA's skip stage 2 (8 tokens of 32
+    # heads); 8 tokens of rows past 16 KB (80 heads), which the planner cuts
+    # across blocks
+    for h, d, kk, masked in ((4, 32, 6, False), (4, 128, 32, True), (32, 128, 8, False),
+                             (80, 128, 8, False)):
+        cache = torch.randn(2, 40, h, d, generator=g, device=cuda_device).to(dtype)
+        new = torch.randn(2, kk, h, d, generator=g, device=cuda_device).to(dtype)
+        idx = torch.stack([torch.randperm(40, generator=g, device=cuda_device)[:kk]
+                           for _ in range(2)]).to(torch.int32)
+        mk = {}
+        if masked:
+            mk = dict(row_mask=torch.tensor([True, False], device=cuda_device),
+                      token_mask=torch.rand(2, kk, generator=g, device=cuda_device) < 0.5)
+        want = ref.scatter_rows_reference(cache.clone(), new, idx, **mk)
+        row_bytes = h * d * cache.element_size()
+        assert (scatter_plan(2, kk, 1, row_bytes).chunk_bytes < row_bytes) == (h == 80)
+        got = cache.clone()
+        scatter_rows(((got, new),), idx, **mk)
+        assert torch.equal(got, want)
+    # the C entry points launch on PyTorch's current stream, also inside a
+    # torch.cuda.stream block
+    dev = cache.device
+    assert build.stream_ptr(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert build.stream_ptr(dev) == side.cuda_stream
+        assert build.stream_ptr(dev) != torch.cuda.default_stream(dev).cuda_stream
+    assert build.stream_ptr(dev) == torch.cuda.default_stream(dev).cuda_stream
     with pytest.raises(ValueError, match="16 bytes"):     # rows of 9 elements
         scatter_rows(((got[:, :, :3, :3].contiguous(), new[:, :, :3, :3].contiguous()),), idx)
+    with pytest.raises(ValueError, match="token_mask must be contiguous"):
+        scatter_rows(((got, new),), idx, token_mask=torch.ones(kk, 2, dtype=torch.bool,
+                                                               device=cuda_device).t())
+    with pytest.raises(ValueError, match="row_mask must be contiguous torch.bool"):
+        scatter_rows(((got, new),), idx, row_mask=torch.ones(2, device=cuda_device))
     hn = torch.randn(2, 8, 4096, generator=g, device=cuda_device).to(dtype)
     ho = torch.randn(2, 8, 4096, generator=g, device=cuda_device).to(dtype)
     conf = torch.rand(2, 8, generator=g, device=cuda_device)
@@ -375,11 +403,15 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
         new = torch.randn(2, 6, 2, 64, generator=g, device=cuda_device).to(dtype)
         idx = torch.stack([torch.randperm(5 * ps, generator=g, device=cuda_device)[:6]
                            for _ in range(2)]).int()
-        keep = torch.rand(2, 6, generator=g, device=cuda_device) < 0.5
-        got = pool_k.clone()
-        scatter_rows_paged(((got, new),), idx, bt, keep)
-        want = ref.scatter_rows_paged_reference(pool_k.clone(), new, idx, bt, keep)
-        assert torch.equal(got[1:], want[1:])
+        mk = dict(row_mask=torch.tensor([True, False], device=cuda_device),
+                  token_mask=torch.rand(2, 6, generator=g, device=cuda_device) < 0.5)
+        for masks in ({}, {"row_mask": mk["row_mask"]}, {"token_mask": mk["token_mask"]}, mk):
+            got = pool_k.clone()
+            scatter_rows_paged(((got, new),), idx, bt, **masks)
+            want = ref.scatter_rows_paged_reference(pool_k.clone(), new, idx, bt, **masks)
+            assert torch.equal(got[1:], want[1:])
+        with pytest.raises(ValueError, match="token_mask must be contiguous torch.bool"):
+            scatter_rows_paged(((got, new),), idx, bt, token_mask=mk["token_mask"].int())
     # the copy-on-write fork: in place, (0, 0) pads, aliased lists refused
     pools = [torch.randn(3, 16, 8, 2, 64, generator=g, device=cuda_device).to(dtype)
              for _ in "kv"]
