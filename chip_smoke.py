@@ -22,7 +22,11 @@ no result):
    scatters at LLaDA's 8 KB and Dream's 1 KB rows, dense and paged, under
    the serving masks, each with its block shape; the host µs and the
    kernels of one masked ``ops.scatter_rows_paged`` call, which must be
-   1); the threefry key chain's
+   1; the importance score at LLaDA's, Dream's and mamba2-370m's widths,
+   on contiguous planes and through a skip stage's ``idx``, and the
+   variation score at LLaDA's and Dream's, each with its block shape; the
+   host µs and kernels of one indexed ``ops.importance_score``
+   call, which must be 1); the threefry key chain's
    known answers on the card, a draw of the sampled path's shape with bits
    equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -389,30 +393,61 @@ def check_scatter(ref, scatter_rows, gen):
     return out
 
 
+# (arch, d): the hidden widths that reach the score kernels
+SCORE_ARCHS = (("llada", 4096), ("dream", 3584), ("mamba2", 1024))
+
+
 def check_importance(ref, importance, gen):
+    """Eq. 1 importance at the skip stages' shapes.  LLaDA's on contiguous
+    planes (the kernel alone, the cases of earlier runs), and every path's
+    stages as the engine now calls it, through ``idx`` into the block's 32
+    cached rows and confidences: stage 1 reads them all in order, stage 2
+    16 of them in the order a top-k left them; at LLaDA's, Dream's and
+    mamba2-370m's widths."""
+    from repro_torch.kernels.importance import plan
+
     out = []
-    d = 4096
     for dt in (torch.float32, torch.bfloat16):
-        for b, kk, what in ((2, 32, "stage1"), (2, 16, "stage2"),
-                            (SLOTS, 32, "stage1"), (SLOTS, 16, "stage2")):
-            # the offline path's batch of 2, the serving path's slots
-            label = f"llada {what} K={kk}" + (f" B={b}" if b == SLOTS else "")
-            hn = torch.randn(b, kk, d, generator=gen, device="cuda").to(dt)
-            ho = torch.randn(b, kk, d, generator=gen, device="cuda").to(dt)
-            conf = torch.rand(b, kk, generator=gen, device="cuda")
-            got = importance(hn, ho, conf, alpha=0.5)
-            want = ref.importance_reference(hn, ho, conf, 0.5)
-            err = (got - want).abs().max().item()
-            rel = ((got - want).abs() / want.abs()).max().item()
-            if not rel <= 1e-5:
-                raise AssertionError(f"importance {label} {dt}: max rel err {rel} > 1e-5")
-            ms, wall = device_ms(lambda: importance(hn, ho, conf, alpha=0.5))
-            plain_ms, _ = device_ms(lambda: ref.importance_reference(hn, ho, conf, 0.5))
-            flops = 5.0 * hn.numel()      # sub, abs, add; square, add
-            bms, by = bound(nbytes(hn, ho, conf, got), flops, torch.float32)
-            out.append(dict(kernel="importance", case=label, dtype=str(dt), max_abs_err=err,
-                            max_rel_err=rel, tol=1e-5, ms=ms, wall_ms=wall, plain_ms=plain_ms,
-                            library_ms=None, bound_ms=bms, bound_by=by))
+        for arch, d in SCORE_ARCHS:
+            for b, kk, what, indexed in ((2, 32, "stage1", False), (2, 16, "stage2", False),
+                                         (SLOTS, 32, "stage1", False),
+                                         (SLOTS, 16, "stage2", False),
+                                         (2, 32, "stage1", True), (2, 16, "stage2", True),
+                                         (SLOTS, 32, "stage1", True),
+                                         (SLOTS, 16, "stage2", True)):
+                if arch != "llada" and (b != SLOTS or not indexed):
+                    continue     # Dream is served only; mamba2 runs 4 rows offline and served
+                # the offline path's batch of 2, the serving path's slots
+                label = (f"{arch} {what} K={kk}" + (f" B={b}" if b == SLOTS else "")
+                         + (" idx" if indexed else ""))
+                hn = torch.randn(b, kk, d, generator=gen, device="cuda").to(dt)
+                s = BLOCK if indexed else kk
+                ho = torch.randn(b, s, d, generator=gen, device="cuda").to(dt)
+                conf = torch.rand(b, s, generator=gen, device="cuda")
+                idx = None
+                if indexed:
+                    idx = torch.stack([torch.randperm(BLOCK, generator=gen, device="cuda")[:kk]
+                                       if kk < BLOCK else torch.arange(BLOCK, device="cuda")
+                                       for _ in range(b)]).to(torch.int32)
+                got = importance(hn, ho, conf, alpha=0.5, idx=idx)
+                want = ref.importance_reference(hn, ho, conf, 0.5, idx=idx)
+                err = (got - want).abs().max().item()
+                rel = ((got - want).abs() / want.abs()).max().item()
+                if not rel <= 1e-5:
+                    raise AssertionError(f"importance {label} {dt}: max rel err {rel} > 1e-5")
+                ms, wall = device_ms(lambda: importance(hn, ho, conf, alpha=0.5, idx=idx))
+                plain_ms, _ = device_ms(
+                    lambda: ref.importance_reference(hn, ho, conf, 0.5, idx=idx))
+                flops = 5.0 * hn.numel()      # sub, abs, add; square, add
+                # the rows and confidences read (each distinct one once), idx, the scores
+                moved = 2 * nbytes(hn) + nbytes(got) + b * kk * 4 + (0 if idx is None
+                                                                     else nbytes(idx))
+                bms, by = bound(moved, flops, torch.float32)
+                out.append(dict(kernel="importance", case=label, dtype=str(dt),
+                                max_abs_err=err, max_rel_err=rel, tol=1e-5, ms=ms, wall_ms=wall,
+                                plain_ms=plain_ms, library_ms=None, library="none: no one "
+                                "PyTorch call computes Eq. 1", bound_ms=bms, bound_by=by,
+                                plan=dataclasses.asdict(plan(d, dt))))
     return out
 
 
@@ -595,7 +630,6 @@ def scatter_host_cost(ops, gen) -> dict:
     rewrites 256 MB, over 0.1 ms, where a kernel on a mask or an index
     takes a few µs, so a ``bitwise_not`` the call itself launched still
     counts."""
-    cuda = torch.autograd.DeviceType.CUDA
     bt, _, n_pages = serving_layout(gen, 16)
     kc, vc = (torch.randn(n_pages, 16, 32, 128, generator=gen, device="cuda").to(torch.bfloat16)
               for _ in "kv")
@@ -618,50 +652,98 @@ def scatter_host_cost(ops, gen) -> dict:
             torch.cuda.synchronize()
             rounds[name].append((time.perf_counter() - t0) / 1000 * 1e6)
     out = {}
-    acts = [torch.profiler.ProfilerActivity.CUDA]
     for name, mk in masks.items():
-        windows = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(32):
-                    flush_l2()
-                ops.scatter_rows_paged(((kc, kn), (vc, vn)), idx, bt, **mk)
-                for _ in range(32):
-                    flush_l2()
-                torch.cuda.synchronize()
-            windows.append(sum(1 for e in prof.profiler.kineto_results.events()
-                               if e.device_type() == cuda and not (
-                                   "bitwise_not" in e.name() and e.duration_ns() > 20_000)))
+        windows = kernel_windows(lambda: ops.scatter_rows_paged(((kc, kn), (vc, vn)), idx, bt,
+                                                                **mk))
         out[name] = dict(host_us_per_call=sorted(rounds[name])[1], host_us_rounds=rounds[name],
                          kernels_per_call=max(windows), windows=windows)
     return out
 
 
+def kernel_windows(fn) -> list:
+    """The device records (kernels, copies and sets alike) of one call of
+    ``fn`` in each of three profiler windows, the call between 32 L2 flushes
+    before and 32 after (see ``scatter_host_cost``)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(32):
+                flush_l2()
+            fn()
+            for _ in range(32):
+                flush_l2()
+            torch.cuda.synchronize()
+        windows.append(sum(1 for e in prof.profiler.kineto_results.events()
+                           if e.device_type() == cuda and not (
+                               "bitwise_not" in e.name() and e.duration_ns() > 20_000)))
+    return windows
+
+
+def importance_host_cost(ops, gen) -> dict:
+    """The host side of one ``ops.importance_score`` call as the skip stage
+    makes it, through ``idx`` into the block's cached rows, at LLaDA's
+    served stage 1 and stage 2 (4 slots, f32): host µs per call (the mean
+    over 1,000 calls, one synchronize at the end; the median of three
+    rounds) and the device records one call makes (``kernel_windows``)."""
+    out = {}
+    for kk in (BLOCK, BLOCK // 2):
+        hn = torch.randn(SLOTS, kk, 4096, generator=gen, device="cuda")
+        cache = torch.randn(SLOTS, BLOCK, 4096, generator=gen, device="cuda")
+        conf = torch.rand(SLOTS, BLOCK, generator=gen, device="cuda")
+        idx = torch.stack([torch.randperm(BLOCK, generator=gen, device="cuda")[:kk]
+                           for _ in range(SLOTS)]).to(torch.int32)
+
+        def call():
+            return ops.importance_score(hn, cache, conf, alpha=0.5, idx=idx)
+        rounds = []
+        for _ in range(3):
+            for _ in range(50):
+                call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                call()
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t0) / 1000 * 1e6)
+        windows = kernel_windows(call)
+        out[f"K={kk}"] = dict(host_us_per_call=sorted(rounds)[1], host_us_rounds=rounds,
+                              kernels_per_call=max(windows), windows=windows)
+    return out
+
+
 def check_variation(ref, variation, gen):
+    """The partial refresh's variation score over the whole served sequence
+    at LLaDA's and Dream's widths, a zero cached row in each."""
+    from repro_torch.kernels.importance import plan
+
     out = []
-    d = 4096
     for dt in (torch.float32, torch.bfloat16):
-        label = f"llada partial [{SLOTS}, {T_TOTAL}, {d}]"
-        hn = torch.randn(SLOTS, T_TOTAL, d, generator=gen, device="cuda").to(dt)
-        ho = torch.randn(SLOTS, T_TOTAL, d, generator=gen, device="cuda").to(dt)
-        ho[1, 7] = 0.0                       # a cold cached row scores a*c + (1-a)
-        conf = torch.rand(SLOTS, T_TOTAL, generator=gen, device="cuda")
-        got = variation(hn, ho, conf, alpha=0.5)
-        want = ref.variation_reference(hn, ho, conf, 0.5)
-        err = (got - want).abs().max().item()
-        rel = ((got - want).abs() / want.abs()).max().item()
-        if not rel <= 1e-5:
-            raise AssertionError(f"variation {label} {dt}: max rel err {rel} > 1e-5")
-        if abs(got[1, 7].item() - (0.5 * conf[1, 7].item() + 0.5)) > 1e-6:
-            raise AssertionError("variation: a zero cached row must score a*c + (1-a)")
-        ms, wall = device_ms(lambda: variation(hn, ho, conf, alpha=0.5))
-        plain_ms, _ = device_ms(lambda: ref.variation_reference(hn, ho, conf, 0.5))
-        flops = 6.0 * hn.numel()              # three multiply-adds per element pair
-        bms, by = bound(nbytes(hn, ho, conf, got), flops, torch.float32)
-        out.append(dict(kernel="variation", case=label, dtype=str(dt), max_abs_err=err,
-                        max_rel_err=rel, tol=1e-5, ms=ms, wall_ms=wall, plain_ms=plain_ms,
-                        library_ms=None, bound_ms=bms, bound_by=by))
+        for arch, d in SCORE_ARCHS[:2]:
+            label = f"{arch} partial [{SLOTS}, {T_TOTAL}, {d}]"
+            hn = torch.randn(SLOTS, T_TOTAL, d, generator=gen, device="cuda").to(dt)
+            ho = torch.randn(SLOTS, T_TOTAL, d, generator=gen, device="cuda").to(dt)
+            ho[1, 7] = 0.0                       # a cold cached row scores a*c + (1-a)
+            conf = torch.rand(SLOTS, T_TOTAL, generator=gen, device="cuda")
+            got = variation(hn, ho, conf, alpha=0.5)
+            want = ref.variation_reference(hn, ho, conf, 0.5)
+            err = (got - want).abs().max().item()
+            rel = ((got - want).abs() / want.abs()).max().item()
+            if not rel <= 1e-5:
+                raise AssertionError(f"variation {label} {dt}: max rel err {rel} > 1e-5")
+            if abs(got[1, 7].item() - (0.5 * conf[1, 7].item() + 0.5)) > 1e-6:
+                raise AssertionError("variation: a zero cached row must score a*c + (1-a)")
+            ms, wall = device_ms(lambda: variation(hn, ho, conf, alpha=0.5))
+            plain_ms, _ = device_ms(lambda: ref.variation_reference(hn, ho, conf, 0.5))
+            flops = 6.0 * hn.numel()              # three multiply-adds per element pair
+            bms, by = bound(nbytes(hn, ho, conf, got), flops, torch.float32)
+            out.append(dict(kernel="variation", case=label, dtype=str(dt), max_abs_err=err,
+                            max_rel_err=rel, tol=1e-5, ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                            library_ms=None, library="none: F.cosine_similarity clamps each "
+                            "norm and does not blend", bound_ms=bms, bound_by=by,
+                            plan=dataclasses.asdict(plan(d, dt))))
     return out
 
 
@@ -1789,8 +1871,10 @@ def main() -> int:
             body = f" {c['body']} hb{c['heads_per_block']}"
         elif "body" in c:
             body = f" {c['body']} x{c['n_splits']}"
-        elif "plan" in c:
+        elif "plan" in c and "chunk_bytes" in c["plan"]:
             body = " {threads}x{rows_per_block}x{chunk_bytes}".format(**c["plan"])
+        elif "plan" in c:
+            body = " {group}x{loads}".format(**c["plan"])
         print(f"{c['kernel']:21s} {c['case']:34s} {c['dtype']:15s}{body} "
               f"err {c['max_abs_err']:.2e} ms {c['ms']:.4f} (wall {c['wall_ms']:.4f}) "
               f"plain {c['plain_ms']:.4f} library {lib} bound {c['bound_ms']:.4f} "
@@ -1808,6 +1892,12 @@ def main() -> int:
     for name, r in scatter_host.items():
         if r["kernels_per_call"] != 1:
             raise AssertionError(f"ops.scatter_rows_paged with mask {name}: "
+                                 f"{r['kernels_per_call']} kernels a call, not 1")
+    importance_host = importance_host_cost(ops, gen)
+    print(f"ops.importance_score with idx per call: {json.dumps(importance_host)}")
+    for name, r in importance_host.items():
+        if r["kernels_per_call"] != 1:
+            raise AssertionError(f"ops.importance_score with idx, {name}: "
                                  f"{r['kernels_per_call']} kernels a call, not 1")
     lap("3")
 
@@ -1908,7 +1998,7 @@ def main() -> int:
              cases=cases, threefry=threefry, cross_device=cross,
              cross_device_serving=cross_serving, cross_device_sampled=cross_sampled,
              cross_device_preemption=cross_preempt, quarantine=cross_quarantine,
-             scatter_host=scatter_host,
+             scatter_host=scatter_host, importance_host=importance_host,
              cross_device_mamba=cross_mamba, offline_path=run, serving_path=serving,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))

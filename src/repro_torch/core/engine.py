@@ -583,9 +583,8 @@ class DiffusionEngine:
             if seg.keep_k is not None:
                 i = seg.stage_idx
                 hf = h.float()
-                scores = ops.importance_score(
-                    hf, row_gather(hidden[i], s_idx), row_gather(st.conf, s_idx),
-                    alpha=gen.alpha)
+                scores = ops.importance_score(hf, hidden[i], st.conf, alpha=gen.alpha,
+                                              idx=s_idx)
                 hidden[i] = row_scatter(hidden[i], hf, s_idx)
                 if skip:
                     sel = _top_k(scores, seg.keep_k)

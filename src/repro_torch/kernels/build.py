@@ -42,7 +42,7 @@ SIGNATURES = {
     "repro_scatter_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I,
                            _I, _P],
     "repro_fork_pages": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
-    "repro_importance": [_I, _I, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "repro_importance": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     "repro_ssd_chunk": [_I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P],
     "repro_ssd_chunk_tc": [_P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -115,16 +115,19 @@ def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst) -> None:
 
 def importance_score(
     h_new: torch.Tensor,    # [B, K, d]
-    h_old: torch.Tensor,    # [B, K, d]
-    conf: torch.Tensor,     # [B, K]
+    h_old: torch.Tensor,    # [B, K, d]; [B, S, d] with idx
+    conf: torch.Tensor,     # [B, K]; [B, S] with idx
     *,
     alpha: float,
     eps: float = 1e-8,
+    idx: Optional[torch.Tensor] = None,     # [B, K] int32 rows of h_old and conf
 ) -> torch.Tensor:
-    """Paper Eq. 1 importance -> f32 [B, K]."""
-    if _on_card(h_new, h_old, conf):
-        return importance(h_new, h_old, conf, alpha=alpha, eps=eps)
-    return ref.importance_reference(h_new, h_old, conf, alpha, eps)
+    """Paper Eq. 1 importance -> f32 [B, K].  With ``idx`` (a skip stage's
+    rows, all in ``[0, S)``), row ``k`` scores against ``h_old[b, idx[b, k]]``
+    and ``conf[b, idx[b, k]]``: one kernel launch on the card, no gather."""
+    if _on_card(h_new, h_old, conf, idx):
+        return importance(h_new, h_old, conf, alpha=alpha, eps=eps, idx=idx)
+    return ref.importance_reference(h_new, h_old, conf, alpha, eps, idx=idx)
 
 
 def variation_score(

@@ -266,12 +266,19 @@ def fork_pages_reference(
 
 def importance_reference(
     h_new: torch.Tensor,       # [B, K, d]
-    h_old: torch.Tensor,       # [B, K, d]
-    conf: torch.Tensor,        # [B, K]
+    h_old: torch.Tensor,       # [B, K, d]; [B, S, d] with idx
+    conf: torch.Tensor,        # [B, K]; [B, S] with idx
     alpha: float,
     eps: float = 1e-8,
+    idx: torch.Tensor | None = None,       # [B, K] int rows of h_old and conf
 ) -> torch.Tensor:
-    """Paper Eq. 1: I = a*c + (1-a) * ||Hn-Ho||_1 / (sqrt(d) * ||Ho||_2 + eps), f32."""
+    """Paper Eq. 1: I = a*c + (1-a) * ||Hn-Ho||_1 / (sqrt(d) * ||Ho||_2 + eps), f32.
+    With ``idx``, ``h_old`` and ``conf`` are first gathered at ``idx``, as the
+    skip stage's rows."""
+    if idx is not None:
+        idx = idx.long()
+        h_old = torch.gather(h_old, 1, idx[..., None].expand(-1, -1, h_old.shape[-1]))
+        conf = torch.gather(conf, 1, idx)
     d = h_new.shape[-1]
     ho = h_old.float()
     diff = (h_new.float() - ho).abs().sum(dim=-1)

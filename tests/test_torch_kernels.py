@@ -373,6 +373,34 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
     got = variation(hn, ho, conf, alpha=0.5)
     want = ref.variation_reference(hn, ho, conf, 0.5)
     assert ((got - want).abs() / want.abs()).max().item() <= 1e-5
+    assert abs(got[0, 3].item() - (0.5 * conf[0, 3].item() + 0.5)) <= 1e-6
+    # the skip stage's scoring through idx (repeated rows included), at
+    # Dream's width, a ragged width (rows off 16-byte boundaries: scalar head
+    # and tail) and a width whose rows start unaligned in a wider buffer
+    for d, pad in ((3584, 0), (1001, 0), (64, 3)):
+        hn = torch.randn(2, 16, d, generator=g, device=cuda_device).to(dtype)
+        buf = torch.randn(2 * 32 * d + pad, generator=g, device=cuda_device).to(dtype)
+        ho = buf[pad:].view(2, 32, d)
+        conf = torch.rand(2, 32, generator=g, device=cuda_device)
+        idx = torch.randint(0, 32, (2, 16), generator=g, device=cuda_device).int()
+        idx[1, :4] = idx[1, 4]
+        ho[0, idx[0, 2]] = 0.0                  # a zero cached row
+        before = importance.launches
+        got = importance(hn, ho, conf, alpha=0.5, idx=idx)
+        assert importance.launches == before + 1
+        want = ref.importance_reference(hn, ho, conf, 0.5, idx=idx)
+        assert ((got - want).abs() / want.abs()).max().item() <= 1e-5, d
+        got = variation(hn, ho[:, :16].contiguous(), conf[:, :16].contiguous(), alpha=0.5)
+        want = ref.variation_reference(hn, ho[:, :16], conf[:, :16], 0.5)
+        assert ((got - want).abs() / want.abs()).max().item() <= 1e-5, d
+    # an index outside [0, S) reads nothing and scores NaN; the others stand
+    idx[0, 5], idx[1, 0] = 32, -1
+    got = importance(hn, ho, conf, alpha=0.5, idx=idx)
+    want = ref.importance_reference(hn, ho, conf, 0.5, idx=idx.clamp(0, 31))
+    bad = torch.zeros_like(got, dtype=torch.bool)
+    bad[0, 5] = bad[1, 0] = True
+    assert got[bad].isnan().all().item() and not got[~bad].isnan().any().item()
+    assert ((got - want).abs() / want.abs())[~bad].max().item() <= 1e-5
     for ps in (8, 16):
         bt = torch.randperm(15, generator=g, device=cuda_device)[:10].add(1).int().view(2, 5)
         bt[0, 1] = -1
