@@ -52,14 +52,19 @@ no result):
    preemption on a tight pool (7b: a class-1 arrival spills a class-0
    resident, which resumes) and with neither (7c);
 8. Mamba-2: mamba2-370m at full width in bfloat16 (seeded random weights
-   on the card), offline es and dualcache generation and the dense-slot
-   ``StreamScheduler`` with early advance, through the SSD chunk kernel.
+   on the card), depth cut to 24 of its 48 layers, offline es and
+   dualcache generation and the dense-slot ``StreamScheduler`` with early
+   advance, through the SSD chunk kernel;
+9. block-causal ES-dLLM with the sliding window: LLaDA-8B (phase 5's
+   model) offline and through the paged scheduler with the persistent
+   prefix store.
 
-On phases 5, 6 and 7 every attention launch must take the tensor-core body,
-and phases 5 and 6 must keep one attention launch per call; on phase 8
+On phases 5, 6, 7 and 9 every attention launch must take the tensor-core
+body, and phases 5 and 6 must keep one attention launch per call; on phase
+9 every attention launch must carry the block-causal options; on phase 8
 every SSD chunk launch must take the tensor-core body, and an offline es
-``generate`` must keep its 3,168 of them.  Each path
-profile sums the device time of the port's kernels over its whole trace.
+``generate`` must keep its 1,584 of them (66 a layer).  Each path profile
+sums the device time of the port's kernels over its whole trace.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Details also go to
@@ -201,6 +206,12 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def admitted_kv_rows(mask) -> torch.Tensor:
+    """[B, Lkv] the K/V rows that at least one query row's ``mask [B, 1,
+    Lq, Lkv]`` admits: the rows an attention call must read."""
+    return mask[:, 0].any(dim=1)
+
+
 ATTENTION = ("flash_attention", "paged_flash_attention")
 TWO_BODIES = ATTENTION + ("ssd_chunks",)     # kernels with a tensor-core and a CUDA-core body
 BODIES = ("tensor_core", "cuda_core")
@@ -209,15 +220,20 @@ BODIES = ("tensor_core", "cuda_core")
 # body must keep one launch per call
 LAUNCHES_OFFLINE_GENERATE = 2048
 LAUNCHES_SERVING_TRACE = 7872
+# phase 8's depth: mamba2-370m's 48 layers cut to 24, so that the whole run
+# with phase 9 stays within the time phases 1-8 took at full depth
+MAMBA_LAYERS = 24
 # SSD chunk launches of one offline es mamba2 generate (phase 8), as the
 # CUDA-core body made them: one per decode pass and two per prefill in each
-# layer; the tensor-core body must keep them
-SSD_LAUNCHES_ES_GENERATE = 3168
+# layer (66 a layer); the tensor-core body must keep them
+SSD_LAUNCHES_ES_GENERATE = 66 * MAMBA_LAYERS
 
 
 def zero_counts(kernel_fns) -> None:
     for fn in kernel_fns.values():
         fn.launches = 0
+    for name in ATTENTION:
+        kernel_fns[name].option_launches = {}
     for name in TWO_BODIES:
         for body in BODIES:
             setattr(kernel_fns[name], f"{body}_launches", 0)
@@ -259,7 +275,9 @@ def flash_cases():
     take the CUDA-core body.  One batch entry and few blocks make the
     tensor-core body split a long KV cache: at Lkv 1580, two splits of 13
     tiles (832 rows), the last ragged (748), with the edits masking all of
-    split 0."""
+    split 0.  The "bc" edit is phase 9's offline shape: the first generated
+    block (rows 128-159 of 256) under block-causal options, with the
+    one-block window's clamp of kv_pos past row 192."""
     cases = []
     for dt in (torch.float32, torch.bfloat16):
         for lq, what in ((192, "prefill"), (32, "block"), (16, "skip1"), (8, "skip2")):
@@ -269,6 +287,8 @@ def flash_cases():
         cases.append(("dream gqa masked", 2, 28, 4, 32, 192, 128, 0, dt, {"causal": True}, True))
         cases.append(("dream gqa window+anchor+bc", 2, 28, 4, 32, 192, 128, 0, dt,
                       {"window": 24, "anchor": 16, "bc_start": 128, "bc_block": 32}, True))
+        cases.append(("llada block Lq=32 Lkv=256 bc+window", 2, 32, 32, 32, 256, 128, 0, dt,
+                      {"bc_start": 128, "bc_block": 32}, "bc"))
         cases.append(("llada split masked+ragged", 1, 32, 32, 32, 1580, 128, 0, dt,
                       {"causal": True}, "split"))
         cases.append(("dream gqa split masked+ragged", 1, 28, 4, 32, 1580, 128, 0, dt,
@@ -297,7 +317,10 @@ def check_flash(ref, flash_attention, gen):
             kv_pos[1, 100:140] = -1
         if edit == "split":
             kv_pos[:, :832] = -1         # split 0 has no valid key
-        if edit:
+        if edit == "bc":
+            q_pos = torch.arange(128, 128 + lq, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+            kv_pos[:, 192:] = -1         # the window's horizon
+        elif edit:
             q_pos[0, 3] = -1             # with causal: a query row with nothing valid
         pl = plan(q, k, v, lkv, hkv)
         got = flash_attention(q, k, v, q_pos, kv_pos, **kw)
@@ -313,6 +336,8 @@ def check_flash(ref, flash_attention, gen):
             raise AssertionError(f"flash_attention {label}: {pl}, not split at row 832")
         ms, wall = device_ms(lambda: flash_attention(q, k, v, q_pos, kv_pos, **kw))
         plain_ms, _ = device_ms(lambda: ref.attention_reference(q, k, v, q_pos, kv_pos, **kw))
+        # the same call without options: no key tile is skipped for a mask
+        bidi_ms = device_ms(lambda: flash_attention(q, k, v, q_pos, kv_pos))[0] if kw else None
         mask = ref.attention_mask(q_pos, kv_pos, **kw)[:, None]
         lib_ms = None                     # SDPA refuses strides that are not 16-byte multiples
         if not pad:
@@ -320,10 +345,13 @@ def check_flash(ref, flash_attention, gen):
                 q, k, v, attn_mask=mask, enable_gqa=hq != hkv))
         n_valid = mask.sum().item()       # scored (query, key) pairs of this input
         flops = 4.0 * hq * d * n_valid    # QK^T and PV, 2 flops per multiply-add
-        bms, by = bound(nbytes(q, k, v, q_pos, kv_pos, got), flops, dt)
+        # K and V: only the rows some query row's mask admits
+        kv_bytes = 2 * admitted_kv_rows(mask).sum().item() * hkv * d * k.element_size()
+        bms, by = bound(nbytes(q, q_pos, kv_pos, got) + kv_bytes, flops, dt)
         out.append(dict(kernel="flash_attention", case=label, dtype=str(dt), max_abs_err=err,
                         tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms, library_ms=lib_ms,
-                        bound_ms=bms, bound_by=by, body=pl.body, n_splits=pl.n_splits))
+                        bound_ms=bms, bound_by=by, body=pl.body, n_splits=pl.n_splits,
+                        options=kw, bidi_ms=bidi_ms, empty_splits=0))
     return out
 
 
@@ -451,11 +479,12 @@ def check_importance(ref, importance, gen):
     return out
 
 
-def serving_layout(gen, ps):
+def serving_layout(gen, ps, t_total=T_TOTAL):
     """Block tables and kv_pos of the serving path: 4 slots with prompts of
     128, 96, 64 and 32 tokens (pad-only pages unmapped), slot 2 asking for
-    one block only (its last pages unmapped), physical pages shuffled."""
-    n_vp = T_TOTAL // ps
+    one block only (its last pages unmapped), physical pages shuffled;
+    ``t_total`` positions a slot (phase 6's 192, phase 9's 256)."""
+    n_vp = t_total // ps
     perm = torch.randperm(SLOTS * n_vp, generator=gen, device="cuda") + 1
     bt = perm.view(SLOTS, n_vp).to(torch.int32)
     pstart = torch.tensor([0, 32, 64, 96], dtype=torch.int32, device="cuda")
@@ -463,32 +492,49 @@ def serving_layout(gen, ps):
     unmapped = vp < (pstart[:, None] // ps)
     unmapped[2] |= vp[0] >= -(-(PROMPT + BLOCK) // ps)
     bt = torch.where(unmapped, -1, bt).contiguous()
-    pos = torch.arange(T_TOTAL, dtype=torch.int32, device="cuda")[None]
+    pos = torch.arange(t_total, dtype=torch.int32, device="cuda")[None]
     kv_pos = torch.where(pos >= pstart[:, None], pos, -1).contiguous()
     return bt, kv_pos, SLOTS * n_vp + 1
+
+
+def empty_splits(ref, pl, bt, ps: int) -> int:
+    """KV splits of a tensor-core plan whose pages are all unmapped in every
+    row of the block table ``bt``."""
+    if pl.body != "tensor_core":
+        return 0
+    mapped = (bt >= 0).any(dim=0).tolist()
+    return sum(not any(mapped[a // ps:-(-e // ps)])
+               for a, e in ref.split_bounds(bt.shape[1] * ps, pl.n_splits))
 
 
 def check_paged_flash(ref, paged_flash_attention, gen):
     """The serving layouts at page sizes 16 and 8, then one long Dream slot
     (1600 virtual rows) that the tensor-core body splits at row 832, split
-    0 on unmapped pages only, split 1 ragged."""
+    0 on unmapped pages only, split 1 ragged; then the mask options of the
+    block-causal and windowed paths (``paged_option_cases``)."""
     from repro_torch.kernels.flash_attention import plan
 
-    def case(label, q, kp, vp, q_pos, kv_pos, bt):
+    def case(label, q, kp, vp, q_pos, kv_pos, bt, opts=None):
+        """One case; with mask ``opts`` it also times the same call without
+        them (``bidi_ms``: no tile is skipped for future blocks)."""
         dt, (hq, hkv, ps) = q.dtype, (q.shape[1], kp.shape[2], kp.shape[1])
+        opts = opts or {}
         args = (q, kp, vp, q_pos, kv_pos, bt)
         pl = plan(q, kp, vp, kv_pos.shape[1], hkv, ps)
-        got = paged_flash_attention(*args)
-        want = ref.paged_attention_reference(*args)
+        got = paged_flash_attention(*args, **opts)
+        want = ref.paged_attention_reference(*args, **opts)
         err = (got.float() - want.float()).abs().max().item()
         tol = 1e-4 if dt == torch.float32 else 2e-2
+        if opts and dt == torch.float32:
+            tol = 1e-5
         if not err <= tol:
             raise AssertionError(f"paged_flash_attention {label} {dt}: max abs err {err} > {tol}")
         if not torch.isfinite(got).all():
             raise AssertionError(f"paged_flash_attention {label}: non-finite output")
-        ms, wall = device_ms(lambda: paged_flash_attention(*args))
-        plain_ms, _ = device_ms(lambda: ref.paged_attention_reference(*args))
-        mask = ref.attention_mask(q_pos, ref.paged_kv_mask(bt, kv_pos, ps))[:, None]
+        ms, wall = device_ms(lambda: paged_flash_attention(*args, **opts))
+        plain_ms, _ = device_ms(lambda: ref.paged_attention_reference(*args, **opts))
+        bidi_ms = device_ms(lambda: paged_flash_attention(*args))[0] if opts else None
+        mask = ref.attention_mask(q_pos, ref.paged_kv_mask(bt, kv_pos, ps), **opts)[:, None]
 
         def library():            # two calls: gather the pages, then SDPA
             k = ref.gather_pages(kp, bt).transpose(1, 2)
@@ -496,14 +542,22 @@ def check_paged_flash(ref, paged_flash_attention, gen):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=hq != hkv)
         lib_ms, _ = device_ms(library)
         n_mapped = int((bt >= 0).sum().item())
-        page_bytes = ps * hkv * 128 * kp.element_size()
+        # K and V: the physical rows that some query row's mask admits (the
+        # mask leaves unmapped pages out), each read once
+        lkv = kv_pos.shape[1]
+        phys = (bt.repeat_interleave(ps, dim=1).long() * ps
+                + torch.arange(lkv, device=bt.device) % ps)
+        n_rows = phys[admitted_kv_rows(mask)].unique().numel()
         flops = 4.0 * hq * 128 * mask.sum().item()
-        bms, by = bound(nbytes(q, q_pos, kv_pos, bt, got) + 2 * n_mapped * page_bytes, flops, dt)
+        bms, by = bound(nbytes(q, q_pos, kv_pos, bt, got)
+                        + 2 * n_rows * hkv * 128 * kp.element_size(), flops, dt)
         return pl, dict(kernel="paged_flash_attention", case=label, dtype=str(dt),
                         max_abs_err=err, tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms,
                         library_ms=lib_ms, library="gather_pages + scaled_dot_product_attention",
-                        bound_ms=bms, bound_by=by, mapped_pages=n_mapped, body=pl.body,
-                        n_splits=pl.n_splits)
+                        bound_ms=bms, bound_by=by, mapped_pages=n_mapped, kv_rows_read=n_rows,
+                        body=pl.body,
+                        n_splits=pl.n_splits, empty_splits=empty_splits(ref, pl, bt, ps),
+                        options=opts, bidi_ms=bidi_ms)
 
     out = []
     for dt in (torch.float32, torch.bfloat16):
@@ -536,6 +590,67 @@ def check_paged_flash(ref, paged_flash_attention, gen):
             if dt == torch.bfloat16 and ref.split_bounds(1600, pl.n_splits)[:1] != [(0, 832)]:
                 raise AssertionError(f"paged_flash_attention {label}: {pl}, not split at 832")
             out.append(rec)
+        out += paged_option_cases(ref, case, gen, dt)
+    return out
+
+
+def paged_option_cases(ref, case, gen, dt):
+    """The paged kernel's mask options at the block-causal and windowed
+    paths' shapes: the serving layout (prompt 128, gen 64, blocks of 32) at
+    the block Lq 32 with block-causal, with window + anchor + block-causal,
+    and with Dream's GQA rows (whose packed rows take their key block from
+    their own query position); then phase 9's served layout (T 256) under
+    block-causal with the window's clamp and read table; then one long
+    Dream slot read through the sliding window's table, whose last split
+    holds no mapped page."""
+    from repro_torch.kernels import ops
+
+    out = []
+    bc = dict(bc_start=PROMPT, bc_block=BLOCK)
+    for arch, hq, hkv, opts, what in (
+            ("llada", 32, 32, bc, "bc"),
+            ("llada", 32, 32, dict(window=24, anchor=16, **bc), "window+anchor+bc"),
+            ("dream gqa", 28, 4, bc, "bc")):
+        bt, kv_pos, n_pages = serving_layout(gen, 16)
+        kp, vp = (torch.randn(n_pages, 16, hkv, 128, generator=gen, device="cuda").to(dt)
+                  for _ in "kv")
+        q = torch.randn(SLOTS, 32, hq, 128, generator=gen, device="cuda").to(dt).transpose(1, 2)
+        # the first generated block: it reads the prompt and itself, not block 1
+        q_pos = torch.arange(PROMPT, PROMPT + BLOCK, dtype=torch.int32,
+                             device="cuda")[None].repeat(SLOTS, 1)
+        out.append(case(f"{arch} block Lq=32 ps=16 {what}", q, kp, vp, q_pos, kv_pos, bt,
+                        opts)[1])
+    # phase 9's served layout (prompt 128, gen 128, ps 16, the one-block
+    # window): each slot at its own block start, slot 2 (one block asked
+    # for) at the first; kv_pos clamped and the table read through the window
+    bt, kv_pos, n_pages = serving_layout(gen, 16, PROMPT + BC_GEN)
+    bs = torch.tensor([160, 192, 128, 224], dtype=torch.int32, device="cuda")
+    limit = bs + BLOCK * 2
+    kv_pos = ops.window_kv_clamp(kv_pos, limit)
+    read_bt = ops.window_block_tables(bt, limit, 16)
+    kp, vp = (torch.randn(n_pages, 16, 32, 128, generator=gen, device="cuda").to(dt)
+              for _ in "kv")
+    q = torch.randn(SLOTS, 32, 32, 128, generator=gen, device="cuda").to(dt).transpose(1, 2)
+    q_pos = (bs[:, None] + torch.arange(BLOCK, dtype=torch.int32, device="cuda")).contiguous()
+    out.append(case("llada block Lq=32 ps=16 T=256 bc+window", q, kp, vp, q_pos, kv_pos,
+                    read_bt, bc)[1])
+    for ps in (16, 8):
+        n_vp = 1600 // ps
+        bt = (torch.randperm(n_vp, generator=gen, device="cuda") + 1).int().view(1, n_vp)
+        limit = torch.tensor([800], dtype=torch.int32, device="cuda")
+        kv_pos = ops.window_kv_clamp(
+            torch.arange(1600, dtype=torch.int32, device="cuda")[None].contiguous(), limit)
+        read_bt = ops.window_block_tables(bt, limit, ps)
+        kp, vp = (torch.randn(n_vp + 1, ps, 4, 128, generator=gen, device="cuda").to(dt)
+                  for _ in "kv")
+        q = torch.randn(1, 32, 28, 128, generator=gen, device="cuda").to(dt).transpose(1, 2)
+        q_pos = torch.arange(768, 800, dtype=torch.int32, device="cuda")[None].contiguous()
+        pl, rec = case(f"dream gqa window Lq=32 ps={ps} bc", q, kp, vp, q_pos, kv_pos, read_bt,
+                       dict(bc_start=768, bc_block=32))
+        if dt == torch.bfloat16 and rec["empty_splits"] < 1:
+            raise AssertionError(f"paged_flash_attention windowed ps={ps}: {pl}, no split "
+                                 f"without a mapped page")
+        out.append(rec)
     return out
 
 
@@ -1274,6 +1389,129 @@ def cross_device_quarantine() -> dict:
                 pool_finite=True)
 
 
+# (arrival step, prompt id, max_new_tokens) of the reduced block-causal trace:
+# prompt 0 returns after its first request retired (a store hit in a later
+# cycle), prompt 1 twice in one cycle, and the pool is one request short of
+# two full ones, so admissions evict store entries
+BC_TRACE = ((0, 0, None), (0, 1, None), (1, 1, 16), (4, 2, None), (9, 0, None),
+            (10, 3, 16), (14, 0, 16))
+
+
+def store_pages_unchanged():
+    """A per-step check for a scheduler with the persistent store: each
+    store entry's prompt-page bytes stay what they were at the end of the
+    step that registered the entry (no refresh writes a shared prompt
+    page).  Returns (check, counter of pages compared)."""
+    snap: dict = {}
+    compared = [0]
+
+    def check(sched):
+        st, live = sched.state, {}
+        for key, (_, page_map) in sched.allocator._prefix.items():
+            for _, pg in page_map:
+                live[(key, pg)] = (st.cache.k[:, pg].clone(), st.cache.v[:, pg].clone())
+        for k, (kb, vb) in live.items():
+            if k in snap:
+                if not (torch.equal(kb, snap[k][0]) and torch.equal(vb, snap[k][1])):
+                    raise AssertionError(f"a refresh wrote store-shared page {k[1]}")
+                compared[0] += 1
+        snap.clear()
+        snap.update(live)
+    return check, compared
+
+
+def cross_device_block_causal() -> dict:
+    """Reduced LLaDA in float32, the card against the CPU: offline es with
+    block-causal attention (4 blocks, so the refresh exemption runs), with
+    the sliding window (one block of look-ahead), and with the engine's
+    window override and anchor beside block-causal, dense and paged (every
+    attention launch keyed with all four options), then a served trace
+    with block-causal attention, the window and the persistent prefix store
+    (hits in later cycles, evictions under a tight pool).  Tokens equal, the
+    store gauges equal, and no refresh changed a store-shared prompt page."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+    from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
+    from repro_torch.runtime import Request, StreamScheduler
+
+    models = reduced_models("llada-8b")
+    stages = (configs.SkipStage(1, 0.5), configs.SkipStage(2, 0.5))
+    base = dict(mode="es", gen_length=32, block_length=8, skip_stages=stages,
+                prompt_refresh_period=2, block_refresh_period=4)
+    prompt = torch.randint(3, models["cpu"].cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(SEED + 2))
+    out: dict = {}
+    # the engine's window override and anchor, with block-causal attention,
+    # dense and paged: the one path that passes window and anchor to the kernels
+    wa = dict(window_override=6, anchor=5)
+    for name, extra, ekw in (
+            ("offline_bc", dict(block_causal=True), {}),
+            ("offline_window", dict(window_blocks=1), {}),
+            ("offline_window_override_anchor", dict(block_causal=True), wa),
+            ("offline_window_override_anchor_paged", dict(block_causal=True),
+             dict(wa, paged=True, page_size=8))):
+        gen_cfg = configs.GenerationConfig(**base, **extra)
+        toks, confs = {}, {}
+        for fn in (flash_attention, paged_flash_attention):
+            fn.option_launches = {}
+        for dev in ("cpu", "cuda"):
+            eng = make_engine(models[dev], gen_cfg, device=dev, **ekw)
+            toks[dev] = eng.generate(prompt).cpu()
+            confs[dev] = eng.last_state.conf.cpu()
+        if not torch.equal(toks["cpu"], toks["cuda"]):
+            raise AssertionError(f"{name}: card tokens differ from the CPU's:\n"
+                                 f"{toks['cpu']}\n{toks['cuda']}")
+        out[name] = dict(tokens_equal=True,
+                         conf_max_abs_err=(confs["cpu"] - confs["cuda"]).abs().max().item(),
+                         distinct_ids=len(torch.unique(toks["cpu"][:, 16:])))
+        if "anchor" in ekw:
+            fn = paged_flash_attention if ekw.get("paged") else flash_attention
+            key = (6, 5, 0, 16, gen_cfg.block_length)
+            if set(fn.option_launches) != {key}:
+                raise AssertionError(f"{name}: attention launches keyed "
+                                     f"{fn.option_launches}, not only {key}")
+            out[name]["option_launches"] = {str(k): n for k, n in fn.option_launches.items()}
+    gen_cfg = configs.GenerationConfig(**base, block_causal=True, window_blocks=1)
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(3, models["cpu"].cfg.vocab_size, n).astype(np.int32)
+               for n in (16, 14, 16, 11)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sched = StreamScheduler(models[dev], gen_cfg, device=dev, max_slots=2, prompt_len=16,
+                                paged=True, page_size=8, kv_pages=2 * 6 + 1,
+                                prefix_sharing=True, early_advance=True)
+        check, compared = store_pages_unchanged()
+        reqs = [Request(prompt=prompts[i].copy(), max_new_tokens=m) for _, i, m in BC_TRACE]
+        step = 0
+        while step <= BC_TRACE[-1][0] or sched.has_work():
+            for (at, _, _), r in zip(BC_TRACE, reqs):
+                if at == step:
+                    sched.submit(r)
+            sched.step()
+            check(sched)
+            step += 1
+        for r in reqs:
+            if r.error is not None or r.output is None:
+                raise AssertionError(f"bc serving on {dev}: request {r.request_id} {r.error!r}")
+        runs[dev] = (reqs, sched.stats, compared[0])
+    for a, b in zip(runs["cpu"][0], runs["cuda"][0]):
+        if not np.array_equal(a.output, b.output):
+            raise AssertionError(f"bc serving tokens differ:\n{a.output}\n{b.output}")
+    gauges = ("prefix_hits", "prefix_evictions", "invariant_tokens_skipped")
+    card = {g: getattr(runs["cuda"][1], g) for g in gauges}
+    cpu = {g: getattr(runs["cpu"][1], g) for g in gauges}
+    if card != cpu:
+        raise AssertionError(f"bc serving gauges differ: card {card}, CPU {cpu}")
+    if not (card["prefix_hits"] > 0 and card["prefix_evictions"] > 0
+            and card["invariant_tokens_skipped"] > 0 and runs["cuda"][2] > 0):
+        raise AssertionError(f"bc serving: store or exemption not exercised: {card}")
+    out["served_bc_store_window"] = dict(requests=len(BC_TRACE), tokens_equal=True, **card,
+                                         store_pages_compared=runs["cuda"][2])
+    return out
+
+
 def cross_device_mamba() -> dict:
     """Reduced 4-layer mamba2-370m (skip stages at layers 1 and 2): offline
     es generation greedy and sampled, and a staggered trace through the
@@ -1456,6 +1694,145 @@ def serving_path(model, kernel_fns):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: block-causal ES-dLLM with the sliding window, LLaDA-8B at full width
+# ---------------------------------------------------------------------------
+BC_GEN = 128            # 4 blocks of 32: the window (one block ahead) cuts
+# (submit step, prompt, max_new_tokens): A's and B's later requests arrive in
+# later admission cycles and map the store's prompt pages
+BC_PLAN = ((0, "A", 128), (0, "B", 64), (5, "C", 128), (10, "D", 64), (15, "A", 64),
+           (20, "B", 128), (25, "C", 64), (30, "A", 128))
+BC_PROMPTS = dict(A=128, B=96, C=64, D=32)
+
+
+def bc_gen_config(cfg, **kw):
+    from repro_torch import configs
+
+    return configs.GenerationConfig(
+        mode="es", gen_length=BC_GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers), block_causal=True,
+        window_blocks=1, **kw)
+
+
+def bc_trace(sched, prompts: dict):
+    """Submits ``BC_PLAN``'s requests at their steps and drains; returns the
+    requests in plan order."""
+    from repro_torch.runtime import Request
+
+    reqs = [Request(prompt=prompts[name].copy(), max_new_tokens=m) for _, name, m in BC_PLAN]
+    step = 0
+    while step <= BC_PLAN[-1][0] or sched.has_work():
+        for (at, _, _), r in zip(BC_PLAN, reqs):
+            if at == step:
+                sched.submit(r)
+        sched.step()
+        step += 1
+    return reqs
+
+
+def check_bc_options(options: dict, where: str, bc_start: int) -> None:
+    """Every attention launch of a block-causal path got its block-causal
+    options, blocks of ``BLOCK`` from ``bc_start``."""
+    bad = {k: n for k, n in options.items() if k[3:] != (bc_start, BLOCK)}
+    if not options or bad:
+        raise AssertionError(f"{where}: attention launches without bc_start={bc_start}, "
+                             f"bc_block={BLOCK}: {bad or 'none launched'}")
+
+
+def bc_window_paths(model, kernel_fns) -> dict:
+    """Offline es generation with block-causal attention and a one-block
+    window (batch 2, prompt 128, gen 128), then ``BC_PLAN`` through the
+    paged scheduler with early advance, the adaptive cache, block-causal
+    attention, the window and the persistent prefix store.  Every attention
+    launch must take the tensor-core body and the block-causal options; the
+    served trace must hit the store and skip final positions in refreshes."""
+    import numpy as np
+
+    from repro_torch.core import make_engine
+    from repro_torch.runtime import StreamScheduler
+
+    cfg = model.cfg
+    out: dict = {}
+    gen_cfg = bc_gen_config(cfg, prompt_refresh_period=32, block_refresh_period=4)
+    prompt = torch.randint(3, cfg.vocab_size, (2, PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    engine = make_engine(model, gen_cfg, device="cuda")
+    engine.generate(prompt)                                 # warm-up
+    torch.cuda.synchronize()
+    zero_counts(kernel_fns)
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    check_bc_options(kernel_fns["flash_attention"].option_launches, "phase 9 offline", PROMPT)
+    gen_tok = tokens[:, PROMPT:]
+    if tokens.shape != (2, PROMPT + BC_GEN) or (gen_tok == engine.mask_id).any().item():
+        raise AssertionError(f"phase 9 offline: output {tuple(tokens.shape)} with [mask] ids")
+    for name in ("flash_attention", "scatter_rows", "importance"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 9 offline: kernel {name} was not launched")
+    profile = profile_run(lambda: engine.generate(prompt))
+    out["offline"] = dict(batch=2, prompt_len=PROMPT, gen_length=BC_GEN, block_length=BLOCK,
+                          window_blocks=1, iterations=engine.iterations, wall_s=wall,
+                          tokens_per_s=2 * BC_GEN / wall, launches=launches,
+                          distinct_ids=len(torch.unique(gen_tok)), profile=profile)
+
+    gen_cfg = bc_gen_config(cfg, prompt_refresh_period=8, block_refresh_period=4,
+                            cache_prompt_interval=2)
+    rng = np.random.default_rng(SEED)
+    prompts = {k: rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for k, n in BC_PROMPTS.items()}
+
+    def make():
+        return StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
+                               prompt_len=PROMPT, paged=True, page_size=16,
+                               prefix_sharing=True, early_advance=True)
+    bc_trace(make(), prompts)                               # warm-up
+    torch.cuda.synchronize()
+    sched = make()
+    zero_counts(kernel_fns)
+    t0 = time.perf_counter()
+    reqs = bc_trace(sched, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    options = dict(kernel_fns["paged_flash_attention"].option_launches)
+    check_bc_options(options, "phase 9 served", PROMPT)
+    for r, (_, _, m) in zip(reqs, BC_PLAN):
+        if r.error is not None or r.output is None or r.output.shape != (m,):
+            raise AssertionError(f"phase 9 served: request {r.request_id}: {r.error!r}")
+        if (r.output == sched.engine.mask_id).any():
+            raise AssertionError(f"phase 9 served: a [mask] id in request {r.request_id}")
+    st = sched.stats
+    if not (st.prefix_hits > 0 and st.invariant_tokens_skipped > 0):
+        raise AssertionError(f"phase 9 served: prefix_hits {st.prefix_hits}, "
+                             f"invariant_tokens_skipped {st.invariant_tokens_skipped}")
+    for name in ("paged_flash_attention", "scatter_rows_paged", "importance", "variation"):
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 9 served: kernel {name} was not launched")
+    if sched.allocator.used_pages != sched.allocator.reclaimable_pages:
+        raise AssertionError("phase 9 served: pages other than the store's left after the drain")
+    again: list = []
+    profile = profile_run(lambda: again.extend(bc_trace(make(), prompts)))
+    if not all(np.array_equal(a.output, b.output) for a, b in zip(reqs, again)):
+        raise AssertionError("phase 9 served: a repeated greedy run gave other tokens")
+    tokens_out = sum(m for _, _, m in BC_PLAN)
+    out["served"] = dict(
+        slots=SLOTS, prompt_len=PROMPT, page_size=16, gen_length=BC_GEN, block_length=BLOCK,
+        window_blocks=1, plan=[list(p) for p in BC_PLAN], prompt_lens=BC_PROMPTS,
+        steps=st.steps, wall_s=wall, tokens_per_s=tokens_out / wall,
+        ms_per_step=wall / st.steps * 1e3, latency_p50_s=st.latency_pct(50),
+        latency_p95_s=st.latency_pct(95), prefix_hits=st.prefix_hits,
+        prefix_evictions=st.prefix_evictions,
+        invariant_tokens_skipped=st.invariant_tokens_skipped,
+        peak_pages_in_use=st.peak_pages_in_use, pages_total=st.pages_total,
+        cache_hit_fraction=st.cache_hit_fraction, passes=dict(sched.engine.pass_counts),
+        launches=launches, attention_options={str(k): n for k, n in options.items()},
+        profile=profile, kernels_per_step=profile["kernels_launched"] / st.steps)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: sampled serving of Dream-7B at full width
 # ---------------------------------------------------------------------------
 # (submit step, prompt, priority): two duplicate-prompt cohorts (A, B) in
@@ -1624,12 +2001,12 @@ def dream_serving(model, kernel_fns) -> dict:
 # phase 8: mamba2-370m at full width, offline and served
 # ---------------------------------------------------------------------------
 def mamba2_370m():
-    """mamba2-370m at full width and depth in bf16, random weights from a
-    seeded generator on the card."""
+    """mamba2-370m at full width in bf16, ``MAMBA_LAYERS`` deep, random
+    weights from a seeded generator on the card."""
     from repro_torch import configs
     from repro_torch.models import Model
 
-    cfg = dataclasses.replace(configs.get_config("mamba2-370m"),
+    cfg = dataclasses.replace(configs.get_config("mamba2-370m"), n_layers=MAMBA_LAYERS,
                               param_dtype="bfloat16", compute_dtype="bfloat16")
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -1871,6 +2248,9 @@ def main() -> int:
             body = f" {c['body']} hb{c['heads_per_block']}"
         elif "body" in c:
             body = f" {c['body']} x{c['n_splits']}"
+            if c.get("options"):
+                body += (f" empty {c['empty_splits']} {json.dumps(c['options'])} "
+                         f"bidi {c['bidi_ms']:.4f}")
         elif "plan" in c and "chunk_bytes" in c["plan"]:
             body = " {threads}x{rows_per_block}x{chunk_bytes}".format(**c["plan"])
         elif "plan" in c:
@@ -1914,6 +2294,8 @@ def main() -> int:
     print(f"quarantine: {json.dumps(cross_quarantine)}")
     cross_mamba = cross_device_mamba()
     print(f"cross-device mamba2: {json.dumps(cross_mamba)}")
+    cross_bc = cross_device_block_causal()
+    print(f"cross-device block-causal and window: {json.dumps(cross_bc)}")
     lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
@@ -1930,9 +2312,17 @@ def main() -> int:
     if serving["launches"]["paged_flash_attention"] != LAUNCHES_SERVING_TRACE:
         raise AssertionError(f"phase 6: {serving['launches']['paged_flash_attention']} "
                              f"attention launches per trace, not {LAUNCHES_SERVING_TRACE}")
+    lap("5-6")
+
+    # phase 9 (on phase 5's model): block-causal ES-dLLM with the window,
+    # offline and served with the persistent prefix store
+    bc_runs = bc_window_paths(model, kernel_fns)
+    for name, r in bc_runs.items():
+        print(f"block-causal + window {name}: {json.dumps(r)}")
+        check_tensor_core_path(r["launches"], f"phase 9 {name}")
     del model
     torch.cuda.empty_cache()
-    lap("5-6")
+    lap("9")
 
     # phase 7: sampled serving of Dream-7B at full width
     dream, dream_init_s = dream_7b()
@@ -1945,7 +2335,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("7")
 
-    # phase 8: mamba2-370m at full width, offline es and dualcache, and served
+    # phase 8: mamba2-370m at full width (depth cut), offline es and dualcache,
+    # and served
     mamba, mamba_init_s = mamba2_370m()
     mamba_runs = mamba_offline(mamba, kernel_fns)
     mamba_runs["serving"] = mamba_serving(mamba, kernel_fns)
@@ -1999,7 +2390,8 @@ def main() -> int:
              cross_device_serving=cross_serving, cross_device_sampled=cross_sampled,
              cross_device_preemption=cross_preempt, quarantine=cross_quarantine,
              scatter_host=scatter_host, importance_host=importance_host,
-             cross_device_mamba=cross_mamba, offline_path=run, serving_path=serving,
+             cross_device_mamba=cross_mamba, cross_device_block_causal=cross_bc,
+             offline_path=run, serving_path=serving, block_causal_window=bc_runs,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

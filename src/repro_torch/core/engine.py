@@ -44,6 +44,15 @@ Sampling (``temperature > 0``) draws with the reference's per-row key chain
 request's stream depends only on its own seed and lifetime iteration, so a
 served request replays offline bit for bit, whatever shares the batch.
 
+Block-causal attention (``block_causal``): a query attends the prompt and
+its own and earlier blocks only, so a position's K/V depend on nothing
+after its block.  A full refresh then leaves positions below
+``core.schedule.invariant_limit`` unwritten (their K/V are final), which
+is sound only because the caches carry across blocks, offline and served.
+The sliding active window (``window_blocks``): a row attends positions
+below ``core.schedule.window_limit`` of its block start, through a clamp
+of ``kv_pos`` and, paged, a read view of the block table.
+
 Page operations for the scheduler (paged serving): ``fork_pages`` (the
 copy-on-write copy behind prefix sharing, a hand-written kernel on the
 card), ``spill_pages``/``restore_pages`` (preemption) and ``scrub_pages``
@@ -70,8 +79,10 @@ from repro_torch.core.schedule import (
     SKIP_DECODE,
     Segment,
     branch_index,
+    invariant_limit,
     prompt_refresh_pred,
     resolve_segments,
+    window_limit,
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -127,8 +138,6 @@ def _unsupported(gen: GenerationConfig, kv_cache_dtype, gather_refresh) -> Optio
     if gen.mode not in MODES:
         return f"mode={gen.mode!r} (one of {MODES})"
     for flag, what in ((gen.sparse_attention, "sparse_attention"),
-                       (gen.windowed, "window_blocks"),
-                       (gen.block_causal, "block_causal"),
                        (kv_cache_dtype is not None, "the int8 KV cache"),
                        (gather_refresh, "gather_refresh")):
         if flag:
@@ -143,6 +152,8 @@ class DiffusionEngine:
         gen: GenerationConfig,
         *,
         device: str | torch.device | None = None,
+        window_override: int = 0,            # local attention window of every layer
+        anchor: int = 0,                     # positions below it bypass the window
         eos_id: int = 2,
         disallow_eos: bool = False,
         kv_cache_dtype: str | None = None,
@@ -172,6 +183,8 @@ class DiffusionEngine:
         self.model = model
         self.cfg = model.cfg
         self.gen = gen
+        self.window_override = window_override
+        self.anchor = anchor
         self.eos_id = eos_id
         self.disallow_eos = disallow_eos
         self.paged = paged
@@ -216,6 +229,28 @@ class DiffusionEngine:
         ``ops.paged_attention``."""
         pos = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
         return torch.where(pos >= prompt_start[:, None], pos, -1)
+
+    def _bc_args(self, t_total: int) -> dict:
+        """Block-causal mask options for a ``t_total``-position sequence: the
+        generation region starts at ``t_total - gen_length`` (the padded
+        prompt end, offline and served) in blocks of ``block_length``;
+        empty without ``block_causal``."""
+        gen = self.gen
+        if not gen.block_causal:
+            return {}
+        return {"bc_start": t_total - gen.gen_length, "bc_block": gen.block_length}
+
+    def _invariant_limit(self, bs, iters, t_total: int):
+        """[B] (or 0) exclusive write horizon of a full refresh under
+        block-causal attention (``core.schedule.invariant_limit``), or None
+        without it."""
+        return invariant_limit(self.gen, bs, iters, t_total - self.gen.gen_length)
+
+    def _ctx(self, positions, mode: str = "nocache", *, t_total: int, **kw) -> ForwardCtx:
+        """A ``ForwardCtx`` with the engine's mask options: the window
+        override, its anchor and the block-causal options."""
+        return ForwardCtx(positions, mode, window_override=self.window_override,
+                          anchor=self.anchor, **self._bc_args(t_total), **kw)
 
     def _identity_block_tables(self, b: int, t_total: int) -> torch.Tensor:
         """Offline layout: slot b owns pages [1 + b*n_vp, 1 + (b+1)*n_vp)."""
@@ -281,7 +316,7 @@ class DiffusionEngine:
         sampled draw uses the reference's defaults for standalone steps: the
         base key ``PRNGKey(0)``, row index seeds and iteration ``st.t``."""
         bs_rows, pstart, bt = self._offline_rows(st, bs)
-        return self._apply_unmask(st, bs_rows, *self._prefill_step(st, bs_rows, pstart, bt,
+        return self._apply_unmask(st, bs_rows, *self._prefill_step(st, bs_rows, st.t, pstart, bt,
                                                                    self._standalone_keys(st)))
 
     @torch.no_grad()
@@ -383,7 +418,7 @@ class DiffusionEngine:
         branch = branch_index(self.gen, st.t, iters)
         self.pass_counts[PASSES[branch]] += 1
         if branch == PREFILL:
-            return self._prefill_step(st, bs, prompt_start, bt, keys)
+            return self._prefill_step(st, bs, iters, prompt_start, bt, keys)
         if branch == PARTIAL:
             return self._partial_refresh_step(st, bs, prompt_start, bt, keys)
         return self._decode_step(st, bs, prompt_start, bt, keys, skip=branch != BLOCK_REFRESH)
@@ -515,7 +550,7 @@ class DiffusionEngine:
             cst = st._replace(cache=carry[0], conf=carry[1], pred=carry[2], hidden=carry[3],
                               feat=carry[4])
             if code == PREFILL:
-                out = self._prefill_step(cst, bs, pstart, bt, keys, row_mask=mask)
+                out = self._prefill_step(cst, bs, state.iters, pstart, bt, keys, row_mask=mask)
             elif code == PARTIAL:
                 out = self._partial_refresh_step(cst, bs, pstart, bt, keys, row_mask=mask)
             else:
@@ -527,23 +562,34 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     # branches
     # ------------------------------------------------------------------
-    def _prefill_step(self, st: BlockState, bs, prompt_start, bt, keys,
+    def _prefill_step(self, st: BlockState, bs, iters, prompt_start, bt, keys,
                       row_mask: Optional[torch.Tensor] = None):
         """Full forward over the whole sequence: rebuilds the KV cache and
         the block's confidence/prediction/indicator caches (cache init and
-        prompt refresh).  Under a ``row_mask`` the carried caches are not
-        zeroed: the other rows' cache state (in a shared pool, their pages)
-        must survive, and the refresh rewrites every owned position anyway."""
+        prompt refresh) at lifetime iteration ``iters`` ([B], or an int
+        offline).  Under a ``row_mask`` the carried caches are not zeroed:
+        the other rows' cache state (in a shared pool, their pages) must
+        survive, and the refresh rewrites every owned position anyway.
+
+        Block-causal: positions below the invariant horizon already hold
+        their final K/V, so the refresh's token mask leaves them unwritten
+        (which keeps persistently shared prompt pages read-only) and the
+        caches are not zeroed."""
         model = self.model
         b, t_total = st.tokens.shape
         cols = self._block_cols(bs)
-        if row_mask is None:
+        pos = self._rows(b, t_total)
+        inv = self._invariant_limit(bs, iters, t_total)
+        refresh_tok = None
+        if inv is not None:
+            refresh_tok = pos >= (inv[:, None] if torch.is_tensor(inv) else inv)
+        if row_mask is None and inv is None:
             for plane in st.cache:
                 plane.zero_()
-        pos = self._rows(b, t_total)
-        ctx = ForwardCtx(pos, "prefill", kv_pos=self._kv_pos(prompt_start, t_total),
-                         slot_idx=pos, block_tables=bt, scatter_mask=row_mask,
-                         block_start=bs)
+        ctx = self._ctx(pos, "prefill", t_total=t_total,
+                        kv_pos=self._kv_pos(prompt_start, t_total), slot_idx=pos,
+                        block_tables=bt, scatter_mask=row_mask, refresh_mask=refresh_tok,
+                        block_start=bs, window_limit=window_limit(self.gen, bs))
         h = model.embed_tokens(st.tokens)
         hidden, feat = [], st.feat
         for seg in self.segments:
@@ -574,10 +620,12 @@ class DiffusionEngine:
         s_idx = self._rows(b, gen.block_length)
         kv_pos = self._kv_pos(prompt_start, t_total)
         hidden = list(st.hidden)
+        wl = window_limit(self.gen, bs)
         for seg in self.segments:
             rows = bs[:, None] + s_idx
-            ctx = ForwardCtx(rows, "decode", kv_pos=kv_pos, slot_idx=rows, block_tables=bt,
-                             scatter_mask=row_mask, block_idx=s_idx)
+            ctx = self._ctx(rows, "decode", t_total=t_total, kv_pos=kv_pos, slot_idx=rows,
+                            block_tables=bt, scatter_mask=row_mask, block_idx=s_idx,
+                            window_limit=wl)
             h = model.run_layers(h, ctx, st.cache, group_lo=seg.group_lo,
                                  group_hi=seg.group_hi)
             if seg.keep_k is not None:
@@ -600,10 +648,19 @@ class DiffusionEngine:
         """[B, T] bool: past tokens whose K/V a partial refresh may recompute:
         real (not left-pad), outside the current block (the block pass owns
         those), and, paged, on a mapped page (a write to an unmapped page
-        would land on the garbage page and lose the fresh values)."""
+        would land on the garbage page and lose the fresh values).
+        Block-causal: only positions past the block (everything before it
+        is final since the block's entry refresh, and a write would touch
+        persistently shared prompt pages).  Windowed: only positions inside
+        the window (the others are read by no one)."""
         col = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
         in_block = (col >= bs[:, None]) & (col < bs[:, None] + self.gen.block_length)
         eligible = ~in_block & (col >= prompt_start[:, None])
+        if self.gen.block_causal:
+            eligible &= col >= bs[:, None]
+        wl = window_limit(self.gen, bs)
+        if wl is not None:
+            eligible &= col < wl[:, None]
         if self.paged:
             eligible &= (bt >= 0).repeat_interleave(self.page_size, dim=1)
         return eligible
@@ -621,10 +678,11 @@ class DiffusionEngine:
         b, t_total = st.tokens.shape
         gp = self.cache_probe_groups
         kv_pos = self._kv_pos(prompt_start, t_total)
+        wl = window_limit(self.gen, bs)
         # 1. shallow probe over every position: its K/V refresh everywhere
         pos = self._rows(b, t_total)
-        ctx = ForwardCtx(pos, "prefill", kv_pos=kv_pos, slot_idx=pos, block_tables=bt,
-                         scatter_mask=row_mask)
+        ctx = self._ctx(pos, "prefill", t_total=t_total, kv_pos=kv_pos, slot_idx=pos,
+                        block_tables=bt, scatter_mask=row_mask, window_limit=wl)
         h_probe = model.run_layers(model.embed_tokens(st.tokens), ctx, st.cache,
                                    group_lo=0, group_hi=gp)
         feat = h_probe.float()
@@ -640,8 +698,9 @@ class DiffusionEngine:
         # 3. deep refresh of the selected tokens; the token mask keeps the
         # K/V of the filler and below-threshold ones
         sel = sel.int()
-        dctx = ForwardCtx(sel, "decode", kv_pos=kv_pos, slot_idx=sel, block_tables=bt,
-                          scatter_mask=row_mask, refresh_mask=tok_ok)
+        dctx = self._ctx(sel, "decode", t_total=t_total, kv_pos=kv_pos, slot_idx=sel,
+                         block_tables=bt, scatter_mask=row_mask, refresh_mask=tok_ok,
+                         window_limit=wl)
         model.run_layers(row_gather(h_probe, sel), dctx, st.cache, group_lo=gp,
                          group_hi=model.n_groups)
         # 4. the block refresh on the partially refreshed caches
@@ -654,7 +713,7 @@ class DiffusionEngine:
         model = self.model
         b, t_total = st.tokens.shape
         h = model.run_layers(model.embed_tokens(st.tokens),
-                             ForwardCtx(self._rows(b, t_total)))
+                             self._ctx(self._rows(b, t_total), t_total=t_total))
         return self._confidence(st, bs, model.logits(row_gather(h, self._block_cols(bs))),
                                 keys)
 

@@ -98,8 +98,12 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
     """float32 standard Gumbel noise ``-log(-log(u))``, ``u`` uniform in
-    ``[tiny, 1)``."""
-    return -torch.log(-torch.log(uniform(key, shape, minval=_TINY, maxval=1.0)))
+    ``[tiny, 1)``.  Both logs run in float64 and the result is rounded once,
+    so the noise is the correctly rounded Gumbel of ``u`` (within half an
+    ulp) on every device, whatever float32 ``log`` the build dispatches to
+    or however it splits the tensor across threads."""
+    u = uniform(key, shape, minval=_TINY, maxval=1.0)
+    return (-torch.log(-torch.log(u.double()))).float()
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,11 @@ A *segment* is a contiguous range of layer groups run by one
 active set shrinks to the top-k rows by importance (paper Alg. 1 line 13).
 
 The cadence functions (``prompt_refresh_pred``, ``full_refresh_pred``,
-``branch_index``) are elementwise on python ints, numpy arrays and torch
+``branch_index``) and the two horizons (``window_limit``,
+``invariant_limit``) are elementwise on python ints, numpy arrays and torch
 tensors alike: the offline loop (a scalar phase), the serving step (a
 per-row ``[B]`` phase tensor) and the scheduler's host-side hooks (numpy)
-share one cadence truth.
+share one truth.
 """
 from __future__ import annotations
 
@@ -30,6 +31,15 @@ def _where(cond, a, b):
     if isinstance(cond, np.ndarray):
         return np.where(cond, a, b)
     return a if cond else b
+
+
+def _maximum(a, b: int):
+    """Elementwise ``max(a, b)`` for a python scalar, numpy array or tensor."""
+    if isinstance(a, torch.Tensor):
+        return torch.clamp(a, min=b)
+    if isinstance(a, np.ndarray):
+        return np.maximum(a, b)
+    return max(a, b)
 
 
 def prompt_refresh_pred(gen: GenerationConfig, t):
@@ -69,6 +79,33 @@ def branch_index(gen: GenerationConfig, t, iters=None):
         refresh_br = _where(full_refresh_pred(gen, iters), PREFILL, PARTIAL)
     return _where(prompt_refresh_pred(gen, t), refresh_br,
                   _where(block_r, BLOCK_REFRESH, SKIP_DECODE))
+
+
+def window_limit(gen: GenerationConfig, bs):
+    """Exclusive attention horizon of the sliding active window for rows
+    whose current block starts at ``bs``: they attend positions ``< bs +
+    block_length * (1 + window_blocks)``, the block and ``window_blocks``
+    blocks of masked suffix beyond it.  None when ``window_blocks == 0``
+    (no window), so every caller leaves the clamp out."""
+    if not gen.windowed:
+        return None
+    return bs + gen.block_length * (1 + gen.window_blocks)
+
+
+def invariant_limit(gen: GenerationConfig, bs, iters, gen_start: int):
+    """Exclusive write horizon of a full refresh under block-causal
+    attention: positions below it already hold their final K/V, so the
+    refresh may leave them unwritten.  A position's K/V depend only on the
+    tokens at or before its own block, so the prompt is final after the
+    first prefill and a settled block once the next block's entry refresh
+    wrote it: the horizon is ``max(bs - block_length, gen_start)``, and 0
+    on a row's first iteration (``iters == 0``).  None without
+    ``block_causal``, so every caller leaves the token mask out.  The
+    engine's refresh token mask and the scheduler's
+    ``invariant_tokens_skipped`` gauge both come from here."""
+    if not gen.block_causal:
+        return None
+    return _where(iters > 0, _maximum(bs - gen.block_length, gen_start), 0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -67,8 +67,13 @@
 //
 // Left for later: wgmma with TMA and a producer warp for long prefills
 // (wgmma's 64-row tile does not fit Lq 8-32 per head, and these shapes are
-// bound by bytes); int8 K/V; windows and block-causal in paged mode (the
-// paged wrapper passes the mask options as zeros).
+// bound by bytes); int8 K/V; skipping key tiles that lie wholly in future
+// blocks of every row of a block-causal tile (they are walked and masked).
+// Both modes take every mask option: block-causal serving and offline runs
+// pass bc_start/bc_block, the sliding window reaches the kernel as kv_pos
+// = -1 past the horizon and, paged, as a read table whose pages past it are
+// unmapped, so whole KV splits may hold no mapped page and merge with
+// weight 0.
 //
 // Both bodies: any strides with a contiguous last dimension are taken, so
 // the cache's [B, S, Hkv, D] layout is read without a transpose copy; the
@@ -439,7 +444,6 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int kvpos_s[kStages][kTile];
   __shared__ unsigned char valid_s[kStages][kTile];   // row inside the split and mapped
-  __shared__ int kblk_s[kStages][kTile];              // block-causal block of the key
   __shared__ int pt_s[kPaged ? kMaxSplitPages : 1];    // the split's block-table entries
   __shared__ long long qoff_s[kRows], ooff_s[kRows];   // packed row -> q / out offset
   __shared__ int last_s;
@@ -538,7 +542,6 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
       const bool in = kk < kv_end;
       cp_async4(smem_u32(&kvpos_s[st][tid]), kvpos_g + (in ? kk : 0), in);
       valid_s[st][tid] = in && page_of(kk) >= 0;
-      if (p.bc_block > 0 && in) kblk_s[st][tid] = bc_block_of(kvpos_g[kk]);
     }
   };
 
@@ -565,12 +568,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
   }
 
   // the mask rule split into a per-row and a per-key half (no division per
-  // element); with no option set only kv_pos >= 0 is tested
+  // element); with no option set only kv_pos >= 0 is tested.  Block-causal
+  // is a per-row bound: a key's block is at most the row's block qb exactly
+  // when kv_pos < bc_start + (qb + 1) * bc_block (prompt keys are block -1,
+  // a prompt row's bound is bc_start), so no key's block is computed
   const bool plain = !p.causal && p.window <= 0 && p.bc_block <= 0;
-  int qblk[2] = {0, 0};
+  int qlim[2] = {0x7fffffff, 0x7fffffff};
   if (p.bc_block > 0) {
-    qblk[0] = bc_block_of(qpos[0]);
-    qblk[1] = bc_block_of(qpos[1]);
+    qlim[0] = p.bc_start + (bc_block_of(qpos[0]) + 1) * p.bc_block;
+    qlim[1] = p.bc_start + (bc_block_of(qpos[1]) + 1) * p.bc_block;
   }
 
   cp_async_wait<kStages - 1>();      // the Q group has landed
@@ -644,18 +650,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
           for (int i = 0; i < 4; ++i)
             s[j][i] = kp[j][i % 2] >= 0 ? s[j][i] * tp.scale_log2 : kNegInf;
       } else {
-        int kblk[kKeys / 8][2];
-#pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            kblk[j][e] = p.bc_block > 0 ? kblk_s[st][kq * kKeys + j * 8 + tig * 2 + e] : 0;
 #pragma unroll
         for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int qp = qpos[i / 2], kpos = kp[j][i % 2];
-            bool ok = kpos >= 0 && (!p.causal || kpos <= qp) && kblk[j][i % 2] <= qblk[i / 2];
+            bool ok = kpos >= 0 && (!p.causal || kpos <= qp) && kpos < qlim[i / 2];
             if (p.window > 0) ok = ok && (abs(qp - kpos) <= p.window || kpos < p.anchor);
             s[j][i] = ok ? s[j][i] * tp.scale_log2 : kNegInf;
           }

@@ -18,7 +18,9 @@ the arguments alone, the same way every time (no failure is caught):
   not 16-byte multiples), one block per (batch, query head, 8 rows).
 
 Each wrapper counts its launches (``launches``) and, beside them, the
-launches of each body (``tensor_core_launches``, ``cuda_core_launches``).
+launches of each body (``tensor_core_launches``, ``cuda_core_launches``)
+and of each set of mask options (``option_launches``, keyed by ``(window,
+anchor, causal, bc_start, bc_block)``).
 """
 from __future__ import annotations
 
@@ -138,12 +140,11 @@ def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size
         return out
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k_strides, *v_strides,
                                        *out.stride()[:3])
+    options = (int(mask["window"]), int(mask["anchor"]), int(mask["causal"]),
+               int(mask["bc_start"]), int(mask["bc_block"]))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q_pos.data_ptr(),
             kv_pos.data_ptr(), None if bt is None else bt.data_ptr(), page_size,
-            ctypes.addressof(strides), b, hq, hkv, lq, lkv, d, 1.0 / math.sqrt(d),
-            int(mask.get("window", 0)), int(mask.get("anchor", 0)),
-            int(mask.get("causal", False)), int(mask.get("bc_start", 0)),
-            int(mask.get("bc_block", 0)))
+            ctypes.addressof(strides), b, hq, hkv, lq, lkv, d, 1.0 / math.sqrt(d), *options)
     p = plan(q, k, v, lkv, hkv, page_size)
     if p.body == "tensor_core":
         part_o = part_ml = counters = None
@@ -165,6 +166,7 @@ def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size
         build.check(status, name)
         fn.cuda_core_launches += 1
     fn.launches += 1
+    fn.option_launches[options] = fn.option_launches.get(options, 0) + 1
     return out
 
 
@@ -193,6 +195,22 @@ def flash_attention(
                                       bc_start=bc_start, bc_block=bc_block))
 
 
+def window_block_tables(block_tables: torch.Tensor, limit: torch.Tensor | None,
+                        page_size: int) -> torch.Tensor:
+    """The read view of a block table under the sliding window: virtual
+    pages that start at or beyond the row's exclusive horizon ``limit [B]``
+    become -1, so the kernel's walk skips them (a page that straddles the
+    horizon stays mapped; its positions past it are masked through
+    ``kv_pos``).  Writes keep the real table.  ``limit=None`` returns the
+    table itself."""
+    if limit is None:
+        return block_tables
+    n_vp = block_tables.shape[1]
+    starts = torch.arange(0, n_vp * page_size, page_size, dtype=torch.int32,
+                          device=block_tables.device)
+    return torch.where(starts[None, :] < limit[:, None], block_tables, -1)
+
+
 def paged_flash_attention(
     q: torch.Tensor,             # [B, Hq, Lq, D]   any strides, last dim contiguous
     k_pool: torch.Tensor,        # [P, ps, Hkv, D]  contiguous, read in place
@@ -200,10 +218,17 @@ def paged_flash_attention(
     q_pos: torch.Tensor,         # [B, Lq] int32
     kv_pos: torch.Tensor,        # [B, n_vp * ps] int32 (-1 = invalid)
     block_tables: torch.Tensor,  # [B, n_vp] int32 page ids, -1 unmapped
+    *,
+    window: int = 0,
+    anchor: int = 0,
+    causal: bool = False,
+    bc_start: int = 0,
+    bc_block: int = 0,
 ) -> torch.Tensor:
     """Attention over a page pool: KV row ``r`` of batch ``b`` is pool row
-    ``bt[b, r // ps] * ps + r % ps``; rows of unmapped pages are masked.
-    Returns ``[B, Hq, Lq, D]`` in ``q.dtype`` as :func:`flash_attention`."""
+    ``bt[b, r // ps] * ps + r % ps``; rows of unmapped pages are masked, and
+    the mask options work as in :func:`flash_attention`.  Returns ``[B, Hq,
+    Lq, D]`` in ``q.dtype`` as :func:`flash_attention`."""
     b, _, _, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     n_vp = block_tables.shape[-1]
@@ -221,8 +246,11 @@ def paged_flash_attention(
     k_strides = (0, k_pool.stride(2), k_pool.stride(1))
     v_strides = (0, v_pool.stride(2), v_pool.stride(1))
     return _launch(paged_flash_attention, q, k_pool, v_pool, q_pos, kv_pos, k_strides,
-                   v_strides, n_vp * ps, block_tables, ps, {})
+                   v_strides, n_vp * ps, block_tables, ps,
+                   dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
+                        bc_block=bc_block))
 
 
 for _fn in (flash_attention, paged_flash_attention):
     _fn.launches = _fn.tensor_core_launches = _fn.cuda_core_launches = 0
+    _fn.option_launches = {}

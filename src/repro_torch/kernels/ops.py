@@ -13,7 +13,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    paged_flash_attention,
+    window_block_tables,
+)
 from repro_torch.kernels.importance import importance, variation
 from repro_torch.kernels.scatter_kv import check_fork_lists
 from repro_torch.kernels.scatter_kv import fork_pages as fork_pages_kernel
@@ -60,12 +64,32 @@ def paged_attention(
     q_pos: torch.Tensor,         # [B, Lq] int32
     kv_pos: torch.Tensor,        # [B, n_vp * ps] int32 (-1 = invalid)
     block_tables: torch.Tensor,  # [B, n_vp] int32 page ids, -1 unmapped
+    *,
+    window: int = 0,
+    anchor: int = 0,
+    causal: bool = False,
+    bc_start: int = 0,
+    bc_block: int = 0,
 ) -> torch.Tensor:
     """Attention over a page pool through a block table -> [B, Hq, Lq, D].
-    Rows of unmapped pages are masked (the reference's ``paged_kv_mask``)."""
+    Rows of unmapped pages are masked (the reference's ``paged_kv_mask``);
+    the mask options work as in :func:`attention`."""
+    kw = dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
+              bc_block=bc_block)
     if _on_card(q, k_pool, v_pool, q_pos, kv_pos, block_tables):
-        return paged_flash_attention(q, k_pool, v_pool, q_pos, kv_pos, block_tables)
-    return ref.paged_attention_reference(q, k_pool, v_pool, q_pos, kv_pos, block_tables)
+        return paged_flash_attention(q, k_pool, v_pool, q_pos, kv_pos, block_tables, **kw)
+    return ref.paged_attention_reference(q, k_pool, v_pool, q_pos, kv_pos, block_tables, **kw)
+
+
+def window_kv_clamp(kv_pos: torch.Tensor, limit: Optional[torch.Tensor]) -> torch.Tensor:
+    """The sliding window's cut: ``kv_pos`` becomes -1 at positions at or
+    beyond the row's exclusive horizon ``limit [B]``
+    (``core.schedule.window_limit``).  Every attention path masks ``kv_pos
+    < 0`` already, so one clamp makes the window the same dense and paged.
+    ``limit=None`` returns ``kv_pos`` itself."""
+    if limit is None:
+        return kv_pos
+    return torch.where(kv_pos < limit[:, None], kv_pos, -1)
 
 
 def scatter_rows(pairs, idx: torch.Tensor, *, row_mask: Optional[torch.Tensor] = None,
@@ -188,5 +212,6 @@ def ssd(
     return y[:, :l].to(x.dtype), states[-1]
 
 
-__all__ = ["attention", "paged_attention", "scatter_rows", "scatter_rows_paged",
+__all__ = ["attention", "paged_attention", "window_kv_clamp", "window_block_tables",
+           "scatter_rows", "scatter_rows_paged",
            "fork_pages", "importance_score", "variation_score", "ssd"]

@@ -104,15 +104,16 @@ def paged_attention_reference(
     q_pos: torch.Tensor,          # [B, Lq]
     kv_pos: torch.Tensor,         # [B, n_vp * ps]
     block_tables: torch.Tensor,   # [B, n_vp]
+    **mask,
 ) -> torch.Tensor:
     """Attention over a page pool: the reference's XLA mirror, which gathers
     the mapped pages into the dense layout and attends it with unmapped
-    pages masked."""
+    pages masked.  ``mask`` takes :func:`attention_mask`'s options."""
     ps = k_pool.shape[1]
     kv_pos = paged_kv_mask(block_tables, kv_pos, ps)
     k = gather_pages(k_pool, block_tables).transpose(1, 2)
     v = gather_pages(v_pool, block_tables).transpose(1, 2)
-    return attention_reference(q, k, v, q_pos, kv_pos)
+    return attention_reference(q, k, v, q_pos, kv_pos, **mask)
 
 
 def split_bounds(lkv: int, n_splits: int, tile: int = SPLIT_TILE) -> list[tuple[int, int]]:

@@ -11,6 +11,10 @@ size unless ``--full``).
       --page-size 8 --prefix-sharing --dup-prompts --requests 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged \\
       --page-size 8 --preemption --priority-classes 2 --kv-pages 9 --requests 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged \\
+      --page-size 8 --prefix-sharing --dup-prompts --block-causal --window-blocks 1 \\
+      --early-advance --requests 4 --batch 2 --prompt-len 16 --gen-length 32 \\
+      --block-length 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-370m \\
       --requests 6 --batch 3 --early-advance --gen-length 16 --block-length 8
   PYTHONPATH=src python -m repro_torch.launch.serve --full --dtype bfloat16 \\
@@ -36,9 +40,7 @@ from repro_torch.runtime import ConfigError, Request, StreamScheduler
 
 # reference flags outside this slice: (flag, attribute, value that is in the slice)
 _OUTSIDE = (("--gather-refresh", "gather_refresh", False),
-            ("--window-blocks", "window_blocks", 0),
             ("--lazy-reserve", "lazy_reserve", False),
-            ("--block-causal", "block_causal", False),
             ("--shards", "shards", 1),
             ("--placement", "placement", "least_loaded"),
             ("--refresh-shards", "refresh_shards", 1),
@@ -90,13 +92,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="submit one prompt duplicated --requests times (the "
                          "prefix-sharing workload)")
     ap.add_argument("--gather-refresh", action="store_true")
-    ap.add_argument("--window-blocks", type=int, default=0)
+    ap.add_argument("--window-blocks", type=int, default=0,
+                    help="sliding active window: a row attends its block and this many "
+                         "blocks of masked suffix beyond it (0 = no window)")
     ap.add_argument("--lazy-reserve", action="store_true")
     ap.add_argument("--preemption", action="store_true",
                     help="a higher-class arrival short of pages may spill a lower-class "
                          "resident to host memory at its block boundary and resume it "
                          "later (requires --paged)")
-    ap.add_argument("--block-causal", action="store_true")
+    ap.add_argument("--block-causal", action="store_true",
+                    help="block-causal attention: prompt K/V depend on the prompt alone, "
+                         "full refreshes skip final positions, and with --paged "
+                         "--prefix-sharing the prompt pages persist across requests")
     ap.add_argument("--shards", type=int, default=1)
     ap.add_argument("--placement", default="least_loaded")
     ap.add_argument("--refresh-shards", type=int, default=1)
@@ -128,6 +135,8 @@ def validate(args: argparse.Namespace) -> None:
         raise ConfigError("--paged, --prefix-sharing, --preemption and the adaptive cache "
                           "(--cache-prompt-interval > 1) on an SSM stack are outside the "
                           "port so far (ROADMAP.md)")
+    if args.window_blocks < 0:
+        raise ConfigError(f"--window-blocks must be >= 0, got {args.window_blocks}")
     if args.preemption and args.prefix_sharing:
         raise ConfigError("--preemption is incompatible with --prefix-sharing: a spill "
                           "releases pages other requests may still map")
@@ -149,6 +158,7 @@ def main(argv=None) -> list[Request]:
         prompt_refresh_period=args.prompt_refresh_period,
         block_refresh_period=args.cache_response_interval,
         parallel_decoding=args.parallel_decoding,
+        window_blocks=args.window_blocks, block_causal=args.block_causal,
         cache_prompt_interval=args.cache_prompt_interval,
         cache_variation_threshold=args.cache_variation_threshold)
 
@@ -190,6 +200,10 @@ def main(argv=None) -> list[Request]:
                  f"  concurrency_peak={st.resident_peak}")
         if args.prefix_sharing:
             line += f"  cow_forks={st.cow_forks}"
+        if server.persistent_prefix:
+            line += f"  prefix_hits={st.prefix_hits}  prefix_evictions={st.prefix_evictions}"
+    if gen.block_causal:
+        line += f"  invariant_tokens_skipped={st.invariant_tokens_skipped}"
     if args.preemption:
         line += (f"  preemptions={st.preemptions}  pages_spilled={st.pages_spilled}"
                  f"  resume_p50={st.resume_p50:.3f}s")

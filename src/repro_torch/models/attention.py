@@ -31,10 +31,13 @@ class PagedKVCache(NamedTuple):
     """Block-table view over one layer's page pool ``[P, ps, Hkv, Dh]``:
     ``block_tables[b, vp]`` maps slot ``b``'s virtual page ``vp`` (positions
     ``[vp*ps, (vp+1)*ps)``) to a physical page, -1 for unmapped (masked on
-    read, written to the garbage page 0).  Page ownership lives in the
-    scheduler's allocator."""
+    read, written to the garbage page 0).  ``read_tables`` is the table the
+    attention read walks, the sliding window's view of it
+    (``ops.window_block_tables``), or None for the table itself.  Page
+    ownership lives in the scheduler's allocator."""
     cache: KVCache
     block_tables: torch.Tensor          # [B, n_vp] int32
+    read_tables: Optional[torch.Tensor] = None   # [B, n_vp] int32
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -86,28 +89,41 @@ def self_attention(
     rope=None,                      # common.rope_tables(positions, ...), if precomputed
     scatter_mask: Optional[torch.Tensor] = None,   # [B] rows whose K/V are written
     token_mask: Optional[torch.Tensor] = None,     # [B, K] tokens whose K/V are written
+    window: int = 0,                # per-layer local attention (0 = none)
+    anchor: int = 0,
+    bc_start: int = 0,              # block-causal: first generation position
+    bc_block: int = 0,              # block-causal block length; 0 = off
 ) -> torch.Tensor:
     """Returns the attention output ``[B, K, d]``; with a cache, first
     scatters the fresh K/V rows into it, then attends the whole cache.
 
     ``scatter_mask`` (mixed-mode cadence) leaves the rows a pass does not own
-    unwritten; ``token_mask`` (adaptive partial refresh) the tokens of owned
-    rows that keep their cached K/V.  Reads are unmasked: unowned rows still
-    compute, and the engine merges their outputs away."""
+    unwritten; ``token_mask`` (adaptive partial refresh, block-causal
+    refresh exemption) the tokens of owned rows that keep their cached K/V.
+    Reads are unmasked: unowned rows still compute, and the engine merges
+    their outputs away.  The mask options reach both kernels.
+
+    Under the sliding window ``kv_pos`` arrives clamped at the row's horizon
+    (``ops.window_kv_clamp``) and a paged read walks ``cache.read_tables``
+    (``ops.window_block_tables``); ``Model.run_layers`` makes both once per
+    segment.  Writes keep the real table: a block entry's full refresh
+    rewrites beyond-window rows before any read sees them."""
     b, k, _ = x.shape
     if rope is None:
         rope = rope_tables(positions, cfg.head_dim, theta=cfg.rope_theta,
                            fraction=cfg.rope_fraction)
     q, kk, vv = _project_qkv(p, cfg, x, rope)
     masks = dict(row_mask=scatter_mask, token_mask=token_mask)
+    opts = dict(window=window, anchor=anchor, bc_start=bc_start, bc_block=bc_block)
     if cache is not None and (slot_idx is None or kv_pos is None):
         raise ValueError("a cached attention needs slot_idx and kv_pos")
     if isinstance(cache, PagedKVCache):
         pool, bt = cache.cache, cache.block_tables
         ops.scatter_rows_paged(((pool.k, kk.to(pool.k.dtype)), (pool.v, vv.to(pool.v.dtype))),
                                slot_idx, bt, **masks)
+        read_bt = bt if cache.read_tables is None else cache.read_tables
         out = ops.paged_attention(q.transpose(1, 2), pool.k.to(q.dtype), pool.v.to(q.dtype),
-                                  positions, kv_pos, bt)
+                                  positions, kv_pos, read_bt, **opts)
         return out.transpose(1, 2).reshape(b, k, -1) @ p.wo
     if cache is not None:
         ops.scatter_rows(((cache.k, kk.to(cache.k.dtype)), (cache.v, vv.to(cache.v.dtype))),
@@ -121,5 +137,6 @@ def self_attention(
         v_full.to(q.dtype).transpose(1, 2),
         positions,
         kv_positions,
+        **opts,
     )
     return out.transpose(1, 2).reshape(b, k, -1) @ p.wo

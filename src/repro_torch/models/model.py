@@ -40,6 +40,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.attention import (
     Attention,
     KVCache,
@@ -91,6 +92,13 @@ class ForwardCtx:
                                                   # decode: the dense rejoin)
     block_start: Optional[torch.Tensor] = None    # [B] int32 block start (SSM prefill:
                                                   # the state capture)
+    window_limit: Optional[torch.Tensor] = None   # [B] int32 sliding-window horizon
+                                                  # (core.schedule.window_limit): kv
+                                                  # positions at or past it are not read
+    window_override: int = 0                      # local attention window of every layer
+    anchor: int = 0                               # positions below it bypass the window
+    bc_start: int = 0                             # block-causal: first generation position
+    bc_block: int = 0                             # block-causal block length; 0 = off
 
 
 class MLP(nn.Module):
@@ -211,7 +219,9 @@ class Model(nn.Module):
                    cache: Optional[KVCache | SSMCache] = None, *, group_lo: int = 0,
                    group_hi: Optional[int] = None) -> torch.Tensor:
         """Runs layers ``[group_lo, group_hi)`` on ``h [B, K, d]``; in the
-        prefill/decode modes the caches are updated in place."""
+        prefill/decode modes the caches are updated in place.  The sliding
+        window's clamp of ``kv_pos`` and its read view of the block table
+        are made once here for the whole segment."""
         cfg = self.cfg
         group_hi = self.n_groups if group_hi is None else group_hi
         if not 0 <= group_lo < group_hi <= self.n_groups:
@@ -223,15 +233,23 @@ class Model(nn.Module):
             return h
         rope = rope_tables(ctx.positions, cfg.head_dim, theta=cfg.rope_theta,
                            fraction=cfg.rope_fraction)
+        kv_pos, read_bt = ctx.kv_pos, None
+        if use_cache and ctx.window_limit is not None:
+            kv_pos = ops.window_kv_clamp(kv_pos, ctx.window_limit)
+            if ctx.block_tables is not None:
+                read_bt = ops.window_block_tables(ctx.block_tables, ctx.window_limit,
+                                                  cache.k.shape[2])
         for g in range(group_lo, group_hi):
             layer = self.layers[g]
             kv = KVCache(cache.k[g], cache.v[g]) if use_cache else None
             if kv is not None and ctx.block_tables is not None:
-                kv = PagedKVCache(kv, ctx.block_tables)
+                kv = PagedKVCache(kv, ctx.block_tables, read_bt)
             h = h + self_attention(
                 layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), ctx.positions,
-                cache=kv, slot_idx=ctx.slot_idx, kv_pos=ctx.kv_pos, rope=rope,
-                scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask)
+                cache=kv, slot_idx=ctx.slot_idx, kv_pos=kv_pos, rope=rope,
+                scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask,
+                window=ctx.window_override, anchor=ctx.anchor,
+                bc_start=ctx.bc_start, bc_block=ctx.bc_block)
             h = h + mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps))
         return h
 

@@ -22,6 +22,15 @@ and does all control flow on the host:
   diverge at their first draw, so each follower holds copy-on-write reserve
   pages from admission and the scheduler forks the shared pages onto them
   (``engine.fork_pages``) right before the first refresh after divergence;
+* **the persistent prefix store** (``prefix_sharing`` with ``block_causal``,
+  paged): block-causal prompt K/V depend on the prompt bytes alone, so the
+  index becomes a cross-request LRU store keyed on (prompt bytes, prompt
+  length).  It holds a claim on every registered prompt page, so the pages
+  outlive their request; a later identical prompt, in any cycle, maps them
+  (a hit, no fork and no reserve); under pool pressure ``alloc`` evicts the
+  least recently used entries.  Full refreshes leave positions below
+  ``core.schedule.invariant_limit`` unwritten, so shared prompt pages stay
+  read-only;
 * **preemption** (``preemption=True``, paged, not with sharing): a higher
   class short of pages or slots spills a strictly lower-class resident at
   its block boundary (its page bytes and row to host memory, its pages
@@ -33,8 +42,9 @@ and does all control flow on the host:
 * **streaming and retirement**: completed blocks go to ``Request.stream_cb``
   and the scheduler-wide callback; a finished request frees its slot and
   pages at once;
-* **stats**: latency, goodput, page, sharing and failure gauges, and the
-  adaptive cache's refresh counters;
+* **stats**: latency, goodput, page, sharing, store and failure gauges, the
+  adaptive cache's refresh counters, and the refresh rewrites the
+  block-causal exemption skipped;
 * ``drain()`` with a watchdog that raises ``DrainStalled`` on zero progress.
 
 Where the reference rebuilds its immutable state with ``.at[slot].set``, the
@@ -47,8 +57,8 @@ from that second read.
 An SSM stack (Mamba-2) serves on dense slots, with early advance or without.
 
 Outside the port so far (each raises ``ConfigError`` at construction, see
-ROADMAP.md): lazy page reservation, the persistent cross-request prefix
-store of block-causal mode, and paged KV, prefix sharing and preemption on an
+ROADMAP.md): lazy page reservation (with its window growth and
+``max_blocks`` growth), and paged KV, prefix sharing and preemption on an
 SSM stack (the engine raises ``NotImplementedError`` for its adaptive cache).
 """
 from __future__ import annotations
@@ -64,6 +74,7 @@ import torch
 from repro_torch.configs.base import GenerationConfig
 from repro_torch.core import prng
 from repro_torch.core.engine import DiffusionEngine
+from repro_torch.core.schedule import full_refresh_pred, invariant_limit
 from repro_torch.models.model import Model
 from repro_torch.runtime.errors import (
     ConfigError,
@@ -105,6 +116,13 @@ class SchedulerStats:
     resume_waits: list = dataclasses.field(default_factory=list)
     deadline_rejects: int = 0
     poisoned_requests: int = 0           # rows quarantined by the non-finite detector
+    # the persistent prefix store (block-causal): a hit admits a request whose
+    # full prompt pages were resident; an eviction drops an LRU entry under
+    # pool pressure.  invariant_tokens_skipped counts the positions full
+    # refreshes left unwritten (core.schedule.invariant_limit)
+    prefix_hits: int = 0
+    prefix_evictions: int = 0
+    invariant_tokens_skipped: int = 0
 
     @property
     def goodput(self) -> float:
@@ -141,7 +159,8 @@ class SchedulerStats:
             "pages_in_use", "pages_total", "peak_pages_in_use", "shared_mappings",
             "cow_forks", "resident_peak", "early_advances", "admission_wait_p50",
             "cache_hit_fraction", "tokens_refreshed_p50", "preemptions", "pages_spilled",
-            "resume_p50", "deadline_rejects", "poisoned_requests")}
+            "resume_p50", "deadline_rejects", "poisoned_requests", "prefix_hits",
+            "prefix_evictions", "invariant_tokens_skipped")}
 
 
 def _pct(xs: list, pct: float) -> float:
@@ -164,15 +183,28 @@ class PageAllocator:
     registered under a content key at admission, so duplicates admitted in
     the same cycle map the same pages.  The scheduler clears it at the end
     of every admission cycle (bidirectional attention: pages written by
-    slots admitted in different cycles are never equal)."""
+    slots admitted in different cycles are never equal).
 
-    def __init__(self, num_pages: int):
+    Persistent mode (``persistent=True``, block-causal attention only): the
+    index is a cross-request store.  ``register_prefix`` takes one
+    store-owned claim per page, so the pages stay resident after every slot
+    claim dies; ``lookup_prefix`` is an LRU touch; ``alloc`` under pool
+    pressure evicts the least recently used entries (dropping the store's
+    claims only: an entry whose every page a live slot still maps would
+    free nothing, and is skipped) before it reports the pool full.  The
+    scheduler never clears a persistent index."""
+
+    def __init__(self, num_pages: int, persistent: bool = False):
         if num_pages < 2:
             raise ConfigError("the pool needs the garbage page and at least one real page")
         self.num_pages = num_pages
+        self.persistent = persistent
         self._free = list(range(num_pages - 1, 0, -1))   # pop() -> low ids first
         self._refcount = [0] * num_pages
-        self._prefix: dict = {}          # content key -> (owner slot, [(vp, page)])
+        # content key -> (owner slot, [(vp, page)]); in persistent mode the
+        # dict's order is the LRU order (lookup reinserts, eviction pops the front)
+        self._prefix: dict = {}
+        self.prefix_evictions = 0        # store entries evicted (persistent)
 
     @property
     def free_pages(self) -> int:
@@ -187,10 +219,33 @@ class PageAllocator:
         """Extra claims created by sharing (sum of refcount - 1 over pages)."""
         return sum(rc - 1 for rc in self._refcount if rc > 1)
 
+    @property
+    def reclaimable_pages(self) -> int:
+        """Pages an eviction sweep could free now: store-claimed pages with
+        no other claim.  A gate on free pages must count these beside
+        ``free_pages``: the store is a cache, not a reservation."""
+        if not self.persistent:
+            return 0
+        return sum(1 for _, page_map in self._prefix.values()
+                   for _, pg in page_map if self._refcount[pg] == 1)
+
     def refcount(self, page: int) -> int:
         return self._refcount[page]
 
     def alloc(self, n: int) -> Optional[list[int]]:
+        if n > len(self._free) and self.persistent:
+            # pool pressure: evict least recently used entries until the
+            # request fits; an entry every page of which a live slot maps
+            # would free nothing and is skipped
+            for key in list(self._prefix):
+                if n <= len(self._free):
+                    break
+                _, page_map = self._prefix[key]
+                if all(self._refcount[pg] > 1 for _, pg in page_map):
+                    continue
+                del self._prefix[key]
+                self.release([pg for _, pg in page_map])
+                self.prefix_evictions += 1
         if n > len(self._free):
             return None
         pages = [self._free.pop() for _ in range(n)]
@@ -225,23 +280,40 @@ class PageAllocator:
         return freed
 
     def register_prefix(self, key, payload) -> None:
-        """Registers ``payload = (owner slot, [(vp, page)])`` under ``key``."""
+        """Registers ``payload = (owner slot, [(vp, page)])`` under ``key``;
+        in persistent mode the store takes a claim on each page."""
+        if self.persistent:
+            if key in self._prefix:
+                raise LedgerError("re-registering a resident prefix")
+            self.share([pg for _, pg in payload[1]])
         self._prefix[key] = payload
 
     def lookup_prefix(self, key):
-        return self._prefix.get(key)
+        """The payload under ``key``, or None; in persistent mode a hit
+        becomes the most recently used entry."""
+        hit = self._prefix.get(key)
+        if hit is not None and self.persistent:
+            self._prefix[key] = self._prefix.pop(key)
+        return hit
 
     def clear_prefix_index(self) -> None:
+        """Empties the index; a persistent store's claims are dropped, so
+        its pages can free."""
+        if self.persistent:
+            for _, page_map in self._prefix.values():
+                self.release([pg for _, pg in page_map])
         self._prefix.clear()
 
     def drop_prefix_entries(self, pages: set) -> int:
         """Drops every index entry that maps any of ``pages`` (quarantine: a
-        poisoned row's pages must not stay reachable); returns the number of
-        entries dropped."""
+        poisoned row's pages must not stay reachable), with a persistent
+        store's claims on them; returns the number of entries dropped."""
         hit = [k for k, (_, page_map) in self._prefix.items()
                if any(pg in pages for _, pg in page_map)]
         for k in hit:
-            del self._prefix[k]
+            _, page_map = self._prefix.pop(k)
+            if self.persistent:
+                self.release([pg for _, pg in page_map])
         return len(hit)
 
 
@@ -310,6 +382,10 @@ class StreamScheduler:
         self.paged = paged
         self.page_size = page_size
         self.prefix_sharing = prefix_sharing
+        # the persistent store is sound exactly under block-causal attention
+        # (prompt K/V depend on the prompt bytes alone): it comes with the
+        # flag pair, and bidirectional sharing keeps its same-cycle index
+        self.persistent_prefix = bool(prefix_sharing and paged and gen.block_causal)
         self.preemption = preemption
         self.early_advance = early_advance
         t_total = prompt_len + gen.gen_length
@@ -324,7 +400,7 @@ class StreamScheduler:
                 raise ConfigError("pool too small: a full-length request could never be "
                                   "admitted")
             engine_kw.update(paged=True, page_size=page_size, kv_pages=kv_pages)
-            self.allocator = PageAllocator(kv_pages)
+            self.allocator = PageAllocator(kv_pages, persistent=self.persistent_prefix)
         self.engine = DiffusionEngine(model, gen, early_advance=early_advance, **engine_kw)
         self.device = self.engine.device
         self.n_blocks = gen.gen_length // gen.block_length
@@ -424,7 +500,9 @@ class StreamScheduler:
         length and block budget) maps the first one's pages read-only and
         allocates only its private pages, plus, when sampling, as many
         copy-on-write reserve pages as it shares, so the fork before its
-        first refresh never waits on the free list."""
+        first refresh never waits on the free list.  With the persistent
+        store the key drops the block budget and a hit, in any cycle, takes
+        no reserve: block-causal prompt K/V never diverge."""
         free = [i for i, r in enumerate(self.slot_req) if r is None]
         if not (self.queue or self._spilled) or (not free and not self.preemption):
             return
@@ -470,19 +548,24 @@ class StreamScheduler:
                 vp0 = -(-(self.prompt_len - len(p)) // self.page_size)   # first full prompt page
                 vp1 = self.prompt_len // self.page_size
                 if self.prefix_sharing and vp1 > vp0:
-                    share_key = (p.tobytes(), len(p), n_blocks)
+                    share_key = ((p.tobytes(), len(p)) if self.persistent_prefix
+                                 else (p.tobytes(), len(p), n_blocks))
                     share_hit = self.allocator.lookup_prefix(share_key)
                 if share_hit is not None:
                     owner_slot, owner_map = share_hit
                     shared_map = list(owner_map)
-                    n_res = len(shared_map) if sampled else 0
+                    n_res = len(shared_map) if sampled and not self.persistent_prefix else 0
                     n_priv = need - len(shared_map)
+                    # claimed before alloc: an eviction under pressure may
+                    # drop this very entry, and these claims keep its pages
                     self.allocator.share([pg for _, pg in shared_map])
                     got = self.allocator.alloc(n_priv + n_res)
                     if got is None:
                         self.allocator.release([pg for _, pg in shared_map])
                         break               # page-gated: retry next step
                     pages, reserve = got[:n_priv], got[n_priv:]
+                    if self.persistent_prefix:
+                        self.stats.prefix_hits += 1
                 else:
                     got = self.allocator.alloc(need)
                     if got is None and self._try_preempt(need, req.priority, free):
@@ -522,7 +605,7 @@ class StreamScheduler:
                 # one claim per mapped page; reserves are claims too, held by
                 # the cohort until a fork or retirement consumes them
                 self.slot_pages[slot] = pages + [pg for _, pg in shared_map]
-                if share_hit is not None:
+                if share_hit is not None and not self.persistent_prefix:
                     cohort = cycle_cohorts.get(share_key)
                     if cohort is None:
                         cohort = {"owner": owner_slot, "slots": {owner_slot: list(owner_map)},
@@ -532,7 +615,9 @@ class StreamScheduler:
                     cohort["slots"][slot] = list(shared_map)
                     if reserve:
                         cohort["reserve"][slot] = reserve
-                elif share_key is not None:
+                elif share_hit is None and share_key is not None:
+                    # persistent mode: the store takes its own claims, so the
+                    # pages outlive this slot
                     self.allocator.register_prefix(
                         share_key, (slot, [(vp, int(bt_row[vp])) for vp in range(vp0, vp1)]))
                 self.slot_order[slot] = self._admit_seq
@@ -544,9 +629,12 @@ class StreamScheduler:
             self.slot_req[slot] = req
             self.slot_streamed[slot] = 0
         if self.allocator is not None:
-            # bidirectional attention: the index only describes this cycle
-            self.allocator.clear_prefix_index()
+            if not self.persistent_prefix:
+                # bidirectional attention: the index only describes this cycle
+                self.allocator.clear_prefix_index()
             self.stats.shared_mappings = self.allocator.shared_mappings
+            self.stats.prefix_evictions = self.allocator.prefix_evictions
+            self.stats.pages_in_use = self.allocator.used_pages
         self.stats.resident_peak = max(self.stats.resident_peak,
                                        sum(r is not None for r in self.slot_req))
 
@@ -680,8 +768,16 @@ class StreamScheduler:
         host = torch.stack([pre.blocks_left, self.state.blocks_left, self.state.phase,
                             self.state.active.int(), self.state.poisoned.int(),
                             pre.cache_refreshed, self.state.cache_refreshed,
-                            pre.cache_eligible, self.state.cache_eligible]).cpu().numpy()
+                            pre.cache_eligible, self.state.cache_eligible,
+                            pre.bs, pre.iters, pre.prompt_start]).cpu().numpy()
         pre_bl, bl, phase, active, poisoned = host[:5]
+        if self.gen.block_causal and refresh_rows.any():
+            # positions this step's full refreshes left in place, from the
+            # horizon the engine's refresh token mask used
+            full = np.asarray(full_refresh_pred(self.gen, host[10]), bool)
+            inv = invariant_limit(self.gen, host[9], host[10], self.prompt_len)
+            skipped = np.maximum(inv - host[11], 0)
+            self.stats.invariant_tokens_skipped += int(skipped[refresh_rows & full].sum())
         self._phases = phase.astype(np.int32)
         self.stats.steps += 1
         dt = self.clock() - t0

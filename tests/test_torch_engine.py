@@ -145,8 +145,7 @@ def test_cadence_matches_reference():
 
 
 @pytest.mark.parametrize("change", [
-    dict(sparse_attention=True),
-    dict(window_blocks=1), dict(block_causal=True), dict(mode="beam"),
+    dict(sparse_attention=True), dict(mode="beam"),
 ], ids=lambda c: next(iter(c)))
 def test_features_outside_the_slice_raise(change):
     _, _, tm = models("llada-8b")

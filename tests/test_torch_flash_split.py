@@ -181,3 +181,20 @@ def test_plan_packs_rows_and_splits(b, hq, hkv, lq, lkv, want):
     p = plan(q, k, k, lkv, hkv)
     assert p.body == "tensor_core"
     assert (p.ks, p.row_tiles, p.n_splits, p.split_tiles) == want
+
+
+@pytest.mark.parametrize("bc_start,bc_block", [(0, 8), (24, 8), (128, 32), (100, 7)])
+def test_block_causal_row_bound_equals_block_rule(bc_start, bc_block):
+    """The tensor-core body applies block-causal masking as one bound per
+    query row, ``kv_pos < bc_start + (qb + 1) * bc_block`` with ``qb`` the
+    row's block (-1 for the prompt): it must admit exactly the keys whose
+    block is at most the row's, as ``ref.attention_mask`` decides."""
+    pos = torch.arange(-1, 3 * bc_start + 4 * bc_block, dtype=torch.int32)
+    q_pos, kv_pos = pos[None], pos[None]
+    want = ref.attention_mask(q_pos, kv_pos, bc_start=bc_start, bc_block=bc_block)[0]
+    qp = pos.long()
+    qb = torch.where(qp >= bc_start, torch.div(qp - bc_start, bc_block, rounding_mode="trunc"),
+                     -1)
+    lim = bc_start + (qb + 1) * bc_block
+    got = (pos[None, :] >= 0) & (pos[None, :].long() < lim[:, None])
+    assert torch.equal(got, want)

@@ -476,3 +476,54 @@ def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
             torch.testing.assert_close(gt.float(), wt.float(), atol=t, rtol=t)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_chunks(x, dt, a_log, bm, cm, chunk=32)
+
+
+PAGED_OPTIONS = [dict(bc_start=1536, bc_block=32), dict(window=96, anchor=0),
+                 dict(window=96, anchor=64), dict(window=96, anchor=64, bc_start=1536, bc_block=32),
+                 dict(causal=True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_mask_options_match_plain_version(cuda_device, dtype):
+    """The paged kernel with each mask option, on shuffled pages with some
+    unmapped, MHA and Dream's 28/4 GQA (whose packed rows take their key
+    block from their own query position), and under the sliding window's
+    read table, whose last splits hold no mapped page at all: such a split
+    must weigh 0 in the merge."""
+    from repro_torch.kernels.flash_attention import window_block_tables
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for ps in (8, 16):
+        for hq, hkv, lq, d in ((4, 4, 8, 64), (28, 4, 32, 128)):
+            n_vp = 1600 // ps
+            bt = (torch.randperm(n_vp, generator=g, device=cuda_device) + 1).int().view(1, n_vp)
+            bt[0, 3] = -1
+            pools = [torch.randn(n_vp + 1, ps, hkv, d, generator=g,
+                                 device=cuda_device).to(dtype) for _ in "kv"]
+            q = torch.randn(1, hq, lq, d, generator=g, device=cuda_device).to(dtype)
+            kv_pos = torch.arange(1600, dtype=torch.int32, device=cuda_device)[None].contiguous()
+            kv_pos[0, :5] = -1                      # left-pad prompt rows
+            for opts in PAGED_OPTIONS:
+                q_pos = torch.arange(1600 - 2 * lq, 1600 - lq, dtype=torch.int32,
+                                     device=cuda_device)[None].contiguous()
+                got = paged_flash_attention(q, *pools, q_pos, kv_pos, bt, **opts)
+                want = ref.paged_attention_reference(q, *pools, q_pos, kv_pos, bt, **opts)
+                assert (got.float() - want.float()).abs().max().item() <= tol, (ps, hq, opts)
+            # the window: rows past the horizon masked, their pages unwalked
+            limit = torch.tensor([800], dtype=torch.int32, device=cuda_device)
+            read_bt = window_block_tables(bt, limit, ps)
+            wkv = ops.window_kv_clamp(kv_pos, limit)
+            q_pos = torch.arange(800 - lq, 800, dtype=torch.int32, device=cuda_device)[None]
+            pl = plan(q, *pools, 1600, hkv, ps)
+            if pl.body == "tensor_core":
+                starts = [s for s, _ in ref.split_bounds(1600, pl.n_splits)]
+                assert pl.n_splits >= 2 and starts[-1] >= 800, "no split left unmapped"
+            for opts in ({}, dict(bc_start=768, bc_block=32)):
+                before = paged_flash_attention.tensor_core_launches
+                got = paged_flash_attention(q, *pools, q_pos.contiguous(), wkv, read_bt, **opts)
+                want = ref.paged_attention_reference(q, *pools, q_pos, wkv, read_bt, **opts)
+                assert torch.isfinite(got.float()).all()
+                assert (got.float() - want.float()).abs().max().item() <= tol, (ps, hq, opts)
+                if dtype == torch.bfloat16:
+                    assert paged_flash_attention.tensor_core_launches == before + 1

@@ -245,8 +245,7 @@ def test_serve_launcher_refuses_bad_combinations(flags, why):
 
 
 @pytest.mark.parametrize("flag", [["--lazy-reserve"],
-                                  ["--gather-refresh"], ["--block-causal"],
-                                  ["--window-blocks", "1"], ["--shards", "2"],
+                                  ["--gather-refresh"], ["--shards", "2"],
                                   ["--runtime", "batch"]], ids=lambda f: f[0])
 def test_serve_launcher_flags_outside_the_slice_raise(flag):
     with pytest.raises(ConfigError, match="ROADMAP"):
