@@ -26,7 +26,9 @@ no result):
    on contiguous planes and through a skip stage's ``idx``, and the
    variation score at LLaDA's and Dream's, each with its block shape; the
    host µs and kernels of one indexed ``ops.importance_score``
-   call, which must be 1); the threefry key chain's
+   call, which must be 1; paged attention and the paged scatter at a
+   sparse-served layout, with evicted rows and reclaimed pages, each beside
+   the same call without the holes); the threefry key chain's
    known answers on the card, a draw of the sampled path's shape with bits
    equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -40,6 +42,10 @@ no result):
    unshared run); sampled preemption (tokens equal the uninterrupted run);
    quarantine of a row with NaN written into its page; reduced mamba2-370m
    es greedy and sampled, and served on dense slots (tokens equal);
+   Sparse-dLLM eviction offline dense and paged (tokens and the retained
+   set equal), sparse serving with page reclaim (``pages_reclaimed`` equal
+   and > 0), lazy reservation on a tight pool (a stall and a growth, the
+   lazy gauges equal);
 5. offline path: LLaDA-8B at full width in bfloat16 (random weights from a
    seeded generator on the card), ES generation, with each kernel's
    launches counted over that run;
@@ -52,14 +58,20 @@ no result):
    preemption on a tight pool (7b: a class-1 arrival spills a class-0
    resident, which resumes) and with neither (7c);
 8. Mamba-2: mamba2-370m at full width in bfloat16 (seeded random weights
-   on the card), depth cut to 24 of its 48 layers, offline es and
+   on the card), depth cut to 6 of its 48 layers, offline es and
    dualcache generation and the dense-slot ``StreamScheduler`` with early
    advance, through the SSD chunk kernel;
 9. block-causal ES-dLLM with the sliding window: LLaDA-8B (phase 5's
    model) offline and through the paged scheduler with the persistent
-   prefix store.
+   prefix store;
+10. Sparse-dLLM eviction and lazy page reservation: LLaDA-8B (phase 5's
+   model) offline with es+sparse and sparse-only (each ``generate`` timed
+   in turns with phase 5's es), then a lazy, windowed, sparse trace through
+   the paged scheduler (every request completes; pages are deferred at
+   admission, an extent grows, a row stalls and resumes, a page is
+   reclaimed).
 
-On phases 5, 6, 7 and 9 every attention launch must take the tensor-core
+On phases 5, 6, 7, 9 and 10 every attention launch must take the tensor-core
 body, and phases 5 and 6 must keep one attention launch per call; on phase
 9 every attention launch must carry the block-causal options; on phase 8
 every SSD chunk launch must take the tensor-core body, and an offline es
@@ -220,9 +232,9 @@ BODIES = ("tensor_core", "cuda_core")
 # body must keep one launch per call
 LAUNCHES_OFFLINE_GENERATE = 2048
 LAUNCHES_SERVING_TRACE = 7872
-# phase 8's depth: mamba2-370m's 48 layers cut to 24, so that the whole run
-# with phase 9 stays within the time phases 1-8 took at full depth
-MAMBA_LAYERS = 24
+# phase 8's depth: mamba2-370m's 48 layers cut to 6, so that the whole run
+# with phases 9 and 10 stays within about the time phases 1-8 took at full depth
+MAMBA_LAYERS = 6
 # SSD chunk launches of one offline es mamba2 generate (phase 8), as the
 # CUDA-core body made them: one per decode pass and two per prefill in each
 # layer (66 a layer); the tensor-core body must keep them
@@ -497,6 +509,26 @@ def serving_layout(gen, ps, t_total=T_TOTAL):
     return bt, kv_pos, SLOTS * n_vp + 1
 
 
+def sparse_layout(gen, ps):
+    """The serving layout after sparse eviction, every slot at its first
+    generated block (the block at the prompt end): about half of each
+    slot's past rows dead (``kv_pos`` -1, a quarter of its settled pages
+    wholly), and the wholly dead pages behind the block unmapped, as the
+    scheduler's reclaim leaves them.  Returns the holed ``(bt, kv_pos)``,
+    the layout without holes and the pool size."""
+    bt, kv_pos, n_pages = serving_layout(gen, ps)
+    n_vp = bt.shape[1]
+    pos = torch.arange(T_TOTAL, device="cuda")[None]
+    settled = ((torch.arange(n_vp, device="cuda") + 1) * ps <= PROMPT)[None]
+    dead = (torch.rand(SLOTS, T_TOTAL, generator=gen, device="cuda") < 0.4) & (pos < PROMPT)
+    dead |= ((torch.rand(SLOTS, n_vp, generator=gen, device="cuda") < 0.25)
+             & settled).repeat_interleave(ps, dim=1)
+    holed = torch.where(dead, -1, kv_pos).contiguous()
+    alive = (holed >= 0).view(SLOTS, n_vp, ps).any(dim=2)
+    bt_holed = torch.where(~alive & settled, -1, bt).contiguous()
+    return (bt_holed, holed), (bt, kv_pos), n_pages
+
+
 def empty_splits(ref, pl, bt, ps: int) -> int:
     """KV splits of a tensor-core plan whose pages are all unmapped in every
     row of the block table ``bt``."""
@@ -511,12 +543,16 @@ def check_paged_flash(ref, paged_flash_attention, gen):
     """The serving layouts at page sizes 16 and 8, then one long Dream slot
     (1600 virtual rows) that the tensor-core body splits at row 832, split
     0 on unmapped pages only, split 1 ragged; then the mask options of the
-    block-causal and windowed paths (``paged_option_cases``)."""
+    block-causal and windowed paths (``paged_option_cases``); then the
+    sparse-served layout (``sparse_layout``) beside the same call without
+    holes."""
     from repro_torch.kernels.flash_attention import plan
 
-    def case(label, q, kp, vp, q_pos, kv_pos, bt, opts=None):
+    def case(label, q, kp, vp, q_pos, kv_pos, bt, opts=None, full=None):
         """One case; with mask ``opts`` it also times the same call without
-        them (``bidi_ms``: no tile is skipped for future blocks)."""
+        them (``bidi_ms``: no tile is skipped for future blocks); with
+        ``full = (kv_pos, bt)`` the same call on the layout without
+        eviction's holes (``full_ms``)."""
         dt, (hq, hkv, ps) = q.dtype, (q.shape[1], kp.shape[2], kp.shape[1])
         opts = opts or {}
         args = (q, kp, vp, q_pos, kv_pos, bt)
@@ -534,6 +570,9 @@ def check_paged_flash(ref, paged_flash_attention, gen):
         ms, wall = device_ms(lambda: paged_flash_attention(*args, **opts))
         plain_ms, _ = device_ms(lambda: ref.paged_attention_reference(*args, **opts))
         bidi_ms = device_ms(lambda: paged_flash_attention(*args))[0] if opts else None
+        full_ms = None
+        if full is not None:
+            full_ms = device_ms(lambda: paged_flash_attention(q, kp, vp, q_pos, *full))[0]
         mask = ref.attention_mask(q_pos, ref.paged_kv_mask(bt, kv_pos, ps), **opts)[:, None]
 
         def library():            # two calls: gather the pages, then SDPA
@@ -557,7 +596,7 @@ def check_paged_flash(ref, paged_flash_attention, gen):
                         bound_ms=bms, bound_by=by, mapped_pages=n_mapped, kv_rows_read=n_rows,
                         body=pl.body,
                         n_splits=pl.n_splits, empty_splits=empty_splits(ref, pl, bt, ps),
-                        options=opts, bidi_ms=bidi_ms)
+                        options=opts, bidi_ms=bidi_ms, full_ms=full_ms)
 
     out = []
     for dt in (torch.float32, torch.bfloat16):
@@ -591,6 +630,14 @@ def check_paged_flash(ref, paged_flash_attention, gen):
                 raise AssertionError(f"paged_flash_attention {label}: {pl}, not split at 832")
             out.append(rec)
         out += paged_option_cases(ref, case, gen, dt)
+        (bt, kv_pos), (bt_full, kv_full), n_pages = sparse_layout(gen, 16)
+        kp, vp = (torch.randn(n_pages, 16, 32, 128, generator=gen, device="cuda").to(dt)
+                  for _ in "kv")
+        q = torch.randn(SLOTS, 32, 32, 128, generator=gen, device="cuda").to(dt).transpose(1, 2)
+        q_pos = torch.arange(PROMPT, PROMPT + BLOCK, dtype=torch.int32,
+                             device="cuda")[None].repeat(SLOTS, 1)
+        out.append(case("llada block Lq=32 ps=16 sparse", q, kp, vp, q_pos, kv_pos, bt,
+                        full=(kv_full, bt_full))[1])
     return out
 
 
@@ -728,7 +775,49 @@ def check_paged_scatter(ref, scatter_rows_paged, gen):
                                rows_written=n_rows, row_bytes=row_bytes,
                                plan=dataclasses.asdict(plan(SLOTS, kk, 2, row_bytes)))
                     out.append(rec)
+        out.append(sparse_scatter_case(ref, scatter_rows_paged, gen, dt))
     return out
+
+
+def sparse_scatter_case(ref, scatter_rows_paged, gen, dt) -> dict:
+    """A refresh's LLaDA K/V scatter (all 192 rows of every slot, pages of
+    16) through the sparse-served table: rows of reclaimed pages land on the
+    garbage page.  Timed beside the same call through the table without
+    holes (``full_ms``); the bound counts the rows that land on mapped
+    pages."""
+    (bt, _), (bt_full, _), n_pages = sparse_layout(gen, 16)
+    h, d, ps = 32, 128, 16
+    kc, vc = (torch.randn(n_pages, ps, h, d, generator=gen, device="cuda").to(dt)
+              for _ in "kv")
+    kn, vn = (torch.randn(SLOTS, T_TOTAL, h, d, generator=gen, device="cuda").to(dt)
+              for _ in "kv")
+    idx = torch.arange(T_TOTAL, dtype=torch.int32, device="cuda")[None].repeat(SLOTS, 1)
+    want = (ref.scatter_rows_paged_reference(kc.clone(), kn, idx, bt),
+            ref.scatter_rows_paged_reference(vc.clone(), vn, idx, bt))
+    got = (kc.clone(), vc.clone())
+    scatter_rows_paged(((got[0], kn), (got[1], vn)), idx, bt)
+    if not all(torch.equal(g[1:], w[1:]) for g, w in zip(got, want)):
+        raise AssertionError(f"scatter_rows_paged sparse layout {dt}: not bit-exact")
+    ms, wall = device_ms(lambda: scatter_rows_paged(((got[0], kn), (got[1], vn)), idx, bt))
+    full_ms, _ = device_ms(lambda: scatter_rows_paged(((got[0], kn), (got[1], vn)), idx,
+                                                      bt_full))
+    plain_ms, _ = device_ms(lambda: (ref.scatter_rows_paged_reference(got[0], kn, idx, bt),
+                                     ref.scatter_rows_paged_reference(got[1], vn, idx, bt)))
+    page = torch.gather(bt.long(), 1, idx.long() // ps)
+    dest = (page.clamp(min=0) * ps + idx.long() % ps).view(-1)
+    fk, fv = got[0].view(-1, h, d), got[1].view(-1, h, d)
+    sk, sv = kn.reshape(-1, h, d), vn.reshape(-1, h, d)
+    lib_ms, _ = device_ms(lambda: (fk.index_copy_(0, dest, sk), fv.index_copy_(0, dest, sv)))
+    n_rows = int((page >= 0).sum().item())
+    row_bytes = h * d * kn.element_size()
+    bms, by = bound(2 * 2 * n_rows * row_bytes + nbytes(idx, bt), 0.0, dt)
+    return dict(kernel="scatter_rows_paged", case="llada prefill K=192 ps=16 sparse",
+                dtype=str(dt), max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall,
+                plain_ms=plain_ms, full_ms=full_ms, library_ms=lib_ms,
+                library="index_copy_ (K and V)", bound_ms=bms, bound_by=by,
+                rows_written=n_rows, rows_to_garbage=SLOTS * T_TOTAL - n_rows,
+                row_bytes=row_bytes, unmapped_pages=int((bt < 0).sum().item()),
+                unmapped_pages_full=int((bt_full < 0).sum().item()))
 
 
 def scatter_host_cost(ops, gen) -> dict:
@@ -1212,9 +1301,9 @@ def cross_device_serving():
                 distinct_ids=len({int(t) for r in outs["cpu"][0] for t in r.output}))
 
 
-def reduced_models(arch: str) -> dict:
-    """A reduced 4-layer model on the CPU, weight matrices x10 (random init
-    repeats one id), and its copy on the card."""
+def reduced_models(arch: str, scale: float = 10.0) -> dict:
+    """A reduced 4-layer model on the CPU, weight matrices x``scale`` (random
+    init repeats one id), and its copy on the card."""
     from repro_torch import configs
     from repro_torch.models import Model
 
@@ -1223,7 +1312,7 @@ def reduced_models(arch: str) -> dict:
     with torch.no_grad():
         for p in cpu.parameters():
             if p.dim() >= 2:
-                p.mul_(10.0)
+                p.mul_(scale)
     card = Model(cfg, device="cuda")
     card.load_state_dict(cpu.state_dict())
     return {"cpu": cpu, "cuda": card}
@@ -1509,6 +1598,91 @@ def cross_device_block_causal() -> dict:
         raise AssertionError(f"bc serving: store or exemption not exercised: {card}")
     out["served_bc_store_window"] = dict(requests=len(BC_TRACE), tokens_equal=True, **card,
                                          store_pages_compared=runs["cuda"][2])
+    return out
+
+
+# (prompt length, request options) of the reduced lazy trace on a pool of 10
+# pages: the first grows past its one-block hint, and of the two full
+# requests after it the younger stalls
+LAZY_TRACE = ((12, dict(max_new_tokens=8, max_blocks=3)), (16, {}), (16, {}))
+LAZY_GAUGES = ("pages_deferred", "blocks_grown", "window_stalls", "peak_pages_in_use")
+
+
+def cross_device_sparse() -> dict:
+    """Reduced LLaDA in float32, weights x2 (at x10 the eviction probe's
+    softmax saturates and its threshold falls between values an ulp apart,
+    which the kernels and the plain versions round differently), the card
+    against the CPU: offline es with sparse eviction, dense and paged (greedy
+    tokens and the last retained set equal); paged serving at retention 0.3
+    (tokens equal, ``pages_reclaimed`` equal and > 0); lazy reservation with
+    the one-block window on a 10-page pool (tokens and the lazy gauges equal,
+    a stall and a growth)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+    from repro_torch.runtime import Request, StreamScheduler
+
+    models = reduced_models("llada-8b", scale=2.0)
+    vocab = models["cpu"].cfg.vocab_size
+    sparse = dict(mode="es", gen_length=16, block_length=4, prompt_refresh_period=2,
+                  block_refresh_period=3, sparse_attention=True, sparse_retention=0.5,
+                  skip_stages=(configs.SkipStage(1, 0.5), configs.SkipStage(2, 0.5)))
+    prompt = torch.randint(3, vocab, (2, 16), generator=torch.Generator().manual_seed(SEED + 2))
+    out: dict = {}
+    for name, ekw in (("offline_sparse", {}), ("offline_sparse_paged", dict(paged=True,
+                                                                             page_size=8))):
+        toks, kv = {}, {}
+        for dev, model in models.items():
+            eng = make_engine(model, configs.GenerationConfig(**sparse), device=model.device,
+                              **ekw)
+            toks[dev] = eng.generate(prompt).cpu()
+            kv[dev] = eng.last_state.kv_valid.cpu()
+        if not (torch.equal(toks["cpu"], toks["cuda"]) and torch.equal(kv["cpu"], kv["cuda"])):
+            raise AssertionError(f"{name}: card tokens or retained set differ from the CPU's:"
+                                 f"\n{toks['cpu']}\n{toks['cuda']}")
+        out[name] = dict(tokens_equal=True, retained_equal=True,
+                         retained_share=kv["cpu"].float().mean().item(),
+                         distinct_ids=len(torch.unique(toks["cpu"][:, 16:])))
+
+    def serve(gen_cfg, plan, **skw):
+        runs = {}
+        for dev, model in models.items():
+            sched = StreamScheduler(model, gen_cfg, device=model.device, max_slots=2,
+                                    prompt_len=16, paged=True, page_size=8, **skw)
+            reqs = [Request(prompt=p.copy(), **kw) for p, kw in plan]
+            for r in reqs:
+                sched.submit(r)
+            sched.drain()
+            check_drained(sched, reqs)
+            runs[dev] = ([r.output for r in reqs], sched.stats)
+        for a, b in zip(runs["cpu"][0], runs["cuda"][0]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"served tokens differ:\n{a}\n{b}")
+        return runs["cpu"][1], runs["cuda"][1]
+
+    rng = np.random.default_rng(SEED + 3)
+    plan = [(rng.integers(3, vocab, 16).astype(np.int32), {}) for _ in range(4)]
+    cpu, card_st = serve(configs.GenerationConfig(
+        **{**sparse, "sparse_retention": 0.3, "block_length": 8}), plan)
+    if not cpu.pages_reclaimed == card_st.pages_reclaimed > 0:
+        raise AssertionError(f"sparse serving: pages_reclaimed {card_st.pages_reclaimed} on "
+                             f"the card, {cpu.pages_reclaimed} on the CPU")
+    out["served_sparse_reclaim"] = dict(requests=len(plan), tokens_equal=True,
+                                        pages_reclaimed=card_st.pages_reclaimed)
+    lazy = dict(mode="es", gen_length=32, block_length=8, prompt_refresh_period=2,
+                block_refresh_period=4, window_blocks=1,
+                skip_stages=(configs.SkipStage(1, 0.5),))
+    plan = [(rng.integers(3, vocab, n).astype(np.int32), kw) for n, kw in LAZY_TRACE]
+    cpu, card_st = serve(configs.GenerationConfig(**lazy), plan, kv_pages=11,
+                         early_advance=True, lazy_reserve=True)
+    gauges = {g: getattr(card_st, g) for g in LAZY_GAUGES}
+    if gauges != {g: getattr(cpu, g) for g in LAZY_GAUGES}:
+        raise AssertionError(f"lazy serving gauges differ: card {gauges}, CPU "
+                             f"{ {g: getattr(cpu, g) for g in LAZY_GAUGES} }")
+    if not (gauges["window_stalls"] > 0 and gauges["blocks_grown"] > 0):
+        raise AssertionError(f"lazy serving: no stall or no growth: {gauges}")
+    out["served_lazy_tight_pool"] = dict(requests=len(plan), tokens_equal=True, **gauges)
     return out
 
 
@@ -1833,6 +2007,199 @@ def bc_window_paths(model, kernel_fns) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: Sparse-dLLM eviction and lazy page reservation, LLaDA-8B
+# ---------------------------------------------------------------------------
+SPARSE = dict(sparse_attention=True, sparse_retention=0.5, sparse_kernel_size=3)
+# the served trace: prompts of 32-128 tokens, one every 5 steps.  The
+# requests with max_blocks 4 ask for 64 new tokens (their first window) and
+# may grow their extent to 128; the others ask for 128, two blocks past the
+# first window, which admission defers
+LAZY_LENS = (32, 64, 96, 128, 32, 64, 96, 128)
+LAZY_MAX_BLOCKS = (4, None, 4, None, 4, None, 4, None)
+LAZY_MAX_NEW = (64, 128, 64, 128, 64, 128, 64, 128)
+LAZY_GEN = 128
+# pool: 40 pages hold the first four requests' prompts and first windows
+# (6 + 8 + 10 + 12), not their full extents (10 + 12 + 14 + 16 = 52)
+LAZY_KV_PAGES = 41
+
+
+def offline_cfgs(cfg) -> dict:
+    """Phase 5's es config, the same with Sparse-dLLM eviction (Table 13's
+    es+sparse), and sparse eviction alone behind one zero-ratio probe stage
+    at layer n_groups // 4 (Table 13's sparse-only)."""
+    from repro_torch import configs
+
+    base = dict(mode="es", gen_length=64, block_length=32, prompt_refresh_period=32,
+                block_refresh_period=4)
+    stages = configs.default_skip_stages(cfg.n_layers)
+    return {"es": configs.GenerationConfig(skip_stages=stages, **base),
+            "es+sparse": configs.GenerationConfig(skip_stages=stages, **base, **SPARSE),
+            "sparse_only": configs.GenerationConfig(
+                skip_stages=(configs.SkipStage(cfg.n_layers // 4, 0.0),), **base, **SPARSE)}
+
+
+def record_retained(engine) -> list:
+    """Wraps ``engine``'s full refresh: after each, the share of the
+    attendable out-of-block rows that the eviction retained (one host read
+    per refresh: only for an untimed run)."""
+    shares, prefill = [], engine._prefill_step
+
+    def wrapped(st, bs, iters, prompt_start, *args, **kwargs):
+        out = prefill(st, bs, iters, prompt_start, *args, **kwargs)
+        col = torch.arange(st.tokens.shape[1], device=bs.device)[None]
+        past = (col >= prompt_start[:, None]) & ~engine._in_block(bs, st.tokens.shape[1])
+        shares.append(round((out[4] & past).sum().item() / past.sum().item(), 4))
+        return out
+    engine._prefill_step = wrapped
+    return shares
+
+
+def sparse_offline(model, kernel_fns) -> dict:
+    """10a: Table 13's es+sparse and sparse-only rows offline (batch 2,
+    prompt 128, gen 64, block 32), each ``generate`` timed in turns with
+    phase 5's es.  Every attention launch must take the tensor-core body."""
+    from repro_torch.core import make_engine
+
+    cfg = model.cfg
+    prompt = torch.randint(3, cfg.vocab_size, (2, PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    engines = {name: make_engine(model, g, device="cuda")
+               for name, g in offline_cfgs(cfg).items()}
+    runs = {name: dict(wall_s=[]) for name in engines}
+    tokens = {}
+    for name, eng in engines.items():                    # warm-up, retained shares
+        shares = record_retained(eng) if name != "es" else None
+        tokens[name] = eng.generate(prompt)
+        if shares is not None:
+            runs[name]["retained_share_per_refresh"] = shares
+            del eng._prefill_step
+    torch.cuda.synchronize()
+    for name in ("es", "es+sparse", "sparse_only", "sparse_only", "es+sparse", "es"):
+        zero_counts(kernel_fns)
+        t0 = time.perf_counter()
+        again = engines[name].generate(prompt)
+        torch.cuda.synchronize()
+        runs[name]["wall_s"].append(time.perf_counter() - t0)
+        runs[name]["launches"] = counts(kernel_fns)
+        if not torch.equal(again, tokens[name]):
+            raise AssertionError(f"phase 10 {name}: a repeated greedy generate gave other tokens")
+    for name, r in runs.items():
+        check_tensor_core_path(r["launches"], f"phase 10 {name}")
+        gen_tok = tokens[name][:, PROMPT:]
+        if (gen_tok == engines[name].mask_id).any().item():
+            raise AssertionError(f"phase 10 {name}: a [mask] id is left in the output")
+        for kname in ("flash_attention", "scatter_rows", "importance"):
+            if r["launches"][kname] <= 0:
+                raise AssertionError(f"phase 10 {name}: kernel {kname} was not launched")
+        r.update(iterations=engines[name].iterations,
+                 equal_to_es=(gen_tok == tokens["es"][:, PROMPT:]).float().mean().item(),
+                 distinct_ids=len(torch.unique(gen_tok)))
+        if name == "es+sparse":         # one sparse row's device profile (phase 5 has es's)
+            r["profile"] = profile_run(lambda: engines[name].generate(prompt))
+    return dict(batch=2, prompt_len=PROMPT, gen_length=64, block_length=BLOCK,
+                sparse_only_stage=cfg.n_layers // 4, runs=runs)
+
+
+def lazy_served(model, kernel_fns) -> dict:
+    """10b: the paged scheduler with early advance, phase 6's cadence and
+    adaptive cache, the one-block window, lazy reservation and sparse
+    retention 0.5 over ``LAZY_LENS`` (one request every 5 steps) on a pool
+    of ``LAZY_KV_PAGES``.  Every attention launch must take the tensor-core
+    body; every request must complete; admission must defer pages, and
+    the trace must grow an extent, stall a row and reclaim a page."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.runtime import StreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=LAZY_GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers), prompt_refresh_period=8,
+        block_refresh_period=4, cache_prompt_interval=2, window_blocks=1, **SPARSE)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in LAZY_LENS]
+
+    def make():
+        return StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
+                               prompt_len=PROMPT, paged=True, page_size=16,
+                               kv_pages=LAZY_KV_PAGES, early_advance=True, lazy_reserve=True)
+
+    def trace(sched, n=len(prompts)):
+        from repro_torch.runtime import Request
+
+        reqs = [Request(prompt=p.copy(), max_new_tokens=m, max_blocks=mb)
+                for p, m, mb in zip(prompts[:n], LAZY_MAX_NEW, LAZY_MAX_BLOCKS)]
+        step = 0
+        while step <= 5 * (n - 1) or sched.has_work():
+            if step % 5 == 0 and step // 5 < n:
+                sched.submit(reqs[step // 5])
+            sched.step()
+            step += 1
+        return reqs
+    trace(make(), 1)                                        # warm-up
+    torch.cuda.synchronize()
+    sched = make()
+    zero_counts(kernel_fns)
+    t0 = time.perf_counter()
+    reqs = trace(sched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    check_tensor_core_path(launches, "phase 10 served")
+    for r in reqs:
+        if r.error is not None or r.output is None:
+            raise AssertionError(f"phase 10 served: request {r.request_id}: {r.error!r}")
+        if (r.output == sched.engine.mask_id).any():
+            raise AssertionError(f"phase 10 served: a [mask] id in request {r.request_id}")
+    st = sched.stats
+    # each granted extent block adds its pages to the gauge; the rest were
+    # deferred at admission
+    admission_deferred = st.pages_deferred - st.blocks_grown * (BLOCK // 16)
+    if st.completed != len(reqs):
+        raise AssertionError(f"phase 10 served: {st.completed} of {len(reqs)} completed")
+    # each of the page manager's mechanisms runs at full width: a deficit
+    # at admission, extent growth, a stall that resumes, a reclaimed page
+    if not (admission_deferred > 0 and st.blocks_grown > 0 and st.window_stalls > 0
+            and st.pages_reclaimed > 0):
+        raise AssertionError(f"phase 10 served: pages_deferred {st.pages_deferred} "
+                             f"(at admission {admission_deferred}), blocks_grown "
+                             f"{st.blocks_grown}, window_stalls {st.window_stalls}, "
+                             f"pages_reclaimed {st.pages_reclaimed}")
+    for kname in ("paged_flash_attention", "scatter_rows_paged", "importance", "variation"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"phase 10 served: kernel {kname} was not launched")
+    if sched.allocator.free_pages != sched.allocator.num_pages - 1:
+        raise AssertionError("phase 10 served: the pool did not get every page back")
+    again: list = []
+    profile = profile_run(lambda: again.extend(trace(make())))
+    if not all(np.array_equal(a.output, b.output) for a, b in zip(reqs, again)):
+        raise AssertionError("phase 10 served: a repeated greedy run gave other tokens")
+    # the pages each request would map up front without lazy reservation,
+    # at its full extent (max_blocks where set, else its new tokens)
+    full = [-(-(PROMPT + BLOCK * (mb or m // BLOCK)) // 16) - (PROMPT - n) // 16
+            for n, m, mb in zip(LAZY_LENS, LAZY_MAX_NEW, LAZY_MAX_BLOCKS)]
+    fit = sum(sum(full[:k + 1]) <= LAZY_KV_PAGES - 1 for k in range(len(full)))
+    return dict(
+        slots=SLOTS, prompt_len=PROMPT, page_size=16, gen_length=LAZY_GEN,
+        block_length=BLOCK, window_blocks=1, prompt_lens=list(LAZY_LENS),
+        max_blocks=list(LAZY_MAX_BLOCKS), max_new_tokens=list(LAZY_MAX_NEW), submit_every=5,
+        pool_pages=LAZY_KV_PAGES - 1,
+        full_reservation_pages=full, full_reservation_residents=min(fit, SLOTS),
+        steps=st.steps, wall_s=wall, ms_per_step=wall / st.steps * 1e3,
+        tokens_per_s=sum(len(r.output) for r in reqs) / wall,
+        output_tokens=[len(r.output) for r in reqs],
+        latency_p50_s=st.latency_pct(50), latency_p95_s=st.latency_pct(95),
+        pages_deferred=st.pages_deferred, admission_deferred=admission_deferred,
+        blocks_grown=st.blocks_grown, window_stalls=st.window_stalls,
+        pages_reclaimed=st.pages_reclaimed,
+        peak_pages_in_use=st.peak_pages_in_use, resident_peak=st.resident_peak,
+        cache_hit_fraction=st.cache_hit_fraction, passes=dict(sched.engine.pass_counts),
+        launches=launches, profile=profile,
+        kernels_per_step=profile["kernels_launched"] / st.steps)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: sampled serving of Dream-7B at full width
 # ---------------------------------------------------------------------------
 # (submit step, prompt, priority): two duplicate-prompt cohorts (A, B) in
@@ -1982,14 +2349,13 @@ def dream_serving(model, kernel_fns) -> dict:
         out[name]["share_equal_to_7c"] = sum(same) / len(same)
     if out["7c first"]["share_equal_to_7c"] != 1.0:
         raise AssertionError("two runs of 7c decoded different tokens")
-    for name in ("7a", "7c"):
-        again: list = []
-        out[name]["profile"] = profile_run(
-            lambda: again.extend(dream_trace(make(runs[name]), prompts)[0]))
-        out[name]["repeat_equal"] = all(np.array_equal(a.output, b) for a, b in
-                                        zip(again, outputs[name]))
-        out[name]["kernels_per_step"] = (out[name]["profile"]["kernels_launched"]
-                                         / out[name]["steps"])
+    # one profiled run, 7a's ("7c first" already repeats 7c)
+    again: list = []
+    out["7a"]["profile"] = profile_run(
+        lambda: again.extend(dream_trace(make(runs["7a"]), prompts)[0]))
+    out["7a"]["repeat_equal"] = all(np.array_equal(a.output, b) for a, b in
+                                    zip(again, outputs["7a"]))
+    out["7a"]["kernels_per_step"] = out["7a"]["profile"]["kernels_launched"] / out["7a"]["steps"]
     return dict(arch=cfg.name, dtype=str(model.dtype), layers=cfg.n_layers, d_model=cfg.d_model,
                 weights_gb=sum(nbytes(p) for p in model.parameters()) / 1e9, slots=SLOTS,
                 prompt_len=PROMPT, page_size=16, gen_length=GEN,
@@ -2255,6 +2621,8 @@ def main() -> int:
             body = " {threads}x{rows_per_block}x{chunk_bytes}".format(**c["plan"])
         elif "plan" in c:
             body = " {group}x{loads}".format(**c["plan"])
+        if c.get("full_ms") is not None:
+            body += f" without holes {c['full_ms']:.4f}"
         print(f"{c['kernel']:21s} {c['case']:34s} {c['dtype']:15s}{body} "
               f"err {c['max_abs_err']:.2e} ms {c['ms']:.4f} (wall {c['wall_ms']:.4f}) "
               f"plain {c['plain_ms']:.4f} library {lib} bound {c['bound_ms']:.4f} "
@@ -2296,6 +2664,8 @@ def main() -> int:
     print(f"cross-device mamba2: {json.dumps(cross_mamba)}")
     cross_bc = cross_device_block_causal()
     print(f"cross-device block-causal and window: {json.dumps(cross_bc)}")
+    cross_sparse = cross_device_sparse()
+    print(f"cross-device sparse eviction and lazy reservation: {json.dumps(cross_sparse)}")
     lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
@@ -2320,9 +2690,24 @@ def main() -> int:
     for name, r in bc_runs.items():
         print(f"block-causal + window {name}: {json.dumps(r)}")
         check_tensor_core_path(r["launches"], f"phase 9 {name}")
+    lap("9")
+
+    # phase 10 (on phase 5's model): Sparse-dLLM eviction offline, and the
+    # lazy, windowed, sparse served trace
+    sparse_runs = {"offline": sparse_offline(model, kernel_fns),
+                   "served": lazy_served(model, kernel_fns)}
+    for name, r in sparse_runs["offline"]["runs"].items():
+        print(f"phase 10 offline {name}: {json.dumps(r)}")
+    served = sparse_runs["served"]
+    print(f"phase 10 served: {json.dumps(served)}")
+    print("phase 10 served, per request: output tokens {output_tokens}, max_new_tokens "
+          "{max_new_tokens}, max_blocks {max_blocks}; pages_deferred {pages_deferred} "
+          "(at admission {admission_deferred}), blocks_grown {blocks_grown}, window_stalls "
+          "{window_stalls}, pages_reclaimed {pages_reclaimed}, peak pages {peak_pages_in_use} "
+          "of {pool_pages}".format(**served))
     del model
     torch.cuda.empty_cache()
-    lap("9")
+    lap("10")
 
     # phase 7: sampled serving of Dream-7B at full width
     dream, dream_init_s = dream_7b()
@@ -2391,7 +2776,9 @@ def main() -> int:
              cross_device_preemption=cross_preempt, quarantine=cross_quarantine,
              scatter_host=scatter_host, importance_host=importance_host,
              cross_device_mamba=cross_mamba, cross_device_block_causal=cross_bc,
+             cross_device_sparse=cross_sparse,
              offline_path=run, serving_path=serving, block_causal_window=bc_runs,
+             sparse_lazy=sparse_runs,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

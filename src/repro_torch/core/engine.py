@@ -53,6 +53,16 @@ The sliding active window (``window_blocks``): a row attends positions
 below ``core.schedule.window_limit`` of its block start, through a clamp
 of ``kv_pos`` and, paged, a read view of the block table.
 
+Sparse-dLLM eviction (``sparse_attention``, App. C.3.2): each full refresh
+scores the out-of-block cache rows by the attention the block's queries
+give them at the layer after the first skip stage and keeps the top
+``sparse_retention`` share (``_sparse_evict``, plain PyTorch as in the
+reference, outside any kernel).  The retained set ``kv_valid`` is sticky:
+it carries across refreshes and blocks, offline and served, and a refresh
+only shrinks it outside the current block.  Evicted rows read as ``kv_pos
+< 0``; the scheduler unmaps pages wholly dead behind the block
+(``dead_pages``) and the kernels read and write around them.
+
 Page operations for the scheduler (paged serving): ``fork_pages`` (the
 copy-on-write copy behind prefix sharing, a hand-written kernel on the
 card), ``spill_pages``/``restore_pages`` (preemption) and ``scrub_pages``
@@ -87,11 +97,12 @@ from repro_torch.core.schedule import (
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import row_gather, row_scatter
+from repro_torch.models.common import apply_rope, rms_norm, row_gather, row_scatter
 from repro_torch.models.mamba import SSMCache
 from repro_torch.models.model import ForwardCtx, Model
 
 MODES = ("vanilla", "dualcache", "es")
+NEG_INF = -1e30
 PASSES = {SKIP_DECODE: "skip", BLOCK_REFRESH: "noskip", PREFILL: "prefill",
           PARTIAL: "partial"}
 
@@ -103,6 +114,7 @@ class BlockState(NamedTuple):
     conf: torch.Tensor               # [B, Lb] f32 confidence cache
     pred: torch.Tensor               # [B, Lb] int32 predicted-token cache
     hidden: tuple                    # per skip stage: [B, Lb, d] f32 indicator cache
+    kv_valid: torch.Tensor           # [B, T] bool sparse-attention retention set
     t: int                           # iteration counter within the block
     # adaptive feature cache (None without it): probe-boundary features and
     # last-observed confidence at every position, carried across blocks
@@ -118,6 +130,7 @@ class EngineState(NamedTuple):
     conf: torch.Tensor               # [B, Lb]
     pred: torch.Tensor               # [B, Lb]
     hidden: tuple
+    kv_valid: torch.Tensor           # [B, T] bool sparse-attention retention set
     bs: torch.Tensor                 # [B] int32 start of the current block
     blocks_left: torch.Tensor        # [B] int32 blocks not yet completed (incl. current)
     phase: torch.Tensor              # [B] int32 within-block iteration phase
@@ -137,8 +150,7 @@ class EngineState(NamedTuple):
 def _unsupported(gen: GenerationConfig, kv_cache_dtype, gather_refresh) -> Optional[str]:
     if gen.mode not in MODES:
         return f"mode={gen.mode!r} (one of {MODES})"
-    for flag, what in ((gen.sparse_attention, "sparse_attention"),
-                       (kv_cache_dtype is not None, "the int8 KV cache"),
+    for flag, what in ((kv_cache_dtype is not None, "the int8 KV cache"),
                        (gather_refresh, "gather_refresh")):
         if flag:
             return f"{what} is outside this slice of the port (ROADMAP.md open items)"
@@ -176,10 +188,11 @@ class DiffusionEngine:
             raise ValueError("gen_length must be a multiple of block_length")
         if paged and (gen.mode == "vanilla" or page_size <= 0):
             raise ValueError("paged KV needs a cached engine mode and page_size > 0")
-        if model.ssm and (paged or gen.adaptive_cache):
+        if model.ssm and (paged or gen.adaptive_cache or gen.sparse_attention):
+            what = ("paged KV" if paged else "the adaptive feature cache" if gen.adaptive_cache
+                    else "sparse attention (its probe scores a K cache)")
             raise NotImplementedError(
-                f"{'paged KV' if paged else 'the adaptive feature cache'} on an SSM stack "
-                f"is outside the port so far (ROADMAP.md open items)")
+                f"{what} on an SSM stack is outside the port so far (ROADMAP.md open items)")
         self.model = model
         self.cfg = model.cfg
         self.gen = gen
@@ -198,6 +211,11 @@ class DiffusionEngine:
         else:
             self.segments = [Segment(0, model.n_groups, None, None)]
         self.n_stages = sum(1 for s in self.segments if s.keep_k is not None)
+        self.sparse = gen.sparse_attention
+        if self.sparse and (self.cfg.pattern_period != 1 or self.n_stages == 0):
+            raise ValueError("sparse attention needs a period-1 stack and a skip stage as its "
+                             "indicator probe; use a zero-ratio stage (SkipStage(l, 0.0)) "
+                             "for sparse-only mode")
         self.n_per_step = max(1, -(-lb // gen.resolved_steps()))
         self.adaptive_cache = gen.adaptive_cache
         if self.adaptive_cache:
@@ -223,12 +241,21 @@ class DiffusionEngine:
         lb = self.gen.block_length
         return bs[:, None] + torch.arange(lb, dtype=torch.int32, device=self.device)[None]
 
-    def _kv_pos(self, prompt_start: torch.Tensor, t_total: int) -> torch.Tensor:
-        """[B, T] int32 cache-validity positions: -1 for pad prompt rows
-        (pos < prompt_start).  Unmapped pages are masked one level down, by
-        ``ops.paged_attention``."""
-        pos = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
-        return torch.where(pos >= prompt_start[:, None], pos, -1)
+    def _kv_pos(self, kv_valid: torch.Tensor, prompt_start: torch.Tensor) -> torch.Tensor:
+        """[B, T] int32 cache-validity positions: -1 for sparse-evicted rows
+        (``kv_valid`` false) and pad prompt rows (pos < prompt_start).
+        Unmapped pages are masked one level down, by ``ops.paged_attention``.
+        Without sparse attention ``kv_valid`` is all true and not read."""
+        pos = torch.arange(kv_valid.shape[1], dtype=torch.int32, device=self.device)[None]
+        valid = pos >= prompt_start[:, None]
+        if self.sparse:
+            valid = valid & kv_valid
+        return torch.where(valid, pos, -1)
+
+    def _in_block(self, bs: torch.Tensor, t_total: int) -> torch.Tensor:
+        """[B, T] bool: the positions of each row's current block."""
+        col = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
+        return (col >= bs[:, None]) & (col < bs[:, None] + self.gen.block_length)
 
     def _bc_args(self, t_total: int) -> dict:
         """Block-causal mask options for a ``t_total``-position sequence: the
@@ -291,23 +318,27 @@ class DiffusionEngine:
         prompt_start = prompt_start.to(device=self.device, dtype=torch.int32)
         key, seeds = self._key_and_seeds(b, key, sample_seeds)
         bt = self._identity_block_tables(b, t_total) if self.paged else None
-        # the KV cache and the adaptive cache's planes carry across blocks;
-        # each block's first iteration is a prefill that rewrites the K/V
+        # the KV cache, the sticky retention set and the adaptive cache's
+        # planes carry across blocks; each block's first iteration is a
+        # prefill that rewrites the K/V
         cache = self._init_cache(b, t_total)
+        kv_valid = torch.ones((b, t_total), dtype=torch.bool, device=self.device)
         feat, conf_full = self._feature_planes(b, t_total)
         self.iterations = 0
         for blk in range(gen.gen_length // lb):
-            self.last_state = self._run_block(tokens, cache, feat, conf_full, p + blk * lb,
-                                              blk * gen.resolved_steps(), prompt_start, bt,
-                                              key, seeds)
-            tokens, feat, conf_full = (self.last_state.tokens, self.last_state.feat,
-                                       self.last_state.conf_full)
+            self.last_state = self._run_block(tokens, cache, kv_valid, feat, conf_full,
+                                              p + blk * lb, blk * gen.resolved_steps(),
+                                              prompt_start, bt, key, seeds)
+            tokens, kv_valid, feat, conf_full = (
+                self.last_state.tokens, self.last_state.kv_valid, self.last_state.feat,
+                self.last_state.conf_full)
         return tokens
 
     def make_block_state(self, tokens: torch.Tensor) -> BlockState:
         b, t_total = tokens.shape
         return self._block_state(tokens.to(device=self.device, dtype=torch.int32),
                                  self._init_cache(b, t_total),
+                                 torch.ones((b, t_total), dtype=torch.bool, device=self.device),
                                  *self._feature_planes(b, t_total))
 
     @torch.no_grad()
@@ -348,7 +379,7 @@ class DiffusionEngine:
                             device=self.device),
                 torch.zeros((b, t_total), dtype=torch.float32, device=self.device))
 
-    def _block_state(self, tokens, cache, feat=None, conf_full=None) -> BlockState:
+    def _block_state(self, tokens, cache, kv_valid, feat=None, conf_full=None) -> BlockState:
         b, lb, d = tokens.shape[0], self.gen.block_length, self.cfg.d_model
         dev = self.device
         return BlockState(
@@ -357,7 +388,7 @@ class DiffusionEngine:
             pred=torch.zeros((b, lb), dtype=torch.int32, device=dev),
             hidden=tuple(torch.zeros((b, lb, d), dtype=torch.float32, device=dev)
                          for _ in range(self.n_stages)),
-            t=0, feat=feat, conf_full=conf_full)
+            kv_valid=kv_valid, t=0, feat=feat, conf_full=conf_full)
 
     def _offline_rows(self, st: BlockState, bs: int):
         """(bs [B], prompt_start [B], block tables) of the offline layout."""
@@ -391,10 +422,10 @@ class DiffusionEngine:
         key, seeds = self._key_and_seeds(st.tokens.shape[0], None, None)
         return self._row_keys(key, seeds, st.t)
 
-    def _run_block(self, tokens, cache, feat, conf_full, bs: int, iters0: int,
+    def _run_block(self, tokens, cache, kv_valid, feat, conf_full, bs: int, iters0: int,
                    prompt_start, bt, key, seeds) -> BlockState:
         gen = self.gen
-        st = self._block_state(tokens, cache, feat, conf_full)
+        st = self._block_state(tokens, cache, kv_valid, feat, conf_full)
         bs_rows = torch.full((tokens.shape[0],), bs, dtype=torch.int32, device=self.device)
         max_steps = gen.resolved_steps() + 1
         while st.t == 0 or (st.t < max_steps and self._any_masked(st, bs)):
@@ -411,10 +442,10 @@ class DiffusionEngine:
     def _iteration_outputs(self, st: BlockState, bs, iters: int, prompt_start, bt, keys):
         """Branch-dispatched compute for one denoising iteration at phase
         ``st.t`` and lifetime iteration ``iters``, drawing with ``keys``.
-        Returns ``(cache, conf, pred, hidden, feat, stats)``."""
+        Returns ``(cache, conf, pred, hidden, kv_valid, feat, stats)``."""
         if self.gen.mode == "vanilla":
             conf, pred = self._vanilla_compute(st, bs, keys)
-            return st.cache, conf, pred, st.hidden, st.feat, None
+            return st.cache, conf, pred, st.hidden, st.kv_valid, st.feat, None
         branch = branch_index(self.gen, st.t, iters)
         self.pass_counts[PASSES[branch]] += 1
         if branch == PREFILL:
@@ -423,8 +454,9 @@ class DiffusionEngine:
             return self._partial_refresh_step(st, bs, prompt_start, bt, keys)
         return self._decode_step(st, bs, prompt_start, bt, keys, skip=branch != BLOCK_REFRESH)
 
-    def _apply_unmask(self, st: BlockState, bs, cache, conf, pred, hidden, feat=None,
-                      stats=None, active: Optional[torch.Tensor] = None) -> BlockState:
+    def _apply_unmask(self, st: BlockState, bs, cache, conf, pred, hidden, kv_valid,
+                      feat=None, stats=None,
+                      active: Optional[torch.Tensor] = None) -> BlockState:
         cols = self._block_cols(bs)
         blk_tok = row_gather(st.tokens, cols)
         sel = smp.select_unmask(conf, blk_tok == self.mask_id, self.gen, self.n_per_step)
@@ -436,7 +468,7 @@ class DiffusionEngine:
             # the block's freshest confidences at their absolute positions:
             # settled blocks keep their final values for the refresh priority
             conf_full = st.conf_full.scatter(1, cols.long(), conf)
-        return BlockState(tokens, cache, conf, pred, hidden, st.t + 1,
+        return BlockState(tokens, cache, conf, pred, hidden, kv_valid, st.t + 1,
                           st.feat if feat is None else feat, conf_full)
 
     # ------------------------------------------------------------------
@@ -459,7 +491,7 @@ class DiffusionEngine:
                             device=dev)
         return EngineState(
             tokens=bst.tokens, cache=bst.cache, conf=bst.conf, pred=bst.pred,
-            hidden=bst.hidden,
+            hidden=bst.hidden, kv_valid=bst.kv_valid,
             bs=torch.full((batch,), prompt_len, dtype=torch.int32, device=dev),
             blocks_left=zeros(torch.int32), phase=zeros(torch.int32),
             iters=zeros(torch.int32), active=zeros(torch.bool),
@@ -478,15 +510,15 @@ class DiffusionEngine:
         steps_pb, lb = gen.resolved_steps(), gen.block_length
         bs = state.bs
         st = BlockState(state.tokens, state.cache, state.conf, state.pred, state.hidden,
-                        state.phase, state.feat, state.conf_full)
+                        state.kv_valid, state.phase, state.feat, state.conf_full)
         keys = self._row_keys(state.key, state.sample_seeds, state.iters)
         if gen.mode == "vanilla":
             conf, pred = self._vanilla_compute(st, bs, keys)
-            outs = (st.cache, conf, pred, st.hidden, st.feat, None)
+            outs = (st.cache, conf, pred, st.hidden, st.kv_valid, st.feat, None)
         else:
             outs = self._mixed_step_outputs(state, st, keys)
-        stats = outs[5]
-        st = self._apply_unmask(st, bs, *outs[:5], active=state.active)
+        stats = outs[6]
+        st = self._apply_unmask(st, bs, *outs[:6], active=state.active)
 
         # poison detector: a non-finite confidence, indicator or feature value
         # of an active row sets its sticky flag (the scheduler raises on it)
@@ -516,7 +548,7 @@ class DiffusionEngine:
             cache_eligible = cache_eligible + stats[:, 1]
         return EngineState(
             tokens=st.tokens, cache=st.cache, conf=st.conf, pred=st.pred, hidden=st.hidden,
-            bs=torch.where(adv & ~finished, bs + lb, bs),
+            kv_valid=st.kv_valid, bs=torch.where(adv & ~finished, bs + lb, bs),
             blocks_left=blocks_left,
             phase=torch.where(adv, 0, phase),
             iters=torch.where(adv, state.iters - phase_used + steps_pb,
@@ -542,13 +574,13 @@ class DiffusionEngine:
         stats = None
         if self.adaptive_cache:
             stats = torch.zeros((bs.shape[0], 2), dtype=torch.int32, device=self.device)
-        carry = (st.cache, st.conf, st.pred, st.hidden, st.feat, stats)
+        carry = (st.cache, st.conf, st.pred, st.hidden, st.kv_valid, st.feat, stats)
         for code, mask, on in zip(codes, masks, run):
             if not on:
                 continue
             self.pass_counts[PASSES[code]] += 1
             cst = st._replace(cache=carry[0], conf=carry[1], pred=carry[2], hidden=carry[3],
-                              feat=carry[4])
+                              kv_valid=carry[4], feat=carry[5])
             if code == PREFILL:
                 out = self._prefill_step(cst, bs, state.iters, pstart, bt, keys, row_mask=mask)
             elif code == PARTIAL:
@@ -574,7 +606,13 @@ class DiffusionEngine:
         Block-causal: positions below the invariant horizon already hold
         their final K/V, so the refresh's token mask leaves them unwritten
         (which keeps persistently shared prompt pages read-only) and the
-        caches are not zeroed."""
+        caches are not zeroed.
+
+        Sparse attention: the refresh is sticky.  Rows outside the current
+        block that an earlier eviction dropped stay out of this pass's reads
+        and can never re-enter the retained set (``_sparse_evict``); their
+        K/V are still recomputed and scattered, onto the garbage page where
+        the scheduler has reclaimed their page."""
         model = self.model
         b, t_total = st.tokens.shape
         cols = self._block_cols(bs)
@@ -586,8 +624,11 @@ class DiffusionEngine:
         if row_mask is None and inv is None:
             for plane in st.cache:
                 plane.zero_()
+        # the current block is always attendable and retained; every other
+        # row keeps its carried validity
+        attend_valid = (st.kv_valid | self._in_block(bs, t_total)) if self.sparse else st.kv_valid
         ctx = self._ctx(pos, "prefill", t_total=t_total,
-                        kv_pos=self._kv_pos(prompt_start, t_total), slot_idx=pos,
+                        kv_pos=self._kv_pos(attend_valid, prompt_start), slot_idx=pos,
                         block_tables=bt, scatter_mask=row_mask, refresh_mask=refresh_tok,
                         block_start=bs, window_limit=window_limit(self.gen, bs))
         h = model.embed_tokens(st.tokens)
@@ -601,12 +642,17 @@ class DiffusionEngine:
             if seg.keep_k is not None:
                 hidden.append(row_gather(h, cols).float())
         conf, pred = self._confidence(st, bs, model.logits(row_gather(h, cols)), keys)
+        kv_valid = st.kv_valid
+        if self.sparse:
+            keep = self._sparse_evict(st.cache, hidden, bs, prompt_start, bt, attend_valid)
+            # sticky: a refresh only shrinks the retained set outside the block
+            kv_valid = keep & attend_valid
         stats = None
         if self.adaptive_cache:
             # a full refresh recomputes every eligible past token
-            n_el = self._cache_eligible(bs, prompt_start, bt, t_total).sum(dim=1).int()
+            n_el = self._cache_eligible(bs, prompt_start, bt, st.kv_valid).sum(dim=1).int()
             stats = torch.stack([n_el, n_el], dim=1)
-        return st.cache, conf, pred, tuple(hidden), feat, stats
+        return st.cache, conf, pred, tuple(hidden), kv_valid, feat, stats
 
     def _decode_step(self, st: BlockState, bs, prompt_start, bt, keys, *, skip: bool,
                      row_mask: Optional[torch.Tensor] = None):
@@ -618,7 +664,7 @@ class DiffusionEngine:
         b, t_total = st.tokens.shape
         h = model.embed_tokens(row_gather(st.tokens, self._block_cols(bs)))
         s_idx = self._rows(b, gen.block_length)
-        kv_pos = self._kv_pos(prompt_start, t_total)
+        kv_pos = self._kv_pos(st.kv_valid, prompt_start)
         hidden = list(st.hidden)
         wl = window_limit(self.gen, bs)
         for seg in self.segments:
@@ -642,20 +688,23 @@ class DiffusionEngine:
             keys, model.logits(h), gen, self.cfg.vocab_size, self.mask_id)
         conf = row_scatter(st.conf, conf_new, s_idx)
         pred = row_scatter(st.pred, pred_new, s_idx)
-        return st.cache, conf, pred, tuple(hidden), st.feat, None
+        return st.cache, conf, pred, tuple(hidden), st.kv_valid, st.feat, None
 
-    def _cache_eligible(self, bs, prompt_start, bt, t_total: int) -> torch.Tensor:
+    def _cache_eligible(self, bs, prompt_start, bt, kv_valid) -> torch.Tensor:
         """[B, T] bool: past tokens whose K/V a partial refresh may recompute:
-        real (not left-pad), outside the current block (the block pass owns
-        those), and, paged, on a mapped page (a write to an unmapped page
-        would land on the garbage page and lose the fresh values).
+        attendable (not sparse-evicted), real (not left-pad), outside the
+        current block (the block pass owns those), and, paged, on a mapped
+        page (a write to an unmapped page would land on the garbage page and
+        lose the fresh values).
         Block-causal: only positions past the block (everything before it
         is final since the block's entry refresh, and a write would touch
         persistently shared prompt pages).  Windowed: only positions inside
         the window (the others are read by no one)."""
+        t_total = kv_valid.shape[1]
         col = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
-        in_block = (col >= bs[:, None]) & (col < bs[:, None] + self.gen.block_length)
-        eligible = ~in_block & (col >= prompt_start[:, None])
+        eligible = ~self._in_block(bs, t_total) & (col >= prompt_start[:, None])
+        if self.sparse:
+            eligible &= kv_valid
         if self.gen.block_causal:
             eligible &= col >= bs[:, None]
         wl = window_limit(self.gen, bs)
@@ -677,7 +726,8 @@ class DiffusionEngine:
         model, gen = self.model, self.gen
         b, t_total = st.tokens.shape
         gp = self.cache_probe_groups
-        kv_pos = self._kv_pos(prompt_start, t_total)
+        attend_valid = (st.kv_valid | self._in_block(bs, t_total)) if self.sparse else st.kv_valid
+        kv_pos = self._kv_pos(attend_valid, prompt_start)
         wl = window_limit(self.gen, bs)
         # 1. shallow probe over every position: its K/V refresh everywhere
         pos = self._rows(b, t_total)
@@ -688,7 +738,7 @@ class DiffusionEngine:
         feat = h_probe.float()
         # 2. variation-gated selection: top-R by score, then the threshold
         scores = ops.variation_score(feat, st.feat, st.conf_full, alpha=gen.alpha)
-        eligible = self._cache_eligible(bs, prompt_start, bt, t_total)
+        eligible = self._cache_eligible(bs, prompt_start, bt, st.kv_valid)
         cand = torch.where(eligible, scores, -math.inf)
         r = max(1, min(t_total,
                        math.ceil(gen.cache_refresh_fraction * (t_total - gen.block_length))))
@@ -706,7 +756,7 @@ class DiffusionEngine:
         # 4. the block refresh on the partially refreshed caches
         out = self._decode_step(st, bs, prompt_start, bt, keys, skip=False, row_mask=row_mask)
         stats = torch.stack([tok_ok.sum(dim=1), eligible.sum(dim=1)], dim=1).int()
-        return out[:4] + (feat, stats)
+        return out[:5] + (feat, stats)
 
     def _vanilla_compute(self, st: BlockState, bs, keys):
         """Full-sequence forward, no caches (the original LLaDA loop)."""
@@ -725,6 +775,65 @@ class DiffusionEngine:
                                                     self.eos_id)
         return smp.confidence_and_pred(keys, logits_blk, self.gen, self.cfg.vocab_size,
                                        self.mask_id)
+
+    # ------------------------------------------------------------------
+    # Sparse-dLLM cache eviction (App. C.3.2)
+    # ------------------------------------------------------------------
+    def _sparse_evict(self, cache: KVCache, hidden, bs, prompt_start, bt,
+                      kv_valid) -> torch.Tensor:
+        """[B, T] bool retained set of a refresh: out-of-block cache rows
+        scored by the attention the current block's queries give them at
+        the layer right after the first skip stage, mean-pooled over
+        ``sparse_kernel_size`` neighbours (edge padding); the top
+        ``sparse_retention`` share is kept, every row tied with the last
+        kept one included, and the block always.
+
+        Rows the block can never attend -- pad prompt rows, rows an earlier
+        eviction dropped (``kv_valid`` false; their page may be reclaimed),
+        unmapped pages (their gathered rows are garbage-page content) and
+        rows past the window -- are masked out of the probe's softmax and
+        ranked below everything.  The caller ANDs the result with the
+        carried set (sticky eviction).  Plain PyTorch in float32: the
+        reference computes it in XLA, outside any Pallas kernel."""
+        gen, cfg = self.gen, self.cfg
+        b, t_total = kv_valid.shape
+        lb = gen.block_length
+        seg = next(s for s in self.segments if s.keep_k is not None)
+        g = min(seg.group_hi, self.model.n_groups - 1)
+        layer = self.model.layers[g]
+        xq = rms_norm(hidden[seg.stage_idx].float(), layer.ln1, cfg.rms_eps) \
+            @ layer.attn.wq.float()
+        if layer.attn.bq is not None:
+            xq = xq + layer.attn.bq.float()
+        q = apply_rope(xq.view(b, lb, cfg.n_heads, cfg.head_dim), self._block_cols(bs),
+                       theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+        k = cache.k[g]
+        col = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
+        attendable = kv_valid & (col >= prompt_start[:, None])
+        if bt is not None:                       # paged: the pool's dense view
+            k = ops.gather_pages(k, bt)
+            attendable &= (bt >= 0).repeat_interleave(self.page_size, dim=1)
+        wl = window_limit(gen, bs)
+        if wl is not None:
+            attendable &= col < wl[:, None]
+        k = k.float().transpose(1, 2).repeat_interleave(cfg.n_heads // cfg.n_kv_heads, dim=1)
+        scores = torch.einsum("bhqd,bhtd->bhqt", q.transpose(1, 2), k) / cfg.head_dim ** 0.5
+        scores = torch.where(attendable[:, None, None, :], scores, NEG_INF)
+        recv = torch.softmax(scores, dim=-1).mean(dim=(1, 2))           # [B, T]
+        ks = gen.sparse_kernel_size
+        pooled = recv
+        if ks > 1:
+            pad = ks // 2
+            padded = torch.cat([recv[:, :1].expand(b, pad), recv,
+                                recv[:, -1:].expand(b, pad)], dim=1)
+            pooled = torch.stack([padded[:, i:i + t_total] for i in range(ks)], -1).mean(-1)
+        in_block = self._in_block(bs, t_total)
+        cand = torch.where(in_block, math.inf,
+                           torch.where(attendable, pooled, -math.inf))
+        n_keep = int(gen.sparse_retention * (t_total - lb)) + lb
+        # a threshold, not a top-k: every row tied with the kth value is kept
+        kth = torch.sort(cand, dim=-1).values[:, -n_keep][:, None]
+        return (cand >= kth) | in_block
 
     # ------------------------------------------------------------------
     # page operations of the scheduler (paged serving)
@@ -785,6 +894,29 @@ class DiffusionEngine:
                 pool.index_fill_(1, idx, 0)
         return state
 
+    def dead_pages(self, state: EngineState) -> torch.Tensor:
+        """[B, n_vp] bool on the engine's device: mapped pages of active
+        rows every row of which is dead (``kv_pos < 0``: sparse-evicted or
+        pad) and that lie wholly before the row's current block.  As ``bs``
+        only moves forward, the in-block retention can never revive them:
+        nothing reads them again, and a refresh's scatter to them lands on
+        the garbage page once they are unmapped."""
+        ps = self.page_size
+        b, t_total = state.kv_valid.shape
+        col = torch.arange(t_total, dtype=torch.int32, device=self.device)[None]
+        alive = state.kv_valid & (col >= state.prompt_start[:, None])
+        page_alive = alive.view(b, t_total // ps, ps).any(dim=2)
+        page_end = (torch.arange(t_total // ps, dtype=torch.int32, device=self.device) + 1) * ps
+        settled = page_end[None] <= state.bs[:, None]
+        return (state.block_tables >= 0) & ~page_alive & settled & state.active[:, None]
+
+    def dead_page_report(self, state: EngineState) -> np.ndarray:
+        """:meth:`dead_pages` on the host: the pages the scheduler unmaps
+        and returns to the free list."""
+        if not self.paged or state.block_tables is None:
+            raise ValueError("dead_page_report needs the paged KV pool (paged=True)")
+        return self.dead_pages(state).cpu().numpy()
+
     def prompt_refresh_rows(self, phases) -> np.ndarray:
         """[B] bool: which slots' next step is a prompt refresh, the only
         branch that scatters into the row's prompt pages, given the slots'
@@ -793,18 +925,20 @@ class DiffusionEngine:
 
 
 def _merge_step_outputs(mask: torch.Tensor, old, new):
-    """Per-row merge of one pass's ``(cache, conf, pred, hidden, feat,
-    stats)`` into the carried tuple: rows in ``mask`` take the pass's
+    """Per-row merge of one pass's ``(cache, conf, pred, hidden, kv_valid,
+    feat, stats)`` into the carried tuple: rows in ``mask`` take the pass's
     results.  The cache is taken as it is: the pass's K/V scatters and SSM
-    cache writes already left the other rows unwritten."""
-    o_cache, o_conf, o_pred, o_hidden, o_feat, o_stats = old
-    n_cache, n_conf, n_pred, n_hidden, n_feat, n_stats = new
+    cache writes already left the other rows unwritten.  A retention set the
+    pass handed back unchanged (every pass but a sparse refresh) is kept."""
+    o_cache, o_conf, o_pred, o_hidden, o_kv, o_feat, o_stats = old
+    n_cache, n_conf, n_pred, n_hidden, n_kv, n_feat, n_stats = new
     m1, m2 = mask[:, None], mask[:, None, None]
     return (
         n_cache,
         torch.where(m1, n_conf, o_conf),
         torch.where(m1, n_pred, o_pred),
         tuple(torch.where(m2, n, o) for o, n in zip(o_hidden, n_hidden)),
+        o_kv if n_kv is o_kv else torch.where(m1, n_kv, o_kv),
         None if o_feat is None else torch.where(m2, n_feat, o_feat),
         o_stats if n_stats is None else torch.where(m1, n_stats, o_stats),
     )

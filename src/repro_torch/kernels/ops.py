@@ -92,6 +92,15 @@ def window_kv_clamp(kv_pos: torch.Tensor, limit: Optional[torch.Tensor]) -> torc
     return torch.where(kv_pos < limit[:, None], kv_pos, -1)
 
 
+def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """The per-slot dense view ``[B, n_vp * ps, ...]`` of a page pool ``[P,
+    ps, ...]`` through ``block_tables [B, n_vp]``; unmapped pages read the
+    garbage page 0, which callers mask.  Plain PyTorch on either device: the
+    reference computes it in XLA, outside any Pallas kernel (the sparse
+    eviction probe is its one caller on the port's paths)."""
+    return ref.gather_pages(pool, block_tables)
+
+
 def scatter_rows(pairs, idx: torch.Tensor, *, row_mask: Optional[torch.Tensor] = None,
                  token_mask: Optional[torch.Tensor] = None) -> None:
     """In place, for one or two ``(cache [B, S, ...], new [B, K, ...])``

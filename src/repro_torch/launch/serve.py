@@ -15,6 +15,9 @@ size unless ``--full``).
       --page-size 8 --prefix-sharing --dup-prompts --block-causal --window-blocks 1 \\
       --early-advance --requests 4 --batch 2 --prompt-len 16 --gen-length 32 \\
       --block-length 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged \\
+      --page-size 8 --window-blocks 1 --lazy-reserve --early-advance --requests 6 \\
+      --batch 2 --prompt-len 16 --gen-length 32 --block-length 8 --kv-pages 11
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-370m \\
       --requests 6 --batch 3 --early-advance --gen-length 16 --block-length 8
   PYTHONPATH=src python -m repro_torch.launch.serve --full --dtype bfloat16 \\
@@ -40,7 +43,6 @@ from repro_torch.runtime import ConfigError, Request, StreamScheduler
 
 # reference flags outside this slice: (flag, attribute, value that is in the slice)
 _OUTSIDE = (("--gather-refresh", "gather_refresh", False),
-            ("--lazy-reserve", "lazy_reserve", False),
             ("--shards", "shards", 1),
             ("--placement", "placement", "least_loaded"),
             ("--refresh-shards", "refresh_shards", 1),
@@ -95,7 +97,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--window-blocks", type=int, default=0,
                     help="sliding active window: a row attends its block and this many "
                          "blocks of masked suffix beyond it (0 = no window)")
-    ap.add_argument("--lazy-reserve", action="store_true")
+    ap.add_argument("--lazy-reserve", action="store_true",
+                    help="admit with the prompt and one active window of pages, map the "
+                         "rest as the window advances (requires --paged and "
+                         "--window-blocks > 0)")
     ap.add_argument("--preemption", action="store_true",
                     help="a higher-class arrival short of pages may spill a lower-class "
                          "resident to host memory at its block boundary and resume it "
@@ -140,6 +145,14 @@ def validate(args: argparse.Namespace) -> None:
     if args.preemption and args.prefix_sharing:
         raise ConfigError("--preemption is incompatible with --prefix-sharing: a spill "
                           "releases pages other requests may still map")
+    if args.lazy_reserve and not args.paged:
+        raise ConfigError("--lazy-reserve requires --paged: it defers pool pages")
+    if args.lazy_reserve and args.window_blocks <= 0:
+        raise ConfigError("--lazy-reserve requires --window-blocks > 0: unmapped far-suffix "
+                          "pages are sound only when the window masks them")
+    if args.preemption and args.lazy_reserve:
+        raise ConfigError("--preemption is incompatible with --lazy-reserve: a spill breaks "
+                          "the max-deficit window-growth accounting")
 
 
 def main(argv=None) -> list[Request]:
@@ -171,7 +184,8 @@ def main(argv=None) -> list[Request]:
                              stream_cb=stream_cb, paged=args.paged,
                              page_size=args.page_size, kv_pages=args.kv_pages,
                              prefix_sharing=args.prefix_sharing, preemption=args.preemption,
-                             early_advance=args.early_advance, device=device)
+                             lazy_reserve=args.lazy_reserve, early_advance=args.early_advance,
+                             device=device)
     rng = np.random.default_rng(args.seed)
     if args.dup_prompts:
         dup_prompt = rng.integers(3, cfg.vocab_size, args.prompt_len).astype(np.int32)
@@ -202,6 +216,10 @@ def main(argv=None) -> list[Request]:
             line += f"  cow_forks={st.cow_forks}"
         if server.persistent_prefix:
             line += f"  prefix_hits={st.prefix_hits}  prefix_evictions={st.prefix_evictions}"
+        if gen.sparse_attention:
+            line += f"  pages_reclaimed={st.pages_reclaimed}"
+        if args.lazy_reserve:
+            line += f"  pages_deferred={st.pages_deferred}  window_stalls={st.window_stalls}"
     if gen.block_causal:
         line += f"  invariant_tokens_skipped={st.invariant_tokens_skipped}"
     if args.preemption:

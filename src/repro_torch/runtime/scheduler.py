@@ -31,6 +31,23 @@ and does all control flow on the host:
   least recently used entries.  Full refreshes leave positions below
   ``core.schedule.invariant_limit`` unwritten, so shared prompt pages stay
   read-only;
+* **page-aligned sparse eviction** (``sparse_attention``, paged): eviction
+  is sticky, so once every row of a mapped page behind a row's current
+  block is dead nothing reads or validly writes it again; after each
+  refresh the scheduler unmaps such pages (``engine.dead_pages``) and
+  returns them to the free list, where admission can take them at once
+  (the ``pages_reclaimed`` gauge, in physical frees);
+* **lazy page reservation** (``lazy_reserve=True``, paged, a finite window,
+  not with preemption): admission maps the prompt and one active window of
+  pages and records the rest as a deficit (``pages_deferred``); each step
+  maps the next pages as a row's window reaches them.  A no-deadlock gate
+  keeps the free list (plus the store's reclaimable pages) covering the
+  largest deficit, and growth goes oldest first, so the oldest row always
+  finishes; a younger row whose grant is denied stalls (inactive, never
+  killed; ``window_stalls``) and resumes at phase 0 when pages come back.
+  A request with ``max_blocks`` above its admitted budget may grow its
+  extent one block at a time at its final-block entry (``blocks_grown``);
+  a denial there is sticky;
 * **preemption** (``preemption=True``, paged, not with sharing): a higher
   class short of pages or slots spills a strictly lower-class resident at
   its block boundary (its page bytes and row to host memory, its pages
@@ -50,16 +67,18 @@ and does all control flow on the host:
 Where the reference rebuilds its immutable state with ``.at[slot].set``, the
 port writes the slot's row of the card's tensors in place.  The host reads
 the card twice per step: the engine's read of which passes the step runs,
-and one read of the per-row counters after it.  The slots' phases, which
-admission, preemption and the copy-on-write fork need, are kept on the host
-from that second read.
+and one read of the per-row counters after it (with the dead-page report
+on steps where a sparse refresh ran).  The slots' phases, which admission,
+preemption and the copy-on-write fork need, and their block starts, which
+window growth needs, are kept on the host from that second read; the
+block tables, which only the scheduler writes, have a host copy.
 
 An SSM stack (Mamba-2) serves on dense slots, with early advance or without.
 
 Outside the port so far (each raises ``ConfigError`` at construction, see
-ROADMAP.md): lazy page reservation (with its window growth and
-``max_blocks`` growth), and paged KV, prefix sharing and preemption on an
-SSM stack (the engine raises ``NotImplementedError`` for its adaptive cache).
+ROADMAP.md): paged KV, prefix sharing and preemption on an SSM stack (the
+engine raises ``NotImplementedError`` for its adaptive cache and sparse
+attention).
 """
 from __future__ import annotations
 
@@ -101,8 +120,15 @@ class SchedulerStats:
     peak_pages_in_use: int = 0
     shared_mappings: int = 0             # extra block-table claims on shared pages
     cow_forks: int = 0                   # pages copied by copy-on-write forks
+    pages_reclaimed: int = 0             # pages freed early by page-aligned eviction
     resident_peak: int = 0               # max concurrently admitted requests
     early_advances: int = 0              # block advances before the aligned boundary
+    # lazy reservation: far-suffix pages admission did not map up front,
+    # stall events of rows whose window could not map its next pages, and
+    # extent blocks granted past the admitted budget (up to max_blocks)
+    pages_deferred: int = 0
+    window_stalls: int = 0
+    blocks_grown: int = 0
     admission_waits: list = dataclasses.field(default_factory=list)
     # adaptive feature cache: a full refresh counts refreshed == eligible, a
     # partial refresh only the tokens it recomputed
@@ -157,7 +183,8 @@ class SchedulerStats:
         """Point-in-time gauge snapshot."""
         return {name: getattr(self, name) for name in (
             "pages_in_use", "pages_total", "peak_pages_in_use", "shared_mappings",
-            "cow_forks", "resident_peak", "early_advances", "admission_wait_p50",
+            "cow_forks", "pages_reclaimed", "resident_peak", "early_advances",
+            "pages_deferred", "window_stalls", "blocks_grown", "admission_wait_p50",
             "cache_hit_fraction", "tokens_refreshed_p50", "preemptions", "pages_spilled",
             "resume_p50", "deadline_rejects", "poisoned_requests", "prefix_hits",
             "prefix_evictions", "invariant_tokens_skipped")}
@@ -330,6 +357,8 @@ class _SpilledRequest:
     vps: list                # mapped virtual pages at spill time, in order
     kv_data: tuple           # engine.spill_pages: (k, v), one page per entry of vps
     row: dict                # the slot's per-row fields
+    extent: tuple            # (first_vp, last_vp) the request may ever map
+    frontier: int            # first virtual page not mapped yet
     streamed: int            # blocks already streamed
     spill_s: float           # clock at spill (resume_waits gauge)
 
@@ -354,12 +383,20 @@ class StreamScheduler:
         prefix_sharing: bool = False,       # same-cycle prompt-page sharing (paged)
         early_advance: bool = False,        # per-row cadence: any-iteration
                                             # admission + immediate block advance
-        lazy_reserve: bool = False,
+        lazy_reserve: bool = False,         # paged + window: admit with prompt + one
+                                            # active window of pages, grow the rest
         preemption: bool = False,           # spill lower classes to host (paged)
         **engine_kw,
     ):
-        if lazy_reserve:
-            raise ConfigError("lazy_reserve is outside the port so far (ROADMAP.md)")
+        if lazy_reserve and not paged:
+            raise ConfigError("lazy_reserve defers pool pages: it requires paged=True")
+        if lazy_reserve and not gen.windowed:
+            raise ConfigError("lazy_reserve needs a finite window (window_blocks > 0): "
+                              "unmapped far-suffix pages are sound only when the window "
+                              "masks them")
+        if preemption and lazy_reserve:
+            raise ConfigError("preemption=True is incompatible with lazy_reserve: spills "
+                              "would invalidate the max-deficit window-growth accounting")
         if model.ssm and (paged or prefix_sharing or preemption):
             raise ConfigError("paged KV, prefix sharing and preemption on an SSM stack are "
                               "outside the port so far (ROADMAP.md): it serves on dense slots")
@@ -387,6 +424,7 @@ class StreamScheduler:
         # flag pair, and bidirectional sharing keeps its same-cycle index
         self.persistent_prefix = bool(prefix_sharing and paged and gen.block_causal)
         self.preemption = preemption
+        self.lazy_reserve = lazy_reserve
         self.early_advance = early_advance
         t_total = prompt_len + gen.gen_length
         self.allocator: Optional[PageAllocator] = None
@@ -406,6 +444,9 @@ class StreamScheduler:
         self.n_blocks = gen.gen_length // gen.block_length
         self.state = self.engine.init_engine_state(max_slots, prompt_len, prng.prng_key(seed))
         self._phases = np.zeros((max_slots,), np.int32)   # host copy of state.phase
+        # host copy of state.block_tables: the scheduler is its only writer
+        self._bt = (None if self.state.block_tables is None
+                    else self.state.block_tables.cpu().numpy().copy())
         self.queue: deque[Request] = deque()
         self.slot_req: list[Optional[Request]] = [None] * max_slots
         self.slot_streamed: list[int] = [0] * max_slots
@@ -413,7 +454,17 @@ class StreamScheduler:
         # one entry per page claim the slot holds (shared pages included)
         self.slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
         self.slot_order: list[int] = [0] * max_slots    # admission sequence number
+        # lazy reservation: the (first_vp, last_vp) a request may ever map and
+        # its first unmapped virtual page (== last_vp when fully mapped);
+        # no_grow freezes the extent for life (no max_blocks headroom, or a
+        # denied growth: a later grant would remap pages read as masked)
+        self.slot_extent: list[tuple[int, int]] = [(0, 0)] * max_slots
+        self.slot_frontier: list[int] = [0] * max_slots
+        self.slot_no_grow: list[bool] = [True] * max_slots
         self._admit_seq = 0
+        # rows paused by a denied window growth: inactive on the card but not
+        # retired; _finish_cycle skips them, _grow_windows resumes them
+        self.stalled: set[int] = set()
         # preempted requests parked on the host; they compete with the queue
         # by (priority, submission order)
         self._spilled: list[_SpilledRequest] = []
@@ -495,6 +546,15 @@ class StreamScheduler:
         with ``preemption``, spills strictly lower classes to make room.  An
         admitted slot's phase is 0, so its next step prefills it.
 
+        With ``lazy_reserve`` only the prompt and one active window of pages
+        are mapped; the rest of the extent is a deficit that
+        ``_grow_windows`` maps as the window reaches it.  The head waits
+        unless the free list (with the store's reclaimable pages) still
+        covers the largest deficit, its own or a resident's, after this
+        admission.  A request whose ``max_blocks`` exceeds its budget has
+        every block inside its first window's horizon decided here, once,
+        under the same gate.
+
         With ``prefix_sharing`` a request's full prompt pages are indexed by
         content; a same-cycle duplicate (identical prompt bytes, prompt
         length and block budget) maps the first one's pages read-only and
@@ -538,13 +598,39 @@ class StreamScheduler:
                     continue
             n_blocks = self._req_blocks(req)
             p = np.asarray(req.prompt, np.int32)[-self.prompt_len:]
+            no_grow = req.max_blocks is None
+            if self.lazy_reserve and req.max_blocks is not None:
+                # on-demand extent growth: the first window already attends
+                # 1 + window_blocks blocks, so whether each of them exists is
+                # decided here, once (a later mapping would change the row's
+                # read set mid-block); blocks past it are decided one at a
+                # time at their entry by _grow_windows.  A denial admits the
+                # budget's extent and freezes it.
+                cap = min(max(req.max_blocks, 1), self.n_blocks)
+                want_nb = min(1 + self.gen.window_blocks, cap)
+                if n_blocks < want_nb:
+                    w_first, w_last = self._pages_needed(len(p), want_nb)
+                    if self._avail() - (w_last - w_first) >= self._resident_deficit():
+                        n_blocks = want_nb
+                    else:
+                        no_grow = True
             pages: list[int] = []
             shared_map: list[tuple[int, int]] = []    # [(vp, physical page)]
             reserve: list[int] = []
             share_key = share_hit = None
+            deficit = 0
             if self.allocator is not None:
                 first_vp, last_vp = self._pages_needed(len(p), n_blocks)
-                need = last_vp - first_vp
+                map_last = last_vp
+                if self.lazy_reserve:
+                    # the prompt and the first window; the far suffix is a
+                    # deficit (private pages only: shared prompt pages lie
+                    # inside the first window)
+                    init_blocks = min(1 + self.gen.window_blocks, n_blocks)
+                    map_last = -(-(self.prompt_len + init_blocks * self.gen.block_length)
+                                 // self.page_size)
+                    deficit = last_vp - map_last
+                need = map_last - first_vp
                 vp0 = -(-(self.prompt_len - len(p)) // self.page_size)   # first full prompt page
                 vp1 = self.prompt_len // self.page_size
                 if self.prefix_sharing and vp1 > vp0:
@@ -559,6 +645,9 @@ class StreamScheduler:
                     # claimed before alloc: an eviction under pressure may
                     # drop this very entry, and these claims keep its pages
                     self.allocator.share([pg for _, pg in shared_map])
+                    if not self._deficit_gate(n_priv + n_res, deficit):
+                        self.allocator.release([pg for _, pg in shared_map])
+                        break               # reserve-gated: retry next step
                     got = self.allocator.alloc(n_priv + n_res)
                     if got is None:
                         self.allocator.release([pg for _, pg in shared_map])
@@ -567,6 +656,8 @@ class StreamScheduler:
                     if self.persistent_prefix:
                         self.stats.prefix_hits += 1
                 else:
+                    if not self._deficit_gate(need, deficit):
+                        break               # reserve-gated: retry next step
                     got = self.allocator.alloc(need)
                     if got is None and self._try_preempt(need, req.priority, free):
                         got = self.allocator.alloc(need)
@@ -595,13 +686,15 @@ class StreamScheduler:
                 st.conf_full[slot] = 0.0
                 st.cache_refreshed[slot] = 0
                 st.cache_eligible[slot] = 0
+            st.kv_valid[slot] = True
             if self.allocator is not None:
                 bt_row = np.full((t_total // self.page_size,), -1, np.int32)
                 shared_vps = {vp for vp, _ in shared_map}
-                bt_row[[vp for vp in range(first_vp, last_vp) if vp not in shared_vps]] = pages
+                # under lazy_reserve [map_last, last_vp) stays unmapped for now
+                bt_row[[vp for vp in range(first_vp, map_last) if vp not in shared_vps]] = pages
                 for vp, pg in shared_map:
                     bt_row[vp] = pg
-                st.block_tables[slot] = torch.from_numpy(bt_row).to(self.device)
+                self._set_bt_row(slot, bt_row)
                 # one claim per mapped page; reserves are claims too, held by
                 # the cohort until a fork or retirement consumes them
                 self.slot_pages[slot] = pages + [pg for _, pg in shared_map]
@@ -620,10 +713,14 @@ class StreamScheduler:
                     # pages outlive this slot
                     self.allocator.register_prefix(
                         share_key, (slot, [(vp, int(bt_row[vp])) for vp in range(vp0, vp1)]))
+                self.slot_extent[slot] = (first_vp, last_vp)
+                self.slot_frontier[slot] = map_last
                 self.slot_order[slot] = self._admit_seq
                 self._admit_seq += 1
+                self.stats.pages_deferred += deficit
                 self._page_gauges()
             self.slot_blocks[slot] = n_blocks
+            self.slot_no_grow[slot] = no_grow
             req.admit_s = now
             self.stats.admission_waits.append(now - req.arrival_s)
             self.slot_req[slot] = req
@@ -637,6 +734,33 @@ class StreamScheduler:
             self.stats.pages_in_use = self.allocator.used_pages
         self.stats.resident_peak = max(self.stats.resident_peak,
                                        sum(r is not None for r in self.slot_req))
+
+    def _avail(self) -> int:
+        """Pages an allocation could get now: the free list and the
+        persistent store's reclaimable pages (a cache, not a reservation)."""
+        return self.allocator.free_pages + self.allocator.reclaimable_pages
+
+    def _resident_deficit(self) -> int:
+        """The largest deficit (extent pages not mapped yet) of a resident."""
+        return max((self.slot_extent[s][1] - self.slot_frontier[s]
+                    for s, r in enumerate(self.slot_req) if r is not None), default=0)
+
+    def _deficit_gate(self, need: int, deficit: int) -> bool:
+        """The lazy admission gate: after taking ``need`` pages the pool must
+        still cover the largest deficit, the new request's own (``deficit``)
+        or a resident's, so the oldest row can always finish growing.
+        Always open without ``lazy_reserve``."""
+        return (not self.lazy_reserve
+                or self._avail() - need >= max(deficit, self._resident_deficit()))
+
+    def _set_bt_row(self, slot: int, row) -> None:
+        """Writes slot ``slot``'s block-table row, host copy and card."""
+        self._bt[slot] = row
+        self.state.block_tables[slot] = torch.from_numpy(self._bt[slot]).to(self.device)
+
+    def _upload_bt(self) -> None:
+        """Copies the host block tables onto the card's, whole."""
+        self.state.block_tables.copy_(torch.from_numpy(self._bt))
 
     def _page_gauges(self) -> None:
         self.stats.pages_in_use = self.allocator.used_pages
@@ -657,7 +781,8 @@ class StreamScheduler:
         if not self.preemption or self.allocator is None:
             return False
         victims = [s for s, r in enumerate(self.slot_req)
-                   if r is not None and r.priority < priority and self._phases[s] == 0]
+                   if r is not None and r.priority < priority and s not in self.stalled
+                   and self._phases[s] == 0]
         if not victims:
             return False
         victims.sort(key=lambda s: (self.slot_req[s].priority, -self.slot_order[s]))
@@ -680,7 +805,7 @@ class StreamScheduler:
         and the row is deactivated and unmapped."""
         st = self.state
         req = self.slot_req[slot]
-        bt = st.block_tables[slot].cpu().numpy()
+        bt = self._bt[slot]
         vps = [int(v) for v in np.nonzero(bt >= 0)[0]]
         pages = [int(bt[vp]) for vp in vps]
         counters = torch.stack([st.bs[slot], st.blocks_left[slot], st.iters[slot],
@@ -689,6 +814,7 @@ class StreamScheduler:
                        counters))
         # copies: the slot's row is rewritten as soon as another request takes it
         row["tokens"] = st.tokens[slot].to("cpu", copy=True)
+        row["kv_valid"] = st.kv_valid[slot].to("cpu", copy=True)
         if st.feat is not None:
             # the adaptive cache's planes carry across refreshes, so unlike
             # conf/pred/hidden they must round-trip
@@ -697,11 +823,12 @@ class StreamScheduler:
         self._spilled.append(_SpilledRequest(
             req=req, seq=self._seq[req.request_id], n_blocks=self.slot_blocks[slot],
             vps=vps, kv_data=self.engine.spill_pages(st, pages), row=row,
+            extent=self.slot_extent[slot], frontier=self.slot_frontier[slot],
             streamed=self.slot_streamed[slot], spill_s=now))
         self.allocator.release(self.slot_pages[slot])
         self.slot_pages[slot] = []
         st.active[slot] = False
-        st.block_tables[slot] = -1
+        self._set_bt_row(slot, -1)
         self.slot_req[slot] = None
         self.stats.preemptions += 1
         self.stats.pages_spilled += len(pages)
@@ -717,7 +844,7 @@ class StreamScheduler:
         bt_row = np.full(((self.prompt_len + self.gen.gen_length) // self.page_size,), -1,
                          np.int32)
         bt_row[rec.vps] = got
-        st.block_tables[slot] = torch.from_numpy(bt_row).to(self.device)
+        self._set_bt_row(slot, bt_row)
         for name, value in rec.row.items():
             getattr(st, name)[slot] = value.to(self.device) if torch.is_tensor(value) else value
         st.phase[slot] = 0
@@ -728,6 +855,8 @@ class StreamScheduler:
         self.slot_blocks[slot] = rec.n_blocks
         self.slot_streamed[slot] = rec.streamed
         self.slot_pages[slot] = list(got)
+        self.slot_extent[slot] = rec.extent
+        self.slot_frontier[slot] = rec.frontier
         self.slot_order[slot] = self._admit_seq
         self._admit_seq += 1
         self.stats.resume_waits.append(now - rec.spill_s)
@@ -758,18 +887,26 @@ class StreamScheduler:
         if not resident.any():
             return False
         # rows whose next step is a prompt refresh, the only branch that
-        # scatters into the row's prompt pages
+        # scatters into the row's prompt pages; a stalled row's phase drifts
+        # while it is inactive and describes no upcoming refresh
         refresh_rows = self.engine.prompt_refresh_rows(phases) & resident
+        if self.stalled:
+            refresh_rows[list(self.stalled)] = False
         if self.cohorts and refresh_rows.any():
             self._cow_fork_before_refresh(refresh_rows)
         pre = self.state
         self.state = self.engine.step(pre)
-        # one read of the per-row counters: it waits for the step to finish
+        # one read of the per-row counters (and, after a sparse refresh, of
+        # the dead-page report): it waits for the step to finish
         host = torch.stack([pre.blocks_left, self.state.blocks_left, self.state.phase,
                             self.state.active.int(), self.state.poisoned.int(),
                             pre.cache_refreshed, self.state.cache_refreshed,
                             pre.cache_eligible, self.state.cache_eligible,
-                            pre.bs, pre.iters, pre.prompt_start]).cpu().numpy()
+                            pre.bs, pre.iters, pre.prompt_start, self.state.bs])
+        reclaim = self.paged and self.gen.sparse_attention and bool(refresh_rows.any())
+        if reclaim:
+            host = torch.cat([host, self.engine.dead_pages(self.state).int().T])
+        host = host.cpu().numpy()
         pre_bl, bl, phase, active, poisoned = host[:5]
         if self.gen.block_causal and refresh_rows.any():
             # positions this step's full refreshes left in place, from the
@@ -788,8 +925,11 @@ class StreamScheduler:
         self.stats.cache_eligible_total += int(d_e.sum())
         self.stats.refresh_event_tokens.extend(d_r[d_e > 0].tolist())
         if poisoned.any():
-            # before retirement: a poisoned row must never reach streaming
+            # before reclaim and retirement: a poisoned row must never reach
+            # the page-eviction or streaming paths
             self._quarantine([int(s) for s in np.nonzero(poisoned)[0]])
+        if reclaim:
+            self._reclaim_dead_pages(host[13:].T.astype(bool) & refresh_rows[:, None])
         if self.early_advance:
             steps_pb = self.gen.resolved_steps()
             adv = (bl < pre_bl) & resident
@@ -798,7 +938,85 @@ class StreamScheduler:
             self._finish_cycle(bl, active)
         elif bool((phase == 0).all()):
             self._finish_cycle(bl, active)
+        if self.lazy_reserve:
+            # after retirement, so pages freed this step are grantable; on
+            # every step, as the aligned cadence advances bs at its wrap
+            self._grow_windows(host[12], bl)
         return True
+
+    # ------------------------------------------------------------------
+    # lazy reservation: window growth
+    # ------------------------------------------------------------------
+    def _grow_windows(self, bs: np.ndarray, blocks_left: np.ndarray) -> None:
+        """Maps the pages of each resident's current window horizon (``bs +
+        block_length * (1 + window_blocks)``, capped at its extent) that are
+        not mapped yet, given the rows' ``bs`` and ``blocks_left`` after
+        this step.
+
+        Growth goes oldest first: a row gets its pages only if the pool
+        (free plus reclaimable) still covers the deficit of every older row
+        afterwards, which with the admission gate keeps the oldest row able
+        to finish, so every row finishes in turn.  A denied row stalls
+        (inactive on the card, never killed; ``window_stalls``) and resumes
+        at phase 0 on the step its grant lands: a stall only follows a block
+        advance, where the phase had wrapped to 0.
+
+        Extent growth: a row with ``max_blocks`` above its budget, at the
+        entry of its final block (its horizon first passes its extent), is
+        granted one more block if the whole enlarged remaining need fits on
+        top of the older rows' deficits (``blocks_grown``, its device
+        ``blocks_left`` bumped); a denial is sticky (``slot_no_grow``):
+        a later grant would remap pages the row already read as masked."""
+        lb, ps = self.gen.block_length, self.page_size
+        order = sorted((s for s, r in enumerate(self.slot_req) if r is not None),
+                       key=lambda s: self.slot_order[s])
+        deficit = {s: self.slot_extent[s][1] - self.slot_frontier[s] for s in order}
+        st = self.state
+        changed = False
+        for i, slot in enumerate(order):
+            frontier = self.slot_frontier[slot]
+            first_vp, extent_last = self.slot_extent[slot]
+            want = -(-(int(bs[slot]) + lb * (1 + self.gen.window_blocks)) // ps)
+            req = self.slot_req[slot]
+            older = max((deficit[s] for s in order[:i]), default=0)
+            if (want > extent_last and not self.slot_no_grow[slot] and blocks_left[slot] > 0
+                    and req.max_blocks is not None
+                    and self.slot_blocks[slot] < min(max(req.max_blocks, 1), self.n_blocks)):
+                nb = self.slot_blocks[slot] + 1
+                new_last = -(-(self.prompt_len + nb * lb) // ps)
+                if self._avail() - (new_last - frontier) >= older:
+                    self.stats.pages_deferred += new_last - extent_last
+                    self.stats.blocks_grown += 1
+                    self.slot_extent[slot] = (first_vp, new_last)
+                    self.slot_blocks[slot] = nb
+                    deficit[slot] = new_last - frontier
+                    extent_last = new_last
+                    st.blocks_left[slot] += 1
+                else:
+                    self.slot_no_grow[slot] = True
+            g = min(want, extent_last) - frontier
+            if g <= 0:
+                continue
+            if self._avail() - g >= older:
+                got = self.allocator.alloc(g)        # the gate implies it succeeds
+                self._bt[slot, frontier:frontier + g] = got
+                self.slot_pages[slot].extend(got)
+                self.slot_frontier[slot] = frontier + g
+                deficit[slot] -= g
+                changed = True
+                if slot in self.stalled:
+                    # the phase kept ticking while the row was frozen
+                    self.stalled.discard(slot)
+                    st.active[slot] = True
+                    st.phase[slot] = 0
+                    self._phases[slot] = 0
+            elif slot not in self.stalled:
+                self.stalled.add(slot)
+                self.stats.window_stalls += 1
+                st.active[slot] = False
+        if changed:
+            self._upload_bt()
+            self._page_gauges()
 
     # ------------------------------------------------------------------
     # copy-on-write
@@ -833,7 +1051,7 @@ class StreamScheduler:
         cohorts) and its block table repointed."""
         if self.gen.temperature <= 0:
             return
-        bt = self.state.block_tables.cpu().numpy()
+        bt = self._bt
         all_src: list[int] = []
         all_dst: list[int] = []
         for cohort in list(self.cohorts):
@@ -842,27 +1060,61 @@ class StreamScheduler:
             if not any(refresh_rows[s] for s in cohort["slots"]):
                 continue
             for slot in [s for s in cohort["slots"] if s != cohort["owner"]]:
-                mapping = cohort["slots"].pop(slot)
+                # a reclaim may have unmapped some of the shared pages
+                mapping = [(vp, pg) for vp, pg in cohort["slots"].pop(slot)
+                           if bt[slot, vp] == pg]
                 src = [pg for _, pg in mapping]
-                dst = cohort["reserve"].pop(slot, [])
-                if len(dst) != len(src):
-                    raise LedgerError(f"slot {slot}: {len(dst)} reserve pages for "
+                reserve = cohort["reserve"].pop(slot, [])
+                if len(reserve) < len(src):
+                    raise LedgerError(f"slot {slot}: {len(reserve)} reserve pages for "
                                       f"{len(src)} shared pages")
+                dst, spare = reserve[:len(src)], reserve[len(src):]
                 for (vp, _), pg in zip(mapping, dst):
                     bt[slot, vp] = pg
                 sp = self.slot_pages[slot]
                 for s_pg, d_pg in zip(src, dst):
                     sp[sp.index(s_pg)] = d_pg
                 self.allocator.release(src)          # drop the read-only claims
+                if spare:
+                    self.allocator.release(spare)
                 self.stats.cow_forks += len(src)
                 all_src += src
                 all_dst += dst
             self._dissolve_cohort(cohort)
         if all_src:
             self.engine.fork_pages(self.state, all_src, all_dst)
-            self.state.block_tables.copy_(torch.from_numpy(bt))
+            self._upload_bt()
         self.stats.shared_mappings = self.allocator.shared_mappings
         self.stats.pages_in_use = self.allocator.used_pages
+
+    # ------------------------------------------------------------------
+    # page-aligned sparse eviction
+    # ------------------------------------------------------------------
+    def _reclaim_dead_pages(self, dead: np.ndarray) -> None:
+        """Unmaps the wholly dead pages ``dead [B, n_vp]`` (the engine's
+        ``dead_pages`` of this step's refresh rows: a row's dead set changes
+        only at its own refresh) of each resident and returns them to the
+        free list.  ``pages_reclaimed`` counts physical frees: a shared page
+        frees once, when its last sharer's claim dies; the cohorts shed the
+        claims on pages their members unmapped."""
+        if not dead.any():
+            return
+        for slot, req in enumerate(self.slot_req):
+            vps = np.nonzero(dead[slot])[0] if req is not None else ()
+            if len(vps) == 0:
+                continue
+            pages = [int(self._bt[slot, vp]) for vp in vps]
+            self._bt[slot, vps] = -1
+            self.stats.pages_reclaimed += self.allocator.release(pages)
+            for pg in pages:
+                self.slot_pages[slot].remove(pg)
+            for cohort in self.cohorts:
+                if slot in cohort["slots"]:
+                    cohort["slots"][slot] = [(vp, pg) for vp, pg in cohort["slots"][slot]
+                                             if self._bt[slot, vp] == pg]
+        self._upload_bt()
+        self.stats.pages_in_use = self.allocator.used_pages
+        self.stats.shared_mappings = self.allocator.shared_mappings
 
     # ------------------------------------------------------------------
     # retirement
@@ -876,7 +1128,7 @@ class StreamScheduler:
         if self.slot_pages[slot]:
             self.allocator.release(self.slot_pages[slot])
             self.slot_pages[slot] = []
-            self.state.block_tables[slot] = -1
+            self._set_bt_row(slot, -1)
         self._release_cohort_claims(slot)
         self.stats.pages_in_use = self.allocator.used_pages
         self.stats.shared_mappings = self.allocator.shared_mappings
@@ -891,7 +1143,9 @@ class StreamScheduler:
             if req is None:
                 continue
             done_blocks = self.slot_blocks[slot] - int(blocks_left[slot])
-            if done_blocks > self.slot_streamed[slot] or not active[slot]:
+            # a stalled row is paused by _grow_windows, not finished
+            finished = not active[slot] and slot not in self.stalled
+            if done_blocks > self.slot_streamed[slot] or finished:
                 if tokens is None:
                     tokens = self.state.tokens.cpu().numpy()
             for bi in range(self.slot_streamed[slot], done_blocks):
@@ -901,7 +1155,7 @@ class StreamScheduler:
                     if cb is not None:
                         cb(req, bi, blk)
             self.slot_streamed[slot] = done_blocks
-            if active[slot]:
+            if not finished:
                 continue
             n_tok = self.slot_blocks[slot] * lb
             req.output = tokens[slot, self.prompt_len: self.prompt_len + n_tok].copy()
@@ -934,6 +1188,7 @@ class StreamScheduler:
                 self.stats.poisoned_requests += 1
                 self._completed.append(req)
                 self.slot_req[slot] = None
+                self.stalled.discard(slot)
             if self.allocator is not None and self.slot_pages[slot]:
                 private = [pg for pg in self.slot_pages[slot]
                            if self.allocator.refcount(pg) == 1]
@@ -948,6 +1203,7 @@ class StreamScheduler:
             st.pred[slot] = 0
             for h in st.hidden:
                 h[slot] = 0.0
+            st.kv_valid[slot] = True
             if st.feat is not None:
                 st.feat[slot] = 0.0
                 st.conf_full[slot] = 0.0
@@ -988,7 +1244,8 @@ class StreamScheduler:
         s = self.stats
         return (s.completed, s.tokens_out, tuple(self.slot_streamed),
                 sum(r is not None for r in self.slot_req), len(self.queue),
-                len(self._spilled), s.deadline_rejects, s.poisoned_requests, s.preemptions)
+                len(self._spilled), s.deadline_rejects, s.poisoned_requests, s.preemptions,
+                s.window_stalls)
 
     def _stuck_slots(self) -> list:
         phases = self.state.phase.cpu().numpy()

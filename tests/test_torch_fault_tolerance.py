@@ -12,6 +12,8 @@
 
 Reduced LLaDA-8B (4 layers, weights x10) from ``test_torch_engine``.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,9 +51,10 @@ def test_preemption_config_validation():
     with pytest.raises(ConfigError, match="prefix_sharing"):
         StreamScheduler(tm, tgen, device="cpu", prompt_len=PL, paged=True, page_size=PS,
                         prefix_sharing=True, preemption=True)
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        StreamScheduler(tm, tgen, device="cpu", prompt_len=PL, paged=True, page_size=PS,
-                        lazy_reserve=True)
+    with pytest.raises(ConfigError, match="incompatible"):
+        StreamScheduler(tm, dataclasses.replace(tgen, window_blocks=1), device="cpu",
+                        prompt_len=PL, paged=True, page_size=PS, lazy_reserve=True,
+                        preemption=True)
 
 
 @pytest.mark.parametrize("sampling", [{}, dict(temperature=0.8)], ids=["greedy", "sampled"])

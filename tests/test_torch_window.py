@@ -12,11 +12,11 @@
   past the horizon reach no attention output, dense or paged;
 * windowed serving through ``StreamScheduler`` (dense and paged, early
   advance) gives the JAX scheduler's tokens;
-* the launcher takes ``--window-blocks`` and still refuses
-  ``--lazy-reserve``.
+* the launcher takes ``--window-blocks``, with ``--lazy-reserve`` too.
 
 Lazy page reservation and window growth (the rest of the reference's
-``test_suffix_window.py``) are outside the port so far.
+``test_suffix_window.py``) are held against the reference in
+``test_torch_lazy_reserve.py``.
 
 Reduced models (4 layers, weights x10) from ``test_torch_engine``.
 """
@@ -37,7 +37,7 @@ from repro_torch.core import make_engine as tmake
 from repro_torch.core import schedule as tschedule
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve
-from repro_torch.runtime import ConfigError, Request, StreamScheduler
+from repro_torch.runtime import Request, StreamScheduler
 from test_torch_engine import MODES, PROMPT_LEN, STAGES, gen_configs, models, prompt_for
 
 PS = 8
@@ -209,6 +209,5 @@ def test_serve_launcher_takes_window_and_block_causal():
     for flags in (["--window-blocks", "2"], ["--block-causal"],
                   ["--paged", "--prefix-sharing", "--block-causal", "--window-blocks", "1"]):
         serve.validate(serve.parse_args(["--device", "cpu", *flags]))
-    with pytest.raises(ConfigError, match="ROADMAP"):
-        serve.validate(serve.parse_args(["--device", "cpu", "--paged", "--window-blocks", "1",
-                                         "--lazy-reserve"]))
+    serve.validate(serve.parse_args(["--device", "cpu", "--paged", "--window-blocks", "1",
+                                     "--lazy-reserve"]))
