@@ -28,9 +28,16 @@ no result):
    host µs and kernels of one indexed ``ops.importance_score``
    call, which must be 1; paged attention and the paged scatter at a
    sparse-served layout, with evicted rows and reclaimed pages, each beside
-   the same call without the holes); the threefry key chain's
-   known answers on the card, a draw of the sampled path's shape with bits
-   equal to the CPU's, and the draw's time;
+   the same call without the holes); the int8 KV cache's kernels: dense
+   and paged attention on int8 codes with their scales (1q, 2q: bf16 on
+   the tensor-core body, f32 on the CUDA-core body, every mask option,
+   a split long cache; each beside the bf16 kernel on the dequantized
+   cache and "dequantize + SDPA"), the quantizing scatter dense and paged
+   (3q, 4q: LLaDA's 128-byte and Dream's 16-byte scale rows, with and
+   without masks, codes and scales bit-equal to the plain version, one
+   kernel per ``ops`` call) and the fork of the scale pools (5q); the
+   threefry key chain's known answers on the card, a draw of the sampled
+   path's shape with bits equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
    against the CPU (plain versions): offline ES generation (greedy tokens
    equal, final-block confidences within 1e-4); a staggered request trace
@@ -45,7 +52,11 @@ no result):
    Sparse-dLLM eviction offline dense and paged (tokens and the retained
    set equal), sparse serving with page reclaim (``pages_reclaimed`` equal
    and > 0), lazy reservation on a tight pool (a stall and a growth, the
-   lazy gauges equal);
+   lazy gauges equal); the int8 cache offline es, dense and paged, on
+   LLaDA and Dream (tokens equal), served with prefix sharing and with
+   preemption (tokens equal), and ``gather_refresh`` served with the
+   adaptive cache off and on (tokens equal the CPU's and the card's without
+   it, the compact branch ran);
 5. offline path: LLaDA-8B at full width in bfloat16 (random weights from a
    seeded generator on the card), ES generation, with each kernel's
    launches counted over that run;
@@ -69,10 +80,19 @@ no result):
    in turns with phase 5's es), then a lazy, windowed, sparse trace through
    the paged scheduler (every request completes; pages are deferred at
    admission, an extent grows, a row stalls and resumes, a page is
-   reclaimed).
+   reclaimed; one window of its repeated run's steps profiled);
+11. the int8 KV cache and ``gather_refresh``: LLaDA-8B (phase 5's model)
+   offline es with ``kv_cache_dtype="int8"`` timed in turns with bf16 (11a:
+   wall, attention and scatter device ms, KV bytes, tokens equal to
+   bf16's), phase 6's trace with the int8 cache and ``gather_refresh`` (11b:
+   against phase 6 of the same run; the compact branch must run), and a
+   sampled prefix-sharing trace of two duplicate cohorts (11c: the scale
+   pools fork).
 
-On phases 5, 6, 7, 9 and 10 every attention launch must take the tensor-core
-body, and phases 5 and 6 must keep one attention launch per call; on phase
+On phases 5, 6, 7, 9, 10 and 11 every attention launch must take the
+tensor-core body (on phase 11 reading int8 codes, with every K/V write the
+quantizing scatter), and phases 5 and 6 must keep one attention launch per
+call; on phase
 9 every attention launch must carry the block-causal options; on phase 8
 every SSD chunk launch must take the tensor-core body, and an offline es
 ``generate`` must keep its 1,584 of them (66 a layer).  Each path profile
@@ -112,6 +132,12 @@ REPLACES = {
     "variation": "src/repro/kernels/importance.py:66",
     "fork_pages": "src/repro/kernels/scatter_kv.py:122",
     "ssd_chunks": "src/repro/kernels/ssd_scan.py:70",
+    # the int8 cache's forms of the same TPU kernels
+    "flash_attention_int8": "src/repro/kernels/flash_attention.py:146",
+    "paged_flash_attention_int8": "src/repro/kernels/flash_attention.py:208",
+    "quantize_scatter_rows": "src/repro/kernels/scatter_kv.py:45",
+    "quantize_scatter_rows_paged": "src/repro/kernels/scatter_kv.py:78",
+    "fork_pages_scales": "src/repro/kernels/scatter_kv.py:122",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -122,6 +148,11 @@ SOURCES = {
     "variation": "src/repro_torch/kernels/csrc/importance.cu",
     "fork_pages": "src/repro_torch/kernels/csrc/scatter_kv.cu",
     "ssd_chunks": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "flash_attention_int8": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "paged_flash_attention_int8": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "quantize_scatter_rows": "src/repro_torch/kernels/csrc/scatter_kv.cu",
+    "quantize_scatter_rows_paged": "src/repro_torch/kernels/csrc/scatter_kv.cu",
+    "fork_pages_scales": "src/repro_torch/kernels/csrc/scatter_kv.cu",
 }
 # the serving path's shapes: 4 slots of prompt 128 + gen 64 tokens, blocks of
 # 32, partial refreshes of ceil(0.25 * (192 - 32)) = 40 tokens
@@ -246,6 +277,8 @@ def zero_counts(kernel_fns) -> None:
         fn.launches = 0
     for name in ATTENTION:
         kernel_fns[name].option_launches = {}
+        kernel_fns[name].int8_launches = 0
+    kernel_fns["fork_pages"].scale_launches = 0
     for name in TWO_BODIES:
         for body in BODIES:
             setattr(kernel_fns[name], f"{body}_launches", 0)
@@ -257,6 +290,9 @@ def counts(kernel_fns) -> dict:
     for name in TWO_BODIES:
         for body in BODIES:
             out[f"{name} {body}"] = getattr(kernel_fns[name], f"{body}_launches")
+    for name in ATTENTION:                      # launches on int8 codes
+        out[f"{name} int8"] = kernel_fns[name].int8_launches
+    out["fork_pages scales"] = kernel_fns["fork_pages"].scale_launches
     return out
 
 
@@ -1036,6 +1072,317 @@ def check_fork(ref, fork_pages, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3, the int8 KV cache: attention on int8 codes, the quantizing
+# scatter and the fork of the scale pools
+# ---------------------------------------------------------------------------
+def quantized_rows(ref, gen, *shape, dt=torch.bfloat16):
+    """Random K/V rows of ``dt`` and their int8 codes and f32 scales."""
+    x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    codes, scales = ref.quantize_rows(x)
+    return x, codes, scales
+
+
+def int8_bytes(n_rows: int, hkv: int, d: int) -> int:
+    """Codes and scales of ``n_rows`` K and V rows of ``hkv`` heads."""
+    return 2 * n_rows * hkv * (d + 4)
+
+
+def check_flash_int8(ref, flash_attention, gen):
+    """1q: dense attention on int8 codes at phase 5's layouts (the decode
+    block Lq 32 against Lkv 192, the prefill, Dream's GQA with every mask
+    option and an evicted row, a split long cache, the reduced models' head
+    dim 32): bf16 q on the tensor-core body, f32 q on the CUDA-core body,
+    each within its tolerance of the plain version (which dequantizes in
+    f32).  The bf16 cases are timed beside the bf16 kernel on the
+    dequantized cache (``bf16_ms``), with "dequant + SDPA" as the library
+    call; the f32 ones (the CPU-parity type) are checked, not timed."""
+    from repro_torch.kernels.flash_attention import plan
+
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        for label, b, hq, hkv, lq, lkv, d, kw, edit in (
+                ("llada block Lq=32 int8", 2, 32, 32, 32, 192, 128, {}, False),
+                ("llada prefill Lq=192 int8", 2, 32, 32, 192, 192, 128, {}, False),
+                ("dream gqa window+anchor+bc int8", 2, 28, 4, 32, 192, 128,
+                 {"window": 24, "anchor": 16, "bc_start": 128, "bc_block": 32}, True),
+                ("llada split causal+ragged int8", 1, 32, 32, 32, 1580, 128, {"causal": True},
+                 "split"),
+                ("reduced dream D=32 int8", 2, 4, 1, 8, 32, 32, {}, False)):
+            q = torch.randn(b, lq, hq, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+            _, k8, ks = quantized_rows(ref, gen, b, lkv, hkv, d)
+            _, v8, vs = quantized_rows(ref, gen, b, lkv, hkv, d)
+            k, v = k8.transpose(1, 2), v8.transpose(1, 2)        # the cache's [B, S, H, D] views
+            sc = dict(k_scale=ks.transpose(1, 2), v_scale=vs.transpose(1, 2))
+            q_pos = torch.arange(lkv - lq, lkv, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+            kv_pos = torch.arange(lkv, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+            if edit is True:
+                kv_pos[:, 5:9] = -1
+            if edit == "split":
+                kv_pos[:, :832] = -1
+            pl = plan(q, k, v, lkv, hkv)
+            want_body = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
+            if pl.body != want_body:
+                raise AssertionError(f"flash_attention {label} {dt}: {pl.body}, not {want_body}")
+            n8 = flash_attention.int8_launches
+            got = flash_attention(q, k, v, q_pos, kv_pos, **sc, **kw)
+            if flash_attention.int8_launches != n8 + 1:
+                raise AssertionError(f"flash_attention {label}: not counted as an int8 launch")
+            want = ref.attention_reference(q, k, v, q_pos, kv_pos, **sc, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 1e-4 if dt == torch.float32 else 2e-2
+            if not err <= tol:
+                raise AssertionError(f"flash_attention {label} {dt}: max abs err {err} > {tol}")
+            if dt == torch.float32:        # the CPU-parity type: checked, not timed
+                continue
+            ms, wall = device_ms(lambda: flash_attention(q, k, v, q_pos, kv_pos, **sc, **kw))
+            plain_ms, _ = device_ms(lambda: ref.attention_reference(q, k, v, q_pos, kv_pos,
+                                                                     **sc, **kw))
+            kd = ref.dequantize(k, sc["k_scale"]).to(dt)
+            vd = ref.dequantize(v, sc["v_scale"]).to(dt)
+            bf16_ms = device_ms(lambda: flash_attention(q, kd, vd, q_pos, kv_pos, **kw))[0]
+            bidi_ms = (device_ms(lambda: flash_attention(q, k, v, q_pos, kv_pos, **sc))[0]
+                       if kw else None)
+            mask = ref.attention_mask(q_pos, kv_pos, **kw)[:, None]
+
+            def library():            # two calls: dequantize the cache, then SDPA
+                return F.scaled_dot_product_attention(
+                    q, ref.dequantize(k, sc["k_scale"]).to(dt),
+                    ref.dequantize(v, sc["v_scale"]).to(dt), attn_mask=mask,
+                    enable_gqa=hq != hkv)
+            lib_ms, _ = device_ms(library)
+            n_valid = mask.sum().item()
+            n_rows = int(admitted_kv_rows(mask).sum().item())
+            bms, by = bound(nbytes(q, q_pos, kv_pos, got) + int8_bytes(n_rows, hkv, d),
+                            4.0 * hq * d * n_valid, dt)
+            out.append(dict(kernel="flash_attention_int8", case=label, dtype=str(dt),
+                            max_abs_err=err, tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                            library_ms=lib_ms, library="dequantize + scaled_dot_product_attention",
+                            bound_ms=bms, bound_by=by, body=pl.body, n_splits=pl.n_splits,
+                            options=kw, bidi_ms=bidi_ms, empty_splits=0, bf16_ms=bf16_ms,
+                            kv_bytes=int8_bytes(lkv, hkv, d) * b,
+                            kv_bytes_bf16=2 * b * lkv * hkv * d * 2))
+    return out
+
+
+def check_paged_flash_int8(ref, paged_flash_attention, gen):
+    """2q: paged attention on int8 code pools with their scale pools at
+    phase 6's served layout (ps 16): LLaDA's block, prefill and partial
+    refresh, the block under block-causal options, and Dream's GQA block;
+    bf16 on the tensor-core body, f32 on the CUDA-core body (checked, not
+    timed).  Library: "gather + dequant + SDPA"."""
+    from repro_torch.kernels.flash_attention import plan
+
+    out = []
+    ps = 16
+    for dt in (torch.float32, torch.bfloat16):
+        for label, hq, hkv, lq, opts in (
+                ("llada block Lq=32 ps=16 int8", 32, 32, 32, {}),
+                ("llada partial Lq=40 ps=16 int8", 32, 32, 40, {}),
+                ("llada prefill Lq=192 ps=16 int8", 32, 32, 192, {}),
+                ("llada block Lq=32 ps=16 bc int8", 32, 32, 32,
+                 dict(bc_start=PROMPT, bc_block=BLOCK)),
+                ("dream gqa block Lq=32 ps=16 int8", 28, 4, 32, {})):
+            bt, kv_pos, n_pages = serving_layout(gen, ps)
+            _, k8, ks = quantized_rows(ref, gen, n_pages, ps, hkv, 128)
+            _, v8, vs = quantized_rows(ref, gen, n_pages, ps, hkv, 128)
+            sc = dict(k_scale=ks, v_scale=vs)
+            q = torch.randn(SLOTS, lq, hq, 128, generator=gen, device="cuda").to(dt).transpose(1, 2)
+            first = PROMPT if lq < T_TOTAL else 0
+            q_pos = torch.arange(first, first + lq, dtype=torch.int32,
+                                 device="cuda")[None].repeat(SLOTS, 1)
+            args = (q, k8, v8, q_pos, kv_pos, bt)
+            pl = plan(q, k8, v8, kv_pos.shape[1], hkv, ps)
+            want_body = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
+            if pl.body != want_body:
+                raise AssertionError(f"paged_flash_attention {label} {dt}: {pl.body}")
+            got = paged_flash_attention(*args, **sc, **opts)
+            want = ref.paged_attention_reference(*args, **sc, **opts)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 1e-4 if dt == torch.float32 else 2e-2
+            if not err <= tol:
+                raise AssertionError(f"paged_flash_attention {label} {dt}: max abs err {err} "
+                                     f"> {tol}")
+            if dt == torch.float32:        # the CPU-parity type: checked, not timed
+                continue
+            ms, wall = device_ms(lambda: paged_flash_attention(*args, **sc, **opts))
+            plain_ms, _ = device_ms(lambda: ref.paged_attention_reference(*args, **sc, **opts))
+            kd = ref.dequantize(k8, ks).to(dt)
+            vd = ref.dequantize(v8, vs).to(dt)
+            bf16_ms = device_ms(lambda: paged_flash_attention(q, kd, vd, q_pos, kv_pos, bt,
+                                                              **opts))[0]
+            bidi_ms = (device_ms(lambda: paged_flash_attention(*args, **sc))[0]
+                       if opts else None)
+            mask = ref.attention_mask(q_pos, ref.paged_kv_mask(bt, kv_pos, ps), **opts)[:, None]
+
+            def library():            # gather the pages and their scales, dequantize, SDPA
+                k = ref.dequantize(ref.gather_pages(k8, bt), ref.gather_pages(ks, bt))
+                v = ref.dequantize(ref.gather_pages(v8, bt), ref.gather_pages(vs, bt))
+                return F.scaled_dot_product_attention(
+                    q, k.to(dt).transpose(1, 2), v.to(dt).transpose(1, 2), attn_mask=mask,
+                    enable_gqa=hq != hkv)
+            lib_ms, _ = device_ms(library)
+            lkv = kv_pos.shape[1]
+            phys = (bt.repeat_interleave(ps, dim=1).long() * ps
+                    + torch.arange(lkv, device=bt.device) % ps)
+            n_rows = phys[admitted_kv_rows(mask)].unique().numel()
+            bms, by = bound(nbytes(q, q_pos, kv_pos, bt, got) + int8_bytes(n_rows, hkv, 128),
+                            4.0 * hq * 128 * mask.sum().item(), dt)
+            out.append(dict(kernel="paged_flash_attention_int8", case=label, dtype=str(dt),
+                            max_abs_err=err, tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                            library_ms=lib_ms,
+                            library="gather_pages + dequantize + scaled_dot_product_attention",
+                            bound_ms=bms, bound_by=by, kv_rows_read=n_rows, body=pl.body,
+                            n_splits=pl.n_splits, options=opts, bidi_ms=bidi_ms,
+                            empty_splits=empty_splits(ref, pl, bt, ps), bf16_ms=bf16_ms))
+    return out
+
+
+def check_quant_scatter(ref, ops, gen):
+    """3q and 4q: the int8 cache's write through ``ops.scatter_rows`` and
+    ``ops.scatter_rows_paged`` (one quantizing launch for K and V codes and
+    scales), dense at phase 5's shapes and paged over the serving layout
+    (ps 16), LLaDA's 128-byte and Dream's 16-byte scale rows, bf16 and f32
+    new rows, with and without the serving masks.  Codes and scales must
+    equal the plain version bit for bit (page 0, the garbage page, aside);
+    each bf16 call must be one kernel.  The bf16 cases are timed (library:
+    ``_quantize_rows`` in torch and four ``index_copy_``); the f32 ones are
+    checked, not timed."""
+    from repro_torch.kernels.scatter_kv import (
+        quant_plan,
+        quantize_scatter_rows,
+        quantize_scatter_rows_paged,
+    )
+
+    out = []
+    d, s, ps = 128, T_TOTAL, 16
+    flush_l2()           # the flush buffer's allocation is not one of the call's records
+    for dt in (torch.float32, torch.bfloat16):
+        for paged in (False, True):
+            fn = quantize_scatter_rows_paged if paged else quantize_scatter_rows
+            for arch, h in SCATTER_ARCHS:
+                for kk, what, masks in ((32, "block", "none"), (32, "block", "row+token"),
+                                        (192, "prefill", "none")):
+                    b = SLOTS if paged else 2
+                    label = (f"{arch} {what} K={kk}" + (f" ps={ps}" if paged else "")
+                             + (f" mask={masks}" if paged or masks != "none" else "") + " int8")
+                    if paged:
+                        bt, _, n_pages = serving_layout(gen, ps)
+                        lead = (n_pages, ps)
+                    else:
+                        bt, lead = None, (b, s)
+                    planes = [torch.randint(-127, 128, (*lead, h, d), generator=gen,
+                                            device="cuda").to(torch.int8) for _ in "kv"]
+                    scales = [torch.rand(*lead, h, generator=gen, device="cuda") for _ in "kv"]
+                    kn, vn = (torch.randn(b, kk, h, d, generator=gen, device="cuda").to(dt)
+                              for _ in "kv")
+                    kn[0, 0, 0] = 0.0                       # a zero row: scale 1e-8
+                    idx = torch.stack([torch.randperm(s, generator=gen, device="cuda")[:kk]
+                                       for _ in range(b)]).to(torch.int32)
+                    mk = {}
+                    if masks != "none":
+                        mk = dict(row_mask=torch.arange(b, device="cuda") % 2 == 0,
+                                  token_mask=torch.rand(b, kk, generator=gen, device="cuda") < 0.5)
+                    extra = (bt,) if paged else ()
+                    plain = (ref.quantize_scatter_rows_paged_reference if paged
+                             else ref.quantize_scatter_rows_reference)
+                    want = [t.clone() for t in planes + scales]
+                    plain(want[0], want[2], kn, idx, *extra, **mk)
+                    plain(want[1], want[3], vn, idx, *extra, **mk)
+                    got = [t.clone() for t in planes + scales]
+                    pairs = (((got[0], got[2]), kn), ((got[1], got[3]), vn))
+                    op = ops.scatter_rows_paged if paged else ops.scatter_rows
+                    if dt == torch.float32:    # the CPU-parity type: checked, not timed
+                        op(pairs, idx, *extra, **mk)
+                    else:
+                        # one call, three times (an idempotent write), each in
+                        # a profiler window between L2 flushes (``kernel_windows``)
+                        n0 = fn.launches
+                        windows = kernel_windows(lambda: op(pairs, idx, *extra, **mk))
+                        if fn.launches != n0 + len(windows) or max(windows) != 1:
+                            raise AssertionError(f"{fn.__name__} {label}: {fn.launches - n0} "
+                                                 f"launches and {windows} device records "
+                                                 f"for {len(windows)} calls")
+                    cut = 1 if paged else 0                 # page 0 takes unmapped rows
+                    if not all(torch.equal(g[cut:], w[cut:]) for g, w in zip(got, want)):
+                        raise AssertionError(f"{fn.__name__} {label} {dt}: codes or scales not "
+                                             "bit-equal to the plain version")
+                    if dt == torch.float32:
+                        continue
+                    ms, wall = device_ms(lambda: op(pairs, idx, *extra, **mk))
+                    plain_ms, _ = device_ms(lambda: (plain(got[0], got[2], kn, idx, *extra, **mk),
+                                                     plain(got[1], got[3], vn, idx, *extra, **mk)))
+                    sel = ref.keep_mask(idx, mk.get("row_mask"), mk.get("token_mask"))
+                    sel = torch.ones_like(idx, dtype=torch.bool) if sel is None else sel
+                    if paged:
+                        page = torch.gather(bt.long(), 1, idx.long() // ps).clamp(min=0)
+                        dest = (page * ps + idx.long() % ps)[sel]
+                    else:
+                        dest = (idx.long() + torch.arange(b, device="cuda")[:, None] * s)[sel]
+                    flat = [t.view(-1, h, d) for t in got[:2]] + [t.view(-1, h) for t in got[2:]]
+                    kn_s, vn_s = kn[sel], vn[sel]
+
+                    def library():
+                        (kc, ksc), (vc, vsc) = ref.quantize_rows(kn_s), ref.quantize_rows(vn_s)
+                        for t, x in zip(flat, (kc, vc, ksc, vsc)):
+                            t.index_copy_(0, dest, x)
+                    lib_ms, _ = device_ms(library)
+                    n_rows = int(sel.sum().item())
+                    # each kept new row read once, its codes and scales written
+                    # once (K and V); the indices, the table and the masks; two
+                    # f32 operations an element (the amax compare, the divide)
+                    moved = (2 * n_rows * h * d * kn.element_size() + int8_bytes(n_rows, h, d)
+                             + nbytes(idx, *extra, *mk.values()))
+                    bms, by = bound(moved, 2.0 * 2 * n_rows * h * d, torch.float32)
+                    out.append(dict(kernel=fn.__name__, case=label, dtype=str(dt),
+                                    max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall,
+                                    plain_ms=plain_ms, library_ms=lib_ms,
+                                    library="quantize_rows + index_copy_ (x4)", bound_ms=bms,
+                                    bound_by=by, rows_written=n_rows, scale_row_bytes=h * 4,
+                                    kernels_per_call=max(windows),
+                                    plan=dataclasses.asdict(quant_plan(b, kk, h, d))))
+    return out
+
+
+def check_fork_scales(ref, fork_pages, gen):
+    """5q: the copy-on-write fork of the int8 cache's scale pools ``[G, P,
+    ps, Hkv]`` f32 (the fork kernel's second launch): destinations equal
+    their sources, every other page unchanged, counted in
+    ``fork_pages.scale_launches``."""
+    out = []
+    for arch, g, hkv in FORK_ARCHS:
+        for ps in (16, 8):
+            n_pages = SLOTS * (T_TOTAL // ps) + 1
+            ks, vs = (torch.rand(g, n_pages, ps, hkv, generator=gen, device="cuda") for _ in "kv")
+            page_bytes = ps * hkv * 4
+            for f in (1, 14):
+                label = f"{arch} F={f} ps={ps} scales"
+                src, dst, real = fork_lists(gen, n_pages, f)
+                k0, v0 = ks.clone(), vs.clone()
+                n0 = fork_pages.scale_launches
+                fork_pages(ks, vs, src, dst)
+                if fork_pages.scale_launches != n0 + 1:
+                    raise AssertionError(f"fork_pages {label}: not counted as a scale launch")
+                src_t, dst_t = torch.tensor(src, device="cuda"), torch.tensor(dst, device="cuda")
+                for got, before in ((ks, k0), (vs, v0)):
+                    if not torch.equal(got, ref.fork_pages_reference(before.clone(), src_t, dst_t)):
+                        raise AssertionError(f"fork_pages {label}: differs from the plain version")
+                s_t = torch.tensor([a for a, _ in real], device="cuda")
+                d_t = torch.tensor([b for _, b in real], device="cuda")
+                ms, wall = device_ms(lambda: fork_pages(ks, vs, src, dst))
+                plain_ms, _ = device_ms(lambda: (ref.fork_pages_reference(ks, src_t, dst_t),
+                                                 ref.fork_pages_reference(vs, src_t, dst_t)))
+                lib_ms, _ = device_ms(lambda: (ks.index_copy_(1, d_t, ks.index_select(1, s_t)),
+                                               vs.index_copy_(1, d_t, vs.index_select(1, s_t))))
+                bms, by = bound(2 * f * g * 2 * page_bytes, 0.0, torch.float32)
+                out.append(dict(kernel="fork_pages_scales", case=label, dtype=str(torch.float32),
+                                max_abs_err=0.0, tol=0.0, ms=ms, wall_ms=wall,
+                                plain_ms=plain_ms, library_ms=lib_ms,
+                                library="index_select + index_copy_ (K and V scales)",
+                                bound_ms=bms, bound_by=by, pairs=f, page_bytes=page_bytes))
+    return out
+
+
 # mamba2-370m's mixer: 32 heads of 64, d_state 128, one B/C group, chunk 64
 SSD_H, SSD_P, SSD_N, SSD_CHUNK = 32, 64, 128, 64
 
@@ -1338,11 +1685,12 @@ SAMPLED_SERVE = dict(mode="es", gen_length=16, block_length=8, prompt_refresh_pe
                      block_refresh_period=3)
 
 
-def cross_device_sampled_serving() -> dict:
+def cross_device_sampled_serving(**engine_kw) -> dict:
     """Sampled serving with prefix sharing on reduced LLaDA and Dream (top-p):
     two duplicate-prompt cohorts and one other request, all admitted in one
     cycle.  Every request's tokens on the card equal the CPU's and the card's
-    unshared run; the cohorts forked and every page came back."""
+    unshared run; the cohorts forked and every page came back.  ``engine_kw``
+    goes to the engine (the int8 cache: its scale pools fork too)."""
     import numpy as np
 
     from repro_torch import configs
@@ -1363,7 +1711,7 @@ def cross_device_sampled_serving() -> dict:
         def run(dev, sharing):
             sched = StreamScheduler(models[dev], gen_cfg, device=dev, max_slots=5,
                                     prompt_len=16, paged=True, page_size=8,
-                                    prefix_sharing=sharing)
+                                    prefix_sharing=sharing, **engine_kw)
             reqs = [Request(prompt=p.copy(), sample_seed=100 + i) for i, p in enumerate(prompts)]
             for r in reqs:
                 sched.submit(r)
@@ -1388,18 +1736,19 @@ def cross_device_sampled_serving() -> dict:
     return out
 
 
-def cross_device_preemption() -> dict:
-    """Sampled reduced Dream on a pool that holds one request: the
-    higher-class arrival spills the resident, which resumes later; both
+def cross_device_preemption(arch: str = "dream-7b", **engine_kw) -> dict:
+    """Sampled reduced Dream (or ``arch``) on a pool that holds one request:
+    the higher-class arrival spills the resident, which resumes later; both
     requests' tokens equal their uninterrupted offline runs, on the card and
-    on the CPU."""
+    on the CPU.  ``engine_kw`` goes to the engines (the int8 cache: every
+    plane spills and restores)."""
     import numpy as np
 
     from repro_torch import configs
     from repro_torch.core import make_engine
     from repro_torch.runtime import Request, StreamScheduler
 
-    models = reduced_models("dream-7b")
+    models = reduced_models(arch)
     gen_cfg = configs.GenerationConfig(
         mode="es", gen_length=16, block_length=8, skip_stages=(configs.SkipStage(1, 0.5),),
         prompt_refresh_period=8, block_refresh_period=4, temperature=0.8)
@@ -1409,7 +1758,8 @@ def cross_device_preemption() -> dict:
     outs = {}
     for dev in ("cpu", "cuda"):
         sched = StreamScheduler(models[dev], gen_cfg, device=dev, max_slots=2, prompt_len=16,
-                                paged=True, page_size=8, kv_pages=5, preemption=True)
+                                paged=True, page_size=8, kv_pages=5, preemption=True,
+                                **engine_kw)
         low = Request(prompt=prompts[0].copy(), priority=0, sample_seed=11)
         high = Request(prompt=prompts[1].copy(), priority=1, sample_seed=22)
         sched.submit(low)
@@ -1420,7 +1770,8 @@ def cross_device_preemption() -> dict:
         if sched.stats.preemptions < 1 or len(sched.stats.resume_waits) != sched.stats.preemptions:
             raise AssertionError(f"preemption on {dev}: {sched.stats.gauges()}")
         outs[dev] = ([low.output, high.output], sched.stats.gauges())
-    offline = make_engine(models["cuda"], gen_cfg, device="cuda", paged=True, page_size=8)
+    offline = make_engine(models["cuda"], gen_cfg, device="cuda", paged=True, page_size=8,
+                          **engine_kw)
     ref = offline.generate(torch.from_numpy(np.stack(prompts)),
                            sample_seeds=torch.tensor([11, 22])).cpu().numpy()[:, 16:]
     for i in range(2):
@@ -1683,6 +2034,68 @@ def cross_device_sparse() -> dict:
     if not (gauges["window_stalls"] > 0 and gauges["blocks_grown"] > 0):
         raise AssertionError(f"lazy serving: no stall or no growth: {gauges}")
     out["served_lazy_tight_pool"] = dict(requests=len(plan), tokens_equal=True, **gauges)
+    return out
+
+
+def cross_device_int8_gather() -> dict:
+    """The int8 KV cache and the gathered-subset refresh on reduced LLaDA and
+    Dream in float32 (int8 attention on the CUDA-core body, f32 rows into
+    the quantizing scatter): int8 offline es, dense and paged, greedy tokens
+    equal on the card and the CPU; served with ``gather_refresh`` on two
+    slots (a refresh of one row runs compacted), adaptive cache off and on,
+    the card's tokens equal the CPU's and the card's without it, and the
+    compact branch ran on the card."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+    from repro_torch.runtime import Request, StreamScheduler
+
+    out = {}
+    for arch in ("llada-8b", "dream-7b"):
+        models = reduced_models(arch)
+        vocab = models["cpu"].cfg.vocab_size
+        rec = {}
+        gen_cfg = configs.GenerationConfig(
+            mode="es", gen_length=16, block_length=8,
+            skip_stages=(configs.SkipStage(1, 0.5), configs.SkipStage(2, 0.5)))
+        prompt = torch.randint(3, vocab, (2, 16), generator=torch.Generator().manual_seed(SEED + 1))
+        for name, kw in (("int8 dense", {}), ("int8 paged", dict(paged=True, page_size=8))):
+            toks = {dev: make_engine(models[dev], gen_cfg, device=dev, kv_cache_dtype="int8",
+                                     **kw).generate(prompt).cpu() for dev in ("cpu", "cuda")}
+            if not torch.equal(toks["cpu"], toks["cuda"]):
+                raise AssertionError(f"{arch} {name}: card tokens differ from the CPU's:\n"
+                                     f"{toks['cpu']}\n{toks['cuda']}")
+            rec[name] = dict(tokens_equal=True, distinct_ids=len(torch.unique(toks["cpu"][:, 16:])))
+        rng = np.random.default_rng(SEED + 5)
+        prompts = [rng.integers(3, vocab, int(rng.integers(4, 17))).astype(np.int32)
+                   for _ in range(5)]
+        for interval in (0, 2):
+            served = configs.GenerationConfig(
+                mode="es", gen_length=16, block_length=8, skip_stages=(configs.SkipStage(1, 0.5),),
+                prompt_refresh_period=2, block_refresh_period=4, cache_prompt_interval=interval)
+
+            def run(dev, gather):
+                sched = StreamScheduler(models[dev], served, device=dev, max_slots=2,
+                                        prompt_len=16, paged=True, page_size=8,
+                                        early_advance=True, gather_refresh=gather)
+                reqs = [Request(prompt=p.copy(), sample_seed=i) for i, p in enumerate(prompts)]
+                for r in reqs:
+                    sched.submit(r)
+                sched.drain()
+                check_drained(sched, reqs)
+                return [r.output for r in reqs], sched.engine.compact_prefill
+            (cpu_out, _), (card_out, n_compact), (plain_out, _) = (
+                run("cpu", True), run("cuda", True), run("cuda", False))
+            for i, (x, y, z) in enumerate(zip(cpu_out, card_out, plain_out)):
+                if not (np.array_equal(x, y) and np.array_equal(y, z)):
+                    raise AssertionError(f"{arch} gather_refresh cache {interval}, request {i}: "
+                                         f"card {y}, CPU {x}, card without it {z}")
+            if n_compact <= 0:
+                raise AssertionError(f"{arch} gather_refresh: the compact branch did not run")
+            rec[f"gather_refresh cache_prompt_interval={interval}"] = dict(
+                tokens_equal=True, compact_prefill=n_compact)
+        out[arch] = rec
     return out
 
 
@@ -2018,6 +2431,9 @@ LAZY_LENS = (32, 64, 96, 128, 32, 64, 96, 128)
 LAZY_MAX_BLOCKS = (4, None, 4, None, 4, None, 4, None)
 LAZY_MAX_NEW = (64, 128, 64, 128, 64, 128, 64, 128)
 LAZY_GEN = 128
+# the steps of 10b's repeat that run under the profiler: a steady stretch
+# with every slot resident, past the warm-up of the first arrivals
+LAZY_PROFILE = (100, 200)
 # pool: 40 pages hold the first four requests' prompts and first windows
 # (6 + 8 + 10 + 12), not their full extents (10 + 12 + 14 + 16 = 52)
 LAZY_KV_PAGES = 41
@@ -2125,17 +2541,23 @@ def lazy_served(model, kernel_fns) -> dict:
                                prompt_len=PROMPT, paged=True, page_size=16,
                                kv_pages=LAZY_KV_PAGES, early_advance=True, lazy_reserve=True)
 
-    def trace(sched, n=len(prompts)):
+    def trace(sched, n=len(prompts), window=None):
+        """The trace; with a ``Profiled`` window, steps ``[LAZY_PROFILE[0],
+        LAZY_PROFILE[1])`` run under it."""
         from repro_torch.runtime import Request
 
         reqs = [Request(prompt=p.copy(), max_new_tokens=m, max_blocks=mb)
                 for p, m, mb in zip(prompts[:n], LAZY_MAX_NEW, LAZY_MAX_BLOCKS)]
         step = 0
         while step <= 5 * (n - 1) or sched.has_work():
+            if window is not None and step == LAZY_PROFILE[0]:
+                window.__enter__()
             if step % 5 == 0 and step // 5 < n:
                 sched.submit(reqs[step // 5])
             sched.step()
             step += 1
+            if window is not None and step == LAZY_PROFILE[1]:
+                window.__exit__(None, None, None)
         return reqs
     trace(make(), 1)                                        # warm-up
     torch.cuda.synchronize()
@@ -2171,8 +2593,11 @@ def lazy_served(model, kernel_fns) -> dict:
             raise AssertionError(f"phase 10 served: kernel {kname} was not launched")
     if sched.allocator.free_pages != sched.allocator.num_pages - 1:
         raise AssertionError("phase 10 served: the pool did not get every page back")
-    again: list = []
-    profile = profile_run(lambda: again.extend(trace(make())))
+    # the repeat runs whole (its tokens must equal the first run's) with
+    # one window of its steps profiled: profiling all 352 steps took 62-66 s
+    window = Profiled()
+    again = trace(make(), window=window)
+    profile = window.result
     if not all(np.array_equal(a.output, b.output) for a, b in zip(reqs, again)):
         raise AssertionError("phase 10 served: a repeated greedy run gave other tokens")
     # the pages each request would map up front without lazy reservation,
@@ -2195,8 +2620,194 @@ def lazy_served(model, kernel_fns) -> dict:
         pages_reclaimed=st.pages_reclaimed,
         peak_pages_in_use=st.peak_pages_in_use, resident_peak=st.resident_peak,
         cache_hit_fraction=st.cache_hit_fraction, passes=dict(sched.engine.pass_counts),
-        launches=launches, profile=profile,
-        kernels_per_step=profile["kernels_launched"] / st.steps)
+        launches=launches, profile=profile, profiled_steps=list(LAZY_PROFILE),
+        kernels_per_step=profile["kernels_launched"] / (LAZY_PROFILE[1] - LAZY_PROFILE[0]))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the int8 KV cache and gather_refresh, LLaDA-8B at full width
+# ---------------------------------------------------------------------------
+def port_kernel_ms(profile: dict, *prefixes: str) -> float:
+    """Device ms of the port's kernels whose symbol starts with a prefix."""
+    return sum(r["ms"] for n, r in profile["port_kernels"].items() if n.startswith(prefixes))
+
+
+def check_int8_path(launches: dict, where: str, paged: bool) -> None:
+    """Every attention launch of an int8 path read int8 codes on the
+    tensor-core body, and every K/V write was the quantizing scatter."""
+    att = "paged_flash_attention" if paged else "flash_attention"
+    quant = "quantize_scatter_rows_paged" if paged else "quantize_scatter_rows"
+    plain = "scatter_rows_paged" if paged else "scatter_rows"
+    n = launches[att]
+    if not (n > 0 and launches[f"{att} tensor_core"] == n and launches[f"{att} int8"] == n):
+        raise AssertionError(f"{where}: {n} {att} launches, {launches[att + ' tensor_core']} on "
+                             f"the tensor-core body, {launches[att + ' int8']} on int8 codes")
+    if launches[quant] <= 0 or launches[plain] != 0:
+        raise AssertionError(f"{where}: {launches[quant]} quantizing and {launches[plain]} "
+                             "plain K/V scatters")
+
+
+def int8_offline(model, kernel_fns) -> dict:
+    """11a: phase 5's offline es (batch 2, prompt 128, gen 64 in blocks of
+    32) with the int8 cache, each ``generate`` timed in turns with the bf16
+    cache (bf16, int8, int8, bf16), then one profiled ``generate`` of each.
+    The share of generated tokens equal to bf16's is reported, not gated:
+    the weights are random."""
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+
+    cfg = model.cfg
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=64, block_length=32,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=32, block_refresh_period=4)
+    prompt = torch.randint(3, cfg.vocab_size, (2, PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    engines = {"bf16": make_engine(model, gen_cfg, device="cuda"),
+               "int8": make_engine(model, gen_cfg, device="cuda", kv_cache_dtype="int8")}
+    tokens = {name: eng.generate(prompt) for name, eng in engines.items()}     # warm-up
+    torch.cuda.synchronize()
+    runs = {name: dict(wall_s=[]) for name in engines}
+    for name in ("bf16", "int8", "int8", "bf16"):
+        zero_counts(kernel_fns)
+        t0 = time.perf_counter()
+        again = engines[name].generate(prompt)
+        torch.cuda.synchronize()
+        runs[name]["wall_s"].append(time.perf_counter() - t0)
+        runs[name]["launches"] = counts(kernel_fns)
+        if not torch.equal(again, tokens[name]):
+            raise AssertionError(f"phase 11a {name}: a repeated greedy generate gave other tokens")
+    check_int8_path(runs["int8"]["launches"], "phase 11a", paged=False)
+    check_tensor_core_path(runs["bf16"]["launches"], "phase 11a bf16")
+    for name, eng in engines.items():
+        gen_tok = tokens[name][:, PROMPT:]
+        if (gen_tok == eng.mask_id).any().item():
+            raise AssertionError(f"phase 11a {name}: a [mask] id is left in the output")
+        prof = profile_run(lambda: eng.generate(prompt))
+        r = runs[name]
+        r.update(ms_per_generate=sum(r["wall_s"]) / len(r["wall_s"]) * 1e3,
+                 iterations=eng.iterations, attention_ms=port_kernel_ms(
+                     prof, "flash_tc_kernel", "flash_attention_kernel"),
+                 scatter_ms=port_kernel_ms(prof, "quant_scatter_kernel", "scatter_rows_kernel"),
+                 device_busy_ms=prof["device_busy_ms"],
+                 device_busy_share=prof["device_busy_share"],
+                 kv_bytes=sum(nbytes(t) for t in eng.last_state.cache),
+                 distinct_ids=len(torch.unique(gen_tok)), profile=prof)
+    n_layers, hkv, d = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    return dict(batch=2, prompt_len=PROMPT, gen_length=64, block_length=BLOCK, runs=runs,
+                equal_to_bf16=(tokens["int8"][:, PROMPT:] == tokens["bf16"][:, PROMPT:])
+                .float().mean().item(),
+                kv_bytes_per_token_layer={"bf16": 2 * hkv * d * 2, "int8": 2 * hkv * (d + 4)},
+                kv_bytes_ratio=runs["int8"]["kv_bytes"] / runs["bf16"]["kv_bytes"],
+                int8_over_bf16_ms=runs["int8"]["ms_per_generate"] / runs["bf16"]["ms_per_generate"],
+                layers=n_layers)
+
+
+def int8_gather_served(model, kernel_fns, serving: dict) -> dict:
+    """11b: phase 6's trace and scheduler (4 slots, pages of 16, early
+    advance, the adaptive cache) with the int8 cache and ``gather_refresh``:
+    a prompt refresh of at most 2 of the 4 slots runs compacted.  Compared
+    with phase 6 of the same run (``serving``).  Every attention launch must
+    read int8 codes on the tensor-core body, and the compact branch must
+    run."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.runtime import StreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2)
+    rng = np.random.default_rng(SEED)
+    lens = (32, 64, 96, 128, 32, 64, 96, 128)
+    max_new = (64, 32, 64, 32, 32, 64, 32, 64)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def make():
+        return StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
+                               prompt_len=PROMPT, paged=True, page_size=16,
+                               early_advance=True, kv_cache_dtype="int8", gather_refresh=True)
+    serve_trace(make(), prompts[:1], max_new[:1], every=5)     # warm-up
+    torch.cuda.synchronize()
+    sched = make()
+    zero_counts(kernel_fns)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reqs = serve_trace(sched, prompts, max_new, every=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    check_drained(sched, reqs)
+    check_int8_path(launches, "phase 11b", paged=True)
+    n_compact = sched.engine.compact_prefill
+    if n_compact <= 0:
+        raise AssertionError("phase 11b: no prompt refresh ran compacted")
+    pool_bytes = sum(nbytes(t) for t in sched.state.cache)
+    again: list = []
+    profile = profile_run(lambda: again.extend(serve_trace(make(), prompts, max_new, every=5)))
+    if not all(np.array_equal(a.output, b.output) for a, b in zip(reqs, again)):
+        raise AssertionError("phase 11b: a repeated greedy serving run gave other tokens")
+    st = sched.stats
+    n_pages = st.pages_total + 1
+    bf16_pool = 2 * cfg.n_layers * n_pages * 16 * cfg.n_kv_heads * cfg.head_dim * 2
+    return dict(
+        steps=st.steps, wall_s=wall, ms_per_step=wall / st.steps * 1e3,
+        tokens_per_s=sum(max_new) / wall, latency_p50_s=st.latency_pct(50),
+        peak_pages_in_use=st.peak_pages_in_use, pages_total=st.pages_total,
+        pool_bytes=pool_bytes, pool_bytes_bf16=bf16_pool,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        compact_prefill=n_compact, passes=dict(sched.engine.pass_counts),
+        cache_hit_fraction=st.cache_hit_fraction, launches=launches,
+        device_busy_share=profile["device_busy_share"],
+        attention_ms=port_kernel_ms(profile, "flash_tc_kernel"),
+        scatter_ms=port_kernel_ms(profile, "quant_scatter_kernel"),
+        kernels_per_step=profile["kernels_launched"] / st.steps, profile=profile,
+        phase6=dict(steps=serving["steps"], ms_per_step=serving["ms_per_step"],
+                    device_busy_share=serving["profile"]["device_busy_share"],
+                    peak_pages_in_use=serving["peak_pages_in_use"],
+                    peak_mem_gb=serving["peak_mem_gb"]))
+
+
+def int8_shared_served(model, kernel_fns) -> dict:
+    """11c: prefix sharing under the int8 cache at full width, so the fork
+    copies the scale pools too: two duplicate-prompt cohorts (2 requests
+    each, prompt 128), sampled at temperature 0.2 and top-p 0.95 as phase 7
+    samples, admitted in one cycle on 4 slots."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.runtime import Request, StreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=8, block_refresh_period=4, temperature=0.2, top_p=0.95)
+    rng = np.random.default_rng(SEED + 3)
+    a, b = (rng.integers(3, cfg.vocab_size, PROMPT).astype(np.int32) for _ in "ab")
+    sched = StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS, prompt_len=PROMPT,
+                            paged=True, page_size=16, prefix_sharing=True,
+                            kv_cache_dtype="int8")
+    reqs = [Request(prompt=p.copy(), sample_seed=2000 + i) for i, p in enumerate((a, a, b, b))]
+    zero_counts(kernel_fns)
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    check_drained(sched, reqs, GEN)
+    check_int8_path(launches, "phase 11c", paged=True)
+    st = sched.stats
+    if st.cow_forks <= 0 or launches["fork_pages scales"] < 1:
+        raise AssertionError(f"phase 11c: {st.cow_forks} forks, "
+                             f"{launches['fork_pages scales']} of the scale pools")
+    return dict(requests=len(reqs), steps=st.steps, wall_s=wall, cow_forks=st.cow_forks,
+                launches=launches,
+                distinct_outputs=len({r.output.tobytes() for r in reqs}))
 
 
 # ---------------------------------------------------------------------------
@@ -2502,16 +3113,39 @@ def mamba_serving(model, kernel_fns) -> dict:
 
 def profile_run(fn, top: int = 8) -> dict:
     """Where one run's time goes on the device: the share of the wall time
-    some kernel was running, and the kernels with the most device time.
-    Read from the raw Kineto records: the profiler's own event list
+    some kernel was running, and the kernels with the most device time."""
+    with Profiled(top) as p:
+        fn()
+    return p.result
+
+
+class Profiled:
+    """:func:`profile_run` over whatever runs between enter and exit (a
+    window of a serving trace's steps), with the card synchronized at both
+    ends; ``result`` holds the summary after the exit."""
+
+    def __init__(self, top: int = 8):
+        self.top, self.result = top, None
+
+    def __enter__(self):
+        torch.cuda.synchronize()
+        self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        self.t0 = time.perf_counter()
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - self.t0) * 1e6
+        self.prof.__exit__(*exc)
+        if exc[0] is None:
+            self.result = summarize_profile(self.prof, wall_us, self.top)
+
+
+def summarize_profile(prof, wall_us: float, top: int) -> dict:
+    """Read from the raw Kineto records: the profiler's own event list
     (``prof.events()``) builds a tree that takes minutes for a run of a
     million kernels."""
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
     cuda = torch.autograd.DeviceType.CUDA
     evs = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
            for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
@@ -2556,7 +3190,13 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
     from repro_torch.kernels.importance import importance, variation
-    from repro_torch.kernels.scatter_kv import fork_pages, scatter_rows, scatter_rows_paged
+    from repro_torch.kernels.scatter_kv import (
+        fork_pages,
+        quantize_scatter_rows,
+        quantize_scatter_rows_paged,
+        scatter_rows,
+        scatter_rows_paged,
+    )
     from repro_torch.kernels.ssd_scan import ssd_chunks
 
     print(sh(build.nvcc(), "--version").splitlines()[-1])
@@ -2569,7 +3209,8 @@ def main() -> int:
                   "paged_flash_attention": paged_flash_attention,
                   "scatter_rows": scatter_rows, "scatter_rows_paged": scatter_rows_paged,
                   "importance": importance, "variation": variation, "fork_pages": fork_pages,
-                  "ssd_chunks": ssd_chunks}
+                  "ssd_chunks": ssd_chunks, "quantize_scatter_rows": quantize_scatter_rows,
+                  "quantize_scatter_rows_paged": quantize_scatter_rows_paged}
 
     phase_s: dict = {}                    # wall seconds of each phase
     t_phase = time.perf_counter()
@@ -2599,6 +3240,10 @@ def main() -> int:
     cases += check_variation(ref, variation, gen)
     cases += check_fork(ref, fork_pages, gen)
     cases += check_ssd(ref, ops, ssd_chunks, gen)
+    cases += check_flash_int8(ref, flash_attention, gen)
+    cases += check_paged_flash_int8(ref, paged_flash_attention, gen)
+    cases += check_quant_scatter(ref, ops, gen)
+    cases += check_fork_scales(ref, fork_pages, gen)
     print(f"timer: {len(TIMER_FALLBACKS)} incomplete profiler traces {TIMER_FALLBACKS[:20]}, "
           f"{len(EVENT_TIMED)} measurements timed by CUDA events")
     for c in cases:           # below the bound, the timer and not the kernel is at fault
@@ -2614,11 +3259,15 @@ def main() -> int:
             body = f" {c['body']} hb{c['heads_per_block']}"
         elif "body" in c:
             body = f" {c['body']} x{c['n_splits']}"
+            if c.get("bf16_ms") is not None:
+                body += f" bf16 {c['bf16_ms']:.4f}"
             if c.get("options"):
                 body += (f" empty {c['empty_splits']} {json.dumps(c['options'])} "
                          f"bidi {c['bidi_ms']:.4f}")
         elif "plan" in c and "chunk_bytes" in c["plan"]:
             body = " {threads}x{rows_per_block}x{chunk_bytes}".format(**c["plan"])
+        elif "plan" in c and "per_block" in c["plan"]:
+            body = " {group}x{per_block}".format(**c["plan"])
         elif "plan" in c:
             body = " {group}x{loads}".format(**c["plan"])
         if c.get("full_ms") is not None:
@@ -2666,6 +3315,11 @@ def main() -> int:
     print(f"cross-device block-causal and window: {json.dumps(cross_bc)}")
     cross_sparse = cross_device_sparse()
     print(f"cross-device sparse eviction and lazy reservation: {json.dumps(cross_sparse)}")
+    cross_int8 = dict(gather=cross_device_int8_gather(),
+                      sharing=cross_device_sampled_serving(kv_cache_dtype="int8"),
+                      preemption={arch: cross_device_preemption(arch, kv_cache_dtype="int8")
+                                  for arch in ("llada-8b", "dream-7b")})
+    print(f"cross-device int8 cache and gather_refresh: {json.dumps(cross_int8)}")
     lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
@@ -2705,9 +3359,18 @@ def main() -> int:
           "(at admission {admission_deferred}), blocks_grown {blocks_grown}, window_stalls "
           "{window_stalls}, pages_reclaimed {pages_reclaimed}, peak pages {peak_pages_in_use} "
           "of {pool_pages}".format(**served))
+    lap("10")
+
+    # phase 11 (on phase 5's model): the int8 cache offline, served with
+    # gather_refresh, and forked under prefix sharing
+    int8_runs = {"11a": int8_offline(model, kernel_fns),
+                 "11b": int8_gather_served(model, kernel_fns, serving),
+                 "11c": int8_shared_served(model, kernel_fns)}
+    for name, r in int8_runs.items():
+        print(f"phase {name}: {json.dumps(r)}")
     del model
     torch.cuda.empty_cache()
-    lap("10")
+    lap("11")
 
     # phase 7: sampled serving of Dream-7B at full width
     dream, dream_init_s = dream_7b()
@@ -2748,12 +3411,29 @@ def main() -> int:
                 "variation": (f"llada partial [{SLOTS}, {T_TOTAL}, 4096]", torch.float32),
                 # 7a forks cohort A's 8 and cohort B's 6 shared pages in one launch
                 "fork_pages": ("dream F=14 ps=16", torch.bfloat16),
-                "ssd_chunks": (f"decode [{SLOTS}, {BLOCK}] G=1", torch.bfloat16)}
+                "ssd_chunks": (f"decode [{SLOTS}, {BLOCK}] G=1", torch.bfloat16),
+                "flash_attention_int8": ("llada block Lq=32 int8", torch.bfloat16),
+                "paged_flash_attention_int8": ("llada block Lq=32 ps=16 int8", torch.bfloat16),
+                "quantize_scatter_rows": ("llada block K=32 int8", torch.bfloat16),
+                "quantize_scatter_rows_paged": ("llada block K=32 ps=16 mask=none int8",
+                                                torch.bfloat16),
+                # 11c forks the two cohorts' shared prompt pages
+                "fork_pages_scales": ("llada F=14 ps=16 scales", torch.float32)}
+    # the int8 rows' launches: phase 11's runs
+    offline8 = int8_runs["11a"]["runs"]["int8"]["launches"]
+    int8_launches = {
+        "flash_attention_int8": offline8["flash_attention int8"],
+        "paged_flash_attention_int8": int8_runs["11b"]["launches"]["paged_flash_attention int8"],
+        "quantize_scatter_rows": offline8["quantize_scatter_rows"],
+        "quantize_scatter_rows_paged": int8_runs["11b"]["launches"]["quantize_scatter_rows_paged"],
+        "fork_pages_scales": int8_runs["11c"]["launches"]["fork_pages scales"]}
     kernels = []
     for name, (case, dt) in headline.items():
         c = next(c for c in cases if c["kernel"] == name and c["case"] == case
                  and c["dtype"] == str(dt))
-        if name == "fork_pages":
+        if name in int8_launches:
+            launches = int8_launches[name]
+        elif name == "fork_pages":
             launches = sampled["runs"]["7a"]["launches"][name]
         elif name == "ssd_chunks":                  # the offline es run of phase 8
             launches = mamba_runs["es"]["launches"][name]
@@ -2776,7 +3456,8 @@ def main() -> int:
              cross_device_preemption=cross_preempt, quarantine=cross_quarantine,
              scatter_host=scatter_host, importance_host=importance_host,
              cross_device_mamba=cross_mamba, cross_device_block_causal=cross_bc,
-             cross_device_sparse=cross_sparse,
+             cross_device_sparse=cross_sparse, cross_device_int8=cross_int8,
+             int8_paths=int8_runs,
              offline_path=run, serving_path=serving, block_causal_window=bc_runs,
              sparse_lazy=sparse_runs,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),

@@ -66,7 +66,16 @@ only shrinks it outside the current block.  Evicted rows read as ``kv_pos
 Page operations for the scheduler (paged serving): ``fork_pages`` (the
 copy-on-write copy behind prefix sharing, a hand-written kernel on the
 card), ``spill_pages``/``restore_pages`` (preemption) and ``scrub_pages``
-(quarantine), all in place on the K and V pools.
+(quarantine), all in place on every pool plane: K, V and, int8, the scales.
+
+The int8 KV cache (``kv_cache_dtype="int8"``): K/V rows stored as int8
+codes with f32 per-(token, head) scales, quantized by the scatter kernel and
+read by the attention kernels, offline and served.
+
+Gathered-subset refresh (``gather_refresh``, paged serving): when at most
+half the slots take a prompt refresh in a step, the refreshing rows are
+gathered into a half-width prefill (``_compact_prefill``); the batch-free
+pool takes their writes in place through their gathered block tables.
 
 The beyond-paper features outside the port so far raise
 ``NotImplementedError`` (see ROADMAP.md).
@@ -96,7 +105,7 @@ from repro_torch.core.schedule import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, QuantKVCache
 from repro_torch.models.common import apply_rope, rms_norm, row_gather, row_scatter
 from repro_torch.models.mamba import SSMCache
 from repro_torch.models.model import ForwardCtx, Model
@@ -105,11 +114,13 @@ MODES = ("vanilla", "dualcache", "es")
 NEG_INF = -1e30
 PASSES = {SKIP_DECODE: "skip", BLOCK_REFRESH: "noskip", PREFILL: "prefill",
           PARTIAL: "partial"}
+KV_DTYPES = (None, "int8")
 
 
 class BlockState(NamedTuple):
     tokens: torch.Tensor             # [B, T] int32
-    cache: Optional[KVCache | SSMCache]   # K/V planes or pools, or the SSM caches
+    cache: Optional[KVCache | QuantKVCache | SSMCache]   # K/V planes or pools (int8:
+                                          # with scales), or the SSM caches
                                           # (None for vanilla)
     conf: torch.Tensor               # [B, Lb] f32 confidence cache
     pred: torch.Tensor               # [B, Lb] int32 predicted-token cache
@@ -126,7 +137,7 @@ class EngineState(NamedTuple):
     """Slot-addressable serving state: the block caches plus per-slot
     progress, every per-request quantity a ``[B]`` tensor."""
     tokens: torch.Tensor             # [B, T] int32
-    cache: Optional[KVCache | SSMCache]
+    cache: Optional[KVCache | QuantKVCache | SSMCache]
     conf: torch.Tensor               # [B, Lb]
     pred: torch.Tensor               # [B, Lb]
     hidden: tuple
@@ -147,16 +158,6 @@ class EngineState(NamedTuple):
     poisoned: Optional[torch.Tensor] = None       # [B] bool: a non-finite value was seen
 
 
-def _unsupported(gen: GenerationConfig, kv_cache_dtype, gather_refresh) -> Optional[str]:
-    if gen.mode not in MODES:
-        return f"mode={gen.mode!r} (one of {MODES})"
-    for flag, what in ((kv_cache_dtype is not None, "the int8 KV cache"),
-                       (gather_refresh, "gather_refresh")):
-        if flag:
-            return f"{what} is outside this slice of the port (ROADMAP.md open items)"
-    return None
-
-
 class DiffusionEngine:
     def __init__(
         self,
@@ -168,18 +169,26 @@ class DiffusionEngine:
         anchor: int = 0,                     # positions below it bypass the window
         eos_id: int = 2,
         disallow_eos: bool = False,
-        kv_cache_dtype: str | None = None,
+        kv_cache_dtype: str | None = None,   # "int8": int8 K/V codes + f32 scales
         paged: bool = False,                 # paged KV pool + block tables
         page_size: int = 16,                 # tokens per KV page (paged only)
         kv_pages: int | None = None,         # pool pages incl. garbage page 0;
                                              # None => dense-equivalent sizing
         early_advance: bool = False,         # serving: advance a row's block
                                              # the moment it fully unmasks
-        gather_refresh: bool = False,
+        gather_refresh: bool = False,        # serving: compact a refresh of at most
+                                             # half the slots (paged, attention-only)
     ):
-        why = _unsupported(gen, kv_cache_dtype, gather_refresh)
-        if why is not None:
-            raise NotImplementedError(why)
+        if gen.mode not in MODES:
+            raise NotImplementedError(f"mode={gen.mode!r} (one of {MODES})")
+        if kv_cache_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}: one of {KV_DTYPES}")
+        if gather_refresh and model.ssm:
+            raise ValueError("gather_refresh: attention-only archs (an SSM stack's caches "
+                             "are batch-major and would need a second gather/scatter path)")
+        if gather_refresh and not paged:
+            raise ValueError("gather_refresh compaction needs the paged KV pool (batch-free "
+                             "pool planes make row gathering transparent)")
         self.device = resolve_device(device)
         if self.device.type != model.device.type:
             raise ValueError(f"engine device {self.device} differs from the model's "
@@ -204,6 +213,8 @@ class DiffusionEngine:
         self.page_size = page_size if paged else 0
         self.kv_pages = kv_pages
         self.early_advance = early_advance
+        self.kv_cache_dtype = kv_cache_dtype
+        self.gather_refresh = gather_refresh
         self.mask_id = self.cfg.vocab_size          # first padded-vocab slot
         lb = gen.block_length
         if gen.mode == "es":
@@ -228,6 +239,9 @@ class DiffusionEngine:
         self.iterations = 0
         self.last_state: Optional[BlockState] = None
         self.pass_counts = {name: 0 for name in PASSES.values()}
+        # prompt-refresh passes that ran compacted (gather_refresh), each also
+        # counted as a "prefill" pass
+        self.compact_prefill = 0
 
     # ------------------------------------------------------------------
     # indexing helpers
@@ -360,7 +374,7 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     # per-block loop
     # ------------------------------------------------------------------
-    def _init_cache(self, b: int, t_total: int) -> Optional[KVCache | SSMCache]:
+    def _init_cache(self, b: int, t_total: int) -> Optional[KVCache | QuantKVCache | SSMCache]:
         if self.gen.mode == "vanilla":
             return None
         if self.paged:
@@ -369,8 +383,9 @@ class DiffusionEngine:
                                  f"{t_total}")
             kv_pages = self.kv_pages or b * (t_total // self.page_size) + 1
             return self.model.init_cache(b, t_total, kv_pages=kv_pages,
-                                         page_size=self.page_size)
-        return self.model.init_cache(b, t_total, block_len=self.gen.block_length)
+                                         page_size=self.page_size, kv_dtype=self.kv_cache_dtype)
+        return self.model.init_cache(b, t_total, block_len=self.gen.block_length,
+                                     kv_dtype=self.kv_cache_dtype)
 
     def _feature_planes(self, b: int, t_total: int):
         if not self.adaptive_cache:
@@ -565,11 +580,15 @@ class DiffusionEngine:
         refresh, prefill, partial refresh), each run only when some active
         row is in its branch and masked to those rows.  Rows a pass does not
         own still flow through it; their scatters are dropped and their
-        outputs merged away.  One host read per step decides the passes."""
+        outputs merged away.  With ``gather_refresh`` a prefill pass of at
+        most ``max(1, B // 2)`` rows runs compacted (``_compact_prefill``).
+        One host read per step decides the passes."""
         br = branch_index(self.gen, state.phase, state.iters)
         codes = [SKIP_DECODE, BLOCK_REFRESH, PREFILL] + ([PARTIAL] if self.adaptive_cache else [])
         masks = [state.active & (br == code) for code in codes]
-        run = torch.stack([m.any() for m in masks]).tolist()
+        refreshing = masks[codes.index(PREFILL)]
+        *run, n_refresh = torch.stack([m.any() for m in masks] + [refreshing.sum()]).tolist()
+        cap = max(1, state.bs.shape[0] // 2)
         bs, pstart, bt = state.bs, state.prompt_start, state.block_tables
         stats = None
         if self.adaptive_cache:
@@ -581,6 +600,10 @@ class DiffusionEngine:
             self.pass_counts[PASSES[code]] += 1
             cst = st._replace(cache=carry[0], conf=carry[1], pred=carry[2], hidden=carry[3],
                               kv_valid=carry[4], feat=carry[5])
+            if code == PREFILL and self.gather_refresh and n_refresh <= cap:
+                self.compact_prefill += 1
+                carry = self._compact_prefill(cst, state, keys, mask, cap, carry)
+                continue
             if code == PREFILL:
                 out = self._prefill_step(cst, bs, state.iters, pstart, bt, keys, row_mask=mask)
             elif code == PARTIAL:
@@ -590,6 +613,40 @@ class DiffusionEngine:
                                         row_mask=mask)
             carry = _merge_step_outputs(mask, carry, out)
         return carry
+
+    def _compact_prefill(self, st: BlockState, state: EngineState, keys, mask, cap: int,
+                         carry):
+        """Gathered-subset prompt refresh (``gather_refresh``), the
+        reference's ``_compact_prefill``: the refreshing rows (stable order)
+        and filler rows after them, ``cap`` in all, run the prefill as a
+        half-width batch under their own row mask, and its outputs scatter
+        back onto those rows of ``carry``.  The paged pool is batch-free:
+        the gathered block tables route the rows' K/V writes to their own
+        pages in place, and the filler rows' writes are masked."""
+        rows = torch.sort((~mask).int(), stable=True).indices[:cap]
+        sub_mask = mask[rows]
+
+        def g(a):
+            return None if a is None else a[rows]
+        st_g = st._replace(tokens=g(st.tokens), conf=g(st.conf), pred=g(st.pred),
+                           hidden=tuple(g(h) for h in st.hidden), kv_valid=g(st.kv_valid),
+                           feat=g(st.feat), conf_full=g(st.conf_full))
+        out = self._prefill_step(st_g, g(state.bs), g(state.iters), g(state.prompt_start),
+                                 g(state.block_tables), g(keys), row_mask=sub_mask)
+
+        def put(full, sub):
+            if full is None:
+                return None
+            m = sub_mask.view((cap,) + (1,) * (sub.dim() - 1))
+            res = full.clone()
+            res[rows] = torch.where(m, sub.to(full.dtype), full[rows])
+            return res
+        cache, conf, pred, hidden, kv_valid, feat, stats = out
+        o_cache, o_conf, o_pred, o_hidden, o_kv, o_feat, o_stats = carry
+        return (cache, put(o_conf, conf), put(o_pred, pred),
+                tuple(put(o, n) for o, n in zip(o_hidden, hidden)),
+                o_kv if kv_valid is st_g.kv_valid else put(o_kv, kv_valid),
+                put(o_feat, feat), o_stats if stats is None else put(o_stats, stats))
 
     # ------------------------------------------------------------------
     # branches
@@ -779,7 +836,7 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     # Sparse-dLLM cache eviction (App. C.3.2)
     # ------------------------------------------------------------------
-    def _sparse_evict(self, cache: KVCache, hidden, bs, prompt_start, bt,
+    def _sparse_evict(self, cache: KVCache | QuantKVCache, hidden, bs, prompt_start, bt,
                       kv_valid) -> torch.Tensor:
         """[B, T] bool retained set of a refresh: out-of-block cache rows
         scored by the attention the current block's queries give them at
@@ -794,7 +851,12 @@ class DiffusionEngine:
         rows past the window -- are masked out of the probe's softmax and
         ranked below everything.  The caller ANDs the result with the
         carried set (sticky eviction).  Plain PyTorch in float32: the
-        reference computes it in XLA, outside any Pallas kernel."""
+        reference computes it in XLA, outside any Pallas kernel.
+
+        Under the int8 cache the probe scores the int8 codes without their
+        scales, as the reference does (it reads ``caches["kv"]["0"].k[g]``):
+        a reference-side fault the port mirrors on purpose, so the retained
+        sets stay equal to the JAX package's (ROADMAP.md Queue C)."""
         gen, cfg = self.gen, self.cfg
         b, t_total = kv_valid.shape
         lb = gen.block_length
@@ -838,10 +900,11 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     # page operations of the scheduler (paged serving)
     # ------------------------------------------------------------------
-    def _pools(self, state: EngineState) -> tuple[torch.Tensor, torch.Tensor]:
+    def _pools(self, state: EngineState) -> tuple:
+        """Every pool plane: K and V, then, int8, their scales."""
         if not self.paged:
             raise ValueError("page operations need the paged KV pool (paged=True)")
-        return state.cache.k, state.cache.v
+        return tuple(state.cache)
 
     def _page_index(self, pages) -> torch.Tensor:
         return torch.as_tensor(np.asarray(pages, np.int64).ravel(), device=self.device)
@@ -849,8 +912,9 @@ class DiffusionEngine:
     def fork_pages(self, state: EngineState, src: Sequence[int],
                    dst: Sequence[int]) -> EngineState:
         """Copy-on-write fork: physical page ``src[i]`` is copied onto
-        ``dst[i]`` in the K and V pools of every layer, in place (one kernel
-        launch on the card).  The scheduler calls it right before a refresh
+        ``dst[i]`` in the K and V pools of every layer, and in their scale
+        pools under the int8 cache, in place (one kernel launch on the card,
+        and one more for the scale pools).  The scheduler calls it right before a refresh
         would scatter diverged content into a page shared by several slots,
         then repoints the forking slot's block table at ``dst``.  The lists
         are padded to a multiple of 8 with ``(0, 0)`` no-ops, as the
@@ -861,15 +925,17 @@ class DiffusionEngine:
             raise ValueError(f"fork_pages: {src.size} sources but {dst.size} destinations")
         if src.size:
             pad = np.zeros(-(-src.size // 8) * 8 - src.size, np.int32)
-            ops.fork_pages(*self._pools(state), np.concatenate([src, pad]),
-                           np.concatenate([dst, pad]))
+            k, v = self._pools(state)[:2]
+            ops.fork_pages(k, v, np.concatenate([src, pad]), np.concatenate([dst, pad]),
+                           k_scale=state.cache.k_scale, v_scale=state.cache.v_scale)
         return state
 
     def spill_pages(self, state: EngineState, pages: Sequence[int]):
-        """The exact bytes of physical ``pages`` (in that order) from the K
-        and V pools, copied to host memory: ``(k, v)``, each ``[G, n, ps,
-        Hkv, Dh]``.  The pool is not modified; the pages can be released as
-        soon as this returns."""
+        """The exact bytes of physical ``pages`` (in that order) from every
+        pool plane, copied to host memory: ``(k, v)``, each ``[G, n, ps, Hkv,
+        Dh]``, and under the int8 cache ``(k, v, k_scale, v_scale)``, the
+        scales ``[G, n, ps, Hkv]``.  The pool is not modified; the pages can
+        be released as soon as this returns."""
         idx = self._page_index(pages)
         return tuple(pool.index_select(1, idx).to("cpu", copy=True)
                      for pool in self._pools(state))
@@ -886,8 +952,8 @@ class DiffusionEngine:
         return state
 
     def scrub_pages(self, state: EngineState, pages: Sequence[int]) -> EngineState:
-        """Zeroes physical ``pages`` in the K and V pools, in place: a
-        quarantined row's non-finite K/V must not outlive it."""
+        """Zeroes physical ``pages`` in every pool plane, in place: a
+        quarantined row's non-finite K/V (or scales) must not outlive it."""
         idx = self._page_index(pages)
         if idx.numel():
             for pool in self._pools(state):

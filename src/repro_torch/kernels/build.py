@@ -23,7 +23,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "scatter_kv.cu", "importance.cu", "ssd_scan.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_int8.cu", "scatter_kv.cu", "importance.cu",
+           "ssd_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,13 +36,15 @@ _LL = ctypes.c_longlong
 WAVE = 132                 # SMs of an H100 SXM: one block on each is a wave
 # name -> argtypes of the C entry points (all return an int status)
 SIGNATURES = {
-    "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
-                              _I, _F, _I, _I, _I, _I, _I, _P],
-    "repro_flash_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                                 _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "repro_flash_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                              _I, _I, _F, _I, _I, _I, _I, _I, _P],
+    "repro_flash_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                                 _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "repro_scatter_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL, _I, _I,
                            _I, _P],
     "repro_fork_pages": [_P, _P, _P, _P, _I, _I, _I, _LL, _P],
+    "repro_quant_scatter_rows": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _P],
     "repro_importance": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P],
     "repro_ssd_chunk": [_I, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P],

@@ -65,10 +65,23 @@
 //   element.  Paged mode looks the block table up per row; a tile with no
 //   mapped page is skipped.
 //
+// int8 K/V (the int8 KV cache): both bodies take int8 codes with f32
+// per-(token, head) scales, dense and paged, with every option and split.
+// The TPU kernels do not (the reference dequantizes int8 only on its XLA
+// path, src/repro/kernels/ops.py:104, :328); this is the port's own body of
+// the same function, so a quantized cache is never widened in device
+// memory.  The tensor-core body (flash_tc.cuh, kQ8; its instantiations in
+// flash_attention_int8.cu) moves int8 tiles with the same 16-byte cp.async
+// ring -- half the bytes of bf16 -- and the scales with 4-byte copies,
+// widens each landed tile into one bf16 stage with integer operations
+// (codes are exact in bf16) and runs the mma on codes, applying k_scale to
+// score column j in f32 after Q K^T and v_scale to column j of P before P V.  The CUDA-core body
+// dequantizes on load as code * scale in f32, the reference's exact math.
+//
 // Left for later: wgmma with TMA and a producer warp for long prefills
 // (wgmma's 64-row tile does not fit Lq 8-32 per head, and these shapes are
-// bound by bytes); int8 K/V; skipping key tiles that lie wholly in future
-// blocks of every row of a block-causal tile (they are walked and masked).
+// bound by bytes); skipping key tiles that lie wholly in future blocks of
+// every row of a block-causal tile (they are walked and masked).
 // Both modes take every mask option: block-causal serving and offline runs
 // pass bc_start/bc_block, the sliding window reaches the kernel as kv_pos
 // = -1 past the horizon and, paged, as a read table whose pages past it are
@@ -90,7 +103,7 @@
 
 #include <algorithm>
 
-#include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace repro_torch {
 namespace {
@@ -100,25 +113,6 @@ constexpr int kRowsPerWarp = 2;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per thread block
 constexpr int kBlockKV = 32;                    // KV rows per tile: one per lane
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
-
-struct Strides {
-  long long b, h, l;  // element strides of dims 0, 1, 2; dim 3 is contiguous
-};
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  const int* q_pos;   // [B, Lq]
-  const int* kv_pos;  // [B, Lkv]
-  const int* bt;      // [B, Lkv / ps] page table (paged mode), else null
-  Strides sq, sk, sv, so;  // paged: sk.l / sv.l step one pool row, sk.b unused
-  int B, Hq, Hkv, Lq, Lkv, D, ps;
-  float scale;
-  int window, anchor, causal, bc_start, bc_block;
-};
 
 // Pool row of KV row r (paged) or r itself (dense); -1 for an unmapped page.
 template <bool kPaged>
@@ -214,8 +208,12 @@ struct TileRegs {
 // kVec: head_dim == KD and every K/V row starts 16-byte aligned, so K/V move
 // as 16-byte chunks, prefetched a tile ahead; else element by element.
 // kPaged: K/V rows come from a page pool through the block table p.bt.
-template <typename T, int KD, bool kVec, bool kPaged>
+// KT: the K/V element, T or int8_t (codes, dequantized on load as code *
+// scale in f32; element by element).
+template <typename T, typename KT, int KD, bool kVec, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) {
+  constexpr bool kQ8 = sizeof(KT) == 1;
+  static_assert(!(kQ8 && kVec), "int8 K/V load element by element");
   constexpr int kDPL = KD / 32;                      // output columns per lane
   constexpr int kStride = KD + 4;                    // K/V row pitch in floats
   // a float4 read of row `lane` covers banks 4*lane..4*lane+3 (mod 32): the
@@ -232,8 +230,10 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
 
   const T* qg = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
   const long long kb = kPaged ? 0 : b * p.sk.b, vb = kPaged ? 0 : b * p.sv.b;
-  const T* kg = static_cast<const T*>(p.k) + kb + kvh * p.sk.h;
-  const T* vg = static_cast<const T*>(p.v) + vb + kvh * p.sv.h;
+  const KT* kg = static_cast<const KT*>(p.k) + kb + kvh * p.sk.h;
+  const KT* vg = static_cast<const KT*>(p.v) + vb + kvh * p.sv.h;
+  const float* ksg = kQ8 ? p.ks + (kPaged ? 0 : b * p.sks.b) + kvh * p.sks.h : nullptr;
+  const float* vsg = kQ8 ? p.vs + (kPaged ? 0 : b * p.svs.b) + kvh * p.svs.h : nullptr;
   const int* kvpos_g = p.kv_pos + (long long)b * p.Lkv;
   const int* bt_b = kPaged ? p.bt + (long long)b * (p.Lkv / p.ps) : nullptr;
 
@@ -255,7 +255,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
     for (int i = 0; i < kDPL; ++i) acc[r][i] = 0.f;
   }
 
-  TileRegs<T, KD> regs;
+  TileRegs<T, KD> regs;     // kVec only
   int kv0 = next_tile<kPaged>(p, bt_b, 0);
   if constexpr (kVec) {
     if (kv0 < p.Lkv) regs.template load<kPaged>(kg, vg, p, bt_b, kv0, tid);
@@ -271,8 +271,16 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
       for (int i = tid; i < kBlockKV * KD; i += kThreads) {
         const int j = i / KD, d = i % KD, kr = kv0 + j;
         const long long row = kr < p.Lkv && d < D ? kv_row<kPaged>(p, bt_b, kr) : -1;
-        k_s[j][d] = row >= 0 ? to_f32(kg[row * p.sk.l + d]) : 0.f;
-        v_s[j][d] = row >= 0 ? to_f32(vg[row * p.sv.l + d]) : 0.f;
+        float kx = row >= 0 ? to_f32(kg[row * p.sk.l + d]) : 0.f;
+        float vx = row >= 0 ? to_f32(vg[row * p.sv.l + d]) : 0.f;
+        if constexpr (kQ8) {
+          if (row >= 0) {
+            kx *= ksg[row * p.sks.l];
+            vx *= vsg[row * p.svs.l];
+          }
+        }
+        k_s[j][d] = kx;
+        v_s[j][d] = vx;
       }
     }
     if (tid < kBlockKV) {
@@ -353,14 +361,18 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
 template <typename T, int KD, bool kPaged>
 void launch_kd(const Params& p, cudaStream_t stream) {
   const dim3 grid((p.Lq + kBlockQ - 1) / kBlockQ, p.Hq, p.B);
+  if (p.ks != nullptr) {
+    flash_attention_kernel<T, int8_t, KD, false, kPaged><<<grid, kThreads, 0, stream>>>(p);
+    return;
+  }
   constexpr long long kVecElems = 16 / sizeof(T);
   const bool vec = p.D == KD && reinterpret_cast<uintptr_t>(p.k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(p.v) % 16 == 0 &&
                    (p.sk.b | p.sk.h | p.sk.l | p.sv.b | p.sv.h | p.sv.l) % kVecElems == 0;
   if (vec) {
-    flash_attention_kernel<T, KD, true, kPaged><<<grid, kThreads, 0, stream>>>(p);
+    flash_attention_kernel<T, T, KD, true, kPaged><<<grid, kThreads, 0, stream>>>(p);
   } else {
-    flash_attention_kernel<T, KD, false, kPaged><<<grid, kThreads, 0, stream>>>(p);
+    flash_attention_kernel<T, T, KD, false, kPaged><<<grid, kThreads, 0, stream>>>(p);
   }
 }
 
@@ -385,532 +397,18 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// The tensor-core body (bf16)
-// ---------------------------------------------------------------------------
-namespace tc {
-
-constexpr int kRows = 64;        // packed query rows per block at most: 4 warps x 16
-constexpr int kTile = 64;        // KV rows per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kStages = 3;       // K/V ring depth
-constexpr int kMaxSplits = 32;
-constexpr int kMaxSplitPages = 1024;   // block-table entries of one split
-
-struct TcParams {
-  Params a;
-  float* part_o;    // [work, n_splits, kRows, D] f32 unnormalised outputs (n_splits > 1)
-  float* part_ml;   // [work, n_splits, kRows, 2] their rows' (max, sum), exp2 domain
-  int* counters;    // [work] splits finished; 0 between launches
-  int n_splits, split_tiles, group;
-  int ps_shift;     // log2(page size) when it is a power of two, else -1
-  float scale_log2;
-};
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-template <int D>
-struct Layout {
-  // a shared row is D bf16 + 16 bytes: the 8 rows of an ldmatrix phase then
-  // start on 8 distinct 16-byte bank groups
-  static constexpr int kPitch = D + 8;
-  static constexpr int kTileElems = kTile * kPitch;
-  static constexpr int kStageElems = 2 * kTileElems;     // K, then V
-  static constexpr int kBytes = kStages * kStageElems * 2;
-  static_assert(kRows == kTile, "the Q tile borrows a K tile's room");
-  static_assert(kRows * kMaxSplits * 8 <= kBytes, "the merge's (m, l) reuse the ring");
-};
-
-// One block: split blockIdx.x of KV head blockIdx.z % Hkv of batch
-// blockIdx.z / Hkv, packed rows [64 / KS * blockIdx.y, +64 / KS).  Packed row
-// r is query head kvh * group + r / Lq, query row r % Lq.  KS warps share
-// each 16-row slab, each scoring 64 / KS keys of every tile with its own
-// softmax state, merged at the end: with few rows (MHA at Lq 8 to 32) every
-// warp of the block still has work.
-template <int D, int KS, bool kPaged>
-__global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
-  using L = Layout<D>;
-  constexpr int kSlabs = kWarps / KS;       // 16-row slabs of packed rows
-  constexpr int kBlockRows = 16 * kSlabs;
-  constexpr int kKeys = kTile / KS;         // keys of a tile each warp scores
-  static_assert((KS - 1) * kSlabs * (D / 2 + 4) * 32 * 4 <= L::kBytes,
-                "the key-split states reuse the ring");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int kvpos_s[kStages][kTile];
-  __shared__ unsigned char valid_s[kStages][kTile];   // row inside the split and mapped
-  __shared__ int pt_s[kPaged ? kMaxSplitPages : 1];    // the split's block-table entries
-  __shared__ long long qoff_s[kRows], ooff_s[kRows];   // packed row -> q / out offset
-  __shared__ int last_s;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
-
-  const Params& p = tp.a;
-  const int split = blockIdx.x, rt = blockIdx.y;
-  const int b = blockIdx.z / p.Hkv, kvh = blockIdx.z % p.Hkv;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int grp = lane / 4, tig = lane % 4;      // the fragments' row in 8, column pair
-  const int n_rows = tp.group * p.Lq, row0 = rt * kBlockRows;
-  const int kv_begin = split * tp.split_tiles * kTile;
-  const int kv_end = min(kv_begin + tp.split_tiles * kTile, p.Lkv);
-  const int pg0 = kPaged ? kv_begin / p.ps : 0;
-
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.sq.b;
-  const long long kb = kPaged ? 0 : b * p.sk.b, vb = kPaged ? 0 : b * p.sv.b;
-  const bf16* kg = static_cast<const bf16*>(p.k) + kb + kvh * p.sk.h;
-  const bf16* vg = static_cast<const bf16*>(p.v) + vb + kvh * p.sv.h;
-  const int* kvpos_g = p.kv_pos + (long long)b * p.Lkv;
-
-  // virtual page of KV row kk and the row inside it: a shift and a mask
-  // for the power-of-two page sizes of the path
-  auto vpage = [&](int kk) { return tp.ps_shift >= 0 ? kk >> tp.ps_shift : kk / p.ps; };
-  auto in_page = [&](int kk) { return tp.ps_shift >= 0 ? kk & (p.ps - 1) : kk % p.ps; };
-  auto bc_block_of = [&](int pos) {       // block-causal block; positions below bc_start: -1
-    return pos >= p.bc_start ? (pos - p.bc_start) / p.bc_block : -1;
-  };
-  if (tid < kRows) {           // one division per packed row, here and nowhere else
-    const int pr = row0 + tid;
-    const int h = kvh * tp.group + pr / p.Lq, qi = pr % p.Lq;
-    qoff_s[tid] = pr < n_rows && tid < kBlockRows ? h * p.sq.h + qi * p.sq.l : -1;
-    ooff_s[tid] = h * p.so.h + qi * p.so.l;
-  }
-  if constexpr (kPaged) {
-    if (kv_end > kv_begin) {
-      const int* bt_b = p.bt + (long long)b * (p.Lkv / p.ps);
-      const int n_pg = vpage(kv_end - 1) - pg0 + 1;
-      for (int i = tid; i < n_pg; i += kThreads) pt_s[i] = bt_b[pg0 + i];
-    }
-  }
-  __syncthreads();
-  // page of KV row kk (paged; < 0 when unmapped), 0 in dense mode
-  auto page_of = [&](int kk) -> int {
-    if constexpr (kPaged) return pt_s[vpage(kk) - pg0];
-    return 0;
-  };
-  // first tile start >= kv0 holding a mapped page (every tile in dense mode);
-  // the same for every thread of the block
-  auto next_tile = [&](int kv0) -> int {
-    if constexpr (kPaged) {
-      for (; kv0 < kv_end; kv0 += kTile) {
-        const int last = min(kv0 + kTile, kv_end) - 1;
-        for (int pg = vpage(kv0); pg <= vpage(last); ++pg)
-          if (pt_s[pg - pg0] >= 0) return kv0;
-      }
-    }
-    return kv0;
-  };
-
-  // Q: the block's packed rows, into the last stage's K room (free until the
-  // walk's first refill); rows past the packed rows are zeros
-  bf16* q_s = ring + (kStages - 1) * L::kStageElems;
-  {
-    constexpr int kPerRow = D / 8;
-    for (int c = tid; c < kBlockRows * kPerRow; c += kThreads) {
-      const int r = c / kPerRow, cc = c % kPerRow;
-      const long long off = qoff_s[r];
-      cp_async16(smem_u32(q_s + r * L::kPitch + cc * 8), qg + (off < 0 ? 0 : off) + cc * 8,
-                 off >= 0);
-    }
-    cp_async_commit();
-  }
-
-  // the K/V tile at kv0 into ring stage st, with its kv_pos and row validity
-  auto load_tile = [&](int kv0, int st) {
-    bf16* kd = ring + st * L::kStageElems;
-    bf16* vd = kd + L::kTileElems;
-    constexpr int kPerRow = D / 8;
-#pragma unroll
-    for (int c = tid; c < kTile * kPerRow; c += kThreads) {
-      const int r = c / kPerRow, cc = c % kPerRow, kk = kv0 + r;
-      bool ok = kk < kv_end;
-      long long row = kk;
-      if constexpr (kPaged) {
-        const int page = ok ? page_of(kk) : -1;
-        ok = page >= 0;
-        row = (long long)page * p.ps + in_page(kk);
-      }
-      const long long ko = ok ? row * p.sk.l + cc * 8 : 0, vo = ok ? row * p.sv.l + cc * 8 : 0;
-      cp_async16(smem_u32(kd + r * L::kPitch + cc * 8), kg + ko, ok);
-      cp_async16(smem_u32(vd + r * L::kPitch + cc * 8), vg + vo, ok);
-    }
-    if (tid < kTile) {
-      const int kk = kv0 + tid;
-      const bool in = kk < kv_end;
-      cp_async4(smem_u32(&kvpos_s[st][tid]), kvpos_g + (in ? kk : 0), in);
-      valid_s[st][tid] = in && page_of(kk) >= 0;
-    }
-  };
-
-  int fetch = next_tile(kv_begin), comp = fetch;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (fetch < kv_end) {
-      load_tile(fetch, st);
-      fetch = next_tile(fetch + kTile);
-    }
-    cp_async_commit();
-  }
-
-  // this warp's slab of 16 packed rows (the thread holds rows grp and grp + 8
-  // of them) and its share kq of each tile's keys
-  const int slab = warp % kSlabs, kq = warp / kSlabs;
-  const int wrow = row0 + slab * 16;
-  const bool warp_active = wrow < n_rows;
-  int qpos[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    const int pr = wrow + grp + hf * 8;
-    qpos[hf] = pr < n_rows ? p.q_pos[(long long)b * p.Lq + pr % p.Lq] : 0;
-  }
-
-  // the mask rule split into a per-row and a per-key half (no division per
-  // element); with no option set only kv_pos >= 0 is tested.  Block-causal
-  // is a per-row bound: a key's block is at most the row's block qb exactly
-  // when kv_pos < bc_start + (qb + 1) * bc_block (prompt keys are block -1,
-  // a prompt row's bound is bc_start), so no key's block is computed
-  const bool plain = !p.causal && p.window <= 0 && p.bc_block <= 0;
-  int qlim[2] = {0x7fffffff, 0x7fffffff};
-  if (p.bc_block > 0) {
-    qlim[0] = p.bc_start + (bc_block_of(qpos[0]) + 1) * p.bc_block;
-    qlim[1] = p.bc_start + (bc_block_of(qpos[1]) + 1) * p.bc_block;
-  }
-
-  cp_async_wait<kStages - 1>();      // the Q group has landed
-  __syncthreads();
-  uint32_t qf[D / 16][4];            // Q as A fragments, held for the whole walk
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    const int r = slab * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, c = kd * 16 + (lane >> 4) * 8;
-    ldsm_x4(smem_u32(q_s + r * L::kPitch + c), qf[kd][0], qf[kd][1], qf[kd][2], qf[kd][3]);
-  }
-
-  float acc[D / 8][4];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  int st = 0;
-  while (comp < kv_end) {
-    cp_async_wait<kStages - 2>();    // this thread's copies of stage st have landed
-    __syncthreads();                 // everyone's have; the stage refilled next is consumed
-    if (fetch < kv_end) {
-      load_tile(fetch, (st + kStages - 1) % kStages);
-      fetch = next_tile(fetch + kTile);
-    }
-    cp_async_commit();
-
-    if (warp_active) {
-      const bf16* ks = ring + st * L::kStageElems;
-      const bf16* vs = ks + L::kTileElems;
-      // this thread's 16 key columns: kv_pos, or -1 past the split or unmapped
-      int kp[kKeys / 8][2];
-#pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = kq * kKeys + j * 8 + tig * 2 + e;
-          kp[j][e] = valid_s[st][c] ? kvpos_s[st][c] : -1;
-        }
-      // S = Q K^T: 16 rows x kKeys keys as n-tiles of 8 keys.  Step t loads
-      // the B fragments of k-step t / kPairs, n-tiles 2 (t % kPairs) and
-      // 2 (t % kPairs) + 1 with one ldmatrix.x4, two steps ahead of their mma
-      constexpr int kPairs = kKeys / 16, kSSteps = (D / 16) * kPairs;
-      auto k_addr = [&](int t) {
-        const int r = kq * kKeys + (t % kPairs) * 16 + (lane >> 4) * 8 + (lane & 7);
-        const int c = (t / kPairs) * 16 + ((lane >> 3) & 1) * 8;
-        return smem_u32(ks + r * L::kPitch + c);
-      };
-      float s[kKeys / 8][4];
-#pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      uint32_t fb[3][4];
-#pragma unroll
-      for (int t = 0; t < 2 && t < kSSteps; ++t)
-        ldsm_x4(k_addr(t), fb[t][0], fb[t][1], fb[t][2], fb[t][3]);
-#pragma unroll
-      for (int t = 0; t < kSSteps; ++t) {
-        if (t + 2 < kSSteps) {
-          uint32_t(&f)[4] = fb[(t + 2) % 3];
-          ldsm_x4(k_addr(t + 2), f[0], f[1], f[2], f[3]);
-        }
-        const int j = (t % kPairs) * 2;
-        mma_bf16(s[j], qf[t / kPairs], fb[t % 3][0], fb[t % 3][1]);
-        mma_bf16(s[j + 1], qf[t / kPairs], fb[t % 3][2], fb[t % 3][3]);
-      }
-      // the mask per element, then the online softmax in the exp2 domain;
-      // both row halves go through each stage together
-      if (plain) {                   // the paths' case: the mask is per key
-#pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            s[j][i] = kp[j][i % 2] >= 0 ? s[j][i] * tp.scale_log2 : kNegInf;
-      } else {
-#pragma unroll
-        for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int qp = qpos[i / 2], kpos = kp[j][i % 2];
-            bool ok = kpos >= 0 && (!p.causal || kpos <= qp) && kpos < qlim[i / 2];
-            if (p.window > 0) ok = ok && (abs(qp - kpos) <= p.window || kpos < p.anchor);
-            s[j][i] = ok ? s[j][i] * tp.scale_log2 : kNegInf;
-          }
-      }
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) mx[i / 2] = fmaxf(mx[i / 2], s[j][i]);
-#pragma unroll
-      for (int o = 1; o <= 2; o *= 2)       // the four lanes of a quad share a row
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-          mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(kFullMask, mx[hf], o));
-      float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        corr[hf] = exp2f(m[hf] - mx[hf]);
-        m[hf] = mx[hf];
-      }
-#pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float& x = s[j][i];
-          x = x == kNegInf ? 0.f : exp2f(x - mx[i / 2]);
-          sum[i / 2] += x;
-        }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * corr[hf] + sum[hf];   // quad-summed at the end
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] *= corr[e / 2];
-      // O += P V in k-steps of 16 keys: the C fragments of n-tiles 2kk and
-      // 2kk + 1, rounded to bf16, are the A fragment of k-step kk.  Step t
-      // loads V's B fragments of k-step t / (D / 16), d-tiles 2 dp and
-      // 2 dp + 1 (dp = t % (D / 16)), transposed, two steps ahead
-      uint32_t pa[kKeys / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kKeys / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      }
-      constexpr int kDp = D / 16, kVSteps = (kKeys / 16) * kDp;
-      auto v_addr = [&](int t) {
-        const int r = kq * kKeys + (t / kDp) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-        const int c = (t % kDp) * 16 + (lane >> 4) * 8;
-        return smem_u32(vs + r * L::kPitch + c);
-      };
-#pragma unroll
-      for (int t = 0; t < 2 && t < kVSteps; ++t)
-        ldsm_x4_trans(v_addr(t), fb[t][0], fb[t][1], fb[t][2], fb[t][3]);
-#pragma unroll
-      for (int t = 0; t < kVSteps; ++t) {
-        if (t + 2 < kVSteps) {
-          uint32_t(&f)[4] = fb[(t + 2) % 3];
-          ldsm_x4_trans(v_addr(t + 2), f[0], f[1], f[2], f[3]);
-        }
-        const int dp = t % kDp;
-        mma_bf16(acc[2 * dp], pa[t / kDp], fb[t % 3][0], fb[t % 3][1]);
-        mma_bf16(acc[2 * dp + 1], pa[t / kDp], fb[t % 3][2], fb[t % 3][3]);
-      }
-    }
-    comp = next_tile(comp + kTile);
-    st = (st + 1) % kStages;
-  }
-  cp_async_wait<0>();
-
-  if constexpr (KS > 1) {
-    // the slab's KS key shares merge into warp kq = 0: the others leave their
-    // (m, l, acc) in the ring, each register at [share][slab][register][lane]
-    constexpr int kRegs = D / 2 + 4;
-    float* xs = reinterpret_cast<float*>(smem_raw);
-    __syncthreads();                 // every warp is done with the ring
-    if (warp_active && kq > 0) {
-      float* x = xs + ((kq - 1) * kSlabs + slab) * kRegs * 32 + lane;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) x[(i * 4 + e) * 32] = acc[i][e];
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        x[(D / 2 + hf) * 32] = m[hf];
-        x[(D / 2 + 2 + hf) * 32] = l[hf];
-      }
-    }
-    __syncthreads();
-    if (warp_active && kq == 0) {
-#pragma unroll
-      for (int k = 1; k < KS; ++k) {
-        const float* x = xs + ((k - 1) * kSlabs + slab) * kRegs * 32 + lane;
-        float wa[2], wb[2];
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const float mk = x[(D / 2 + hf) * 32], mx = fmaxf(m[hf], mk);
-          wa[hf] = exp2f(m[hf] - mx);
-          wb[hf] = exp2f(mk - mx);
-          m[hf] = mx;
-          l[hf] = l[hf] * wa[hf] + x[(D / 2 + 2 + hf) * 32] * wb[hf];
-        }
-#pragma unroll
-        for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][e] = acc[i][e] * wa[e / 2] + x[(i * 4 + e) * 32] * wb[e / 2];
-      }
-    }
-  }
-  const bool writer = warp_active && kq == 0;   // holds the slab's merged state
-
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    l[hf] += __shfl_xor_sync(kFullMask, l[hf], 1);
-    l[hf] += __shfl_xor_sync(kFullMask, l[hf], 2);
-  }
-  bf16* og = static_cast<bf16*>(p.o) + b * p.so.b;
-  auto out_row = [&](int r) -> bf16* { return og + ooff_s[r]; };   // block-local row r
-
-  if (tp.n_splits == 1) {
-    if (!writer) return;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int pr = wrow + grp + hf * 8;
-      if (pr >= n_rows) continue;
-      const float inv = l[hf] > 0.f ? 1.f / l[hf] : 0.f;   // nothing valid: 0
-      bf16* orow = out_row(pr - row0);
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(orow + i * 8 + tig * 2) =
-            pack_bf16(acc[i][hf * 2] * inv, acc[i][hf * 2 + 1] * inv);
-    }
-    return;
-  }
-
-  // split-KV: this split's partials out; the last block of the (batch, KV
-  // head, row tile) to finish merges every split's
-  const long long work = (long long)blockIdx.z * gridDim.y + rt;
-  const long long part0 = work * tp.n_splits;
-  if (writer) {
-    float* po = tp.part_o + (part0 + split) * kRows * D;
-    float* pml = tp.part_ml + (part0 + split) * kRows * 2;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = slab * 16 + grp + hf * 8;
-      if (row0 + r >= n_rows) continue;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<float2*>(po + r * D + i * 8 + tig * 2) =
-            make_float2(acc[i][hf * 2], acc[i][hf * 2 + 1]);
-      if (tig == 0) *reinterpret_cast<float2*>(pml + r * 2) = make_float2(m[hf], l[hf]);
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last_s = atomicAdd(&tp.counters[work], 1) == tp.n_splits - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-
-  // log-sum-exp merge: row r's weight of split sp is 2^(m_sp - max m) / sum,
-  // 0 for a split with nothing valid (l = 0); a row with nothing valid in any
-  // split writes 0.  Every split's (m, l) comes to shared memory first, and
-  // each thread's loads of a split's partial outputs are in flight together.
-  float2* ml_s = reinterpret_cast<float2*>(smem_raw);     // [n_splits][kRows]
-  const float2* ml_g = reinterpret_cast<const float2*>(tp.part_ml) + part0 * kRows;
-#pragma unroll 4
-  for (int i = tid; i < tp.n_splits * kRows; i += kThreads) ml_s[i] = __ldcg(ml_g + i);
-  __syncthreads();
-  if (tid < kRows) {                  // row tid: its weights replace the maxima
-    float mx = kNegInf, total = 0.f;
-    for (int sp = 0; sp < tp.n_splits; ++sp) mx = fmaxf(mx, ml_s[sp * kRows + tid].x);
-    for (int sp = 0; sp < tp.n_splits; ++sp) {
-      float2& x = ml_s[sp * kRows + tid];
-      x.x = x.y > 0.f ? exp2f(x.x - mx) : 0.f;
-      total += x.x * x.y;
-    }
-    const float inv = total > 0.f ? 1.f / total : 0.f;
-    for (int sp = 0; sp < tp.n_splits; ++sp) ml_s[sp * kRows + tid].x *= inv;
-  }
-  __syncthreads();
-  constexpr int kQuads = D / 4, kItems = kRows * kQuads / kThreads;
-  float4 o[kItems];
-#pragma unroll
-  for (int u = 0; u < kItems; ++u) o[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int sp = 0; sp < tp.n_splits; ++sp) {
-    const float* po = tp.part_o + (part0 + sp) * kRows * D;
-#pragma unroll
-    for (int u = 0; u < kItems; ++u) {
-      const int i = tid + u * kThreads, r = i / kQuads, c = (i % kQuads) * 4;
-      const float w = ml_s[sp * kRows + r].x;
-      if (r < kBlockRows && row0 + r < n_rows && w != 0.f) {
-        const float4 x = __ldcg(reinterpret_cast<const float4*>(po + r * D + c));
-        o[u].x += w * x.x;
-        o[u].y += w * x.y;
-        o[u].z += w * x.z;
-        o[u].w += w * x.w;
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kItems; ++u) {
-    const int i = tid + u * kThreads, r = i / kQuads, c = (i % kQuads) * 4;
-    if (r < kBlockRows && row0 + r < n_rows)
-      *reinterpret_cast<uint2*>(out_row(r) + c) =
-          make_uint2(pack_bf16(o[u].x, o[u].y), pack_bf16(o[u].z, o[u].w));
-  }
-  if (tid == 0) tp.counters[work] = 0;    // ready for the next launch
-}
-
-template <int D, int KS, bool kPaged>
-cudaError_t launch_ks(const TcParams& tp, dim3 grid, cudaStream_t stream) {
-  auto kernel = flash_tc_kernel<D, KS, kPaged>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::kBytes);
-  if (attr != cudaSuccess) return attr;
-  kernel<<<grid, kThreads, Layout<D>::kBytes, stream>>>(tp);
-  return cudaGetLastError();
-}
-
-template <int D, bool kPaged>
-cudaError_t launch_d(const TcParams& tp, int ks, dim3 grid, cudaStream_t stream) {
-  if (ks == 4) return launch_ks<D, 4, kPaged>(tp, grid, stream);
-  if (ks == 2) return launch_ks<D, 2, kPaged>(tp, grid, stream);
-  return launch_ks<D, 1, kPaged>(tp, grid, stream);
-}
-
-template <bool kPaged>
-cudaError_t launch(const TcParams& tp, int ks, dim3 grid, cudaStream_t stream) {
-  switch (tp.a.D) {
-    case 16: return launch_d<16, kPaged>(tp, ks, grid, stream);
-    case 32: return launch_d<32, kPaged>(tp, ks, grid, stream);
-    case 48: return launch_d<48, kPaged>(tp, ks, grid, stream);
-    case 64: return launch_d<64, kPaged>(tp, ks, grid, stream);
-    case 80: return launch_d<80, kPaged>(tp, ks, grid, stream);
-    case 96: return launch_d<96, kPaged>(tp, ks, grid, stream);
-    case 112: return launch_d<112, kPaged>(tp, ks, grid, stream);
-    default: return launch_d<128, kPaged>(tp, ks, grid, stream);
-  }
-}
-
-}  // namespace tc
 
 // Fills the fields both bodies share; false for arguments neither takes.
 bool fill_params(Params& p, const void* q, const void* k, const void* v, void* out,
                  const void* q_pos, const void* kv_pos, const void* block_tables,
-                 int page_size, const long long* strides, int B, int Hq, int Hkv, int Lq,
-                 int Lkv, int D, float scale, int window, int anchor, int causal,
-                 int bc_start, int bc_block) {
+                 const void* k_scale, const void* v_scale, int page_size,
+                 const long long* strides, int B, int Hq, int Hkv, int Lq, int Lkv, int D,
+                 float scale, int window, int anchor, int causal, int bc_start, int bc_block) {
   if (B <= 0 || Lq <= 0 || Lkv < 0 || D <= 0 || D > 128 || Hkv <= 0 || Hq % Hkv != 0 ||
       Hq > 65535 || B > 65535)
     return false;
   if (block_tables != nullptr && (page_size <= 0 || Lkv % page_size != 0)) return false;
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return false;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -923,6 +421,10 @@ bool fill_params(Params& p, const void* q, const void* k, const void* v, void* o
   p.sk = {strides[3], strides[4], strides[5]};
   p.sv = {strides[6], strides[7], strides[8]};
   p.so = {strides[9], strides[10], strides[11]};
+  p.ks = static_cast<const float*>(k_scale);
+  p.vs = static_cast<const float*>(v_scale);
+  p.sks = {strides[12], strides[13], strides[14]};
+  p.svs = {strides[15], strides[16], strides[17]};
   p.B = B;
   p.Hq = Hq;
   p.Hkv = Hkv;
@@ -941,23 +443,28 @@ bool fill_params(Params& p, const void* q, const void* k, const void* v, void* o
 }  // namespace
 }  // namespace repro_torch
 
-// strides: 12 element strides, (b, h, l) of q, k, v and out in that order.
+// strides: 18 element strides, (b, h, l) of q, k, v, out, k_scale and
+// v_scale in that order (the last six unread without scales).
 // block_tables: null (k, v are [B, Lkv, Hkv, D]-like caches) or [B, Lkv /
 // page_size] int32 (k, v are [P, page_size, Hkv, D] pools; the k and v
-// "b" strides are then unused and "l" steps one pool row).
+// "b" strides are then unused and "l" steps one pool row).  k_scale,
+// v_scale: null (k, v are of q's dtype), or f32 scales of int8 codes k, v,
+// [B, Hkv, Lkv]-strided ([P, page_size, Hkv] pools when paged).
 // Returns a cudaError_t code (0 = launched), or -1 for arguments the kernel
 // does not take.  The CUDA-core body.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                      void* out, const void* q_pos, const void* kv_pos,
-                                     const void* block_tables, int page_size,
+                                     const void* block_tables, const void* k_scale,
+                                     const void* v_scale, int page_size,
                                      const long long* strides, int B, int Hq, int Hkv,
                                      int Lq, int Lkv, int D, float scale, int window,
                                      int anchor, int causal, int bc_start, int bc_block,
                                      void* stream) {
   using namespace repro_torch;
   Params p;
-  if (!fill_params(p, q, k, v, out, q_pos, kv_pos, block_tables, page_size, strides, B, Hq,
-                   Hkv, Lq, Lkv, D, scale, window, anchor, causal, bc_start, bc_block))
+  if (!fill_params(p, q, k, v, out, q_pos, kv_pos, block_tables, k_scale, v_scale, page_size,
+                   strides, B, Hq, Hkv, Lq, Lkv, D, scale, window, anchor, causal, bc_start,
+                   bc_block))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return static_cast<int>(launch<float>(p, s));
@@ -965,7 +472,8 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
   return -1;
 }
 
-// The tensor-core body, bf16 only; arguments as repro_flash_attention's,
+// The tensor-core body, bf16 q with bf16 or int8 K/V; arguments as
+// repro_flash_attention's,
 // plus the plan: ks warps share each 16-row slab (1, 2 or 4; a block holds
 // 64 / ks packed rows), and n_splits splits of split_tiles 64-row KV tiles
 // each (the last may be ragged; none may be empty).  With n_splits > 1,
@@ -974,7 +482,8 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
 // the kernel leaves zero; row_tiles = ceil(Hq / Hkv * Lq * ks / 64).
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v,
                                         void* out, const void* q_pos, const void* kv_pos,
-                                        const void* block_tables, int page_size,
+                                        const void* block_tables, const void* k_scale,
+                                        const void* v_scale, int page_size,
                                         const long long* strides, int B, int Hq, int Hkv,
                                         int Lq, int Lkv, int D, float scale, int window,
                                         int anchor, int causal, int bc_start, int bc_block,
@@ -983,15 +492,20 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void
   using namespace repro_torch;
   using namespace repro_torch::tc;
   tc::TcParams tp;
-  if (!fill_params(tp.a, q, k, v, out, q_pos, kv_pos, block_tables, page_size, strides, B,
-                   Hq, Hkv, Lq, Lkv, D, scale, window, anchor, causal, bc_start, bc_block))
+  if (!fill_params(tp.a, q, k, v, out, q_pos, kv_pos, block_tables, k_scale, v_scale,
+                   page_size, strides, B, Hq, Hkv, Lq, Lkv, D, scale, window, anchor, causal,
+                   bc_start, bc_block))
     return -1;
   if (D % 16 != 0 || (ks != 1 && ks != 2 && ks != 4)) return -1;
-  // 16-byte rows and bases for cp.async; the output takes 8-byte stores
+  // 16-byte rows and bases for cp.async (q: 8 bf16, int8 K/V: 16 codes);
+  // the output takes 8-byte stores, the scales 4-byte copies
+  const bool q8 = k_scale != nullptr;
   for (const void* ptr : {q, k, v})
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return -1;
   for (int i = 0; i < 9; ++i)
-    if (strides[i] % 8 != 0) return -1;
+    if (strides[i] % (i >= 3 && q8 ? 16 : 8) != 0) return -1;
+  if (q8 && (reinterpret_cast<uintptr_t>(k_scale) | reinterpret_cast<uintptr_t>(v_scale)) % 4)
+    return -1;
   if (reinterpret_cast<uintptr_t>(out) % 8 != 0) return -1;
   for (int i = 9; i < 12; ++i)
     if (strides[i] % 4 != 0) return -1;
@@ -1020,6 +534,7 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void
   tp.scale_log2 = scale * 1.4426950408889634f;
   const dim3 grid(n_splits, static_cast<unsigned>(row_tiles), B * Hkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (block_tables != nullptr) return static_cast<int>(tc::launch<true>(tp, ks, grid, s));
-  return static_cast<int>(tc::launch<false>(tp, ks, grid, s));
+  if (q8) return static_cast<int>(tc::launch_int8(tp, ks, grid, s));
+  if (block_tables != nullptr) return static_cast<int>(tc::launch<true, false>(tp, ks, grid, s));
+  return static_cast<int>(tc::launch<false, false>(tp, ks, grid, s));
 }

@@ -55,6 +55,25 @@
 // (any cache with H*D*elem a multiple of 16 and a 16-byte-aligned base),
 // else the call is refused.
 //
+// Quantizing scatter (repro_quant_scatter_rows): the same two TPU kernels'
+// write under the int8 KV cache, where the reference runs _quantize_rows
+// (src/repro/models/attention.py:66) in XLA and then four scatters (K and V
+// codes, K and V scales).  Here one launch per layer does all of it: each
+// (token, K or V, head) is one group of G = pow2(Dh / 4) threads, each of
+// which reads 4 consecutive elements of the new bf16 or f32 row, the group
+// reduces amax over Dh in f32 with xor shuffles, scale = max(amax / 127,
+// 1e-8), code = clamp(rint(x / scale), +-127) -- IEEE division and
+// round-half-even, as jnp.round and torch.round, so the codes and scales
+// equal the plain version bit for bit (the build has no fast-math flag) --
+// and the group writes its 4 codes a thread as one 32-bit store and lane 0
+// the scale.  NaN propagates through amax and the scale as in the
+// reference (a non-finite row's scale is NaN or inf), and a NaN code is 0,
+// as XLA converts it.  Scales are written per element, so the 16-byte row
+// rule does not apply to them (a scale row is Hkv * 4 bytes: 4 on reduced
+// Dream).  What bounds it: bytes again (2 B new-row bytes read, 1 B code
+// and 4 / Dh B scale written per element), and at the paths' sizes the
+// launch.  Routing, masks and the garbage page are the row scatter's.
+//
 // Fork (repro_fork_pages) replaces src/repro/kernels/scatter_kv.py,
 // fork_pages_kernel -- the copy-on-write copy behind prefix page sharing:
 // pool[g, dst[f]] = pool[g, src[f]] for every layer group g and pair f, in the
@@ -141,6 +160,96 @@ __global__ void __launch_bounds__(kThreads) scatter_rows_kernel(const ScatterArg
   }
 }
 
+// max that propagates NaN, as jnp.max / jnp.maximum do (fmaxf drops it)
+__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
+
+struct QuantArgs {
+  int8_t* codes[2];          // K, V: dense [B, S, Hkv, Dh]; paged [P * ps, Hkv, Dh]
+  float* scales[2];          // K, V: dense [B, S, Hkv]; paged [P * ps, Hkv]
+  const void* src[2];        // K, V: [B, K, Hkv, Dh] new rows, bf16 or f32
+  const int* idx;            // [B, K]
+  const uint8_t* row_mask;   // [B] or null
+  const uint8_t* token_mask; // [B, K] or null
+  const int* bt;             // [B, S / ps] or null (dense)
+  int S, K, Hkv, Dh, P, ps;
+  int items, group, per_block;   // items = B * K * 2 * Hkv
+};
+
+// One group of `group` threads per item = (tok * 2 + plane) * Hkv + head;
+// thread t of a group holds elements 4t .. 4t + 3 of the head's Dh.
+__device__ __forceinline__ uint2 load8(const uint2* p) {
+  uint2 r;
+  asm volatile("ld.global.v2.u32 {%0, %1}, [%2];\n" : "=r"(r.x), "=r"(r.y) : "l"(p));
+  return r;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) quant_scatter_kernel(const QuantArgs a) {
+  const int item = blockIdx.x * a.per_block + threadIdx.x / a.group;
+  const int t = threadIdx.x % a.group;
+  const bool live = item < a.items;
+  const int head = live ? item % a.Hkv : 0, tp = live ? item / a.Hkv : 0;
+  const int plane = tp & 1, tok = tp >> 1;
+  const int d0 = 4 * t;
+  const bool mine = live && d0 < a.Dh;
+  // the row's load first, then its destination's (the masks and idx, then
+  // bt), all issued before the reduction waits on the row: the idx -> bt
+  // chain overlaps the data load, as in scatter_rows_kernel
+  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  long long dest = -1;
+  if (mine) {
+    // pointers picked by selects: a dynamic index into the parameter arrays
+    // would copy the whole argument struct to local memory in every thread
+    const T* src = static_cast<const T*>(plane ? a.src[1] : a.src[0]) +
+                   ((long long)tok * a.Hkv + head) * a.Dh + d0;
+    if constexpr (sizeof(T) == 4) {
+      raw = load16(reinterpret_cast<const uint4*>(src));
+    } else {
+      const uint2 r2 = load8(reinterpret_cast<const uint2*>(src));
+      raw.x = r2.x, raw.y = r2.y;
+    }
+    const int b = tok / a.K;
+    const bool keep_row = a.row_mask == nullptr || a.row_mask[b] != 0;
+    const bool keep_tok = a.token_mask == nullptr || a.token_mask[tok] != 0;
+    const int i = a.idx[tok];
+    if (i >= 0 && i < a.S) {
+      dest = (long long)b * a.S + i;
+      if (a.bt != nullptr) {
+        const int page = max(a.bt[(long long)b * (a.S / a.ps) + i / a.ps], 0);  // unmapped: 0
+        dest = page < a.P ? (long long)page * a.ps + i % a.ps : -1;
+      }
+    }
+    if (!(keep_row & keep_tok)) dest = -1;
+  }
+  float x[4];
+  if constexpr (sizeof(T) == 4) {
+    x[0] = __uint_as_float(raw.x), x[1] = __uint_as_float(raw.y);
+    x[2] = __uint_as_float(raw.z), x[3] = __uint_as_float(raw.w);
+  } else {                           // a bf16 is the top half of its f32
+    x[0] = __uint_as_float(raw.x << 16), x[1] = __uint_as_float(raw.x & 0xffff0000u);
+    x[2] = __uint_as_float(raw.y << 16), x[3] = __uint_as_float(raw.y & 0xffff0000u);
+  }
+  float amax = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) amax = max_nan(amax, fabsf(x[e]));
+  // every thread of the warp takes part; xor partners stay inside the group
+  for (int o = a.group / 2; o > 0; o >>= 1)
+    amax = max_nan(amax, __shfl_xor_sync(kFullMask, amax, o));
+  if (dest < 0) return;
+  const float scale = max_nan(amax / 127.f, 1e-8f);
+  uint32_t codes = 0;                // the 4 codes, element e in byte e
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float r = rintf(x[e] / scale);
+    const int q = static_cast<int>(r != r ? 0.f : fminf(fmaxf(r, -127.f), 127.f));
+    codes |= (static_cast<uint32_t>(q) & 0xffu) << (8 * e);
+  }
+  const long long slot = dest * a.Hkv + head;
+  int8_t* dst = plane ? a.codes[1] : a.codes[0];
+  *reinterpret_cast<uint32_t*>(dst + slot * a.Dh + d0) = codes;
+  if (t == 0) (plane ? a.scales[1] : a.scales[0])[slot] = scale;
+}
+
 constexpr int kForkUnroll = 4;
 
 __global__ void __launch_bounds__(kThreads)
@@ -184,6 +293,50 @@ extern "C" int repro_fork_pages(void* k, void* v, const void* src, const void* d
   fork_pages_kernel<<<dim3(F, G, 2), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<char*>(k), static_cast<char*>(v), static_cast<const int*>(src),
       static_cast<const int*>(dst), P, page_bytes);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kc/vc: int8 code caches, ks/vs: f32 scale caches, kn/vn: new rows
+// [B, K, Hkv, Dh] of dtype (kF32 or kBF16).  block_tables as in
+// repro_scatter_rows.  group: threads an item, a power of two >= Dh / 4 and
+// <= 32; per_block: items a block (group * per_block <= 256).  Dh must be a
+// multiple of 4 and at most 128.  Returns a cudaError_t code (0 =
+// launched), or -1 for arguments the kernel does not take.
+extern "C" int repro_quant_scatter_rows(void* kc, void* ks, const void* kn, void* vc, void* vs,
+                                        const void* vn, int dtype, const void* idx,
+                                        const void* row_mask, const void* token_mask,
+                                        const void* block_tables, int B, int S, int K, int Hkv,
+                                        int Dh, int num_pages, int page_size, int group,
+                                        int per_block, void* stream) {
+  using namespace repro_torch;
+  if (B <= 0 || K <= 0 || S < 0 || Hkv <= 0 || Dh <= 0 || Dh % 4 != 0 || Dh > 128) return -1;
+  if (dtype != kF32 && dtype != kBF16) return -1;
+  if (block_tables != nullptr && (page_size <= 0 || S % page_size != 0 || num_pages <= 0))
+    return -1;
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || group * 4 < Dh) return -1;
+  if (per_block < 1 || group * per_block > kThreads) return -1;
+  const uintptr_t vec = dtype == kF32 ? 16 : 8;
+  if ((reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn)) % vec != 0 ||
+      (reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc) |
+       reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) % 4 != 0)
+    return -1;
+  const long long items = (long long)B * K * 2 * Hkv;
+  if (items > INT_MAX - per_block) return -1;
+  QuantArgs a{{static_cast<int8_t*>(kc), static_cast<int8_t*>(vc)},
+              {static_cast<float*>(ks), static_cast<float*>(vs)},
+              {kn, vn},
+              static_cast<const int*>(idx),
+              static_cast<const uint8_t*>(row_mask),
+              static_cast<const uint8_t*>(token_mask),
+              static_cast<const int*>(block_tables),
+              S, K, Hkv, Dh, num_pages, page_size,
+              static_cast<int>(items), group, per_block};
+  const int blocks = static_cast<int>((items + per_block - 1) / per_block);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    quant_scatter_kernel<float><<<blocks, group * per_block, 0, s>>>(a);
+  else
+    quant_scatter_kernel<__nv_bfloat16><<<blocks, group * per_block, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

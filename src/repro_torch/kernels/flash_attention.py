@@ -9,18 +9,24 @@ in ``ref``.
 Two kernel bodies compute the same function, and :func:`plan` picks one from
 the arguments alone, the same way every time (no failure is caught):
 
-* ``"tensor_core"``: bf16, head_dim a multiple of 16 up to 128, every q/k/v
-  stride and base a multiple of 16 bytes.  One block per (batch, KV head, up
-  to 64 packed (query head, query row) rows, KV split); with few rows,
+* ``"tensor_core"``: bf16 q with bf16 or int8 K/V, head_dim a multiple of
+  16 up to 128, every q/k/v stride and base a multiple of 16 bytes.  One
+  block per (batch, KV head, up to 64 packed (query head, query row) rows,
+  KV split); with few rows,
   ``ks`` warps share each 16-row slab of it; a long cache is split and the
   splits are merged inside the launch by the last block to finish.
 * ``"cuda_core"``: everything else (f32, other head dims, strides that are
   not 16-byte multiples), one block per (batch, query head, 8 rows).
 
+int8 K/V (the int8 KV cache) come with their f32 per-(token, head) scales
+``k_scale``/``v_scale`` and are read as codes: both bodies dequantize
+inside the kernel, so the cache is never widened.
+
 Each wrapper counts its launches (``launches``) and, beside them, the
-launches of each body (``tensor_core_launches``, ``cuda_core_launches``)
-and of each set of mask options (``option_launches``, keyed by ``(window,
-anchor, causal, bc_start, bc_block)``).
+launches of each body (``tensor_core_launches``, ``cuda_core_launches``),
+of int8 K/V (``int8_launches``) and of each set of mask options
+(``option_launches``, keyed by ``(window, anchor, causal, bc_start,
+bc_block)``).
 """
 from __future__ import annotations
 
@@ -87,7 +93,8 @@ def plan_splits(n_blocks: int, lkv: int, page_size: int = 0) -> tuple[int, int]:
 def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lkv: int, hkv: int,
          page_size: int = 0) -> Plan:
     """The body and split plan a call takes, from its arguments alone.
-    ``k``/``v`` are the cache (dense) or the pools (paged, ``page_size > 0``)."""
+    ``k``/``v`` are the cache (dense) or the pools (paged, ``page_size > 0``),
+    bf16 or int8 codes for the tensor-core body."""
     b, hq, lq, d = q.shape
     if (q.dtype != torch.bfloat16 or d % 16 or d > MAX_HEAD_DIM
             or not all(build.aligned16(t) for t in (q, k, v))):
@@ -115,19 +122,26 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size, mask):
+def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size, mask,
+            scales=None):
     """Checks what both modes share, allocates the output, launches the body
-    that :func:`plan` picks and counts the launch on ``fn``."""
+    that :func:`plan` picks and counts the launch on ``fn``.  ``scales`` is
+    None, or ``(k_scale, v_scale, their 6 strides)`` for int8 K/V."""
     name = fn.__name__
     b, hq, lq, d = q.shape
     hkv = k.shape[-2] if bt is not None else k.shape[1]
+    scale_ts = () if scales is None else scales[:2]
     for arg, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("kv_pos", kv_pos),
-                   ("block_tables", q if bt is None else bt)):
+                   ("block_tables", q if bt is None else bt),
+                   *(("scales", t) for t in scale_ts)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name}: {arg} must be a CUDA tensor on {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, "
-                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    kv_dtype = q.dtype if scales is None else torch.int8
+    if q.dtype not in _DTYPES or k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"{name}: q/k/v must share float32 or bfloat16, or k/v be int8 "
+                        f"with scales, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if any(t.dtype != torch.float32 for t in scale_ts):
+        raise TypeError(f"{name}: int8 scales must be float32")
     if hq % hkv or not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"{name}: needs Hq % Hkv == 0 and D <= {MAX_HEAD_DIM}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
@@ -138,12 +152,14 @@ def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size
     out = torch.empty((b, lq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if lq == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k_strides, *v_strides,
-                                       *out.stride()[:3])
+    strides = (ctypes.c_longlong * 18)(*q.stride()[:3], *k_strides, *v_strides,
+                                       *out.stride()[:3],
+                                       *((0,) * 6 if scales is None else scales[2]))
     options = (int(mask["window"]), int(mask["anchor"]), int(mask["causal"]),
                int(mask["bc_start"]), int(mask["bc_block"]))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), None if bt is None else bt.data_ptr(), page_size,
+            kv_pos.data_ptr(), None if bt is None else bt.data_ptr(),
+            *((None, None) if scales is None else (t.data_ptr() for t in scale_ts)), page_size,
             ctypes.addressof(strides), b, hq, hkv, lq, lkv, d, 1.0 / math.sqrt(d), *options)
     p = plan(q, k, v, lkv, hkv, page_size)
     if p.body == "tensor_core":
@@ -166,6 +182,8 @@ def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size
         build.check(status, name)
         fn.cuda_core_launches += 1
     fn.launches += 1
+    if scales is not None:
+        fn.int8_launches += 1
     fn.option_launches[options] = fn.option_launches.get(options, 0) + 1
     return out
 
@@ -182,17 +200,27 @@ def flash_attention(
     causal: bool = False,
     bc_start: int = 0,
     bc_block: int = 0,
+    k_scale: torch.Tensor | None = None,    # [B, Hkv, Lkv] f32: k, v are int8 codes
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Returns ``[B, Hq, Lq, D]`` in ``q.dtype``: a transposed view of a
-    ``[B, Lq, Hq, D]`` buffer, so the caller's merge of the heads is free."""
+    ``[B, Lq, Hq, D]`` buffer, so the caller's merge of the heads is free.
+    With ``k_scale``/``v_scale`` (any strides), ``k``/``v`` are int8 codes."""
     b, _, _, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
     if q.dim() != 4 or k.shape != (b, hkv, lkv, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    scales = None
+    if k_scale is not None or v_scale is not None:
+        if k_scale is None or v_scale is None or any(
+                t.shape != (b, hkv, lkv) for t in (k_scale, v_scale)):
+            raise ValueError(f"flash_attention: int8 K/V need k_scale and v_scale "
+                             f"[{b}, {hkv}, {lkv}]")
+        scales = (k_scale, v_scale, (*k_scale.stride(), *v_scale.stride()))
     return _launch(flash_attention, q, k, v, q_pos, kv_pos, k.stride()[:3], v.stride()[:3],
                    lkv, None, 0, dict(window=window, anchor=anchor, causal=causal,
-                                      bc_start=bc_start, bc_block=bc_block))
+                                      bc_start=bc_start, bc_block=bc_block), scales)
 
 
 def window_block_tables(block_tables: torch.Tensor, limit: torch.Tensor | None,
@@ -224,11 +252,14 @@ def paged_flash_attention(
     causal: bool = False,
     bc_start: int = 0,
     bc_block: int = 0,
+    k_scale: torch.Tensor | None = None,    # [P, ps, Hkv] f32: the pools are int8 codes
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Attention over a page pool: KV row ``r`` of batch ``b`` is pool row
     ``bt[b, r // ps] * ps + r % ps``; rows of unmapped pages are masked, and
-    the mask options work as in :func:`flash_attention`.  Returns ``[B, Hq,
-    Lq, D]`` in ``q.dtype`` as :func:`flash_attention`."""
+    the mask options and int8 scales (contiguous scale pools) work as in
+    :func:`flash_attention`.  Returns ``[B, Hq, Lq, D]`` in ``q.dtype`` as
+    :func:`flash_attention`."""
     b, _, _, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     n_vp = block_tables.shape[-1]
@@ -245,12 +276,19 @@ def paged_flash_attention(
     # pool strides in the kernel's (b, h, l) slots: b unused, l steps one pool row
     k_strides = (0, k_pool.stride(2), k_pool.stride(1))
     v_strides = (0, v_pool.stride(2), v_pool.stride(1))
+    scales = None
+    if k_scale is not None or v_scale is not None:
+        if k_scale is None or v_scale is None or any(
+                t.shape != k_pool.shape[:3] or not t.is_contiguous() for t in (k_scale, v_scale)):
+            raise ValueError(f"paged_flash_attention: int8 pools need contiguous k_scale and "
+                             f"v_scale {tuple(k_pool.shape[:3])}")
+        scales = (k_scale, v_scale, (0, 1, hkv, 0, 1, hkv))
     return _launch(paged_flash_attention, q, k_pool, v_pool, q_pos, kv_pos, k_strides,
                    v_strides, n_vp * ps, block_tables, ps,
                    dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
-                        bc_block=bc_block))
+                        bc_block=bc_block), scales)
 
 
 for _fn in (flash_attention, paged_flash_attention):
-    _fn.launches = _fn.tensor_core_launches = _fn.cuda_core_launches = 0
+    _fn.launches = _fn.tensor_core_launches = _fn.cuda_core_launches = _fn.int8_launches = 0
     _fn.option_launches = {}

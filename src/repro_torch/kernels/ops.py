@@ -21,6 +21,7 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.importance import importance, variation
 from repro_torch.kernels.scatter_kv import check_fork_lists
 from repro_torch.kernels.scatter_kv import fork_pages as fork_pages_kernel
+from repro_torch.kernels.scatter_kv import quantize_scatter_rows, quantize_scatter_rows_paged
 from repro_torch.kernels.scatter_kv import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.scatter_kv import scatter_rows_paged as scatter_rows_paged_kernel
 from repro_torch.kernels.ssd_scan import ssd_chunks as ssd_chunks_kernel
@@ -48,11 +49,16 @@ def attention(
     causal: bool = False,
     bc_start: int = 0,
     bc_block: int = 0,
+    k_scale: Optional[torch.Tensor] = None,   # [B, Hkv, Lkv] f32: k, v are int8 codes
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Rectangular GQA attention with position-based masking -> [B, Hq, Lq, D]."""
+    """Rectangular GQA attention with position-based masking -> [B, Hq, Lq, D].
+    With ``k_scale``/``v_scale``, ``k``/``v`` are int8 codes read with their
+    per-(token, head) scales: the kernel dequantizes as it reads, so the
+    cache is never widened."""
     kw = dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
-              bc_block=bc_block)
-    if _on_card(q, k, v, q_pos, kv_pos):
+              bc_block=bc_block, k_scale=k_scale, v_scale=v_scale)
+    if _on_card(q, k, v, q_pos, kv_pos, k_scale, v_scale):
         return flash_attention(q, k, v, q_pos, kv_pos, **kw)
     return ref.attention_reference(q, k, v, q_pos, kv_pos, **kw)
 
@@ -70,13 +76,15 @@ def paged_attention(
     causal: bool = False,
     bc_start: int = 0,
     bc_block: int = 0,
+    k_scale: Optional[torch.Tensor] = None,   # [P, ps, Hkv] f32: the pools are int8 codes
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Attention over a page pool through a block table -> [B, Hq, Lq, D].
     Rows of unmapped pages are masked (the reference's ``paged_kv_mask``);
-    the mask options work as in :func:`attention`."""
+    the mask options and the int8 scales work as in :func:`attention`."""
     kw = dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
-              bc_block=bc_block)
-    if _on_card(q, k_pool, v_pool, q_pos, kv_pos, block_tables):
+              bc_block=bc_block, k_scale=k_scale, v_scale=v_scale)
+    if _on_card(q, k_pool, v_pool, q_pos, kv_pos, block_tables, k_scale, v_scale):
         return paged_flash_attention(q, k_pool, v_pool, q_pos, kv_pos, block_tables, **kw)
     return ref.paged_attention_reference(q, k_pool, v_pool, q_pos, kv_pos, block_tables, **kw)
 
@@ -108,12 +116,28 @@ def scatter_rows(pairs, idx: torch.Tensor, *, row_mask: Optional[torch.Tensor] =
     ``idx`` holds distinct in-range rows per batch entry.  ``row_mask [B]``
     (rows a mixed-mode pass does not own) and ``token_mask [B, K]`` (tokens
     a partial refresh leaves alone) leave the cache unwritten where False.
-    One kernel launch on the card, which takes the masks itself."""
-    if _on_card(idx, row_mask, token_mask, *pairs[0], *pairs[-1]):
-        scatter_rows_kernel(pairs, idx, row_mask=row_mask, token_mask=token_mask)
+    The quantizing form takes ``((codes [B, S, Hkv, D] int8, scales [B, S,
+    Hkv] f32), new [B, K, Hkv, D])`` pairs: the new rows are quantized
+    (``ref.quantize_rows``) and their codes and scales written.  One kernel
+    launch on the card, which takes the masks (and quantizes) itself."""
+    quantized = isinstance(pairs[0][0], tuple)
+    if _on_card(idx, row_mask, token_mask, *_pair_tensors(pairs)):
+        kernel = quantize_scatter_rows if quantized else scatter_rows_kernel
+        kernel(pairs, idx, row_mask=row_mask, token_mask=token_mask)
+    elif quantized:
+        for (codes, scales), new in pairs:
+            ref.quantize_scatter_rows_reference(codes, scales, new, idx, row_mask, token_mask)
     else:
         for cache, new in pairs:
             ref.scatter_rows_reference(cache, new, idx, row_mask, token_mask)
+
+
+def _pair_tensors(pairs) -> tuple:
+    """Every tensor of the scatter pairs, ``(codes, scales)`` caches opened."""
+    out = []
+    for cache, new in pairs:
+        out += [*cache, new] if isinstance(cache, tuple) else [cache, new]
+    return tuple(out)
 
 
 def scatter_rows_paged(pairs, idx: torch.Tensor, block_tables: torch.Tensor, *,
@@ -122,28 +146,39 @@ def scatter_rows_paged(pairs, idx: torch.Tensor, block_tables: torch.Tensor, *,
     """In place, for one or two ``(pool [P, ps, ...], new [B, K, ...])``
     pairs: ``pool[bt[b, i // ps], i % ps] = new[b, k]`` for the absolute
     positions ``i = idx[b, k]``; a row of an unmapped page lands on the
-    garbage page 0.  The masks work as in :func:`scatter_rows`.  One kernel
-    launch on the card."""
-    if _on_card(idx, block_tables, row_mask, token_mask, *pairs[0], *pairs[-1]):
-        scatter_rows_paged_kernel(pairs, idx, block_tables, row_mask=row_mask,
-                                  token_mask=token_mask)
+    garbage page 0.  The masks and the quantizing form (``(codes, scales)``
+    pools) work as in :func:`scatter_rows`.  One kernel launch on the card."""
+    quantized = isinstance(pairs[0][0], tuple)
+    if _on_card(idx, block_tables, row_mask, token_mask, *_pair_tensors(pairs)):
+        kernel = quantize_scatter_rows_paged if quantized else scatter_rows_paged_kernel
+        kernel(pairs, idx, block_tables, row_mask=row_mask, token_mask=token_mask)
+    elif quantized:
+        for (codes, scales), new in pairs:
+            ref.quantize_scatter_rows_paged_reference(codes, scales, new, idx, block_tables,
+                                                      row_mask, token_mask)
     else:
         for pool, new in pairs:
             ref.scatter_rows_paged_reference(pool, new, idx, block_tables, row_mask, token_mask)
 
 
-def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst) -> None:
-    """In place, for the K and V pools ``[G, P, ps, ...]``: the copy-on-write
-    copy ``pool[:, dst[f]] = pool[:, src[f]]`` of host-side page lists;
-    ``(p, p)`` pairs (the ``(0, 0)`` pads) write nothing.  Raises
-    ``ValueError`` if a page is out of range or a real destination is also a
-    source.  One kernel launch on the card."""
-    if _on_card(k, v):
-        fork_pages_kernel(k, v, src, dst)
+def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst, *,
+               k_scale: Optional[torch.Tensor] = None,
+               v_scale: Optional[torch.Tensor] = None) -> None:
+    """In place, for the K and V pools ``[G, P, ps, ...]`` (and, int8, their
+    scale pools ``[G, P, ps, Hkv]``): the copy-on-write copy ``pool[:,
+    dst[f]] = pool[:, src[f]]`` of host-side page lists; ``(p, p)`` pairs
+    (the ``(0, 0)`` pads) write nothing.  Raises ``ValueError`` if a page is
+    out of range or a real destination is also a source.  One kernel launch
+    on the card for K and V, and a second one for the scale pools."""
+    pools = [(k, v)] + ([] if k_scale is None else [(k_scale, v_scale)])
+    if _on_card(k, v, k_scale, v_scale):
+        for a, b in pools:
+            fork_pages_kernel(a, b, src, dst)
         return
     src, dst = check_fork_lists(src, dst, k.shape[1])
-    for pool in (k, v):
-        ref.fork_pages_reference(pool, torch.from_numpy(src), torch.from_numpy(dst))
+    for pair in pools:
+        for pool in pair:
+            ref.fork_pages_reference(pool, torch.from_numpy(src), torch.from_numpy(dst))
 
 
 def importance_score(

@@ -48,6 +48,31 @@ def attention_mask(
     return mask.expand(qp.shape[0], qp.shape[1], kp.shape[2])
 
 
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x [..., D]`` -> ``(int8 codes [..., D], f32 scales [...])``, the
+    reference's ``_quantize_rows`` bit for bit: per row (a token's head),
+    ``scale = max(amax / 127, 1e-8)`` and ``code = clip(round(x / scale),
+    -127, 127)`` in f32, ties to even.  A NaN code (a non-finite row) is 0,
+    as XLA converts it; the row's scale stays non-finite.  Both divisions
+    are by tensors on ``x``'s device: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which rounds differently."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.maximum(amax / torch.full_like(amax, 127.0),
+                          torch.tensor(1e-8, dtype=torch.float32, device=x.device))
+    q = torch.round(xf / scale[..., None]).clamp(-127.0, 127.0)
+    return torch.where(torch.isnan(q), 0.0, q).to(torch.int8), scale
+
+
+def dequantize(codes: torch.Tensor, scale: torch.Tensor | None) -> torch.Tensor:
+    """f32 K/V rows: ``codes * scale[..., None]`` for int8 codes with their
+    per-row scales (the reference's dequant inside its attention scan), or
+    the rows themselves in f32 without scales."""
+    if scale is None:
+        return codes.float()
+    return codes.float() * scale[..., None].float()
+
+
 def attention_reference(
     q: torch.Tensor,           # [B, Hq, Lq, D]
     k: torch.Tensor,           # [B, Hkv, Lkv, D]
@@ -60,13 +85,17 @@ def attention_reference(
     causal: bool = False,
     bc_start: int = 0,
     bc_block: int = 0,
+    k_scale: torch.Tensor | None = None,   # [B, Hkv, Lkv] f32: k, v are int8 codes
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """GQA attention with materialized f32 scores; a query row with nothing
-    valid gives 0.  Returns ``q.dtype`` ``[B, Hq, Lq, D]``."""
+    valid gives 0.  With ``k_scale``/``v_scale``, ``k``/``v`` are int8 codes
+    dequantized in f32 (:func:`dequantize`).  Returns ``q.dtype`` ``[B, Hq,
+    Lq, D]``."""
     group = q.shape[1] // k.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    kk = k.float().repeat_interleave(group, dim=1)
-    vv = v.float().repeat_interleave(group, dim=1)
+    kk = dequantize(k, k_scale).repeat_interleave(group, dim=1)
+    vv = dequantize(v, v_scale).repeat_interleave(group, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
     mask = attention_mask(q_pos, kv_pos, window=window, anchor=anchor, causal=causal,
                           bc_start=bc_start, bc_block=bc_block)[:, None]
@@ -104,16 +133,29 @@ def paged_attention_reference(
     q_pos: torch.Tensor,          # [B, Lq]
     kv_pos: torch.Tensor,         # [B, n_vp * ps]
     block_tables: torch.Tensor,   # [B, n_vp]
+    *,
+    k_scale: torch.Tensor | None = None,   # [P, ps, Hkv] f32: the pools are int8 codes
+    v_scale: torch.Tensor | None = None,
     **mask,
 ) -> torch.Tensor:
     """Attention over a page pool: the reference's XLA mirror, which gathers
-    the mapped pages into the dense layout and attends it with unmapped
-    pages masked.  ``mask`` takes :func:`attention_mask`'s options."""
+    the mapped pages (and their scale pages) into the dense layout and
+    attends it with unmapped pages masked.  ``mask`` takes
+    :func:`attention_mask`'s options."""
     ps = k_pool.shape[1]
     kv_pos = paged_kv_mask(block_tables, kv_pos, ps)
     k = gather_pages(k_pool, block_tables).transpose(1, 2)
     v = gather_pages(v_pool, block_tables).transpose(1, 2)
-    return attention_reference(q, k, v, q_pos, kv_pos, **mask)
+    return attention_reference(q, k, v, q_pos, kv_pos, **mask,
+                               **_gathered_scales(k_scale, v_scale, block_tables))
+
+
+def _gathered_scales(k_scale, v_scale, block_tables) -> dict:
+    """The scale pools' dense ``[B, Hkv, n_vp * ps]`` views, as keywords."""
+    if k_scale is None:
+        return {}
+    return dict(k_scale=gather_pages(k_scale, block_tables).transpose(1, 2),
+                v_scale=gather_pages(v_scale, block_tables).transpose(1, 2))
 
 
 def split_bounds(lkv: int, n_splits: int, tile: int = SPLIT_TILE) -> list[tuple[int, int]]:
@@ -142,6 +184,8 @@ def attention_split_reference(
     causal: bool = False,
     bc_start: int = 0,
     bc_block: int = 0,
+    k_scale: torch.Tensor | None = None,   # [B, Hkv, Lkv] f32: k, v are int8 codes
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """:func:`attention_reference` by the split-KV kernel's algebra, in f32:
     each split of :func:`split_bounds` gives its unnormalised output ``O``,
@@ -151,8 +195,8 @@ def attention_split_reference(
     valid in any split gives 0.  Returns ``q.dtype`` ``[B, Hq, Lq, D]``."""
     group = q.shape[1] // k.shape[1]
     scale_log2 = LOG2E / math.sqrt(q.shape[-1])
-    kk = k.float().repeat_interleave(group, dim=1)
-    vv = v.float().repeat_interleave(group, dim=1)
+    kk = dequantize(k, k_scale).repeat_interleave(group, dim=1)
+    vv = dequantize(v, v_scale).repeat_interleave(group, dim=1)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale_log2
     mask = attention_mask(q_pos, kv_pos, window=window, anchor=anchor, causal=causal,
                           bc_start=bc_start, bc_block=bc_block)[:, None]
@@ -183,6 +227,8 @@ def paged_attention_split_reference(
     block_tables: torch.Tensor,   # [B, n_vp]
     *,
     n_splits: int,
+    k_scale: torch.Tensor | None = None,   # [P, ps, Hkv] f32: the pools are int8 codes
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """:func:`paged_attention_reference` by the split-KV algebra of
     :func:`attention_split_reference`: the splits run over virtual KV rows,
@@ -191,7 +237,8 @@ def paged_attention_split_reference(
     kv_pos = paged_kv_mask(block_tables, kv_pos, ps)
     k = gather_pages(k_pool, block_tables).transpose(1, 2)
     v = gather_pages(v_pool, block_tables).transpose(1, 2)
-    return attention_split_reference(q, k, v, q_pos, kv_pos, n_splits=n_splits)
+    return attention_split_reference(q, k, v, q_pos, kv_pos, n_splits=n_splits,
+                                     **_gathered_scales(k_scale, v_scale, block_tables))
 
 
 def keep_mask(idx: torch.Tensor, row_mask: torch.Tensor | None,
@@ -249,6 +296,38 @@ def scatter_rows_paged_reference(
     row = tuple(pool.shape[2:])
     pool.view((-1,) + row)[dest.reshape(-1)] = new.reshape((-1,) + row)
     return pool
+
+
+def quantize_scatter_rows_reference(
+    codes: torch.Tensor,       # [B, S, Hkv, D] int8
+    scales: torch.Tensor,      # [B, S, Hkv] f32
+    new: torch.Tensor,         # [B, K, Hkv, D] bf16 or f32
+    idx: torch.Tensor,         # [B, K] int, unique per row
+    row_mask: torch.Tensor | None = None,
+    token_mask: torch.Tensor | None = None,
+) -> None:
+    """In place, the reference's int8 write: :func:`quantize_rows` of the
+    new rows, then :func:`scatter_rows_reference` of the codes and of the
+    scales."""
+    c, s = quantize_rows(new)
+    scatter_rows_reference(codes, c, idx, row_mask, token_mask)
+    scatter_rows_reference(scales, s, idx, row_mask, token_mask)
+
+
+def quantize_scatter_rows_paged_reference(
+    codes: torch.Tensor,          # [P, ps, Hkv, D] int8
+    scales: torch.Tensor,         # [P, ps, Hkv] f32
+    new: torch.Tensor,            # [B, K, Hkv, D] bf16 or f32
+    idx: torch.Tensor,            # [B, K] int absolute positions, unique per row
+    block_tables: torch.Tensor,   # [B, n_vp] int, -1 unmapped
+    row_mask: torch.Tensor | None = None,
+    token_mask: torch.Tensor | None = None,
+) -> None:
+    """In place, the paged int8 write: :func:`quantize_rows`, then
+    :func:`scatter_rows_paged_reference` of the codes and of the scales."""
+    c, s = quantize_rows(new)
+    scatter_rows_paged_reference(codes, c, idx, block_tables, row_mask, token_mask)
+    scatter_rows_paged_reference(scales, s, idx, block_tables, row_mask, token_mask)
 
 
 def fork_pages_reference(

@@ -10,6 +10,11 @@ launch one kernel for K and V, and take CUDA tensors only; ``ops`` sends CPU
 tensors to the plain versions in ``ref``.  The scatters take the serving
 path's ``row_mask`` and ``token_mask`` themselves, so a masked scatter is
 one launch; :func:`plan` gives their block shape.
+
+``quantize_scatter_rows`` and ``quantize_scatter_rows_paged`` are the int8
+cache's write (the reference's ``_quantize_rows`` and four scatters): one
+launch quantizes the new K and V rows per (token, head) and writes their
+codes and scales; :func:`quant_plan` gives their block shape.
 """
 from __future__ import annotations
 
@@ -74,6 +79,21 @@ def plan(b: int, k: int, pairs: int, row_bytes: int) -> Plan:
     return Plan(group * rows_per_block, rows_per_block, chunk)
 
 
+def _check_routing(name, card, b, k, idx, bt, row_mask, token_mask) -> None:
+    """The scatters' ``idx``, block table and masks: contiguous, on the
+    card, of the kernel's dtypes and shapes.  Raises ``ValueError``."""
+    for arg, t, want_dtype, want in (("idx", idx, torch.int32, (b, k)),
+                                     ("block_tables", bt, torch.int32, None),
+                                     ("row_mask", row_mask, torch.bool, (b,)),
+                                     ("token_mask", token_mask, torch.bool, (b, k))):
+        if t is not None and (
+                t.dtype != want_dtype or t.get_device() != card or not t.is_contiguous()
+                or (t.shape != want if want else t.dim() != 2 or t.shape[0] != b)):
+            raise ValueError(f"{name}: {arg} must be contiguous {want_dtype} "
+                             f"{list(want or (b, '...'))} on the card, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def _launch(fn, pairs, idx, row_mask, token_mask, bt, s, num_pages, page_size):
     """Checks what both modes share, launches and counts the launch on
     ``fn``.  ``s`` is the number of rows ``idx`` may address per batch entry.
@@ -98,16 +118,7 @@ def _launch(fn, pairs, idx, row_mask, token_mask, bt, s, num_pages, page_size):
         bad = n0 if n0.shape != new_shape or n0.dtype != dtype else n1
         raise ValueError(f"{name}: new {tuple(bad.shape)} {bad.dtype} does not "
                          f"fit cache {tuple(shape)} {dtype} and idx [B, K]")
-    for arg, t, want_dtype, want in (("idx", idx, torch.int32, (b, k)),
-                                     ("block_tables", bt, torch.int32, None),
-                                     ("row_mask", row_mask, torch.bool, (b,)),
-                                     ("token_mask", token_mask, torch.bool, (b, k))):
-        if t is not None and (
-                t.dtype != want_dtype or t.get_device() != card or not t.is_contiguous()
-                or (t.shape != want if want else t.dim() != 2 or t.shape[0] != b)):
-            raise ValueError(f"{name}: {arg} must be contiguous {want_dtype} "
-                             f"{list(want or (b, '...'))} on the card, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_routing(name, card, b, k, idx, bt, row_mask, token_mask)
     if b * k == 0:
         return
     row_bytes = n0.numel() // (b * k) * n0.element_size()
@@ -171,6 +182,126 @@ def scatter_rows_paged(
 scatter_rows_paged.launches = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantPlan:
+    """A quantizing scatter's block shape: each item (token, K or V, head)
+    is a group of ``group`` threads, each of which holds 4 consecutive
+    elements of the head's row; a block holds ``per_block`` items."""
+    group: int
+    per_block: int
+
+    @property
+    def threads(self) -> int:
+        return self.group * self.per_block
+
+    def blocks(self, b: int, k: int, hkv: int) -> int:
+        return -(-(b * k * 2 * hkv) // self.per_block)
+
+
+@functools.lru_cache(maxsize=256)
+def quant_plan(b: int, k: int, hkv: int, dh: int) -> QuantPlan:
+    """The block shape of a quantizing scatter of ``b * k`` tokens of ``hkv``
+    heads of ``dh`` elements (a multiple of 4, at most 128): a group of the
+    power of two of threads that covers ``dh / 4`` (its xor shuffles then
+    stay inside it), and as many groups a block, up to ``MAX_THREADS``
+    threads and at least one warp (the shuffles take whole warps), as keep a
+    wave of blocks."""
+    if dh <= 0 or dh % 4 or dh > 128 or min(b, k, hkv) <= 0:
+        raise ValueError(f"quantizing scatter plan: no block shape for b={b} k={k} "
+                         f"hkv={hkv} dh={dh}")
+    group = _pow2(dh // 4)
+    items = b * k * 2 * hkv
+    per_block = _pow2(max(1, min(MAX_THREADS // group, items // build.WAVE)) + 1) // 2
+    per_block = max(per_block, 32 // group)
+    if items + per_block > GRID_LIMIT:
+        raise ValueError(f"quantizing scatter plan: {items} items exceed the grid")
+    return QuantPlan(group, per_block)
+
+
+_NEW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _launch_quant(fn, pairs, idx, row_mask, token_mask, bt, s, num_pages, page_size):
+    """Checks and launches a quantizing scatter of ``((codes, scales), new)``
+    pairs (K, then V) and counts the launch on ``fn``."""
+    name = fn.__name__
+    if len(pairs) != 2:
+        raise ValueError(f"{name}: the K and the V pair")
+    ((kc, ksc), kn), ((vc, vsc), vn) = pairs
+    card = kc.get_device()
+    for arg, t in (("codes", kc), ("scales", ksc), ("new", kn), ("codes", vc),
+                   ("scales", vsc), ("new", vn)):
+        if card < 0 or t.get_device() != card:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor on {kc.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    shape = kc.shape
+    if (kc.dtype != torch.int8 or vc.dtype != torch.int8 or vc.shape != shape
+            or ksc.dtype != torch.float32 or vsc.dtype != torch.float32
+            or ksc.shape != shape[:-1] or vsc.shape != shape[:-1]):
+        raise ValueError(f"{name}: int8 codes {tuple(shape)} and f32 scales "
+                         f"{tuple(shape[:-1])} for K and V")
+    b, k = idx.shape if idx.dim() == 2 else (-1, -1)
+    hkv, dh = shape[-2], shape[-1]
+    for t in (kn, vn):
+        if t.shape != (b, k, hkv, dh) or t.dtype not in _NEW_DTYPES or t.dtype != kn.dtype:
+            raise ValueError(f"{name}: new {tuple(t.shape)} {t.dtype} does not fit codes "
+                             f"{tuple(shape)} and idx [B, K] (bf16 or f32)")
+    _check_routing(name, card, b, k, idx, bt, row_mask, token_mask)
+    if b * k == 0:
+        return
+    pl = quant_plan(b, k, hkv, dh)
+    status = build.library().repro_quant_scatter_rows(
+        kc.data_ptr(), ksc.data_ptr(), kn.data_ptr(), vc.data_ptr(), vsc.data_ptr(),
+        vn.data_ptr(), _NEW_DTYPES[kn.dtype], idx.data_ptr(),
+        None if row_mask is None else row_mask.data_ptr(),
+        None if token_mask is None else token_mask.data_ptr(),
+        None if bt is None else bt.data_ptr(), b, s, k, hkv, dh, num_pages, page_size,
+        pl.group, pl.per_block, build.stream_ptr(kc.device))
+    build.check(status, name)
+    fn.launches += 1
+
+
+def quantize_scatter_rows(
+    pairs: Sequence[tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]],
+    idx: torch.Tensor,                                      # [B, K] int32
+    *,
+    row_mask: Optional[torch.Tensor] = None,                # [B] bool
+    token_mask: Optional[torch.Tensor] = None,              # [B, K] bool
+) -> None:
+    """In place, for the K and the V pair ``((codes [B, S, Hkv, Dh] int8,
+    scales [B, S, Hkv] f32), new [B, K, Hkv, Dh] bf16 or f32)``: the new
+    rows quantized per (token, head) as ``ref.quantize_rows`` and written at
+    ``idx`` where the masks pass, as :func:`scatter_rows` writes.  One
+    launch; Dh a multiple of 4, at most 128."""
+    codes = pairs[0][0][0]
+    if codes.shape[0] != idx.shape[0]:
+        raise ValueError(f"quantize_scatter_rows: codes {tuple(codes.shape)} and idx "
+                         f"{tuple(idx.shape)} differ in batch")
+    _launch_quant(quantize_scatter_rows, pairs, idx, row_mask, token_mask, None,
+                  codes.shape[1], 0, 0)
+
+
+def quantize_scatter_rows_paged(
+    pairs: Sequence[tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]],
+    idx: torch.Tensor,                                      # [B, K] int32 positions
+    block_tables: torch.Tensor,                             # [B, n_vp] int32, -1 unmapped
+    *,
+    row_mask: Optional[torch.Tensor] = None,
+    token_mask: Optional[torch.Tensor] = None,
+) -> None:
+    """:func:`quantize_scatter_rows` into int8 code pools ``[P, ps, Hkv, Dh]``
+    and scale pools ``[P, ps, Hkv]`` through a block table, routed as
+    :func:`scatter_rows_paged` routes."""
+    codes = pairs[0][0][0]
+    ps = codes.shape[1]
+    _launch_quant(quantize_scatter_rows_paged, pairs, idx, row_mask, token_mask, block_tables,
+                  block_tables.shape[-1] * ps, codes.shape[0], ps)
+
+
+quantize_scatter_rows.launches = quantize_scatter_rows_paged.launches = 0
+
+
 def check_fork_lists(src, dst, num_pages: int) -> tuple[np.ndarray, np.ndarray]:
     """The fork's contract on its host-side page lists, as int32 arrays:
     equal lengths, every page in ``[0, num_pages)``, and no real destination
@@ -198,7 +329,9 @@ def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst) -> None:
     host-side page lists (checked by :func:`check_fork_lists`); ``(p, p)``
     pairs write nothing.  One launch copies every pair in every layer group
     of both pools, with 16-byte copies, so a page must span a multiple of 16
-    bytes and the pools must start 16-byte aligned."""
+    bytes and the pools must start 16-byte aligned.  The int8 cache's scale
+    pools ``[G, P, ps, Hkv]`` take a launch of their own, counted also in
+    ``scale_launches`` (the only 4-dimensional pools)."""
     for t in (k, v):
         if not t.is_cuda or t.device != k.device:
             raise ValueError(f"fork_pages: pools must be CUDA tensors on {k.device}")
@@ -220,6 +353,8 @@ def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst) -> None:
         page_bytes, build.stream_ptr(k.device))
     build.check(status, "fork_pages")
     fork_pages.launches += 1
+    if k.dim() == 4:
+        fork_pages.scale_launches += 1
 
 
-fork_pages.launches = 0
+fork_pages.launches = fork_pages.scale_launches = 0

@@ -42,8 +42,7 @@ from repro_torch.models import Model
 from repro_torch.runtime import ConfigError, Request, StreamScheduler
 
 # reference flags outside this slice: (flag, attribute, value that is in the slice)
-_OUTSIDE = (("--gather-refresh", "gather_refresh", False),
-            ("--shards", "shards", 1),
+_OUTSIDE = (("--shards", "shards", 1),
             ("--placement", "placement", "least_loaded"),
             ("--refresh-shards", "refresh_shards", 1),
             ("--decode-prompt-len", "decode_prompt_len", None))
@@ -93,7 +92,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--dup-prompts", action="store_true",
                     help="submit one prompt duplicated --requests times (the "
                          "prefix-sharing workload)")
-    ap.add_argument("--gather-refresh", action="store_true")
+    ap.add_argument("--gather-refresh", action="store_true",
+                    help="run a prompt refresh of at most half the slots as a half-width "
+                         "prefill of the gathered rows (requires --paged)")
     ap.add_argument("--window-blocks", type=int, default=0,
                     help="sliding active window: a row attends its block and this many "
                          "blocks of masked suffix beyond it (0 = no window)")
@@ -145,6 +146,9 @@ def validate(args: argparse.Namespace) -> None:
     if args.preemption and args.prefix_sharing:
         raise ConfigError("--preemption is incompatible with --prefix-sharing: a spill "
                           "releases pages other requests may still map")
+    if args.gather_refresh and not args.paged:
+        raise ConfigError("--gather-refresh requires --paged: the compacted rows write "
+                          "through their block tables into the batch-free pool")
     if args.lazy_reserve and not args.paged:
         raise ConfigError("--lazy-reserve requires --paged: it defers pool pages")
     if args.lazy_reserve and args.window_blocks <= 0:
@@ -185,7 +189,7 @@ def main(argv=None) -> list[Request]:
                              page_size=args.page_size, kv_pages=args.kv_pages,
                              prefix_sharing=args.prefix_sharing, preemption=args.preemption,
                              lazy_reserve=args.lazy_reserve, early_advance=args.early_advance,
-                             device=device)
+                             gather_refresh=args.gather_refresh, device=device)
     rng = np.random.default_rng(args.seed)
     if args.dup_prompts:
         dup_prompt = rng.integers(3, cfg.vocab_size, args.prompt_len).astype(np.int32)
@@ -220,6 +224,8 @@ def main(argv=None) -> list[Request]:
             line += f"  pages_reclaimed={st.pages_reclaimed}"
         if args.lazy_reserve:
             line += f"  pages_deferred={st.pages_deferred}  window_stalls={st.window_stalls}"
+        if args.gather_refresh:
+            line += f"  compact_prefill={server.engine.compact_prefill}"
     if gen.block_causal:
         line += f"  invariant_tokens_skipped={st.invariant_tokens_skipped}"
     if args.preemption:

@@ -6,6 +6,11 @@ and partial (decode: only the active rows scattered, the whole cache
 attended).  The cache is updated in place: ``KVCache.k``/``v`` are views of
 the model's ``[G, B, S, Hkv, Dh]`` planes, or of its ``[G, P, ps, Hkv, Dh]``
 page pool (``PagedKVCache``), and the scatter kernel writes into them.
+
+The int8 cache (``Model.init_cache(kv_dtype="int8")``) holds int8 codes
+with f32 per-(token, head) scales: the scatter kernel quantizes the fresh
+rows as it writes them, and the attention kernels read the codes and the
+scales, so no layer's cache is ever widened.
 """
 from __future__ import annotations
 
@@ -26,6 +31,29 @@ class KVCache(NamedTuple):
     k: torch.Tensor
     v: torch.Tensor
 
+    k_scale = v_scale = property(lambda self: None)   # no scales: not quantized
+    quantized = property(lambda self: False)
+
+    def layer(self, g: int) -> "KVCache":
+        """Layer ``g``'s views of every plane."""
+        return KVCache(self.k[g], self.v[g])
+
+
+class QuantKVCache(NamedTuple):
+    """The int8 cache (``Model.init_cache(kv_dtype="int8")``): ``k``/``v``
+    int8 codes in :class:`KVCache`'s layouts and their f32 per-(token, head)
+    scales ``k_scale``/``v_scale`` ``[B, S, Hkv]`` (``[P, ps, Hkv]``), the
+    reference's quantized ``KVCache``."""
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+
+    quantized = property(lambda self: True)
+
+    def layer(self, g: int) -> "QuantKVCache":
+        return QuantKVCache(*(t[g] for t in self))
+
 
 class PagedKVCache(NamedTuple):
     """Block-table view over one layer's page pool ``[P, ps, Hkv, Dh]``:
@@ -35,7 +63,7 @@ class PagedKVCache(NamedTuple):
     attention read walks, the sliding window's view of it
     (``ops.window_block_tables``), or None for the table itself.  Page
     ownership lives in the scheduler's allocator."""
-    cache: KVCache
+    cache: KVCache | QuantKVCache
     block_tables: torch.Tensor          # [B, n_vp] int32
     read_tables: Optional[torch.Tensor] = None   # [B, n_vp] int32
 
@@ -83,7 +111,7 @@ def self_attention(
     x: torch.Tensor,                        # [B, K, d] active rows
     positions: torch.Tensor,                # [B, K] int32 global positions
     *,
-    cache: Optional[KVCache | PagedKVCache] = None,   # views, updated in place
+    cache: Optional[KVCache | QuantKVCache | PagedKVCache] = None,   # views, in place
     slot_idx: Optional[torch.Tensor] = None,   # [B, K] int32 cache rows to write
     kv_pos: Optional[torch.Tensor] = None,     # [B, S] int32 cache validity (-1 invalid)
     rope=None,                      # common.rope_tables(positions, ...), if precomputed
@@ -119,24 +147,45 @@ def self_attention(
         raise ValueError("a cached attention needs slot_idx and kv_pos")
     if isinstance(cache, PagedKVCache):
         pool, bt = cache.cache, cache.block_tables
-        ops.scatter_rows_paged(((pool.k, kk.to(pool.k.dtype)), (pool.v, vv.to(pool.v.dtype))),
-                               slot_idx, bt, **masks)
+        ops.scatter_rows_paged(_write_pairs(pool, kk, vv), slot_idx, bt, **masks)
         read_bt = bt if cache.read_tables is None else cache.read_tables
-        out = ops.paged_attention(q.transpose(1, 2), pool.k.to(q.dtype), pool.v.to(q.dtype),
-                                  positions, kv_pos, read_bt, **opts)
+        out = ops.paged_attention(q.transpose(1, 2), *_read_planes(pool, q.dtype), positions,
+                                  kv_pos, read_bt, k_scale=pool.k_scale, v_scale=pool.v_scale,
+                                  **opts)
         return out.transpose(1, 2).reshape(b, k, -1) @ p.wo
+    scales = {}
     if cache is not None:
-        ops.scatter_rows(((cache.k, kk.to(cache.k.dtype)), (cache.v, vv.to(cache.v.dtype))),
-                         slot_idx, **masks)
-        k_full, v_full, kv_positions = cache.k, cache.v, kv_pos
+        ops.scatter_rows(_write_pairs(cache, kk, vv), slot_idx, **masks)
+        (k_full, v_full), kv_positions = _read_planes(cache, q.dtype), kv_pos
+        if cache.quantized:        # [B, Hkv, S] views of the scale planes
+            scales = dict(k_scale=cache.k_scale.transpose(1, 2),
+                          v_scale=cache.v_scale.transpose(1, 2))
     else:
         k_full, v_full, kv_positions = kk, vv, positions
     out = ops.attention(
         q.transpose(1, 2),                                    # [B, H, K, Dh] views
-        k_full.to(q.dtype).transpose(1, 2),
-        v_full.to(q.dtype).transpose(1, 2),
+        k_full.transpose(1, 2),
+        v_full.transpose(1, 2),
         positions,
         kv_positions,
+        **scales,
         **opts,
     )
     return out.transpose(1, 2).reshape(b, k, -1) @ p.wo
+
+
+def _write_pairs(cache: KVCache | QuantKVCache, kk: torch.Tensor, vv: torch.Tensor) -> tuple:
+    """The scatter's ``(cache, new)`` pairs: the K and V planes with the new
+    rows in their dtype, or, quantized, the ``(codes, scales)`` planes with
+    the new rows as they are (the scatter kernel quantizes them)."""
+    if cache.quantized:
+        return ((cache.k, cache.k_scale), kk), ((cache.v, cache.v_scale), vv)
+    return (cache.k, kk.to(cache.k.dtype)), (cache.v, vv.to(cache.v.dtype))
+
+
+def _read_planes(cache: KVCache | QuantKVCache, dtype: torch.dtype) -> tuple:
+    """The K and V planes the attention reads: the int8 codes as they are
+    (the kernels take their scales), else in the queries' dtype."""
+    if cache.quantized:
+        return cache.k, cache.v
+    return cache.k.to(dtype), cache.v.to(dtype)

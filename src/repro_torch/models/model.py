@@ -19,8 +19,9 @@ the segment; here a Python loop over the layers does.  Cache modes
 
 The KV cache is ``KVCache(k, v)`` of ``[G, B, S, Hkv, Dh]`` planes, or of
 ``[G, P, ps, Hkv, Dh]`` page pools shared by every slot and addressed through
-``ForwardCtx.block_tables`` (paged serving); layer g reads and writes the
-views ``k[g]``/``v[g]`` in place.  An SSM stack's cache is ``SSMCache``
+``ForwardCtx.block_tables`` (paged serving), or ``QuantKVCache`` with
+``k_scale``/``v_scale`` planes beside int8 codes; layer g reads and writes
+the views ``k[g]``/``v[g]`` (and its scales) in place.  An SSM stack's cache is ``SSMCache``
 (``state``, ``conv_tail``, ``ssmh``), written in place too; under a
 ``scatter_mask`` only the owned rows are written.
 
@@ -45,6 +46,7 @@ from repro_torch.models.attention import (
     Attention,
     KVCache,
     PagedKVCache,
+    QuantKVCache,
     _param,
     self_attention,
 )
@@ -181,12 +183,19 @@ class Model(nn.Module):
         return self
 
     def init_cache(self, batch: int, seq_len: int, *, block_len: int = 0, kv_pages: int = 0,
-                   page_size: int = 0) -> KVCache | SSMCache:
+                   page_size: int = 0,
+                   kv_dtype: Optional[str] = None) -> KVCache | QuantKVCache | SSMCache:
         """Zeroed caches.  Attention: KV planes in the parameter dtype, ``[G,
         B, S, Hkv, Dh]``, or with ``kv_pages`` the page pool ``[G, kv_pages,
         page_size, Hkv, Dh]`` shared by every slot (page 0 is the garbage
-        page).  SSM: ``SSMCache`` with ``block_len`` rows of ``ssmh`` per
-        slot; there is no paged layout (nothing grows with the sequence)."""
+        page); ``kv_dtype="int8"`` makes them a ``QuantKVCache``: int8 codes
+        with f32 scale planes ``[G, B, S, Hkv]`` (``[G, kv_pages, page_size,
+        Hkv]``).  SSM:
+        ``SSMCache`` with ``block_len`` rows of ``ssmh`` per slot; there is
+        no paged layout (nothing grows with the sequence) and ``kv_dtype``
+        does not apply."""
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_cache_dtype={kv_dtype!r}: None or 'int8'")
         cfg = self.cfg
         if self.ssm:
             if kv_pages or block_len <= 0:
@@ -204,8 +213,14 @@ class Model(nn.Module):
             shape = (self.n_groups, kv_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
         else:
             shape = (self.n_groups, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-        return KVCache(torch.zeros(shape, dtype=self.dtype, device=self.device),
-                       torch.zeros(shape, dtype=self.dtype, device=self.device))
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        if kv_dtype == "int8":
+            return QuantKVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                                zeros(shape[:-1], torch.float32),
+                                zeros(shape[:-1], torch.float32))
+        return KVCache(zeros(shape, self.dtype), zeros(shape, self.dtype))
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens.long()].to(self.compute_dtype)
@@ -241,7 +256,7 @@ class Model(nn.Module):
                                                   cache.k.shape[2])
         for g in range(group_lo, group_hi):
             layer = self.layers[g]
-            kv = KVCache(cache.k[g], cache.v[g]) if use_cache else None
+            kv = cache.layer(g) if use_cache else None
             if kv is not None and ctx.block_tables is not None:
                 kv = PagedKVCache(kv, ctx.block_tables, read_bt)
             h = h + self_attention(

@@ -355,7 +355,8 @@ class _SpilledRequest:
     seq: int                 # submission order (FIFO within a class on resume)
     n_blocks: int            # admission-time block budget
     vps: list                # mapped virtual pages at spill time, in order
-    kv_data: tuple           # engine.spill_pages: (k, v), one page per entry of vps
+    kv_data: tuple           # engine.spill_pages: every pool plane ((k, v), and the int8
+                             # scales), one page per entry of vps
     row: dict                # the slot's per-row fields
     extent: tuple            # (first_vp, last_vp) the request may ever map
     frontier: int            # first virtual page not mapped yet

@@ -156,9 +156,19 @@ def test_features_outside_the_slice_raise(change, error):
         tmake(tm, gen, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(kv_cache_dtype="int8"), dict(gather_refresh=True)],
-                         ids=["int8_kv", "gather_refresh"])
-def test_engine_options_outside_the_slice_raise(kw):
-    _, _, tm = models("llada-8b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("arch,kw,match", [
+    ("llada-8b", dict(kv_cache_dtype="fp8"), "kv_cache_dtype"),
+    ("llada-8b", dict(gather_refresh=True), "paged KV pool"),
+    ("mamba2-370m", dict(gather_refresh=True, paged=True), "attention-only"),
+], ids=["int8_kv", "gather_refresh", "gather_refresh_ssm"])
+def test_engine_options_outside_the_slice_raise(arch, kw, match):
+    """The engine options the reference refuses, as ``ValueError``: a KV
+    cache dtype other than None or "int8", and ``gather_refresh`` without
+    the paged pool or on a stack that is not attention-only."""
+    if arch == "llada-8b":
+        tm = models(arch)[2]
+    else:
+        tcfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_config(arch)), n_layers=2)
+        tm = Model(tcfg, device="cpu")
+    with pytest.raises(ValueError, match=match):
         tmake(tm, tconfigs.GenerationConfig(**BASE), device="cpu", **kw)

@@ -198,3 +198,27 @@ def test_block_causal_row_bound_equals_block_rule(bc_start, bc_block):
     lim = bc_start + (qb + 1) * bc_block
     got = (pos[None, :] >= 0) & (pos[None, :].long() < lim[:, None])
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("qdtype,d,pad,body", [
+    (torch.bfloat16, 128, 0, "tensor_core"),
+    (torch.bfloat16, 32, 0, "tensor_core"),
+    (torch.float32, 128, 0, "cuda_core"),
+    (torch.bfloat16, 72, 0, "cuda_core"),
+    (torch.bfloat16, 64, 8, "cuda_core"),
+], ids=["bf16_q_d128", "bf16_q_d32", "f32_q", "bf16_q_d72", "bf16_q_unaligned_codes"])
+def test_int8_kv_body_choice(qdtype, d, pad, body):
+    """int8 K/V (the int8 cache's codes) with bf16 q take the tensor-core
+    body when every code row is a multiple of 16 bytes (head_dim a multiple
+    of 16, strides aligned), with f32 q the CUDA-core body (the reference's
+    exact dequant); the same plan as bf16 K/V of that shape, dense and
+    paged."""
+    q = _view(qdtype, d, n=8)
+    k8 = _view(torch.int8, d, pad, h=2)
+    p = plan(q, k8, k8, 40, 2)
+    assert p.body == body
+    if body == "tensor_core":
+        kb = _view(torch.bfloat16, d, h=2)
+        assert p == plan(q, kb, kb, 40, 2)
+    pools = torch.zeros(9, 16, 2, d + pad, dtype=torch.int8)[..., :d]
+    assert plan(q, pools, pools, 64, 2, page_size=16).body == body

@@ -527,3 +527,68 @@ def test_cuda_paged_mask_options_match_plain_version(cuda_device, dtype):
                 assert (got.float() - want.float()).abs().max().item() <= tol, (ps, hq, opts)
                 if dtype == torch.bfloat16:
                     assert paged_flash_attention.tensor_core_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_kernels_match_plain_versions(cuda_device, dtype):
+    """The int8 cache's kernels on the card: attention on int8 codes with
+    their scales, dense and paged, with mask options (bf16 q on the
+    tensor-core body, f32 on the CUDA-core body) within tolerance of the
+    plain version; the quantizing scatter, dense and paged under the
+    serving masks, bit-equal to it (page 0 aside)."""
+    from repro_torch.kernels.scatter_kv import (
+        quantize_scatter_rows,
+        quantize_scatter_rows_paged,
+    )
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+
+    def codes(*shape):
+        return ref.quantize_rows(torch.randn(*shape, generator=g, device=cuda_device))
+    for hq, hkv, lq, d, kw in ((4, 4, 8, 32, {}), (28, 4, 32, 128, {"causal": True}),
+                               (4, 2, 8, 128, {"bc_start": 24, "bc_block": 8, "window": 9})):
+        q = torch.randn(2, lq, hq, d, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+        (k8, ks), (v8, vs) = codes(2, 40, hkv, d), codes(2, 40, hkv, d)
+        sc = dict(k_scale=ks.transpose(1, 2), v_scale=vs.transpose(1, 2))
+        q_pos = torch.arange(40 - lq, 40, dtype=torch.int32, device=cuda_device).repeat(2, 1)
+        kv_pos = torch.arange(40, dtype=torch.int32, device=cuda_device).repeat(2, 1)
+        kv_pos[1, 3:9] = -1
+        assert plan(q, k8.transpose(1, 2), v8.transpose(1, 2), 40, hkv).body == (
+            "tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+        got = flash_attention(q, k8.transpose(1, 2), v8.transpose(1, 2), q_pos, kv_pos, **sc, **kw)
+        want = ref.attention_reference(q, k8.transpose(1, 2), v8.transpose(1, 2), q_pos, kv_pos,
+                                       **sc, **kw)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        (kp, kps), (vp, vps) = codes(11, 8, hkv, d), codes(11, 8, hkv, d)
+        bt = (torch.randperm(10, generator=g, device=cuda_device) + 1).int().view(2, 5)
+        bt[0, 1] = -1
+        args = (q, kp, vp, q_pos, kv_pos, bt)
+        got = paged_flash_attention(*args, k_scale=kps, v_scale=vps, **kw)
+        want = ref.paged_attention_reference(*args, k_scale=kps, v_scale=vps, **kw)
+        assert (got.float() - want.float()).abs().max().item() <= tol
+    for paged, h, d in ((False, 4, 32), (True, 32, 128), (True, 1, 32)):
+        lead = (11, 8) if paged else (2, 40)
+        planes = [torch.randint(-127, 128, (*lead, h, d), generator=g,
+                                device=cuda_device).to(torch.int8) for _ in "kv"]
+        scales = [torch.rand(*lead, h, generator=g, device=cuda_device) for _ in "kv"]
+        new = [torch.randn(2, 6, h, d, generator=g, device=cuda_device).to(dtype) for _ in "kv"]
+        idx = torch.stack([torch.randperm(40, generator=g, device=cuda_device)[:6]
+                           for _ in range(2)]).to(torch.int32)
+        mk = dict(row_mask=torch.tensor([True, False], device=cuda_device),
+                  token_mask=torch.rand(2, 6, generator=g, device=cuda_device) < 0.7)
+        bt = (torch.randperm(10, generator=g, device=cuda_device) + 1).int().view(2, 5)
+        want = [t.clone() for t in planes + scales]
+        got = [t.clone() for t in planes + scales]
+        pairs = (((got[0], got[2]), new[0]), ((got[1], got[3]), new[1]))
+        if paged:
+            for i in range(2):
+                ref.quantize_scatter_rows_paged_reference(want[i], want[i + 2], new[i], idx, bt,
+                                                          **mk)
+            quantize_scatter_rows_paged(pairs, idx, bt, **mk)
+        else:
+            for i in range(2):
+                ref.quantize_scatter_rows_reference(want[i], want[i + 2], new[i], idx, **mk)
+            quantize_scatter_rows(pairs, idx, **mk)
+        cut = 1 if paged else 0
+        assert all(torch.equal(a[cut:], b[cut:]) for a, b in zip(got, want))

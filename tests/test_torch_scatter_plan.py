@@ -161,3 +161,41 @@ def test_paged_reference_masks_match_jax(page_size, which, impl):
                                            _t(bt), row_mask=_t(row), token_mask=_t(tok))
     np.testing.assert_array_equal(got.numpy()[1:], want[1:])
     assert not np.array_equal(want[1:], pool[1:]), "the case wrote nothing"
+
+
+def quant_coverage(pl: sk.QuantPlan, b: int, k: int, hkv: int, dh: int) -> np.ndarray:
+    """[b * k, 2, hkv, dh] counts of the elements the quantizing kernel's
+    threads hold, as ``quant_scatter_kernel`` maps (blockIdx.x, threadIdx.x)
+    to (item = (token, K or V, head), elements 4t .. 4t + 3)."""
+    items = b * k * 2 * hkv
+    t = np.arange(pl.threads)
+    item = np.arange(pl.blocks(b, k, hkv))[:, None] * pl.per_block + t // pl.group
+    d = np.broadcast_to((4 * (t % pl.group))[None, :, None] + np.arange(4), item.shape + (4,))
+    live = (item < items)[..., None] & (d < dh)
+    flat = (item[..., None] * dh + d)[live]
+    return np.bincount(flat, minlength=items * dh).reshape(b * k, 2, hkv, dh)
+
+
+@pytest.mark.parametrize("b,k", [(1, 1), (2, 8), (4, 32), (2, 192), (4, 192)])
+@pytest.mark.parametrize("hkv,dh", [(32, 128), (4, 128), (4, 32), (1, 32), (2, 80), (3, 4)],
+                         ids=["llada", "dream", "reduced_llada", "reduced_dream", "d80", "d4"])
+def test_quant_plan_holds_every_element_once(hkv, dh, k, b):
+    """Every element of every (token, K or V, head) is held by exactly one
+    thread, a group's xor shuffles stay inside it (a power of two of
+    threads that covers Dh / 4), blocks are whole warps within the launch
+    bound, and the grid fits what ``repro_quant_scatter_rows`` takes."""
+    pl = sk.quant_plan(b, k, hkv, dh)
+    assert (quant_coverage(pl, b, k, hkv, dh) == 1).all()
+    assert pl.group & (pl.group - 1) == 0 and pl.group * 4 >= dh and pl.group <= 32
+    assert pl.threads % 32 == 0 and pl.threads <= sk.MAX_THREADS
+    assert b * k * 2 * hkv + pl.per_block <= sk.GRID_LIMIT
+
+
+def test_quant_plan_shapes():
+    """LLaDA's decode block fills blocks of 8 items; Dream's few items keep
+    whole warps."""
+    assert sk.quant_plan(4, 32, 32, 128) == sk.QuantPlan(32, 8)
+    assert sk.quant_plan(1, 1, 1, 32) == sk.QuantPlan(8, 4)
+    for args in ((2, 8, 4, 130), (2, 8, 4, 256), (2, 8, 4, 0), (0, 8, 4, 128)):
+        with pytest.raises(ValueError):
+            sk.quant_plan(*args)

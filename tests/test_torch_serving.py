@@ -247,12 +247,13 @@ def test_serve_launcher_refuses_bad_combinations(flags, why):
 
 
 @pytest.mark.parametrize("flag,why", [(["--lazy-reserve"], "requires --paged"),
-                                      (["--gather-refresh"], "ROADMAP"),
+                                      (["--gather-refresh"], "requires --paged"),
                                       (["--shards", "2"], "ROADMAP"),
                                       (["--runtime", "batch"], "ROADMAP")],
                          ids=["--lazy-reserve", "--gather-refresh", "--shards", "--runtime"])
 def test_serve_launcher_flags_outside_the_slice_raise(flag, why):
-    """Flags outside the port name ROADMAP.md; ``--lazy-reserve`` is in it
-    and, as in the reference, needs ``--paged``."""
+    """Flags outside the port name ROADMAP.md; ``--lazy-reserve`` and
+    ``--gather-refresh`` are in it and, as in the reference, need
+    ``--paged``."""
     with pytest.raises(ConfigError, match=why):
         serve.main(["--device", "cpu", *flag])
