@@ -87,9 +87,17 @@ no result):
    bf16's), phase 6's trace with the int8 cache and ``gather_refresh`` (11b:
    against phase 6 of the same run; the compact branch must run), and a
    sampled prefix-sharing trace of two duplicate cohorts (11c: the scale
-   pools fork).
+   pools fork);
+12. the rest of the serving runtime: LLaDA-8B (phase 5's model) through the
+   lock-step ``BatchServer`` at batch 8, 16 requests in two batches (12a:
+   ``stats.tps``, each batch's wall, the first batch's tokens equal to one
+   ``engine.generate`` of the same prompts and key), and phase 6's trace
+   through ``ShardedStreamScheduler`` with 2 lanes on the one card (12b:
+   (i) least loaded, (ii) disaggregated, a refresh lane at prompt 128 and a
+   decode lane at 64; page conservation checked after every step; each
+   decode-lane request of (ii) equal to its single-shard replay).
 
-On phases 5, 6, 7, 9, 10 and 11 every attention launch must take the
+On phases 5, 6, 7, 9, 10, 11 and 12 every attention launch must take the
 tensor-core body (on phase 11 reading int8 codes, with every K/V write the
 quantizing scatter), and phases 5 and 6 must keep one attention launch per
 call; on phase
@@ -2811,6 +2819,184 @@ def int8_shared_served(model, kernel_fns) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the lock-step BatchServer and the sharded scheduler, LLaDA-8B
+# ---------------------------------------------------------------------------
+# 12a: the paper's batch 8 (prompt 128, gen 64 in blocks of 32), 16 requests
+# of prompts of 32-128 tokens, so two batches
+BATCH_SERVER = dict(batch_size=8, requests=16, prompt_len=128)
+
+
+def batch_server(model, kernel_fns) -> dict:
+    """12a: ``BatchServer`` at batch 8 with phase 5's gen config; the first
+    batch's tokens must equal one ``engine.generate`` of the same stacked
+    prompts with the server's key."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.runtime import BatchServer, Request, pad_and_stack
+
+    cfg = model.cfg
+    bsz, n_req, pl = (BATCH_SERVER[k] for k in ("batch_size", "requests", "prompt_len"))
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=64, block_length=32,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=32, block_refresh_period=4)
+    rng = np.random.default_rng(SEED + 12)
+    lens = [(32, 64, 96, 128)[i % 4] for i in range(n_req)]
+    reqs = [Request(prompt=rng.integers(3, cfg.vocab_size, n).astype(np.int32)) for n in lens]
+    server = BatchServer(model, gen_cfg, batch_size=bsz, prompt_len=pl, seed=SEED,
+                         device="cuda")
+    for r in reqs:
+        server.submit(r)
+    torch.cuda.synchronize()
+    zero_counts(kernel_fns)
+    t0 = time.perf_counter()
+    done = server.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    if [r.request_id for r in done] != [r.request_id for r in reqs]:
+        raise AssertionError("12a: the server did not return every request in order")
+    for name in ("flash_attention", "scatter_rows", "importance"):
+        if launches[name] <= 0:
+            raise AssertionError(f"12a: kernel {name} was not launched")
+    check_tensor_core_path(launches, "phase 12a")
+    first = torch.from_numpy(pad_and_stack(reqs[:bsz], 0, pl))
+    want = server.engine.generate(first, key=prng.split(prng.prng_key(SEED))[1]).cpu().numpy()
+    for i, r in enumerate(reqs[:bsz]):
+        if not np.array_equal(r.output, want[i, pl:]):
+            raise AssertionError(f"12a: request {i} of the first batch differs from "
+                                 "engine.generate of the same prompts and key")
+        if r.output.shape != (gen_cfg.gen_length,) or (r.output == server.engine.mask_id).any():
+            raise AssertionError(f"12a: request {i} output {r.output}")
+    st = server.stats
+    return dict(batch_size=bsz, requests=n_req, prompt_len=pl, prompt_lens=lens,
+                gen_length=gen_cfg.gen_length, block_length=gen_cfg.block_length,
+                tps=st.tps, wall_s=st.wall_s, drain_wall_s=wall,
+                batch_wall_s=list(server.batch_wall_s), stats_requests=st.requests,
+                tokens_generated=st.tokens_generated, first_batch_equal=True,
+                launches=launches)
+
+
+def sharded_trace(sched, prompts, max_new, every: int):
+    """Phase 6's submission plan through a sharded scheduler, with page
+    conservation checked after every step; returns the requests, the steps,
+    and each request's lane step count at its submission."""
+    from repro_torch.runtime import Request
+
+    reqs = [Request(prompt=p.copy(), max_new_tokens=m) for p, m in zip(prompts, max_new)]
+    at: dict = {}
+    step = 0
+    while step <= every * (len(reqs) - 1) or sched.has_work():
+        if step % every == 0 and step // every < len(reqs):
+            r = reqs[step // every]
+            sched.submit(r)
+            at[r.request_id] = sched.lanes[sched.placements[r.request_id]].stats.steps
+        sched.step()
+        sched.allocator.check_conservation()
+        step += 1
+    return reqs, step, at
+
+
+def lane_replay(model, gen_cfg, lane, seed: int, reqs, at) -> list:
+    """A single-shard ``StreamScheduler`` with the lane's ``seed``, width and
+    pool fed the lane's requests at the lane's own step counts."""
+    from repro_torch.runtime import Request, StreamScheduler
+
+    replay = StreamScheduler(model, gen_cfg, device="cuda", max_slots=len(lane.slot_req),
+                             prompt_len=lane.prompt_len, paged=True, page_size=16,
+                             kv_pages=lane.allocator.num_pages, early_advance=True,
+                             seed=seed)
+    pending = [(at[r.request_id], Request(prompt=r.prompt.copy(), request_id=r.request_id,
+                                          max_new_tokens=r.max_new_tokens)) for r in reqs]
+    copies = [c for _, c in pending]
+    while pending or replay.has_work():
+        while pending and (pending[0][0] <= replay.stats.steps or not replay.has_work()):
+            replay.submit(pending.pop(0)[1])
+        replay.step()
+    return copies
+
+
+def sharded_served(model, kernel_fns) -> dict:
+    """12b: phase 6's model, gen config and trace through
+    ``ShardedStreamScheduler`` with 2 lanes on the one card: (i) least loaded
+    on phase 6's 4 slots and its pool split evenly, (ii) disaggregated, one
+    refresh lane at prompt 128 and one decode lane at 64.  Each decode-lane
+    request of (ii) must equal its single-shard replay."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.runtime import ShardedStreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = configs.GenerationConfig(
+        mode="es", gen_length=GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2)
+    rng = np.random.default_rng(SEED)
+    lens = (32, 64, 96, 128, 32, 64, 96, 128)
+    max_new = (64, 32, 64, 32, 32, 64, 32, 64)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    runs = {
+        "i": dict(placement="least_loaded"),
+        "ii": dict(placement="disagg", refresh_shards=1, decode_prompt_len=64),
+    }
+    out = {}
+    for name, kw in runs.items():
+        sched = ShardedStreamScheduler(model, gen_cfg, device="cuda", shards=2, seed=SEED,
+                                       max_slots=SLOTS, prompt_len=PROMPT, paged=True,
+                                       page_size=16, early_advance=True, **kw)
+        if sched.devices is not None or len({id(l.engine) for l in sched.lanes}) != 1:
+            raise AssertionError(f"12b {name}: the lanes do not share the card and engine")
+        torch.cuda.synchronize()
+        zero_counts(kernel_fns)
+        t0 = time.perf_counter()
+        reqs, steps, at = sharded_trace(sched, prompts, max_new, every=5)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(kernel_fns)
+        for r, n in zip(reqs, max_new):
+            if r.error is not None or r.output is None or r.output.shape != (n,):
+                raise AssertionError(f"12b {name}: request {r.request_id}: {r.error} {r.output}")
+        if sched.allocator.used_pages:
+            raise AssertionError(f"12b {name}: pages left after the drain")
+        for k in ("paged_flash_attention", "scatter_rows_paged", "importance"):
+            if launches[k] <= 0:
+                raise AssertionError(f"12b {name}: kernel {k} was not launched")
+        check_tensor_core_path(launches, f"phase 12b {name}")
+        lanes = {}
+        for s, lane in enumerate(sched.lanes):
+            mine = [r for r in reqs if sched.placements[r.request_id] == s]
+            lat = [r.latency_s for r in mine]
+            lanes[s] = dict(prompt_len=lane.prompt_len, requests=len(mine), steps=lane.stats.steps,
+                            latency_p50_s=float(np.percentile(lat, 50)) if lat else None,
+                            latency_p95_s=float(np.percentile(lat, 95)) if lat else None)
+        replay_equal = None
+        if name == "ii":
+            lane = sched.lanes[1]
+            mine = [r for r in reqs if sched.placements[r.request_id] == 1]
+            if {len(r.prompt) for r in mine} != {32, 64}:
+                raise AssertionError("12b ii: the decode lane took prompts of "
+                                     f"{sorted(len(r.prompt) for r in mine)} tokens")
+            copies = lane_replay(model, gen_cfg, lane, SEED + 1, mine, at)
+            for r, c in zip(mine, copies):
+                if not np.array_equal(r.output, c.output):
+                    raise AssertionError(f"12b ii: decode-lane request {r.request_id} differs "
+                                         "from its single-shard replay")
+            replay_equal = len(mine)
+        st = sched.stats
+        out[name] = dict(placement=kw["placement"], steps=steps, lane_steps=st.steps,
+                         wall_s=wall, ms_per_step=wall / steps * 1e3,
+                         placements={str(k): v for k, v in sched.placements.items()},
+                         lanes=lanes, shard_gauges=sched.shard_gauges(),
+                         pool_pages=[l.allocator.num_pages for l in sched.lanes],
+                         decode_replay_equal=replay_equal, conservation_checked_steps=steps,
+                         launches=launches)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 7: sampled serving of Dream-7B at full width
 # ---------------------------------------------------------------------------
 # (submit step, prompt, priority): two duplicate-prompt cohorts (A, B) in
@@ -3368,9 +3554,27 @@ def main() -> int:
                  "11c": int8_shared_served(model, kernel_fns)}
     for name, r in int8_runs.items():
         print(f"phase {name}: {json.dumps(r)}")
+    lap("11")
+
+    # phase 12 (on phase 5's model): the lock-step BatchServer at batch 8,
+    # and phase 6's trace through two sharded lanes on the one card
+    runtime_runs = {"12a": batch_server(model, kernel_fns),
+                    "12b": sharded_served(model, kernel_fns)}
+    r = runtime_runs["12a"]
+    print(f"phase 12a: {json.dumps(r)}")
+    print("phase 12a: BatchServer TPS {tps:.2f}, batch walls {batch_wall_s} s, launches "
+          "flash_attention {fa}, scatter_rows {sc}, importance {im}".format(
+              fa=r["launches"]["flash_attention"], sc=r["launches"]["scatter_rows"],
+              im=r["launches"]["importance"], **r))
+    for name, r in runtime_runs["12b"].items():
+        print(f"phase 12b {name}: {json.dumps(r)}")
+        print(f"phase 12b {name}: {r['steps']} steps at {r['ms_per_step']:.1f} ms, lanes "
+              f"{json.dumps(r['lanes'])}, launches paged_flash_attention "
+              f"{r['launches']['paged_flash_attention']}, scatter_rows_paged "
+              f"{r['launches']['scatter_rows_paged']}, importance {r['launches']['importance']}")
     del model
     torch.cuda.empty_cache()
-    lap("11")
+    lap("12")
 
     # phase 7: sampled serving of Dream-7B at full width
     dream, dream_init_s = dream_7b()
@@ -3457,7 +3661,7 @@ def main() -> int:
              scatter_host=scatter_host, importance_host=importance_host,
              cross_device_mamba=cross_mamba, cross_device_block_causal=cross_bc,
              cross_device_sparse=cross_sparse, cross_device_int8=cross_int8,
-             int8_paths=int8_runs,
+             int8_paths=int8_runs, runtime_paths=runtime_runs,
              offline_path=run, serving_path=serving, block_causal_window=bc_runs,
              sparse_lazy=sparse_runs,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),

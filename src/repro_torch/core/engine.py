@@ -857,6 +857,16 @@ class DiffusionEngine:
         scales, as the reference does (it reads ``caches["kv"]["0"].k[g]``):
         a reference-side fault the port mirrors on purpose, so the retained
         sets stay equal to the JAX package's (ROADMAP.md Queue C)."""
+        cand, in_block, n_keep = self._sparse_candidates(cache, hidden, bs, prompt_start, bt,
+                                                         kv_valid)
+        # a threshold, not a top-k: every row tied with the kth value is kept
+        kth = torch.sort(cand, dim=-1).values[:, -n_keep][:, None]
+        return (cand >= kth) | in_block
+
+    def _sparse_candidates(self, cache, hidden, bs, prompt_start, bt, kv_valid):
+        """The ranking :meth:`_sparse_evict` thresholds: ``(cand [B, T],
+        in_block [B, T], n_keep)``, ``cand`` the pooled probe score, +inf on
+        the block and -inf where the block cannot attend."""
         gen, cfg = self.gen, self.cfg
         b, t_total = kv_valid.shape
         lb = gen.block_length
@@ -892,10 +902,7 @@ class DiffusionEngine:
         in_block = self._in_block(bs, t_total)
         cand = torch.where(in_block, math.inf,
                            torch.where(attendable, pooled, -math.inf))
-        n_keep = int(gen.sparse_retention * (t_total - lb)) + lb
-        # a threshold, not a top-k: every row tied with the kth value is kept
-        kth = torch.sort(cand, dim=-1).values[:, -n_keep][:, None]
-        return (cand >= kth) | in_block
+        return cand, in_block, int(gen.sparse_retention * (t_total - lb)) + lb
 
     # ------------------------------------------------------------------
     # page operations of the scheduler (paged serving)

@@ -64,6 +64,15 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([o1, o2], dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: ``[num, 2]`` keys, key ``i`` the threefry hash
+    of the counter pair ``(i >> 32, i & 0xffffffff)`` under ``key`` (both
+    output words kept, not xor-ed as a draw's are)."""
+    counts = torch.arange(num, dtype=torch.int64, device=key.device)
+    o1, o2 = threefry2x32(key[..., 0], key[..., 1], counts >> 32, counts & MASK32)
+    return torch.stack([o1, o2], dim=-1)
+
+
 def row_keys(key: torch.Tensor, seeds: torch.Tensor, iters: torch.Tensor) -> torch.Tensor:
     """[B, 2] per-row draw keys ``fold_in(fold_in(key, seeds[b]), iters[b])``:
     a request's stream depends only on its own seed and lifetime iteration."""

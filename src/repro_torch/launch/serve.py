@@ -1,8 +1,12 @@
-"""Serving launcher of the port: continuous batching through ``StreamScheduler``.
+"""Serving launcher of the port, with the reference launcher's flags.
 
-Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
-PyTorch versions.  The model has random weights from ``--seed`` (reduced
-size unless ``--full``).
+Two runtimes: ``stream`` (the default), continuous batching through
+``StreamScheduler``, or with ``--shards > 1`` through
+``ShardedStreamScheduler`` (one lane per shard behind a placement policy;
+``--paged`` required); and ``batch``, the lock-step ``BatchServer`` of
+paper §6.1.  Runs on the CUDA card by default; ``--device cpu`` runs the
+kernels' plain PyTorch versions.  The model has random weights from
+``--seed`` (reduced size unless ``--full``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 8 \\
       --paged --page-size 8 --early-advance --prompt-refresh-period 4 \\
@@ -20,12 +24,18 @@ size unless ``--full``).
       --batch 2 --prompt-len 16 --gen-length 32 --block-length 8 --kv-pages 11
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-370m \\
       --requests 6 --batch 3 --early-advance --gen-length 16 --block-length 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --runtime batch \\
+      --requests 6 --batch 4 --prompt-len 16 --gen-length 16 --block-length 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged --page-size 8 \\
+      --shards 2 --placement disagg --decode-prompt-len 8 --requests 6 --batch 4 \\
+      --prompt-len 16 --gen-length 16 --block-length 8 --early-advance
   PYTHONPATH=src python -m repro_torch.launch.serve --full --dtype bfloat16 \\
       --paged --early-advance --requests 16 --batch 4 --prompt-len 128 \\
       --gen-length 64 --block-length 32
 
-Flags of the reference's launcher that this slice of the port does not
-cover are accepted and raise ``ConfigError`` naming ROADMAP.md.
+``validate`` raises ``ConfigError`` before any model is built, for the
+argument sets the reference's launcher refuses and for what the port
+leaves out (paged KV, sharing and preemption on an SSM stack).
 """
 from __future__ import annotations
 
@@ -39,13 +49,13 @@ from repro_torch import configs
 from repro_torch.configs import GenerationConfig, default_skip_stages
 from repro_torch.device import resolve_device
 from repro_torch.models import Model
-from repro_torch.runtime import ConfigError, Request, StreamScheduler
-
-# reference flags outside this slice: (flag, attribute, value that is in the slice)
-_OUTSIDE = (("--shards", "shards", 1),
-            ("--placement", "placement", "least_loaded"),
-            ("--refresh-shards", "refresh_shards", 1),
-            ("--decode-prompt-len", "decode_prompt_len", None))
+from repro_torch.runtime import (
+    BatchServer,
+    ConfigError,
+    Request,
+    ShardedStreamScheduler,
+    StreamScheduler,
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -61,7 +71,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--mode", default="es", choices=["vanilla", "dualcache", "es"])
     ap.add_argument("--runtime", default="stream", choices=["stream", "batch"])
     ap.add_argument("--requests", type=int, default=16)
-    ap.add_argument("--batch", type=int, default=8, help="slot count")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="batch size (lock-step) / slot count (stream)")
     ap.add_argument("--gen-length", type=int, default=32)
     ap.add_argument("--block-length", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -110,26 +121,33 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="block-causal attention: prompt K/V depend on the prompt alone, "
                          "full refreshes skip final positions, and with --paged "
                          "--prefix-sharing the prompt pages persist across requests")
-    ap.add_argument("--shards", type=int, default=1)
-    ap.add_argument("--placement", default="least_loaded")
-    ap.add_argument("--refresh-shards", type=int, default=1)
-    ap.add_argument("--decode-prompt-len", type=int, default=None)
+    ap.add_argument("--shards", type=int, default=1,
+                    help="serving shards, each with its own slots, page ledger and queue; "
+                         "a placement policy routes each request to one (requires --paged)")
+    ap.add_argument("--placement", default="least_loaded",
+                    choices=["least_loaded", "prefix_affinity", "disagg"],
+                    help="least_loaded (committed pages, then queue depth), prefix_affinity "
+                         "(the shard whose persistent store holds the prompt; needs "
+                         "--prefix-sharing) or disagg (long prompts to refresh shards)")
+    ap.add_argument("--refresh-shards", type=int, default=1,
+                    help="disagg: how many leading shards take the long prompts")
+    ap.add_argument("--decode-prompt-len", type=int, default=None,
+                    help="disagg: the decode shards' shorter prompt width; longer prompts "
+                         "go to the refresh shards")
     return ap.parse_args(argv)
 
 
 def validate(args: argparse.Namespace) -> None:
-    """Raises ConfigError, before any model is built, for flags outside the
-    slice and for bad values."""
-    if args.runtime != "stream":
-        raise ConfigError("--runtime batch (the lock-step BatchServer) is outside this "
-                          "slice of the port (ROADMAP.md)")
-    for flag, attr, ok in _OUTSIDE:
-        if getattr(args, attr) != ok:
-            raise ConfigError(f"{flag} is outside this slice of the port (ROADMAP.md)")
+    """Raises ConfigError, before any model is built, for bad values and
+    combinations and for what the port leaves out."""
     if args.priority_classes < 1:
         raise ConfigError(f"--priority-classes must be >= 1, got {args.priority_classes}")
     if args.deadline_s is not None and args.deadline_s <= 0:
         raise ConfigError(f"--deadline-s must be positive, got {args.deadline_s}")
+    if args.runtime == "batch" and (args.preemption or args.priority_classes > 1
+                                    or args.deadline_s is not None):
+        raise ConfigError("--preemption/--priority-classes/--deadline-s need the stream "
+                          "runtime: the lock-step batch server has no admission policy")
     if args.prefix_sharing and not args.paged:
         raise ConfigError("--prefix-sharing requires --paged: it shares pool pages")
     if args.preemption and not args.paged:
@@ -157,6 +175,43 @@ def validate(args: argparse.Namespace) -> None:
     if args.preemption and args.lazy_reserve:
         raise ConfigError("--preemption is incompatible with --lazy-reserve: a spill breaks "
                           "the max-deficit window-growth accounting")
+    # the sharded topology (the ShardedStreamScheduler constructor checks
+    # these again)
+    if args.shards < 1:
+        raise ConfigError(f"--shards must be >= 1, got {args.shards}")
+    if args.shards > 1:
+        if args.runtime != "stream":
+            raise ConfigError("--shards > 1 needs the stream runtime: the lock-step batch "
+                              "server has no page ledger to shard")
+        if not args.paged:
+            raise ConfigError("--shards > 1 requires --paged: shards own per-shard page "
+                              "ledgers")
+        if args.batch % args.shards:
+            raise ConfigError(f"--shards ({args.shards}) must divide the slot count "
+                              f"--batch ({args.batch})")
+        if args.kv_pages is not None and args.kv_pages % args.shards:
+            raise ConfigError(f"--kv-pages ({args.kv_pages}) must divide evenly across "
+                              f"{args.shards} shards")
+    if args.placement == "prefix_affinity" and not args.prefix_sharing:
+        raise ConfigError("--placement prefix_affinity routes on the persistent prefix "
+                          "store: it requires --prefix-sharing (and --block-causal for the "
+                          "store to exist)")
+    if args.placement == "disagg":
+        if args.shards < 2:
+            raise ConfigError("--placement disagg needs --shards >= 2 (refresh + decode "
+                              "classes)")
+        if not (1 <= args.refresh_shards < args.shards):
+            raise ConfigError(f"--refresh-shards ({args.refresh_shards}) must satisfy "
+                              f"1 <= refresh_shards < shards ({args.shards})")
+        if args.decode_prompt_len is not None and args.decode_prompt_len > args.prompt_len:
+            raise ConfigError(f"--decode-prompt-len ({args.decode_prompt_len}) must not "
+                              f"exceed --prompt-len ({args.prompt_len})")
+    elif args.decode_prompt_len is not None:
+        raise ConfigError("--decode-prompt-len is a disagg knob; it does nothing under "
+                          f"--placement {args.placement} — refusing to drop it silently")
+    if args.placement != "least_loaded" and args.shards < 2:
+        raise ConfigError(f"--placement {args.placement} needs --shards >= 2 (a single "
+                          "shard has nothing to route)")
 
 
 def main(argv=None) -> list[Request]:
@@ -184,12 +239,21 @@ def main(argv=None) -> list[Request]:
         def stream_cb(req, bi, blk):
             print(f"  [stream] req={req.request_id} block={bi}: {blk.tolist()}")
 
-    server = StreamScheduler(model, gen, max_slots=args.batch, prompt_len=args.prompt_len,
-                             stream_cb=stream_cb, paged=args.paged,
-                             page_size=args.page_size, kv_pages=args.kv_pages,
-                             prefix_sharing=args.prefix_sharing, preemption=args.preemption,
-                             lazy_reserve=args.lazy_reserve, early_advance=args.early_advance,
-                             gather_refresh=args.gather_refresh, device=device)
+    stream_kw = dict(max_slots=args.batch, prompt_len=args.prompt_len, stream_cb=stream_cb,
+                     paged=args.paged, page_size=args.page_size, kv_pages=args.kv_pages,
+                     prefix_sharing=args.prefix_sharing, preemption=args.preemption,
+                     lazy_reserve=args.lazy_reserve, early_advance=args.early_advance,
+                     gather_refresh=args.gather_refresh, device=device)
+    if args.runtime == "batch":
+        server = BatchServer(model, gen, batch_size=args.batch, prompt_len=args.prompt_len,
+                             device=device)
+    elif args.shards > 1:
+        server = ShardedStreamScheduler(
+            model, gen, shards=args.shards, placement=args.placement,
+            refresh_shards=args.refresh_shards, decode_prompt_len=args.decode_prompt_len,
+            **stream_kw)
+    else:
+        server = StreamScheduler(model, gen, **stream_kw)
     rng = np.random.default_rng(args.seed)
     if args.dup_prompts:
         dup_prompt = rng.integers(3, cfg.vocab_size, args.prompt_len).astype(np.int32)
@@ -204,6 +268,13 @@ def main(argv=None) -> list[Request]:
 
     done = server.drain()
     st = server.stats
+    if args.runtime == "batch":
+        print(f"served {len(done)} requests  device={device}  runtime=batch  "
+              f"mode={args.mode}  TPS={st.tps:.2f}  wall={st.wall_s:.2f}s  "
+              f"batches={len(server.batch_wall_s)}")
+        if done:
+            print("sample output:", done[0].output[:24].tolist())
+        return done
     line = (f"served {len(done)} requests  device={device}  mode={args.mode}  "
             f"goodput={st.goodput:.2f} tok/s  wall={st.wall_s:.2f}s  steps={st.steps}  "
             f"p50={st.latency_pct(50):.2f}s  p95={st.latency_pct(95):.2f}s  "
@@ -218,7 +289,8 @@ def main(argv=None) -> list[Request]:
                  f"  concurrency_peak={st.resident_peak}")
         if args.prefix_sharing:
             line += f"  cow_forks={st.cow_forks}"
-        if server.persistent_prefix:
+        lanes = server.lanes if args.shards > 1 else [server]
+        if any(lane.persistent_prefix for lane in lanes):
             line += f"  prefix_hits={st.prefix_hits}  prefix_evictions={st.prefix_evictions}"
         if gen.sparse_attention:
             line += f"  pages_reclaimed={st.pages_reclaimed}"
@@ -236,6 +308,12 @@ def main(argv=None) -> list[Request]:
     if st.poisoned_requests:
         line += f"  poisoned_requests={st.poisoned_requests}"
     print(line)
+    if args.shards > 1:
+        for g in server.shard_gauges():
+            print(f"  shard {g['shard']}: placed={g['placed']}  resident={g['resident']}  "
+                  f"queued={g['queued']}  completed={g['completed']}  "
+                  f"pages={g['pages_in_use']}/{g['pages_total']}  "
+                  f"peak={g['peak_pages_in_use']}  blocks_grown={g['blocks_grown']}")
     ok = [r for r in done if r.output is not None]
     if ok:
         print("sample output:", ok[0].output[:24].tolist())

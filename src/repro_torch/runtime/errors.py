@@ -72,14 +72,17 @@ class DrainStalled(SchedulerError):
     """``drain()`` made no forward progress (or exceeded its budget).
 
     ``slots`` is a list of ``(slot, request_id, phase, blocks_left)``
-    tuples for every stuck resident at the time the watchdog fired.
+    tuples for every stuck resident at the time the watchdog fired, each
+    led by its shard index under ``ShardedStreamScheduler`` (the
+    reference's message formatting expects four fields and raises
+    ``ValueError`` on the sharded form; the port names the shard).
     """
 
-    def __init__(self, reason: str,
-                 slots: list[tuple[int, int, int, int]]):
+    def __init__(self, reason: str, slots: list[tuple[int, ...]]):
         self.reason = reason
         self.slots = slots
         stuck = ", ".join(
-            f"slot {s} (req {r}, phase {p}, blocks_left {b})"
-            for s, r, p, b in slots) or "no residents"
+            ("" if len(t) == 4 else f"shard {t[0]} ")
+            + "slot {} (req {}, phase {}, blocks_left {})".format(*t[-4:])
+            for t in slots) or "no residents"
         super().__init__(f"drain stalled: {reason}; stuck: {stuck}")

@@ -176,6 +176,19 @@ class SchedulerStats:
         """Median seconds a preempted request spent parked on the host."""
         return _pct(self.resume_waits, 50)
 
+    # the names the lock-step server's stats use (BatchServer.stats)
+    @property
+    def tps(self) -> float:
+        return self.goodput
+
+    @property
+    def requests(self) -> int:
+        return self.completed
+
+    @property
+    def tokens_generated(self) -> int:
+        return self.tokens_out
+
     def latency_pct(self, pct: float) -> float:
         return _pct(self.latencies_s, pct)
 
@@ -387,6 +400,7 @@ class StreamScheduler:
         lazy_reserve: bool = False,         # paged + window: admit with prompt + one
                                             # active window of pages, grow the rest
         preemption: bool = False,           # spill lower classes to host (paged)
+        engine: Optional[DiffusionEngine] = None,   # share another scheduler's engine
         **engine_kw,
     ):
         if lazy_reserve and not paged:
@@ -440,7 +454,19 @@ class StreamScheduler:
                                   "admitted")
             engine_kw.update(paged=True, page_size=page_size, kv_pages=kv_pages)
             self.allocator = PageAllocator(kv_pages, persistent=self.persistent_prefix)
-        self.engine = DiffusionEngine(model, gen, early_advance=early_advance, **engine_kw)
+        if engine is not None:
+            # the sharded scheduler's lanes share one engine: everything that
+            # shapes its step must agree
+            if (engine.gen is not gen or engine.paged != paged
+                    or (paged and engine.page_size != page_size)
+                    or (paged and engine.kv_pages != kv_pages)
+                    or engine.early_advance != early_advance):
+                raise ConfigError("shared engine mismatch: a scheduler can only reuse an "
+                                  "engine built with the same gen config and identical "
+                                  "paged/page_size/kv_pages/early_advance settings")
+            self.engine = engine
+        else:
+            self.engine = DiffusionEngine(model, gen, early_advance=early_advance, **engine_kw)
         self.device = self.engine.device
         self.n_blocks = gen.gen_length // gen.block_length
         self.state = self.engine.init_engine_state(max_slots, prompt_len, prng.prng_key(seed))

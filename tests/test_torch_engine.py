@@ -41,6 +41,17 @@ RUNS = [("vanilla", "pallas"), ("dualcache", "pallas"), ("es", "pallas"), ("es",
 PROMPT_LEN = 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread runs them as
+    fast as eight alone, and keeps them fast when several test workers
+    share the CPU (each op's parallel region would wait on busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def models(arch, scale=10.0):
     """(reference model, reference params, port model), weight matrices x ``scale``."""

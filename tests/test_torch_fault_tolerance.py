@@ -30,6 +30,17 @@ N_VP = (PL + 16) // PS
 ES = dict(mode="es", skip_stages=((1, 0.5),), prompt_refresh_period=8, block_refresh_period=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread runs them as
+    fast as eight alone, and keeps them fast when several test workers
+    share the CPU (each op's parallel region would wait on busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _req(vocab, seed, **kw):
     rng = np.random.default_rng(seed)
     return Request(prompt=rng.integers(3, vocab, PL).astype(np.int32), **kw)

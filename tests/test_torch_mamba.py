@@ -36,6 +36,17 @@ ATOL = 1e-4
 STAGES = ((1, 0.5), (2, 0.5))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread runs them as
+    fast as eight alone, and keeps them fast when several test workers
+    share the CPU (each op's parallel region would wait on busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def models(scale=10.0, param_dtype="float32"):
     """(reference model, reference params, port model) from one parameter

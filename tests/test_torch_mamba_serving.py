@@ -32,6 +32,17 @@ SERVE = dict(mode="es", skip_stages=STAGES, prompt_refresh_period=4, block_refre
 TRACE = [(0, 16, None), (0, 5, 8), (0, 12, None), (2, 9, None), (5, 16, 8), (6, 3, None)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread runs them as
+    fast as eight alone, and keeps them fast when several test workers
+    share the CPU (each op's parallel region would wait on busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _row(vocab, prompt):
     row = np.full((PL + 16,), vocab, np.int32)
     row[:PL] = 0

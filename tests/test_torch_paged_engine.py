@@ -22,6 +22,17 @@ STAGES = ((1, 0.5), (2, 0.5))
 CACHED = dict(cache_prompt_interval=2, prompt_refresh_period=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread runs them as
+    fast as eight alone, and keeps them fast when several test workers
+    share the CPU (each op's parallel region would wait on busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _generate(arch, gen_kw, engine_kw):
     jm, params, tm = models(arch)
     jgen, tgen = gen_configs(mode="es", skip_stages=STAGES, **gen_kw)

@@ -40,6 +40,17 @@ SAMPLED = dict(mode="dualcache", temperature=0.8, prompt_refresh_period=0,
                block_refresh_period=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread runs them as
+    fast as eight alone, and keeps them fast when several test workers
+    share the CPU (each op's parallel region would wait on busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _dups(vocab, n, seed, **kw):
     prompt = np.random.default_rng(seed).integers(3, vocab, PL).astype(np.int32)
     return [Request(prompt=prompt.copy(), **kw) for _ in range(n)]

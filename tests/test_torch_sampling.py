@@ -26,6 +26,17 @@ SEEDS = [0, 1, 12345, 2**31 - 1]
 SHAPES = [(3,), (5, 7), (2, 3, 511)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread runs them as
+    fast as eight alone, and keeps them fast when several test workers
+    share the CPU (each op's parallel region would wait on busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tkey(jkey) -> torch.Tensor:
     return torch.from_numpy(np.asarray(jkey).astype(np.int64))
 

@@ -10,8 +10,8 @@ on top of it, on reduced LLaDA-8B (4 layers, as in ``test_torch_engine``):
   dense and paged, with both ``early_advance`` settings (weights x10 for
   non-degenerate tokens), equals the port's own offline replay, and every
   page returns to the allocator;
-* what the port leaves out raises, and the launcher takes the sharing and
-  preemption flags.
+* what the port leaves out raises, the launcher takes the sharing and
+  preemption flags, and refuses what the reference's launcher refuses.
 """
 import jax
 import jax.numpy as jnp
@@ -40,6 +40,17 @@ PL, PS = 16, 8
 # refreshes, the rest skip decodes
 SERVE = dict(mode="es", skip_stages=((1, 0.5), (2, 0.5)), cache_prompt_interval=2,
              prompt_refresh_period=4, block_refresh_period=3)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The reduced models' ops are tiny: one intra-op thread runs them as
+    fast as eight alone, and keeps them fast when several test workers
+    share the CPU (each op's parallel region would wait on busy cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _row(tm, prompt):
@@ -248,12 +259,14 @@ def test_serve_launcher_refuses_bad_combinations(flags, why):
 
 @pytest.mark.parametrize("flag,why", [(["--lazy-reserve"], "requires --paged"),
                                       (["--gather-refresh"], "requires --paged"),
-                                      (["--shards", "2"], "ROADMAP"),
-                                      (["--runtime", "batch"], "ROADMAP")],
+                                      (["--shards", "2"], "requires --paged"),
+                                      (["--runtime", "batch", "--shards", "2"],
+                                       "needs the stream runtime")],
                          ids=["--lazy-reserve", "--gather-refresh", "--shards", "--runtime"])
 def test_serve_launcher_flags_outside_the_slice_raise(flag, why):
-    """Flags outside the port name ROADMAP.md; ``--lazy-reserve`` and
-    ``--gather-refresh`` are in it and, as in the reference, need
-    ``--paged``."""
+    """Every flag of the reference's launcher is in the port; each of these
+    raises as the reference's does: ``--lazy-reserve``, ``--gather-refresh``
+    and ``--shards 2`` need ``--paged``, and the sharded scheduler needs the
+    stream runtime."""
     with pytest.raises(ConfigError, match=why):
         serve.main(["--device", "cpu", *flag])

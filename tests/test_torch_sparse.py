@@ -14,7 +14,10 @@
 * the reduced counterpart of the card's served trace: lazy reservation, a
   one-block window, the adaptive cache and sparse retention 0.5 together;
 * the engine refuses sparse attention without a skip stage (``ValueError``)
-  and on a pure SSM stack (``NotImplementedError``).
+  and on a pure SSM stack (``NotImplementedError``);
+* at x10 weights, on the inputs of each refresh, the two packages' retained
+  sets differ only at rows whose pooled score lies within ``ULP_GAP`` ulp
+  of the row's threshold.
 
 Reduced models (4 layers) from ``test_torch_engine`` with weight matrices
 x2, not x10: at x10 the probe's attention scores spread over +-2,000, its
@@ -136,6 +139,77 @@ def test_generate_tokens_and_retained_sets_match_reference(arch, stages):
         _sticky(records, tgen.block_length)
         np.testing.assert_array_equal(teng.last_state.kv_valid.numpy(),
                                       records[-1][2].numpy())
+
+
+# the largest distance, in float32 ulp (steps between bit patterns), of a
+# pooled probe score from its row's retention threshold where the two
+# packages' retained sets differ at x10 weights.  Measured on these inputs:
+# one differing row, 1 ulp from its threshold (LLaDA sparse_only); none in
+# the other three cases
+ULP_GAP = 2
+
+
+def _ulp(a, b) -> np.ndarray:
+    """|a - b| in float32 ulp: the distance of their bit patterns (order
+    preserving for the non-negative scores, denormals and 0 included)."""
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(ia - ib)
+
+
+@pytest.mark.parametrize("arch,stages", CASES, ids=[f"{a}-{s}" for a, s in CASES])
+def test_retained_sets_at_x10_differ_only_at_the_threshold(arch, stages, monkeypatch):
+    """At x10 weights the probe's softmax underflows: its scores are zeros
+    and denormals, and the threshold falls among values an ulp apart.  On
+    the inputs of every refresh of the port's es+sparse run, both packages'
+    probes are called; where their retained sets differ, the pooled score
+    (each package's own) lies within ``ULP_GAP`` ulp of that row's
+    threshold.  Nothing else is checked about those rows."""
+    from repro.models.attention import KVCache as JKVCache
+
+    jm, params, tm = models(arch, 10.0)
+    jgen, tgen = _gens(stages)
+    teng = tmake(tm, tgen, device="cpu")
+    calls, evict = [], teng._sparse_evict
+
+    def record(cache, hidden, bs, prompt_start, bt, kv_valid):
+        calls.append((cache.k.clone(), [h.clone() for h in hidden], bs.clone(),
+                      prompt_start.clone(), kv_valid.clone()))
+        return evict(cache, hidden, bs, prompt_start, bt, kv_valid)
+    teng._sparse_evict = record
+    prompt = prompt_for(tm.cfg, seed=2)
+    teng.generate(torch.from_numpy(prompt))
+    assert len(calls) > 4
+    jeng = jmake(jm, jgen, attn_impl="xla", importance_impl="xla")
+    jcands = []
+    sort = jnp.sort
+
+    def recording_sort(a, *args, **kwargs):
+        jcands.append(np.asarray(a))
+        return sort(a, *args, **kwargs)
+    monkeypatch.setattr(jnp, "sort", recording_sort)
+    n_diff = worst = 0
+    for k, hidden, bs, start, kv_valid in calls:
+        b, t_total = kv_valid.shape
+        jkeep = np.asarray(jeng._sparse_evict(
+            params, {"kv": {"0": JKVCache(jnp.asarray(k.numpy()), jnp.asarray(k.numpy()))}},
+            [jnp.asarray(h.numpy()) for h in hidden], jnp.asarray(bs.numpy()),
+            jnp.zeros((b, t_total), jnp.int32), prompt_start=jnp.asarray(start.numpy()),
+            kv_valid=jnp.asarray(kv_valid.numpy())))
+        cand, in_block, n_keep = teng._sparse_candidates(
+            tm.init_cache(b, t_total)._replace(k=k), hidden, bs, start, None, kv_valid)
+        tkeep = ((cand >= torch.sort(cand, dim=-1).values[:, -n_keep][:, None])
+                 | in_block).numpy()
+        jcand = jcands[-1]
+        for c in (cand.numpy(), jcand):
+            kth = np.sort(c, axis=-1)[:, -n_keep]
+            rows, cols = np.nonzero(tkeep != jkeep)
+            gap = _ulp(c[rows, cols], kth[rows])
+            assert (gap <= ULP_GAP).all(), (arch, stages, gap.max())
+            worst = max(worst, int(gap.max(initial=0)))
+        n_diff += int((tkeep != jkeep).sum())
+    print(f"{arch} {stages}: {n_diff} differing rows over {len(calls)} refreshes, "
+          f"worst {worst} ulp from the threshold")
 
 
 @pytest.mark.parametrize("extra", [dict(cache_prompt_interval=2), dict(window_blocks=1)],
