@@ -35,7 +35,11 @@ no result):
    cache and "dequantize + SDPA"), the quantizing scatter dense and paged
    (3q, 4q: LLaDA's 128-byte and Dream's 16-byte scale rows, with and
    without masks, codes and scales bit-equal to the plain version, one
-   kernel per ``ops`` call) and the fork of the scale pools (5q); the
+   kernel per ``ops`` call) and the fork of the scale pools (5q); kernels
+   1, 2, 1q and 2q at gemma3-1b's head_dim 256 (Lq 32, 4 query heads on 1
+   KV head; a dense cache of 704 rows, 4 paged slots of 704, a split cache
+   of 4096; window 512 and off; bf16 on the tensor-core body, f32 on the
+   CUDA-core body) and the K/V scatters at its 512-byte rows; the
    threefry key chain's known answers on the card, a draw of the sampled
    path's shape with bits equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -56,7 +60,10 @@ no result):
    LLaDA and Dream (tokens equal), served with prefix sharing and with
    preemption (tokens equal), and ``gather_refresh`` served with the
    adaptive cache off and on (tokens equal the CPU's and the card's without
-   it, the compact branch ran);
+   it, the compact branch ran); reduced olmoe-1b-7b (capacity factor 0.5:
+   picks drop), granite-moe-1b-a400m, gemma3-1b (window 16, every second
+   layer global, prompt 40) and chatglm3-6b offline es (tokens equal), and
+   gemma3 and olmoe served through the paged scheduler (tokens equal);
 5. offline path: LLaDA-8B at full width in bfloat16 (random weights from a
    seeded generator on the card), ES generation, with each kernel's
    launches counted over that run;
@@ -72,12 +79,12 @@ no result):
    on the card), depth cut to 6 of its 48 layers, offline es and
    dualcache generation and the dense-slot ``StreamScheduler`` with early
    advance, through the SSD chunk kernel;
-9. block-causal ES-dLLM with the sliding window: LLaDA-8B (phase 5's
-   model) offline and through the paged scheduler with the persistent
-   prefix store;
-10. Sparse-dLLM eviction and lazy page reservation: LLaDA-8B (phase 5's
-   model) offline with es+sparse and sparse-only (each ``generate`` timed
-   in turns with phase 5's es), then a lazy, windowed, sparse trace through
+9. block-causal ES-dLLM with the sliding window: LLaDA-8B at full width,
+   depth cut to ``DEPTH_9_10`` layers, offline and through the paged
+   scheduler with the persistent prefix store;
+10. Sparse-dLLM eviction and lazy page reservation: phase 9's model
+   offline with es+sparse and sparse-only (each ``generate`` timed in turns
+   with es), then a lazy, windowed, sparse trace through
    the paged scheduler (every request completes; pages are deferred at
    admission, an extent grows, a row stalls and resumes, a page is
    reclaimed; one window of its repeated run's steps profiled);
@@ -95,9 +102,20 @@ no result):
    through ``ShardedStreamScheduler`` with 2 lanes on the one card (12b:
    (i) least loaded, (ii) disaggregated, a refresh lane at prompt 128 and a
    decode lane at 64; page conservation checked after every step; each
-   decode-lane request of (ii) equal to its single-shard replay).
+   decode-lane request of (ii) equal to its single-shard replay);
+13. the MoE and remaining dense archs at full width in bfloat16 (seeded
+   random weights on the card): olmoe-1b-7b (13a: 16 layers, 64 experts
+   top-8) offline es at phase 5's shape and phase 6's served trace, the
+   share of routing picks dropped at capacity over one prefill and one
+   decode, and one profiled window of the served trace split into the
+   expert matmuls, the rest of the MoE FFN and kernels 2 and 4;
+   gemma3-1b (13b: 26 layers, head_dim 256, window 512 on 22 local layers)
+   offline es at prompt 640 and served with prompts of 544-640, its
+   attention launches carrying the window on the local layers only; and
+   one offline es ``generate`` each of llama3-8b, qwen2-1.5b, chatglm3-6b
+   and granite-moe-1b-a400m at full width, depth cut to ``DEPTH_13C`` (13c).
 
-On phases 5, 6, 7, 9, 10, 11 and 12 every attention launch must take the
+On phases 5, 6, 7, 9, 10, 11, 12 and 13 every attention launch must take the
 tensor-core body (on phase 11 reading int8 codes, with every K/V write the
 quantizing scatter), and phases 5 and 6 must keep one attention launch per
 call; on phase
@@ -146,6 +164,9 @@ REPLACES = {
     "quantize_scatter_rows": "src/repro/kernels/scatter_kv.py:45",
     "quantize_scatter_rows_paged": "src/repro/kernels/scatter_kv.py:78",
     "fork_pages_scales": "src/repro/kernels/scatter_kv.py:122",
+    # gemma3's head_dim 256 (the TPU kernels take any D % 128 == 0)
+    "flash_attention_d256": "src/repro/kernels/flash_attention.py:146",
+    "paged_flash_attention_d256": "src/repro/kernels/flash_attention.py:208",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -161,6 +182,8 @@ SOURCES = {
     "quantize_scatter_rows": "src/repro_torch/kernels/csrc/scatter_kv.cu",
     "quantize_scatter_rows_paged": "src/repro_torch/kernels/csrc/scatter_kv.cu",
     "fork_pages_scales": "src/repro_torch/kernels/csrc/scatter_kv.cu",
+    "flash_attention_d256": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "paged_flash_attention_d256": "src/repro_torch/kernels/csrc/flash_tc.cuh",
 }
 # the serving path's shapes: 4 slots of prompt 128 + gen 64 tokens, blocks of
 # 32, partial refreshes of ceil(0.25 * (192 - 32)) = 40 tokens
@@ -271,6 +294,9 @@ BODIES = ("tensor_core", "cuda_core")
 # body must keep one launch per call
 LAUNCHES_OFFLINE_GENERATE = 2048
 LAUNCHES_SERVING_TRACE = 7872
+# phases 9 and 10's depth: LLaDA-8B's 32 layers cut to 16, after 13c's cut,
+# so that the script's phases stay within 760 s (PERF.md §4)
+DEPTH_9_10 = 16
 # phase 8's depth: mamba2-370m's 48 layers cut to 6, so that the whole run
 # with phases 9 and 10 stays within about the time phases 1-8 took at full depth
 MAMBA_LAYERS = 6
@@ -1391,6 +1417,170 @@ def check_fork_scales(ref, fork_pages, gen):
     return out
 
 
+# gemma3-1b's attention: 4 query heads on 1 KV head of 256, local window 512;
+# phase 13b's offline cache (prompt 640 + gen 64) and its served slots
+GEMMA_HQ, GEMMA_HKV, GEMMA_D, GEMMA_WINDOW = 4, 1, 256, 512
+GEMMA_PROMPT, GEMMA_T = 640, 704
+
+
+def check_head_dim_256(ref, flash_attention, paged_flash_attention, gen):
+    """Kernels 1, 2, 1q and 2q at gemma3's decode shape (Lq 32, Hq 4, Hkv 1,
+    D 256): a dense cache of 704 rows (phase 13b offline), 4 paged slots of
+    704 rows through a shuffled block table (ps 16, 13b served), and one
+    split long cache of 4096 rows; each with the local window 512 and with
+    the window off, bf16 on the tensor-core body and f32 on the CUDA-core
+    body, each held against its plain version.  Library: SDPA with a bool
+    mask (paged: gather + SDPA; int8: dequantize first).  The f32 int8 cases
+    are checked, not timed.  Then the K/V scatters (3, 4, 3q, 4q) at
+    gemma3's 512-byte rows, against their plain versions."""
+    from repro_torch.kernels.flash_attention import plan
+    from repro_torch.kernels.scatter_kv import (
+        quantize_scatter_rows,
+        quantize_scatter_rows_paged,
+        scatter_rows,
+        scatter_rows_paged,
+    )
+
+    hq, hkv, d, lq, ps = GEMMA_HQ, GEMMA_HKV, GEMMA_D, 32, 16
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        body = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        for layout, b, lkv in (("dense", 2, GEMMA_T), ("paged", SLOTS, GEMMA_T),
+                               ("dense split", 1, 4096)):
+            paged = layout == "paged"
+            q = torch.randn(b, lq, hq, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+            q_pos = torch.arange(lkv - 64, lkv - 32, dtype=torch.int32,
+                                 device="cuda")[None].repeat(b, 1)
+            kv_pos = torch.arange(lkv, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+            if paged:
+                n_vp = lkv // ps
+                bt = (torch.randperm(b * n_vp, generator=gen, device="cuda") + 1).int()
+                bt = bt.view(b, n_vp).contiguous()
+                raw = [torch.randn(b * n_vp + 1, ps, hkv, d, generator=gen, device="cuda")
+                       for _ in "kv"]
+            else:
+                bt = None
+                raw = [torch.randn(b, lkv, hkv, d, generator=gen, device="cuda") for _ in "kv"]
+            (k8, ks), (v8, vs) = (ref.quantize_rows(t) for t in raw)
+            forms = [("", raw[0].to(dt), raw[1].to(dt), {})]
+            if paged:
+                forms.append((" int8", k8, v8, dict(k_scale=ks, v_scale=vs)))
+            else:
+                forms = [(f, k.transpose(1, 2), v.transpose(1, 2), sc) for f, k, v, sc in forms]
+                forms.append((" int8", k8.transpose(1, 2), v8.transpose(1, 2),
+                              dict(k_scale=ks.transpose(1, 2), v_scale=vs.transpose(1, 2))))
+            windows = (0,) if layout == "dense split" else (GEMMA_WINDOW, 0)
+            for form, k, v, sc in forms:
+                for window in windows:
+                    kernel = ("paged_flash_attention" if paged else "flash_attention") + (
+                        "_int8" if sc else "")
+                    label = (f"gemma3 {layout} Lq=32 Lkv={lkv}" + (f" ps={ps}" if paged else "")
+                             + (f" window={window}" if window else "") + form)
+                    fn = paged_flash_attention if paged else flash_attention
+                    args = (q, k, v, q_pos, kv_pos) + ((bt,) if paged else ())
+                    pl = plan(q, k, v, lkv, hkv, ps if paged else 0)
+                    if pl.body != body or (layout == "dense split" and body == "tensor_core"
+                                           and pl.n_splits < 2):
+                        raise AssertionError(f"{kernel} {label} {dt}: {pl}")
+                    n_tc = fn.tensor_core_launches
+                    got = fn(*args, window=window, **sc)
+                    if (fn.tensor_core_launches - n_tc) != (body == "tensor_core"):
+                        raise AssertionError(f"{kernel} {label} {dt}: not on the {body} body")
+                    want = (ref.paged_attention_reference if paged
+                            else ref.attention_reference)(*args, window=window, **sc)
+                    err = (got.float() - want.float()).abs().max().item()
+                    if not err <= tol:
+                        raise AssertionError(f"{kernel} {label} {dt}: max abs err {err} > {tol}")
+                    if sc and dt == torch.float32:      # the CPU-parity type: checked only
+                        continue
+                    ms, wall = device_ms(lambda: fn(*args, window=window, **sc))
+                    plain_ms, _ = device_ms(lambda: (
+                        ref.paged_attention_reference if paged
+                        else ref.attention_reference)(*args, window=window, **sc))
+                    kv_mask = ref.paged_kv_mask(bt, kv_pos, ps) if paged else kv_pos
+                    mask = ref.attention_mask(q_pos, kv_mask, window=window)[:, None]
+
+                    def library():
+                        kk, vv = k, v
+                        if paged:
+                            kk = ref.gather_pages(k, bt)
+                            vv = ref.gather_pages(v, bt)
+                            if sc:
+                                kk = ref.dequantize(kk, ref.gather_pages(ks, bt))
+                                vv = ref.dequantize(vv, ref.gather_pages(vs, bt))
+                            kk, vv = kk.to(dt).transpose(1, 2), vv.to(dt).transpose(1, 2)
+                        elif sc:
+                            kk = ref.dequantize(k, sc["k_scale"]).to(dt)
+                            vv = ref.dequantize(v, sc["v_scale"]).to(dt)
+                        return F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask,
+                                                              enable_gqa=True)
+                    lib_ms, _ = device_ms(library)
+                    rows = admitted_kv_rows(mask)
+                    n_rows = int(rows.sum().item())
+                    kv_bytes = (int8_bytes(n_rows, hkv, d) if sc
+                                else 2 * n_rows * hkv * d * k.element_size())
+                    bms, by = bound(nbytes(q, q_pos, kv_pos, got) + kv_bytes
+                                    + (nbytes(bt) if paged else 0),
+                                    4.0 * hq * d * mask.sum().item(), dt)
+                    lib = ("gather_pages + " if paged else "") + ("dequantize + " if sc else "")
+                    out.append(dict(kernel=kernel, case=label, dtype=str(dt), max_abs_err=err,
+                                    tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                                    library_ms=lib_ms, library=lib + "scaled_dot_product_attention",
+                                    bound_ms=bms, bound_by=by, kv_rows_read=n_rows,
+                                    body=pl.body, n_splits=pl.n_splits, window=window,
+                                    head_dim=d))
+    # the scatters at gemma3's rows (Hkv 1 x 256: 512 bytes bf16, 256-byte
+    # codes, a 4-byte scale), a decode block of 32 under the row mask, dense
+    # and paged: bit-equal to the plain versions (paged: page 0 aside)
+    checked = []
+    for dt in (torch.float32, torch.bfloat16):
+        idx = torch.stack([torch.randperm(GEMMA_T, generator=gen, device="cuda")[:32]
+                           for _ in range(SLOTS)]).to(torch.int32)
+        mk = dict(row_mask=torch.tensor([True, False, True, True], device="cuda"))
+        n_vp = GEMMA_T // ps
+        bt = (torch.randperm(SLOTS * n_vp, generator=gen, device="cuda") + 1).int()
+        bt = bt.view(SLOTS, n_vp).contiguous()
+        new = [torch.randn(SLOTS, 32, hkv, d, generator=gen, device="cuda").to(dt) for _ in "kv"]
+        for paged in (False, True):
+            lead = (SLOTS * n_vp + 1, ps) if paged else (SLOTS, GEMMA_T)
+            cut = 1 if paged else 0
+            planes = [torch.randn(*lead, hkv, d, generator=gen, device="cuda").to(dt)
+                      for _ in "kv"]
+            got = [t.clone() for t in planes]
+            if paged:
+                scatter_rows_paged(((got[0], new[0]), (got[1], new[1])), idx, bt, **mk)
+                want = [ref.scatter_rows_paged_reference(t.clone(), n, idx, bt, **mk)
+                        for t, n in zip(planes, new)]
+            else:
+                scatter_rows(((got[0], new[0]), (got[1], new[1])), idx, **mk)
+                want = [ref.scatter_rows_reference(t.clone(), n, idx, **mk)
+                        for t, n in zip(planes, new)]
+            if not all(torch.equal(a[cut:], w[cut:]) for a, w in zip(got, want)):
+                raise AssertionError(f"scatter at D=256 paged={paged} {dt}: not bit-exact")
+            codes = [torch.randint(-127, 128, (*lead, hkv, d), generator=gen,
+                                   device="cuda").to(torch.int8) for _ in "kv"]
+            scales = [torch.rand(*lead, hkv, generator=gen, device="cuda") for _ in "kv"]
+            got = [t.clone() for t in codes + scales]
+            want = [t.clone() for t in codes + scales]
+            pairs = (((got[0], got[2]), new[0]), ((got[1], got[3]), new[1]))
+            for i in range(2):
+                if paged:
+                    ref.quantize_scatter_rows_paged_reference(want[i], want[i + 2], new[i], idx,
+                                                              bt, **mk)
+                else:
+                    ref.quantize_scatter_rows_reference(want[i], want[i + 2], new[i], idx, **mk)
+            if paged:
+                quantize_scatter_rows_paged(pairs, idx, bt, **mk)
+            else:
+                quantize_scatter_rows(pairs, idx, **mk)
+            if not all(torch.equal(a[cut:], w[cut:]) for a, w in zip(got, want)):
+                raise AssertionError(f"quantizing scatter at D=256 paged={paged} {dt}: "
+                                     "not bit-exact")
+            checked.append(f"{'paged' if paged else 'dense'} {dt}")
+    return out, checked
+
+
 # mamba2-370m's mixer: 32 heads of 64, d_state 128, one B/C group, chunk 64
 SSD_H, SSD_P, SSD_N, SSD_CHUNK = 32, 64, 128, 64
 
@@ -1656,13 +1846,17 @@ def cross_device_serving():
                 distinct_ids=len({int(t) for r in outs["cpu"][0] for t in r.output}))
 
 
-def reduced_models(arch: str, scale: float = 10.0) -> dict:
+def reduced_models(arch: str, scale: float = 10.0, capacity_factor=None) -> dict:
     """A reduced 4-layer model on the CPU, weight matrices x``scale`` (random
-    init repeats one id), and its copy on the card."""
+    init repeats one id), and its copy on the card; an MoE arch at
+    ``capacity_factor`` where given."""
     from repro_torch import configs
     from repro_torch.models import Model
 
     cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)), n_layers=4)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
     cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
     with torch.no_grad():
         for p in cpu.parameters():
@@ -1671,6 +1865,96 @@ def reduced_models(arch: str, scale: float = 10.0) -> dict:
     card = Model(cfg, device="cuda")
     card.load_state_dict(cpu.state_dict())
     return {"cpu": cpu, "cuda": card}
+
+
+# phase 4's reduced forms of the archs of phase 13: (arch, capacity factor,
+# weight scale).  OLMoE at capacity factor 0.5 runs at x2: at x10 the hidden
+# states grow until the card's and the CPU's router probabilities differ by
+# more than the closest gaps between a row's experts, and a flipped pick
+# moves every later row's capacity slot (tools/torch_moe_drift.py measures
+# both; PERF.md §6)
+ARCH_CROSS = (("olmoe-1b-7b", 0.5, 2.0), ("granite-moe-1b-a400m", None, 10.0),
+              ("gemma3-1b", None, 10.0), ("chatglm3-6b", None, 10.0))
+
+
+def cross_device_archs(kernel_fns) -> dict:
+    """The MoE and remaining dense archs at their reduced sizes in f32 (Gemma-3:
+    window 16, every second layer global), the card's kernels against the
+    CPU's plain versions: offline es tokens
+    equal (prompt 40, so that Gemma-3's window 16 masks), and a paged served
+    trace with early advance and the adaptive cache for Gemma-3 and OLMoE
+    (tokens equal).  On the card, Gemma-3's attention launches carry the
+    window 16 on its local layers and no option on its global ones; the
+    MoE archs report the share of routing picks dropped in the card's run."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+    from repro_torch.models import moe
+    from repro_torch.runtime import StreamScheduler
+
+    stages = (configs.SkipStage(1, 0.5), configs.SkipStage(2, 0.5))
+    offline = configs.GenerationConfig(mode="es", gen_length=16, block_length=8,
+                                       skip_stages=stages)
+    served = configs.GenerationConfig(mode="es", gen_length=16, block_length=8,
+                                      skip_stages=stages, prompt_refresh_period=4,
+                                      block_refresh_period=3, cache_prompt_interval=2)
+    out = {}
+    routing = moe.routing
+    for arch, cf, scale in ARCH_CROSS:
+        models = reduced_models(arch, scale, cf)
+        vocab = models["cpu"].cfg.vocab_size
+        prompt = torch.randint(3, vocab, (2, 40), generator=torch.Generator().manual_seed(SEED))
+        toks, kept = {}, []
+
+        def recording(probs, m, cap):
+            r = routing(probs, m, cap)
+            kept.append(r.kept)
+            return r
+        for dev in ("cpu", "cuda"):
+            zero_counts(kernel_fns)
+            moe.routing = recording if dev == "cuda" else routing
+            try:
+                toks[dev] = make_engine(models[dev], offline, device=dev).generate(prompt).cpu()
+            finally:
+                moe.routing = routing
+        if not torch.equal(toks["cpu"], toks["cuda"]):
+            raise AssertionError(f"{arch}: cross-device es tokens differ:\n{toks['cpu']}\n"
+                                 f"{toks['cuda']}")
+        rec = dict(weight_scale=scale, capacity_factor=cf, es_tokens_equal=True,
+                   distinct_ids=len(torch.unique(toks["cpu"][:, 40:])),
+                   flash_attention=kernel_fns["flash_attention"].launches)
+        if kept:
+            rec["dropped_share"] = (sum((~k).sum().item() for k in kept)
+                                    / sum(k.numel() for k in kept))
+            if cf is not None and cf < 1 and not rec["dropped_share"] > 0:
+                raise AssertionError(f"{arch}: no routing pick dropped at capacity factor {cf}")
+        if models["cpu"].cfg.sliding_window:
+            opts = {str(k): n for k, n in kernel_fns["flash_attention"].option_launches.items()}
+            # layers 0 and 2 local (window 16), 1 and 3 global (no option)
+            if set(opts) != {str((16, 0, 0, 0, 0)), str((0, 0, 0, 0, 0))} or len(
+                    {n for n in opts.values()}) != 1:
+                raise AssertionError(f"{arch}: attention option launches {opts}")
+            rec["option_launches"] = opts
+        if arch in ("gemma3-1b", "olmoe-1b-7b"):
+            rng = np.random.default_rng(SEED)
+            lens, max_new = (40, 20, 33, 12), (None, 8, None, None)
+            prompts = [rng.integers(3, vocab, n).astype(np.int32) for n in lens]
+            reqs = {}
+            for dev in ("cpu", "cuda"):
+                sched = StreamScheduler(models[dev], served, device=dev, max_slots=2,
+                                        prompt_len=40, paged=True, page_size=8,
+                                        early_advance=True)
+                reqs[dev] = serve_trace(sched, prompts, max_new, every=2)
+                check_drained(sched, reqs[dev])
+            for a, b in zip(reqs["cpu"], reqs["cuda"]):
+                if not np.array_equal(a.output, b.output):
+                    raise AssertionError(f"{arch}: cross-device served tokens differ:\n"
+                                         f"{a.output}\n{b.output}")
+            rec.update(served_tokens_equal=True, served_requests=len(prompts),
+                       partial_refreshes=sched.engine.pass_counts["partial"])
+        out[arch] = rec
+    return out
 
 
 def check_drained(sched, reqs, n_tokens=None) -> None:
@@ -2156,14 +2440,16 @@ def cross_device_mamba() -> dict:
     return out
 
 
-def llada_8b():
-    """LLaDA-8B at full width in bf16, random weights from a seeded generator
-    on the card."""
+def llada_8b(n_layers=None):
+    """LLaDA-8B at full width in bf16 (depth ``n_layers`` if given), random
+    weights from a seeded generator on the card."""
     from repro_torch import configs
     from repro_torch.models import Model
 
     cfg = dataclasses.replace(configs.get_config("llada-8b"),
                               param_dtype="bfloat16", compute_dtype="bfloat16")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
@@ -2481,7 +2767,8 @@ def record_retained(engine) -> list:
 def sparse_offline(model, kernel_fns) -> dict:
     """10a: Table 13's es+sparse and sparse-only rows offline (batch 2,
     prompt 128, gen 64, block 32), each ``generate`` timed in turns with
-    phase 5's es.  Every attention launch must take the tensor-core body."""
+    phase 5's es config on the same model.  Every attention launch must take
+    the tensor-core body."""
     from repro_torch.core import make_engine
 
     cfg = model.cfg
@@ -3297,6 +3584,286 @@ def mamba_serving(model, kernel_fns) -> dict:
                 launches_per_step=profile["kernels_launched"] / st.steps, profile=profile)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the MoE and remaining dense archs at full width
+# ---------------------------------------------------------------------------
+# 13c's depth, cut from the published one so that the script's phases stay
+# within 760 s (PERF.md §4)
+DEPTH_13C = 8
+ARCHS_13C = ("llama3-8b", "qwen2-1.5b", "chatglm3-6b", "granite-moe-1b-a400m")
+# phase 6's arrivals and lengths of new tokens; 13a takes its prompts, 13b
+# prompts of 544-640 against gemma3's 512 window
+SERVE_MAX_NEW = (64, 32, 64, 32, 32, 64, 32, 64)
+LENS_13A = (32, 64, 96, 128, 32, 64, 96, 128)
+LENS_13B = (544, 576, 608, 640, 544, 576, 608, 640)
+PROFILE_13A = (40, 70)          # the profiled window of 13a's served trace (steps)
+
+
+def full_width(arch: str, n_layers=None):
+    """``arch`` at full width in bf16 (depth ``n_layers`` if given), random
+    weights from a seeded generator on the card; (model, init seconds)."""
+    from repro_torch import configs
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(configs.get_config(arch), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def arch_gen_config(cfg, served: bool):
+    """Phase 5's offline cadence or phase 6's served one, with the arch's
+    default skip stages."""
+    from repro_torch import configs
+
+    kw = (dict(prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2)
+          if served else dict(prompt_refresh_period=32, block_refresh_period=4))
+    return configs.GenerationConfig(mode="es", gen_length=GEN, block_length=BLOCK,
+                                    skip_stages=configs.default_skip_stages(cfg.n_layers), **kw)
+
+
+def arch_offline(model, kernel_fns, prompt_len: int = PROMPT) -> dict:
+    """One offline es ``generate`` at batch 2 after a warm-up call, phase 5's
+    shape (gen 64, blocks of 32) at ``prompt_len``; every attention launch on
+    the tensor-core body."""
+    from repro_torch.core import make_engine
+
+    cfg = model.cfg
+    gen_cfg = arch_gen_config(cfg, served=False)
+    prompt = torch.randint(3, cfg.vocab_size, (2, prompt_len), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    engine = make_engine(model, gen_cfg, device="cuda")
+    engine.generate(prompt)                       # warm-up
+    torch.cuda.synchronize()
+    zero_counts(kernel_fns)
+    t0 = time.perf_counter()
+    out = engine.generate(prompt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    gen_tok = out[:, prompt_len:]
+    if out.shape != (2, prompt_len + GEN) or (gen_tok == engine.mask_id).any().item():
+        raise AssertionError(f"{cfg.name}: output {tuple(out.shape)} or a [mask] id left")
+    if not ((gen_tok >= 0) & (gen_tok < cfg.vocab_size)).all().item():
+        raise AssertionError(f"{cfg.name}: generated ids outside the vocabulary")
+    for name in ("flash_attention", "scatter_rows", "importance"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{cfg.name}: kernel {name} was not launched offline")
+    check_tensor_core_path(launches, f"phase 13 {cfg.name} offline")
+    return dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                weights_gb=sum(nbytes(p) for p in model.parameters()) / 1e9,
+                batch=2, prompt_len=prompt_len, gen_length=GEN, iterations=engine.iterations,
+                wall_s=wall, tokens_per_s=2 * GEN / wall, distinct_ids=len(torch.unique(gen_tok)),
+                launches=launches, option_launches={str(k): n for k, n in kernel_fns[
+                    "flash_attention"].option_launches.items()})
+
+
+def moe_drop_share(model) -> dict:
+    """The share of (row, choice) picks dropped at capacity over one
+    offline prefill and one skip decode of phase 13a's shape, read from the
+    routing's picks of every MoE layer (the capacity factor is the
+    published default)."""
+    from repro_torch.core import make_engine
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    engine = make_engine(model, arch_gen_config(cfg, served=False), device="cuda")
+    prompt = torch.randint(3, cfg.vocab_size, (2, PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    tokens = torch.cat([prompt.int(), torch.full((2, GEN), engine.mask_id, device="cuda",
+                                                 dtype=torch.int32)], dim=1)
+    kept: list = []
+    routing = moe.routing
+
+    def recording(probs, m, cap):
+        r = routing(probs, m, cap)
+        kept.append(r.kept)
+        return r
+    moe.routing = recording
+    try:
+        st = engine.make_block_state(tokens)
+        st = engine.prefill(st, PROMPT)
+        n_prefill = len(kept)
+        engine.decode_iteration(st, PROMPT)
+    finally:
+        moe.routing = routing
+
+    def share(ks):
+        total = sum(k.numel() for k in ks)
+        return sum((~k).sum().item() for k in ks) / total, total
+    (pre, n_pre), (dec, n_dec) = share(kept[:n_prefill]), share(kept[n_prefill:])
+    return dict(prefill_dropped=pre, prefill_picks=n_pre, decode_dropped=dec,
+                decode_picks=n_dec, capacity_factor=cfg.moe.capacity_factor,
+                router_group_size=cfg.moe.router_group_size)
+
+
+def moe_attribution(prof) -> dict:
+    """Device ms of one profiled window (CPU and CUDA activity): every
+    kernel, those inside ``moe_apply`` (the device-side spans of its
+    ``chip_smoke.moe`` range), and of those the expert matmuls (kernels
+    linked to an ``aten::bmm`` op); the rest of ``moe_apply`` is the
+    router, the routing, the dispatch, the activation and the combine.
+    Also the window's 12 kernels with the most device time."""
+    import bisect
+
+    cpu_t, cuda_t = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    evs = list(prof.profiler.kineto_results.events())
+    ops = {e.correlation_id(): e.name() for e in evs
+           if e.device_type() == cpu_t and e.correlation_id() > 0}
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in evs
+                   if e.device_type() == cuda_t and e.name() == "chip_smoke.moe")
+    starts = [a for a, _ in spans]
+    kernels = [e for e in evs if e.device_type() == cuda_t and e.name() != "chip_smoke.moe"
+               and not e.is_user_annotation() and "Memcpy" not in e.name()
+               and "Memset" not in e.name()]
+    out = dict(all_ms=0.0, moe_ms=0.0, experts_ms=0.0, moe_spans=len(spans),
+               kernels=len(kernels), linked=0)
+    by_name: dict = {}
+    for e in kernels:
+        ms = e.duration_ns() / 1e6
+        out["all_ms"] += ms
+        rec = by_name.setdefault(e.name()[:70], [0.0, 0])
+        rec[0] += ms
+        rec[1] += 1
+        op = ops.get(e.linked_correlation_id())
+        out["linked"] += op is not None
+        i = bisect.bisect_right(starts, e.start_ns()) - 1
+        if i >= 0 and e.start_ns() < spans[i][1]:
+            out["moe_ms"] += ms
+            if op == "aten::bmm":
+                out["experts_ms"] += ms
+    out["moe_rest_ms"] = out["moe_ms"] - out["experts_ms"]
+    out["top"] = [dict(name=n, ms=v[0], count=v[1])
+                  for n, v in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]]
+    return out
+
+
+def arch_served(model, kernel_fns, prompt_len: int, lens, profile=None) -> dict:
+    """Phase 6's served trace (4 slots, pages of 16, early advance, prompt
+    refreshes every 8 with the adaptive cache, 8 requests one every 5
+    steps) at ``prompt_len`` with prompts of ``lens``, after a one-request
+    warm-up.  With ``profile = (a, b)`` a second run profiles steps [a, b)
+    with CPU and CUDA activity, each ``moe_apply`` in a ``chip_smoke.moe``
+    range (``moe_attribution``), and stops there."""
+    import numpy as np
+
+    from repro_torch.models import model as model_mod
+    from repro_torch.runtime import Request, StreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = arch_gen_config(cfg, served=True)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in lens]
+
+    def make():
+        return StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
+                               prompt_len=prompt_len, paged=True, page_size=16,
+                               early_advance=True)
+    serve_trace(make(), prompts[:1], SERVE_MAX_NEW[:1], every=5)     # warm-up
+    torch.cuda.synchronize()
+    sched = make()
+    zero_counts(kernel_fns)
+    t0 = time.perf_counter()
+    reqs = serve_trace(sched, prompts, SERVE_MAX_NEW, every=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    check_drained(sched, reqs)
+    for r, n in zip(reqs, SERVE_MAX_NEW):
+        if r.output.shape != (n,):
+            raise AssertionError(f"{cfg.name}: request {r.request_id} output {r.output.shape}")
+    for name in ("paged_flash_attention", "scatter_rows_paged", "variation", "importance"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{cfg.name}: kernel {name} was not launched served")
+    check_tensor_core_path(launches, f"phase 13 {cfg.name} served")
+    st = sched.stats
+    rec = dict(arch=cfg.name, prompt_len=prompt_len, prompt_lens=list(lens),
+               max_new_tokens=list(SERVE_MAX_NEW), steps=st.steps, wall_s=wall,
+               tokens_per_s=sum(SERVE_MAX_NEW) / wall, ms_per_step=wall / st.steps * 1e3,
+               latency_p50_s=st.latency_pct(50), latency_p95_s=st.latency_pct(95),
+               passes=dict(sched.engine.pass_counts), launches=launches,
+               option_launches={str(k): n for k, n in kernel_fns[
+                   "paged_flash_attention"].option_launches.items()},
+               distinct_ids=len({int(t) for r in reqs for t in r.output}))
+    if profile is None:
+        return rec
+    moe_apply = model_mod.moe_apply
+
+    def ranged(*args):
+        with torch.profiler.record_function("chip_smoke.moe"):
+            return moe_apply(*args)
+    sched = make()
+    trace = [Request(prompt=p.copy(), max_new_tokens=m) for p, m in zip(prompts, SERVE_MAX_NEW)]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for step in range(profile[1]):
+        if step % 5 == 0 and step // 5 < len(trace):
+            sched.submit(trace[step // 5])
+        if step == profile[0]:
+            torch.cuda.synchronize()
+            model_mod.moe_apply = ranged
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
+            t0 = time.perf_counter()
+        sched.step()
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    prof.__exit__(None, None, None)
+    model_mod.moe_apply = moe_apply
+    att = moe_attribution(prof)
+    cuda = torch.autograd.DeviceType.CUDA
+    port: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and "repro_torch" in e.name():
+            key = e.name().replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
+            key = key.split("<")[0]
+            port[key] = port.get(key, 0.0) + e.duration_ns() / 1e6
+    att.update(steps=list(profile), window_wall_ms=window_ms,
+               flash_tc_kernel_ms=port.get("flash_tc_kernel", 0.0),
+               scatter_rows_kernel_ms=port.get("scatter_rows_kernel", 0.0), port_kernels_ms=port)
+    rec["profile"] = att
+    return rec
+
+
+def phase13(kernel_fns) -> dict:
+    """13a olmoe-1b-7b, 13b gemma3-1b: offline es and served, full width and
+    depth; 13c one offline es each of ``ARCHS_13C`` at depth ``DEPTH_13C``."""
+    out = {}
+    model, init_s = full_width("olmoe-1b-7b")
+    out["13a"] = dict(init_s=init_s, offline=arch_offline(model, kernel_fns),
+                      drops=moe_drop_share(model),
+                      served=arch_served(model, kernel_fns, PROMPT, LENS_13A,
+                                         profile=PROFILE_13A))
+    del model
+    torch.cuda.empty_cache()
+    model, init_s = full_width("gemma3-1b")
+    cfg = model.cfg
+    n_local = sum(not cfg.layer_is_global_attn(l) for l in range(cfg.n_layers))
+    rec = dict(init_s=init_s, local_layers=n_local,
+               offline=arch_offline(model, kernel_fns, GEMMA_PROMPT),
+               served=arch_served(model, kernel_fns, GEMMA_PROMPT, LENS_13B))
+    for run, att in (("offline", "flash_attention"), ("served", "paged_flash_attention")):
+        opts = rec[run]["option_launches"]
+        n = rec[run]["launches"][att]
+        want = {str((GEMMA_WINDOW, 0, 0, 0, 0)): n * n_local // cfg.n_layers,
+                str((0, 0, 0, 0, 0)): n * (cfg.n_layers - n_local) // cfg.n_layers}
+        if opts != want:
+            raise AssertionError(f"13b {run}: attention option launches {opts}, not {want}")
+    out["13b"] = rec
+    del model
+    torch.cuda.empty_cache()
+    for arch in ARCHS_13C:
+        model, init_s = full_width(arch, DEPTH_13C)
+        out.setdefault("13c", {})[arch] = dict(init_s=init_s,
+                                               offline=arch_offline(model, kernel_fns))
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_run(fn, top: int = 8) -> dict:
     """Where one run's time goes on the device: the share of the wall time
     some kernel was running, and the kernels with the most device time."""
@@ -3430,6 +3997,8 @@ def main() -> int:
     cases += check_paged_flash_int8(ref, paged_flash_attention, gen)
     cases += check_quant_scatter(ref, ops, gen)
     cases += check_fork_scales(ref, fork_pages, gen)
+    d256, scatter256 = check_head_dim_256(ref, flash_attention, paged_flash_attention, gen)
+    cases += d256
     print(f"timer: {len(TIMER_FALLBACKS)} incomplete profiler traces {TIMER_FALLBACKS[:20]}, "
           f"{len(EVENT_TIMED)} measurements timed by CUDA events")
     for c in cases:           # below the bound, the timer and not the kernel is at fault
@@ -3476,6 +4045,7 @@ def main() -> int:
         if r["kernels_per_call"] != 1:
             raise AssertionError(f"ops.scatter_rows_paged with mask {name}: "
                                  f"{r['kernels_per_call']} kernels a call, not 1")
+    print(f"K/V scatters at gemma3's 512-byte rows, bit-equal: {scatter256}")
     importance_host = importance_host_cost(ops, gen)
     print(f"ops.importance_score with idx per call: {json.dumps(importance_host)}")
     for name, r in importance_host.items():
@@ -3506,6 +4076,8 @@ def main() -> int:
                       preemption={arch: cross_device_preemption(arch, kv_cache_dtype="int8")
                                   for arch in ("llada-8b", "dream-7b")})
     print(f"cross-device int8 cache and gather_refresh: {json.dumps(cross_int8)}")
+    cross_archs = cross_device_archs(kernel_fns)
+    print(f"cross-device MoE and dense archs: {json.dumps(cross_archs)}")
     lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
@@ -3524,18 +4096,21 @@ def main() -> int:
                              f"attention launches per trace, not {LAUNCHES_SERVING_TRACE}")
     lap("5-6")
 
-    # phase 9 (on phase 5's model): block-causal ES-dLLM with the window,
+    # phase 9 (LLaDA-8B, depth cut): block-causal ES-dLLM with the window,
     # offline and served with the persistent prefix store
-    bc_runs = bc_window_paths(model, kernel_fns)
+    cut, _ = llada_8b(DEPTH_9_10)
+    bc_runs = bc_window_paths(cut, kernel_fns)
     for name, r in bc_runs.items():
         print(f"block-causal + window {name}: {json.dumps(r)}")
         check_tensor_core_path(r["launches"], f"phase 9 {name}")
     lap("9")
 
-    # phase 10 (on phase 5's model): Sparse-dLLM eviction offline, and the
+    # phase 10 (on phase 9's model): Sparse-dLLM eviction offline, and the
     # lazy, windowed, sparse served trace
-    sparse_runs = {"offline": sparse_offline(model, kernel_fns),
-                   "served": lazy_served(model, kernel_fns)}
+    sparse_runs = {"offline": sparse_offline(cut, kernel_fns),
+                   "served": lazy_served(cut, kernel_fns)}
+    del cut
+    torch.cuda.empty_cache()
     for name, r in sparse_runs["offline"]["runs"].items():
         print(f"phase 10 offline {name}: {json.dumps(r)}")
     served = sparse_runs["served"]
@@ -3601,7 +4176,33 @@ def main() -> int:
         raise AssertionError(f"phase 8: {mamba_runs['es']['launches']['ssd_chunks']} SSD "
                              f"launches per es generate, not {SSD_LAUNCHES_ES_GENERATE}")
     print(f"mamba2-370m es / dualcache ms per generate: {mamba_runs['es_over_dualcache_ms']}")
+    del mamba
+    torch.cuda.empty_cache()
     lap("8")
+
+    # phase 13: olmoe-1b-7b and gemma3-1b offline and served, and the other
+    # archs offline, at full width
+    arch_runs = phase13(kernel_fns)
+    for name in ("13a", "13b"):
+        for mode in ("offline", "served"):
+            r = arch_runs[name][mode]
+            print(f"phase {name} {r['arch']} {mode}: {json.dumps(r)}")
+            print(f"phase {name} {r['arch']} {mode}: wall {r['wall_s']:.2f} s, "
+                  f"{r['tokens_per_s']:.1f} tok/s"
+                  + (f", {r['steps']} steps at {r['ms_per_step']:.1f} ms" if mode == "served"
+                     else "")
+                  + f"; launches {json.dumps({k: v for k, v in r['launches'].items() if v})}")
+    print(f"phase 13a drops at capacity: {json.dumps(arch_runs['13a']['drops'])}")
+    print(f"phase 13a served profile: {json.dumps(arch_runs['13a']['served']['profile'])}")
+    for mode in ("offline", "served"):
+        print(f"phase 13b {mode} attention option launches: "
+              f"{arch_runs['13b'][mode]['option_launches']}")
+    for arch, r in arch_runs["13c"].items():
+        r = r["offline"]
+        print(f"phase 13c {arch} ({r['layers']} layers): wall {r['wall_s']:.2f} s, "
+              f"{r['tokens_per_s']:.1f} tok/s; launches "
+              f"{json.dumps({k: v for k, v in r['launches'].items() if v})}")
+    lap("13")
     print(f"phase seconds: {json.dumps(phase_s)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
@@ -3622,7 +4223,12 @@ def main() -> int:
                 "quantize_scatter_rows_paged": ("llada block K=32 ps=16 mask=none int8",
                                                 torch.bfloat16),
                 # 11c forks the two cohorts' shared prompt pages
-                "fork_pages_scales": ("llada F=14 ps=16 scales", torch.float32)}
+                "fork_pages_scales": ("llada F=14 ps=16 scales", torch.float32),
+                # gemma3's head_dim 256 (phase 13b)
+                "flash_attention_d256": (f"gemma3 dense Lq=32 Lkv={GEMMA_T} "
+                                         f"window={GEMMA_WINDOW}", torch.bfloat16),
+                "paged_flash_attention_d256": (f"gemma3 paged Lq=32 Lkv={GEMMA_T} ps=16 "
+                                               f"window={GEMMA_WINDOW}", torch.bfloat16)}
     # the int8 rows' launches: phase 11's runs
     offline8 = int8_runs["11a"]["runs"]["int8"]["launches"]
     int8_launches = {
@@ -3631,11 +4237,19 @@ def main() -> int:
         "quantize_scatter_rows": offline8["quantize_scatter_rows"],
         "quantize_scatter_rows_paged": int8_runs["11b"]["launches"]["quantize_scatter_rows_paged"],
         "fork_pages_scales": int8_runs["11c"]["launches"]["fork_pages scales"]}
+    # every attention launch of 13b is at head_dim 256
+    d256_launches = {
+        "flash_attention_d256": arch_runs["13b"]["offline"]["launches"]["flash_attention"],
+        "paged_flash_attention_d256":
+            arch_runs["13b"]["served"]["launches"]["paged_flash_attention"]}
     kernels = []
     for name, (case, dt) in headline.items():
-        c = next(c for c in cases if c["kernel"] == name and c["case"] == case
+        kernel = name.removesuffix("_d256")
+        c = next(c for c in cases if c["kernel"] == kernel and c["case"] == case
                  and c["dtype"] == str(dt))
-        if name in int8_launches:
+        if name in d256_launches:
+            launches = d256_launches[name]
+        elif name in int8_launches:
             launches = int8_launches[name]
         elif name == "fork_pages":
             launches = sampled["runs"]["7a"]["launches"][name]
@@ -3646,7 +4260,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches,
-            max_abs_err=max(x["max_abs_err"] for x in cases if x["kernel"] == name),
+            max_abs_err=max(x["max_abs_err"] for x in cases if x["kernel"] == kernel
+                            and (x.get("head_dim") == 256) == (name != kernel)),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
     out_dir = ROOT / "build"
@@ -3663,7 +4278,8 @@ def main() -> int:
              cross_device_sparse=cross_sparse, cross_device_int8=cross_int8,
              int8_paths=int8_runs, runtime_paths=runtime_runs,
              offline_path=run, serving_path=serving, block_causal_window=bc_runs,
-             sparse_lazy=sparse_runs,
+             sparse_lazy=sparse_runs, cross_device_archs=cross_archs, archs=arch_runs,
+             scatter_d256=scatter256,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

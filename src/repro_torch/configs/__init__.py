@@ -1,4 +1,6 @@
-"""Architecture config registry of the port: the two paper models and Mamba-2.
+"""Architecture config registry of the port: the two paper models, Mamba-2,
+the MoE models (OLMoE, Granite-MoE) and the dense decoders Gemma-3, Llama-3,
+Qwen2 and ChatGLM3.
 
 ``get_config(arch_id)`` returns the published configuration; ``reduced(cfg)``
 returns the same small variant the reference package's ``reduced`` builds, so
@@ -8,7 +10,17 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import dream_7b, llada_8b, mamba2_370m  # noqa: F401  (registers)
+from repro_torch.configs import (  # noqa: F401  (registers)
+    chatglm3_6b,
+    dream_7b,
+    gemma3_1b,
+    granite_moe_1b_a400m,
+    llada_8b,
+    llama3_8b,
+    mamba2_370m,
+    olmoe_1b_7b,
+    qwen2_1_5b,
+)
 from repro_torch.configs.base import (  # noqa: F401
     GenerationConfig,
     ModelConfig,

@@ -100,6 +100,14 @@ class ModelConfig:
             return False
         return l % self.moe_every == (self.moe_every - 1) if self.moe_every > 1 else True
 
+    def layer_is_global_attn(self, l: int) -> bool:
+        """Local:global interleaves (gemma3): True for a full-attention layer."""
+        if not self.sliding_window:
+            return True
+        if not self.global_every:
+            return False            # every layer local
+        return l % self.global_every == (self.global_every - 1)
+
     @property
     def pattern_period(self) -> int:
         period = 1

@@ -1,0 +1,21 @@
+"""Llama-3-8B — dense GQA decoder, 128k vocab. [arXiv:2407.21783]"""
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("llama3-8b")
+def llama3_8b() -> ModelConfig:
+    return ModelConfig(
+        name="llama3-8b",
+        family="dense",
+        source="arXiv:2407.21783 (The Llama 3 Herd of Models)",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=14336,
+        vocab_size=128_256,
+        rope_theta=500_000.0,
+        act="silu",
+        rms_eps=1e-5,
+    )

@@ -11,8 +11,8 @@
 // arguments alone (kernels/flash_attention.py, plan()):
 //
 // * flash_tc_kernel, the tensor-core body: bf16, head_dim a multiple of 16
-//   up to 128, every q/k/v stride and base a multiple of 16 bytes -- every
-//   full-width path.  What bounds it: bytes, then latency.  At the paths'
+//   up to 128, or 256 (Gemma-3), every q/k/v stride and base a multiple of
+//   16 bytes -- every full-width path.  What bounds it: bytes, then latency.  At the paths'
 //   shapes (Lq 8-192 rows of a few heads against Lkv ~200, head_dim 128) a
 //   call reads a few MB of K/V and does at most a few GFLOP, under 300 flops
 //   per byte; the old body's limits were its own: each (q-head, 8 rows)
@@ -52,16 +52,23 @@
 //     more than walking a short split, hence the minimum.
 //   Paged mode stages the split's block-table entries in shared memory once
 //   (not per row) and skips tiles whose pages are all unmapped.
+//   At head_dim 256 the O accumulator takes 128 registers a thread, so Q
+//   stays in shared memory and each k-step loads its fragment; the ring has
+//   2 stages and a block takes an SM (flash_tc.cuh, Layout::kQRes).
 //
 // * flash_attention_kernel, the CUDA-core body: f32 (the CPU
 //   parity's type: TF32 tensor cores would miss its 1e-4), head_dim not a
-//   multiple of 16, strides that are not 16-byte multiples.  One block per
-//   (batch, q-head, 8 query rows) stages the query tile and 32-row K/V tiles
-//   in shared memory as f32 (rows padded by four words so the float4 reads of
-//   lane j on row j are conflict-free) and carries the online-softmax state
-//   in registers.  Lane j scores KV row j against the warp's two rows; each
-//   lane accumulates head_dim/32 output columns.  K/V move as 16-byte chunks
-//   held in registers a tile ahead when the rows allow, else element by
+//   multiple of 16 or past 128 but 256, strides that are not 16-byte
+//   multiples; head_dim up to 256.  One block per (batch, q-head, 8 query
+//   rows) stages the query tile and 32-row K/V tiles in shared memory as
+//   f32 (rows padded by four words so the float4 reads of lane j on row j
+//   are conflict-free; at head_dim 256 74,752 bytes of dynamic shared
+//   memory, past the 48 KB of static arrays) and carries the online-softmax
+//   state in registers.
+//   Lane j scores KV row j against the warp's two rows; each lane
+//   accumulates head_dim/32 output columns, in runs of 4 that lie 128
+//   columns apart.  K/V move as 16-byte chunks held in registers a tile
+//   ahead when the rows allow (rows of at most 512 bytes), else element by
 //   element.  Paged mode looks the block table up per row; a tile with no
 //   mapped page is skipped.
 //
@@ -204,23 +211,48 @@ struct TileRegs {
   }
 };
 
-// KD: head_dim rounded up to 32, 64 or 128 (tiles are zero-padded to it).
-// kVec: head_dim == KD and every K/V row starts 16-byte aligned, so K/V move
-// as 16-byte chunks, prefetched a tile ahead; else element by element.
+// KD: head_dim rounded up to 32, 64, 128 or 256 (tiles are zero-padded to it).
+// kVec: head_dim == KD, rows of at most 512 bytes, and every K/V row starts
+// 16-byte aligned, so K/V move as 16-byte chunks, prefetched a tile ahead;
+// else element by element.
 // kPaged: K/V rows come from a page pool through the block table p.bt.
 // KT: the K/V element, T or int8_t (codes, dequantized on load as code *
 // scale in f32; element by element).
+// The shared tiles, in floats: the query tile, then the K and V tiles.
+// Static up to KD 128 (37,888 bytes); dynamic past the 48 KB of static
+// shared memory (74,752 bytes at KD 256).
+template <int KD>
+struct CcTiles {
+  static constexpr int kBytes = (kBlockQ * KD + 2 * kBlockKV * (KD + 4)) * 4;
+  static constexpr bool kDynamic = kBytes > 48 * 1024;
+};
+
 template <typename T, typename KT, int KD, bool kVec, bool kPaged>
-__global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, KD > 128 ? 2 : 4) flash_attention_kernel(Params p) {
   constexpr bool kQ8 = sizeof(KT) == 1;
   static_assert(!(kQ8 && kVec), "int8 K/V load element by element");
   constexpr int kDPL = KD / 32;                      // output columns per lane
   constexpr int kStride = KD + 4;                    // K/V row pitch in floats
   // a float4 read of row `lane` covers banks 4*lane..4*lane+3 (mod 32): the
   // 8 lanes of each quarter-warp hit distinct banks, so no conflicts
-  __shared__ __align__(16) float q_s[kBlockQ][KD];
-  __shared__ __align__(16) float k_s[kBlockKV][kStride];
-  __shared__ __align__(16) float v_s[kBlockKV][kStride];
+  // (three static arrays, not one carved up: the carved one cost the f32
+  // KD-128 body 20 more bytes of spills)
+  float(*q_s)[KD];
+  float(*k_s)[kStride];
+  float(*v_s)[kStride];
+  if constexpr (CcTiles<KD>::kDynamic) {
+    extern __shared__ __align__(16) float cc_smem[];
+    q_s = reinterpret_cast<float(*)[KD]>(cc_smem);
+    k_s = reinterpret_cast<float(*)[kStride]>(cc_smem + kBlockQ * KD);
+    v_s = k_s + kBlockKV;
+  } else {
+    __shared__ __align__(16) float q_arr[kBlockQ][KD];
+    __shared__ __align__(16) float k_arr[kBlockKV][kStride];
+    __shared__ __align__(16) float v_arr[kBlockKV][kStride];
+    q_s = q_arr;
+    k_s = k_arr;
+    v_s = v_arr;
+  }
   __shared__ int kvpos_s[kBlockKV];
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBlockQ;
@@ -321,13 +353,17 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
 #pragma unroll
       for (int i = 0; i < kDPL; ++i) acc[r][i] *= corr;
     }
-    // P @ V: lane owns kDPL consecutive columns; one V read serves every row
+    // P @ V: lane owns kDPL columns, consecutive up to 4, else runs of 4
+    // columns 128 apart (col_of); one V read serves every row
 #pragma unroll 4
     for (int j = 0; j < kBlockKV; ++j) {
       float vv[kDPL];
-      if constexpr (kDPL == 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(&v_s[j][lane * 4]);
-        vv[0] = v4.x, vv[1] = v4.y, vv[2] = v4.z, vv[3] = v4.w;
+      if constexpr (kDPL >= 4) {
+#pragma unroll
+        for (int c = 0; c < kDPL / 4; ++c) {
+          const float4 v4 = *reinterpret_cast<const float4*>(&v_s[j][c * 128 + lane * 4]);
+          vv[4 * c] = v4.x, vv[4 * c + 1] = v4.y, vv[4 * c + 2] = v4.z, vv[4 * c + 3] = v4.w;
+        }
       } else if constexpr (kDPL == 2) {
         const float2 v2 = *reinterpret_cast<const float2*>(&v_s[j][lane * 2]);
         vv[0] = v2.x, vv[1] = v2.y;
@@ -352,49 +388,59 @@ __global__ void __launch_bounds__(kThreads, 4) flash_attention_kernel(Params p) 
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < kDPL; ++i) {
-      const int d = lane * kDPL + i;
+      const int d = kDPL >= 4 ? (i / 4) * 128 + lane * 4 + i % 4 : lane * kDPL + i;
       if (d < D) og[qr * p.so.l + d] = from_f32<T>(acc[r][i] * inv);
     }
   }
 }
 
-template <typename T, int KD, bool kPaged>
-void launch_kd(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.Lq + kBlockQ - 1) / kBlockQ, p.Hq, p.B);
-  if (p.ks != nullptr) {
-    flash_attention_kernel<T, int8_t, KD, false, kPaged><<<grid, kThreads, 0, stream>>>(p);
-    return;
+// One instantiation's launch, with its dynamic shared memory where it has
+// any (allowed past 48 KB once, at first use).
+template <typename T, typename KT, int KD, bool kVec, bool kPaged>
+cudaError_t launch_one(const Params& p, dim3 grid, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, KT, KD, kVec, kPaged>;
+  constexpr int kBytes = CcTiles<KD>::kDynamic ? CcTiles<KD>::kBytes : 0;
+  if constexpr (kBytes > 0) {
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (attr != cudaSuccess) return attr;
   }
+  kernel<<<grid, kThreads, kBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int KD, bool kPaged>
+cudaError_t launch_kd(const Params& p, cudaStream_t stream) {
+  const dim3 grid((p.Lq + kBlockQ - 1) / kBlockQ, p.Hq, p.B);
+  if (p.ks != nullptr) return launch_one<T, int8_t, KD, false, kPaged>(p, grid, stream);
+  // the prefetch holds a tile in registers: 128 a thread for an f32 tile at
+  // KD 256, which spills, so rows past 512 bytes load element by element
   constexpr long long kVecElems = 16 / sizeof(T);
-  const bool vec = p.D == KD && reinterpret_cast<uintptr_t>(p.k) % 16 == 0 &&
+  constexpr bool kFits = KD * sizeof(T) <= 512;
+  const bool vec = kFits && p.D == KD && reinterpret_cast<uintptr_t>(p.k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(p.v) % 16 == 0 &&
                    (p.sk.b | p.sk.h | p.sk.l | p.sv.b | p.sv.h | p.sv.l) % kVecElems == 0;
-  if (vec) {
-    flash_attention_kernel<T, T, KD, true, kPaged><<<grid, kThreads, 0, stream>>>(p);
-  } else {
-    flash_attention_kernel<T, T, KD, false, kPaged><<<grid, kThreads, 0, stream>>>(p);
+  if constexpr (kFits) {
+    if (vec) return launch_one<T, T, KD, true, kPaged>(p, grid, stream);
   }
+  return launch_one<T, T, KD, false, kPaged>(p, grid, stream);
 }
 
 template <typename T, int KD>
-void launch_paged(const Params& p, cudaStream_t stream) {
-  if (p.bt != nullptr) {
-    launch_kd<T, KD, true>(p, stream);
-  } else {
-    launch_kd<T, KD, false>(p, stream);
-  }
+cudaError_t launch_paged(const Params& p, cudaStream_t stream) {
+  if (p.bt != nullptr) return launch_kd<T, KD, true>(p, stream);
+  return launch_kd<T, KD, false>(p, stream);
 }
 
+// The smallest instantiation that holds head_dim (fill_params refuses more
+// than 256).
 template <typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) {
-    launch_paged<T, 32>(p, stream);
-  } else if (p.D <= 64) {
-    launch_paged<T, 64>(p, stream);
-  } else {
-    launch_paged<T, 128>(p, stream);
-  }
-  return cudaGetLastError();
+  if (p.D <= 32) return launch_paged<T, 32>(p, stream);
+  if (p.D <= 64) return launch_paged<T, 64>(p, stream);
+  if (p.D <= 128) return launch_paged<T, 128>(p, stream);
+  if (p.D <= 256) return launch_paged<T, 256>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 
@@ -404,7 +450,7 @@ bool fill_params(Params& p, const void* q, const void* k, const void* v, void* o
                  const void* k_scale, const void* v_scale, int page_size,
                  const long long* strides, int B, int Hq, int Hkv, int Lq, int Lkv, int D,
                  float scale, int window, int anchor, int causal, int bc_start, int bc_block) {
-  if (B <= 0 || Lq <= 0 || Lkv < 0 || D <= 0 || D > 128 || Hkv <= 0 || Hq % Hkv != 0 ||
+  if (B <= 0 || Lq <= 0 || Lkv < 0 || D <= 0 || D > 256 || Hkv <= 0 || Hq % Hkv != 0 ||
       Hq > 65535 || B > 65535)
     return false;
   if (block_tables != nullptr && (page_size <= 0 || Lkv % page_size != 0)) return false;
@@ -496,7 +542,7 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void
                    page_size, strides, B, Hq, Hkv, Lq, Lkv, D, scale, window, anchor, causal,
                    bc_start, bc_block))
     return -1;
-  if (D % 16 != 0 || (ks != 1 && ks != 2 && ks != 4)) return -1;
+  if (D % 16 != 0 || (D > 128 && D != 256) || (ks != 1 && ks != 2 && ks != 4)) return -1;
   // 16-byte rows and bases for cp.async (q: 8 bf16, int8 K/V: 16 codes);
   // the output takes 8-byte stores, the scales 4-byte copies
   const bool q8 = k_scale != nullptr;

@@ -44,7 +44,6 @@ constexpr int kRows = 64;        // packed query rows per block at most: 4 warps
 constexpr int kTile = 64;        // KV rows per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kStages = 3;       // K/V ring depth
 constexpr int kMaxSplits = 32;
 constexpr int kMaxSplitPages = 1024;   // block-table entries of one split
 
@@ -83,8 +82,17 @@ __device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t word, uint32_t sel) 
 // K/V): one bf16 K/V stage, the tile the mma reads, at the start, then the
 // ring of kStages int8 stages (D bytes a row, unpadded: only 16-byte reads
 // touch it); each tile is widened from its ring stage into the bf16 stage.
+//
+// D <= 128: a 3-stage ring, and each warp holds its 16 rows of Q as A
+// fragments for the whole walk (D / 4 registers).  D = 256 (Gemma-3): the O
+// accumulator alone is 128 f32 registers a thread, so Q stays resident in
+// shared memory after the ring (kQRes) and each k-step loads its A fragment
+// with one ldmatrix; the ring drops to 2 stages so that ring and Q fit the
+// 227 KB a block may use, one block per SM.
 template <int D, bool kQ8 = false>
 struct Layout {
+  static constexpr bool kQRes = D > 128;
+  static constexpr int kStages = kQRes ? 2 : 3;    // K/V ring depth
   // a shared row is D bf16 + 16 bytes: the 8 rows of an ldmatrix phase then
   // start on 8 distinct 16-byte bank groups
   static constexpr int kPitch = D + 8;
@@ -92,8 +100,10 @@ struct Layout {
   static constexpr int kStageElems = 2 * kTileElems;     // K, then V
   static constexpr int kStage8Bytes = 2 * kTile * D;     // an int8 stage: K, then V
   static constexpr int kRing8Offset = kStageElems * 2;   // bytes before the int8 ring
-  static constexpr int kNeed = kQ8 ? kRing8Offset + kStages * kStage8Bytes
-                                   : kStages * kStageElems * 2;
+  static constexpr int kRingBytes = kQ8 ? kRing8Offset + kStages * kStage8Bytes
+                                        : kStages * kStageElems * 2;
+  static constexpr int kQOffset = kRingBytes;            // bytes before the resident Q
+  static constexpr int kNeed = kRingBytes + (kQRes ? kRows * kPitch * 2 : 0);
   // the merges below reuse this memory: the key-split states (at most 3 x
   // (D / 2 + 4) x 128 floats) and the split merge's (m, l)
   static constexpr int kMerge = 3 * (D / 2 + 4) * 32 * 4 > kRows * kMaxSplits * 8
@@ -121,8 +131,10 @@ struct Layout {
 // The widening is what the int8 form costs over bf16 (PERF.md); a barrier
 // narrowed to the warps that share a tile's keys gained nothing measurable.
 template <int D, int KS, bool kPaged, bool kQ8>
-__global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
+__global__ void __launch_bounds__(kThreads, Layout<D, kQ8>::kQRes ? 1 : 2)
+    flash_tc_kernel(TcParams tp) {
   using L = Layout<D, kQ8>;
+  constexpr int kStages = L::kStages;
   constexpr int kSlabs = kWarps / KS;       // 16-row slabs of packed rows
   constexpr int kBlockRows = 16 * kSlabs;
   constexpr int kKeys = kTile / KS;         // keys of a tile each warp scores
@@ -197,9 +209,11 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
   };
 
   // Q: the block's packed rows, into the last stage's K room (int8: the bf16
-  // stage's), free until the walk's first refill (first widening); rows past
-  // the packed rows are zeros
-  bf16* q_s = kQ8 ? ring : ring + (kStages - 1) * L::kStageElems;
+  // stage's), free until the walk's first refill (first widening), or with
+  // kQRes into its own room after the ring; rows past the packed rows are
+  // zeros
+  bf16* q_s = L::kQRes ? reinterpret_cast<bf16*>(smem_raw + L::kQOffset)
+                       : kQ8 ? ring : ring + (kStages - 1) * L::kStageElems;
   {
     constexpr int kPerRow = D / 8;
     for (int c = tid; c < kBlockRows * kPerRow; c += kThreads) {
@@ -293,11 +307,18 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
 
   cp_async_wait<kStages - 1>();      // the Q group has landed
   __syncthreads();
-  uint32_t qf[D / 16][4];            // Q as A fragments, held for the whole walk
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
+  // Q's A fragment of k-step kd (16 head dims) for this warp's slab
+  auto q_addr = [&](int kd) {
     const int r = slab * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, c = kd * 16 + (lane >> 4) * 8;
-    ldsm_x4(smem_u32(q_s + r * L::kPitch + c), qf[kd][0], qf[kd][1], qf[kd][2], qf[kd][3]);
+    return smem_u32(q_s + r * L::kPitch + c);
+  };
+  // Q as A fragments, held for the whole walk (kQRes: one k-step's, loaded
+  // as the walk needs it)
+  uint32_t qf[L::kQRes ? 1 : D / 16][4];
+  if constexpr (!L::kQRes) {
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+      ldsm_x4(q_addr(kd), qf[kd][0], qf[kd][1], qf[kd][2], qf[kd][3]);
   }
 
   float acc[D / 8][4];
@@ -341,15 +362,20 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
     if (warp_active) {
       const bf16* ks = kQ8 ? ring : ring + st * L::kStageElems;
       const bf16* vs = ks + L::kTileElems;
-      // this thread's 16 key columns: kv_pos, or -1 past the split or unmapped
+      // this thread's key columns: kv_pos, or -1 past the split or unmapped;
+      // read before Q K^T, or at D = 256 after it, where these kKeys / 4
+      // registers would push the walk past 255
       int kp[kKeys / 8][2];
+      auto load_kp = [&] {
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j)
+        for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = kq * kKeys + j * 8 + tig * 2 + e;
-          kp[j][e] = valid_s[st][c] ? kvpos_s[st][c] : -1;
-        }
+          for (int e = 0; e < 2; ++e) {
+            const int c = kq * kKeys + j * 8 + tig * 2 + e;
+            kp[j][e] = valid_s[st][c] ? kvpos_s[st][c] : -1;
+          }
+      };
+      if constexpr (!L::kQRes) load_kp();
       // S = Q K^T: 16 rows x kKeys keys as n-tiles of 8 keys.  Step t loads
       // the B fragments of k-step t / kPairs, n-tiles 2 (t % kPairs) and
       // 2 (t % kPairs) + 1 with one ldmatrix.x4, two steps ahead of their mma
@@ -372,10 +398,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
           uint32_t(&f)[4] = fb[(t + 2) % 3];
           ldsm_x4(k_addr(t + 2), f[0], f[1], f[2], f[3]);
         }
-        const int j = (t % kPairs) * 2;
-        mma_bf16(s[j], qf[t / kPairs], fb[t % 3][0], fb[t % 3][1]);
-        mma_bf16(s[j + 1], qf[t / kPairs], fb[t % 3][2], fb[t % 3][3]);
+        const int kd = t / kPairs, j = (t % kPairs) * 2;
+        if constexpr (L::kQRes) {
+          if (t % kPairs == 0) ldsm_x4(q_addr(kd), qf[0][0], qf[0][1], qf[0][2], qf[0][3]);
+        }
+        const uint32_t(&a)[4] = qf[L::kQRes ? 0 : kd];
+        mma_bf16(s[j], a, fb[t % 3][0], fb[t % 3][1]);
+        mma_bf16(s[j + 1], a, fb[t % 3][2], fb[t % 3][3]);
       }
+      if constexpr (L::kQRes) load_kp();
       if constexpr (kQ8) {           // k_scale of each score column, in f32
 #pragma unroll
         for (int j = 0; j < kKeys / 8; ++j)
@@ -617,6 +648,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_tc_kernel(TcParams tp) {
 
 template <int D, int KS, bool kPaged, bool kQ8>
 cudaError_t launch_ks(const TcParams& tp, dim3 grid, cudaStream_t stream) {
+  static_assert(Layout<D, kQ8>::kBytes <= 227 * 1024, "past the shared memory of a block");
   auto kernel = flash_tc_kernel<D, KS, kPaged, kQ8>;
   constexpr int kBytes = Layout<D, kQ8>::kBytes;
   static const cudaError_t attr =
@@ -643,7 +675,9 @@ cudaError_t launch(const TcParams& tp, int ks, dim3 grid, cudaStream_t stream) {
     case 80: return launch_d<80, kPaged, kQ8>(tp, ks, grid, stream);
     case 96: return launch_d<96, kPaged, kQ8>(tp, ks, grid, stream);
     case 112: return launch_d<112, kPaged, kQ8>(tp, ks, grid, stream);
-    default: return launch_d<128, kPaged, kQ8>(tp, ks, grid, stream);
+    case 128: return launch_d<128, kPaged, kQ8>(tp, ks, grid, stream);
+    case 256: return launch_d<256, kPaged, kQ8>(tp, ks, grid, stream);
+    default: return cudaErrorInvalidValue;   // no instantiation: never a smaller one
   }
 }
 

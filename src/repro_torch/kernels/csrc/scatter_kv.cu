@@ -59,14 +59,15 @@
 // write under the int8 KV cache, where the reference runs _quantize_rows
 // (src/repro/models/attention.py:66) in XLA and then four scatters (K and V
 // codes, K and V scales).  Here one launch per layer does all of it: each
-// (token, K or V, head) is one group of G = pow2(Dh / 4) threads, each of
-// which reads 4 consecutive elements of the new bf16 or f32 row, the group
+// (token, K or V, head) is one group of G = pow2(Dh / E) threads, each of
+// which reads E consecutive elements of the new bf16 or f32 row (E = 4, or
+// 8 past Dh 128, so that Gemma-3's 256 still takes one warp), the group
 // reduces amax over Dh in f32 with xor shuffles, scale = max(amax / 127,
 // 1e-8), code = clamp(rint(x / scale), +-127) -- IEEE division and
 // round-half-even, as jnp.round and torch.round, so the codes and scales
 // equal the plain version bit for bit (the build has no fast-math flag) --
-// and the group writes its 4 codes a thread as one 32-bit store and lane 0
-// the scale.  NaN propagates through amax and the scale as in the
+// and the group writes its E codes a thread as one 32- or 64-bit store and
+// lane 0 the scale.  NaN propagates through amax and the scale as in the
 // reference (a non-finite row's scale is NaN or inf), and a NaN code is 0,
 // as XLA converts it.  Scales are written per element, so the 16-byte row
 // rule does not apply to them (a scale row is Hkv * 4 bytes: 4 on reduced
@@ -176,37 +177,47 @@ struct QuantArgs {
 };
 
 // One group of `group` threads per item = (tok * 2 + plane) * Hkv + head;
-// thread t of a group holds elements 4t .. 4t + 3 of the head's Dh.
+// thread t of a group holds elements E t .. E t + E - 1 of the head's Dh.
 __device__ __forceinline__ uint2 load8(const uint2* p) {
   uint2 r;
   asm volatile("ld.global.v2.u32 {%0, %1}, [%2];\n" : "=r"(r.x), "=r"(r.y) : "l"(p));
   return r;
 }
 
-template <typename T>
+// Elements a thread of the quantizing scatter holds: 4, or 8 past Dh 128.
+__host__ __device__ constexpr int quant_elems(int dh) { return dh > 128 ? 8 : 4; }
+
+template <typename T, int E>
 __global__ void __launch_bounds__(kThreads) quant_scatter_kernel(const QuantArgs a) {
+  constexpr int kWords = E * sizeof(T) / 4;   // 32-bit words of a thread's elements
   const int item = blockIdx.x * a.per_block + threadIdx.x / a.group;
   const int t = threadIdx.x % a.group;
   const bool live = item < a.items;
   const int head = live ? item % a.Hkv : 0, tp = live ? item / a.Hkv : 0;
   const int plane = tp & 1, tok = tp >> 1;
-  const int d0 = 4 * t;
+  const int d0 = E * t;
   const bool mine = live && d0 < a.Dh;
   // the row's load first, then its destination's (the masks and idx, then
   // bt), all issued before the reduction waits on the row: the idx -> bt
   // chain overlaps the data load, as in scatter_rows_kernel
-  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+  uint32_t w[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) w[i] = 0u;
   long long dest = -1;
   if (mine) {
     // pointers picked by selects: a dynamic index into the parameter arrays
     // would copy the whole argument struct to local memory in every thread
     const T* src = static_cast<const T*>(plane ? a.src[1] : a.src[0]) +
                    ((long long)tok * a.Hkv + head) * a.Dh + d0;
-    if constexpr (sizeof(T) == 4) {
-      raw = load16(reinterpret_cast<const uint4*>(src));
+    if constexpr (kWords >= 4) {
+#pragma unroll
+      for (int c = 0; c < kWords / 4; ++c) {
+        const uint4 r = load16(reinterpret_cast<const uint4*>(src) + c);
+        w[4 * c] = r.x, w[4 * c + 1] = r.y, w[4 * c + 2] = r.z, w[4 * c + 3] = r.w;
+      }
     } else {
       const uint2 r2 = load8(reinterpret_cast<const uint2*>(src));
-      raw.x = r2.x, raw.y = r2.y;
+      w[0] = r2.x, w[1] = r2.y;
     }
     const int b = tok / a.K;
     const bool keep_row = a.row_mask == nullptr || a.row_mask[b] != 0;
@@ -221,32 +232,37 @@ __global__ void __launch_bounds__(kThreads) quant_scatter_kernel(const QuantArgs
     }
     if (!(keep_row & keep_tok)) dest = -1;
   }
-  float x[4];
-  if constexpr (sizeof(T) == 4) {
-    x[0] = __uint_as_float(raw.x), x[1] = __uint_as_float(raw.y);
-    x[2] = __uint_as_float(raw.z), x[3] = __uint_as_float(raw.w);
-  } else {                           // a bf16 is the top half of its f32
-    x[0] = __uint_as_float(raw.x << 16), x[1] = __uint_as_float(raw.x & 0xffff0000u);
-    x[2] = __uint_as_float(raw.y << 16), x[3] = __uint_as_float(raw.y & 0xffff0000u);
+  float x[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    if constexpr (sizeof(T) == 4) {
+      x[e] = __uint_as_float(w[e]);
+    } else {                         // a bf16 is the top half of its f32
+      x[e] = __uint_as_float(e % 2 ? w[e / 2] & 0xffff0000u : w[e / 2] << 16);
+    }
   }
   float amax = 0.f;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) amax = max_nan(amax, fabsf(x[e]));
+  for (int e = 0; e < E; ++e) amax = max_nan(amax, fabsf(x[e]));
   // every thread of the warp takes part; xor partners stay inside the group
   for (int o = a.group / 2; o > 0; o >>= 1)
     amax = max_nan(amax, __shfl_xor_sync(kFullMask, amax, o));
   if (dest < 0) return;
   const float scale = max_nan(amax / 127.f, 1e-8f);
-  uint32_t codes = 0;                // the 4 codes, element e in byte e
+  uint32_t codes[E / 4] = {};        // the E codes, element e in byte e % 4 of word e / 4
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
+  for (int e = 0; e < E; ++e) {
     const float r = rintf(x[e] / scale);
     const int q = static_cast<int>(r != r ? 0.f : fminf(fmaxf(r, -127.f), 127.f));
-    codes |= (static_cast<uint32_t>(q) & 0xffu) << (8 * e);
+    codes[e / 4] |= (static_cast<uint32_t>(q) & 0xffu) << (8 * (e % 4));
   }
   const long long slot = dest * a.Hkv + head;
-  int8_t* dst = plane ? a.codes[1] : a.codes[0];
-  *reinterpret_cast<uint32_t*>(dst + slot * a.Dh + d0) = codes;
+  int8_t* dst = (plane ? a.codes[1] : a.codes[0]) + slot * a.Dh + d0;
+  if constexpr (E == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(codes[0], codes[1]);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = codes[0];
+  }
   if (t == 0) (plane ? a.scales[1] : a.scales[0])[slot] = scale;
 }
 
@@ -298,9 +314,9 @@ extern "C" int repro_fork_pages(void* k, void* v, const void* src, const void* d
 
 // kc/vc: int8 code caches, ks/vs: f32 scale caches, kn/vn: new rows
 // [B, K, Hkv, Dh] of dtype (kF32 or kBF16).  block_tables as in
-// repro_scatter_rows.  group: threads an item, a power of two >= Dh / 4 and
-// <= 32; per_block: items a block (group * per_block <= 256).  Dh must be a
-// multiple of 4 and at most 128.  Returns a cudaError_t code (0 =
+// repro_scatter_rows.  group: threads an item, a power of two >= Dh / E
+// (E = 4, or 8 past Dh 128) and <= 32; per_block: items a block (group *
+// per_block <= 256).  Dh must be a multiple of E and at most 256.  Returns a cudaError_t code (0 =
 // launched), or -1 for arguments the kernel does not take.
 extern "C" int repro_quant_scatter_rows(void* kc, void* ks, const void* kn, void* vc, void* vs,
                                         const void* vn, int dtype, const void* idx,
@@ -309,16 +325,18 @@ extern "C" int repro_quant_scatter_rows(void* kc, void* ks, const void* kn, void
                                         int Dh, int num_pages, int page_size, int group,
                                         int per_block, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || K <= 0 || S < 0 || Hkv <= 0 || Dh <= 0 || Dh % 4 != 0 || Dh > 128) return -1;
+  const int elems = quant_elems(Dh);
+  if (B <= 0 || K <= 0 || S < 0 || Hkv <= 0 || Dh <= 0 || Dh % elems != 0 || Dh > 256)
+    return -1;
   if (dtype != kF32 && dtype != kBF16) return -1;
   if (block_tables != nullptr && (page_size <= 0 || S % page_size != 0 || num_pages <= 0))
     return -1;
-  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || group * 4 < Dh) return -1;
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || group * elems < Dh) return -1;
   if (per_block < 1 || group * per_block > kThreads) return -1;
-  const uintptr_t vec = dtype == kF32 ? 16 : 8;
+  const uintptr_t vec = dtype == kF32 || elems == 8 ? 16 : 8;
   if ((reinterpret_cast<uintptr_t>(kn) | reinterpret_cast<uintptr_t>(vn)) % vec != 0 ||
-      (reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc) |
-       reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) % 4 != 0)
+      (reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) % elems != 0 ||
+      (reinterpret_cast<uintptr_t>(ks) | reinterpret_cast<uintptr_t>(vs)) % 4 != 0)
     return -1;
   const long long items = (long long)B * K * 2 * Hkv;
   if (items > INT_MAX - per_block) return -1;
@@ -333,10 +351,14 @@ extern "C" int repro_quant_scatter_rows(void* kc, void* ks, const void* kn, void
               static_cast<int>(items), group, per_block};
   const int blocks = static_cast<int>((items + per_block - 1) / per_block);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    quant_scatter_kernel<float><<<blocks, group * per_block, 0, s>>>(a);
+  if (dtype == kF32 && elems == 8)
+    quant_scatter_kernel<float, 8><<<blocks, group * per_block, 0, s>>>(a);
+  else if (dtype == kF32)
+    quant_scatter_kernel<float, 4><<<blocks, group * per_block, 0, s>>>(a);
+  else if (elems == 8)
+    quant_scatter_kernel<__nv_bfloat16, 8><<<blocks, group * per_block, 0, s>>>(a);
   else
-    quant_scatter_kernel<__nv_bfloat16><<<blocks, group * per_block, 0, s>>>(a);
+    quant_scatter_kernel<__nv_bfloat16, 4><<<blocks, group * per_block, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,13 +10,14 @@ Two kernel bodies compute the same function, and :func:`plan` picks one from
 the arguments alone, the same way every time (no failure is caught):
 
 * ``"tensor_core"``: bf16 q with bf16 or int8 K/V, head_dim a multiple of
-  16 up to 128, every q/k/v stride and base a multiple of 16 bytes.  One
+  16 up to 128, or 256 (Gemma-3: Q then stays in shared memory and the K/V
+  ring has 2 stages), every q/k/v stride and base a multiple of 16 bytes.  One
   block per (batch, KV head, up to 64 packed (query head, query row) rows,
   KV split); with few rows,
   ``ks`` warps share each 16-row slab of it; a long cache is split and the
   splits are merged inside the launch by the last block to finish.
-* ``"cuda_core"``: everything else (f32, other head dims, strides that are
-  not 16-byte multiples), one block per (batch, query head, 8 rows).
+* ``"cuda_core"``: everything else (f32, other head dims up to 256, strides
+  that are not 16-byte multiples), one block per (batch, query head, 8 rows).
 
 int8 K/V (the int8 KV cache) come with their f32 per-(token, head) scales
 ``k_scale``/``v_scale`` and are read as codes: both bodies dequantize
@@ -40,7 +41,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = frozenset((*range(16, 129, 16), 256))   # the tensor-core body's instantiations
 TILE = ref.SPLIT_TILE      # KV rows per tile and packed query rows per block (tensor-core body)
 # blocks the planner aims for: half a wave.  Measured on the H100 at the
 # paths' shapes, more, shorter blocks (more key-split warps or KV splits)
@@ -96,7 +98,7 @@ def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lkv: int, hkv: int,
     ``k``/``v`` are the cache (dense) or the pools (paged, ``page_size > 0``),
     bf16 or int8 codes for the tensor-core body."""
     b, hq, lq, d = q.shape
-    if (q.dtype != torch.bfloat16 or d % 16 or d > MAX_HEAD_DIM
+    if (q.dtype != torch.bfloat16 or d not in TC_HEAD_DIMS
             or not all(build.aligned16(t) for t in (q, k, v))):
         return Plan("cuda_core")
     # key-split warps: enough that no warp of a block is idle, then more

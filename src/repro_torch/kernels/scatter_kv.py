@@ -185,10 +185,12 @@ scatter_rows_paged.launches = 0
 @dataclasses.dataclass(frozen=True)
 class QuantPlan:
     """A quantizing scatter's block shape: each item (token, K or V, head)
-    is a group of ``group`` threads, each of which holds 4 consecutive
-    elements of the head's row; a block holds ``per_block`` items."""
+    is a group of ``group`` threads, each of which holds ``elems``
+    consecutive elements of the head's row; a block holds ``per_block``
+    items."""
     group: int
     per_block: int
+    elems: int = 4
 
     @property
     def threads(self) -> int:
@@ -201,21 +203,23 @@ class QuantPlan:
 @functools.lru_cache(maxsize=256)
 def quant_plan(b: int, k: int, hkv: int, dh: int) -> QuantPlan:
     """The block shape of a quantizing scatter of ``b * k`` tokens of ``hkv``
-    heads of ``dh`` elements (a multiple of 4, at most 128): a group of the
-    power of two of threads that covers ``dh / 4`` (its xor shuffles then
-    stay inside it), and as many groups a block, up to ``MAX_THREADS``
-    threads and at least one warp (the shuffles take whole warps), as keep a
-    wave of blocks."""
-    if dh <= 0 or dh % 4 or dh > 128 or min(b, k, hkv) <= 0:
+    heads of ``dh`` elements: 4 a thread up to 128 (a multiple of 4), else 8
+    (a multiple of 8, at most 256; the kernel's ``quant_elems``), so that a
+    group is at most a warp; a group of the power of two of threads that
+    covers ``dh / elems`` (its xor shuffles then stay inside it), and as
+    many groups a block, up to ``MAX_THREADS`` threads and at least one warp
+    (the shuffles take whole warps), as keep a wave of blocks."""
+    elems = 8 if dh > 128 else 4
+    if dh <= 0 or dh % elems or dh > 256 or min(b, k, hkv) <= 0:
         raise ValueError(f"quantizing scatter plan: no block shape for b={b} k={k} "
                          f"hkv={hkv} dh={dh}")
-    group = _pow2(dh // 4)
+    group = _pow2(dh // elems)
     items = b * k * 2 * hkv
     per_block = _pow2(max(1, min(MAX_THREADS // group, items // build.WAVE)) + 1) // 2
     per_block = max(per_block, 32 // group)
     if items + per_block > GRID_LIMIT:
         raise ValueError(f"quantizing scatter plan: {items} items exceed the grid")
-    return QuantPlan(group, per_block)
+    return QuantPlan(group, per_block, elems)
 
 
 _NEW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

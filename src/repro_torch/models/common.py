@@ -1,5 +1,5 @@
-"""Shared building blocks: RMSNorm (plain and gated), RoPE, the gated MLP,
-vocab padding, per-row gathers and scatters.
+"""Shared building blocks: RMSNorm (plain and gated), the activations, RoPE,
+the gated MLP, vocab padding, per-row gathers and scatters.
 
 Plain PyTorch functions with the reference's numerics: f32 statistics in
 the norm, f32 rotation angles in RoPE, results cast back to the input dtype.
@@ -35,6 +35,16 @@ def gated_rms_norm(x: torch.Tensor, gate: torch.Tensor, scale: torch.Tensor,
                    eps: float) -> torch.Tensor:
     """Mamba-2 output norm: ``rms_norm(x * silu(gate))``, the gate's silu in f32."""
     return rms_norm(x * F.silu(gate.float()).to(x.dtype), scale, eps)
+
+
+def activation(name: str):
+    """The FFN activation: ``silu``, or ``gelu`` in its tanh form (the
+    reference's ``jax.nn.gelu(x, approximate=True)``)."""
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {name}")
 
 
 def rope_tables(
@@ -83,9 +93,9 @@ def apply_rope(
     return rotate(x, rope_tables(positions, x.shape[-1], theta=theta, fraction=fraction))
 
 
-def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (both paper models): ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
-    return (F.silu(x @ params.w_gate) * (x @ params.w_up)) @ params.w_down
+def mlp_apply(params, x: torch.Tensor, act_name: str) -> torch.Tensor:
+    """The gated MLP, SwiGLU or GeGLU: ``(act(x @ w_gate) * (x @ w_up)) @ w_down``."""
+    return (activation(act_name)(x @ params.w_gate) * (x @ params.w_up)) @ params.w_down
 
 
 def row_gather(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

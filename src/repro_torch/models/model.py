@@ -1,5 +1,6 @@
-"""The port's model: period-1 stacks, attention-only (LLaDA, Dream) or pure
-SSM (Mamba-2).
+"""The port's model: period-1 stacks, attention-only with a dense or an MoE
+FFN (LLaDA, Dream, Llama-3, Qwen2, ChatGLM3, Gemma-3 with its local:global
+windows; OLMoE, Granite-MoE) or pure SSM (Mamba-2).
 
 ``run_layers(h, ctx, cache, group_lo, group_hi)`` runs a *segment* of the
 stack, so the engine can stop at a skip layer, shrink the active set and
@@ -59,6 +60,7 @@ from repro_torch.models.common import (
     row_scatter,
 )
 from repro_torch.models.mamba import Mixer, SSMCache, SSMState, init_ssm_state, mamba_apply
+from repro_torch.models.moe import MoE, moe_apply
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -67,15 +69,27 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for archs outside the port so far."""
     kinds = {cfg.layer_kind(l) for l in range(cfg.n_layers)}
     ssm_only = kinds == {"ssm"} and cfg.family == "ssm" and cfg.ssm is not None
-    if (cfg.pattern_period != 1 or not (kinds == {"attn"} or ssm_only) or cfg.moe is not None
-            or cfg.sliding_window or cfg.logit_softcap or cfg.act != "silu"):
+    if (cfg.pattern_period != 1 or not (kinds == {"attn"} or ssm_only)
+            or cfg.family in ("hybrid", "audio", "vlm") or cfg.logit_softcap):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers period-1 stacks that are dense attention-only "
-            f"(LLaDA-8B, Dream-7B) or pure SSM (Mamba2-370M); see ROADMAP.md Queue A for "
+            f"{cfg.name}: the port covers period-1 stacks that are attention-only (dense "
+            f"or MoE FFN, per-layer windows) or pure SSM; see ROADMAP.md Queue A for "
             f"the other families")
     for field in ("param_dtype", "compute_dtype"):
         if getattr(cfg, field) not in DTYPES:
             raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: float32 or bfloat16")
+
+
+def layer_window(cfg: ModelConfig, layer: int, window_override: int = 0) -> int:
+    """Layer ``layer``'s local attention window, 0 for none: the reference's
+    ``window_meta``, with 0 where it has ``BIG_WINDOW`` (a global layer of a
+    local:global interleave, or a stack without windows), which masks the
+    same keys below 2**30 positions and keeps the kernels off their options
+    path.  A non-zero ``window_override`` caps every layer's."""
+    w = cfg.sliding_window if cfg.sliding_window and not cfg.layer_is_global_attn(layer) else 0
+    if window_override:
+        w = min(w, window_override) if w else window_override
+    return w
 
 
 @dataclasses.dataclass
@@ -97,7 +111,7 @@ class ForwardCtx:
     window_limit: Optional[torch.Tensor] = None   # [B] int32 sliding-window horizon
                                                   # (core.schedule.window_limit): kv
                                                   # positions at or past it are not read
-    window_override: int = 0                      # local attention window of every layer
+    window_override: int = 0                      # caps every layer's local window
     anchor: int = 0                               # positions below it bypass the window
     bc_start: int = 0                             # block-causal: first generation position
     bc_block: int = 0                             # block-causal block length; 0 = off
@@ -112,10 +126,11 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """``ln1`` + attention + ``ln2`` + MLP, or for a pure SSM stack ``ln1`` +
-    mixer (no FFN, as the reference decides for ``family="ssm"``)."""
+    """``ln1`` + attention + ``ln2`` + the FFN (a gated MLP, or the experts
+    where ``cfg.layer_is_moe``), or for a pure SSM stack ``ln1`` + mixer (no
+    FFN, as the reference decides for ``family="ssm"``)."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, layer: int, device, dtype):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), device, dtype)
         if cfg.family == "ssm":
@@ -123,7 +138,9 @@ class Block(nn.Module):
             return
         self.attn = Attention(cfg, device, dtype)
         self.ln2 = _param((cfg.d_model,), device, dtype)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, device, dtype)
+        self.moe = cfg.layer_is_moe(layer)
+        self.ffn = (MoE(cfg, device, dtype) if self.moe
+                    else MLP(cfg.d_model, cfg.d_ff, device, dtype))
 
 
 def _store(dst: torch.Tensor, new: torch.Tensor, row_mask: Optional[torch.Tensor]) -> None:
@@ -157,13 +174,14 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else _param((cfg.d_model, vp), self.device, self.dtype))
         self.layers = nn.ModuleList(
-            Block(cfg, self.device, self.dtype) for _ in range(cfg.n_layers))
+            Block(cfg, l, self.device, self.dtype) for l in range(cfg.n_layers))
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
-        """Random init with the reference's scheme (normal x 0.02, output
-        projections 0.02/sqrt(2L), norms 1, biases 0; the mixer's conv taps x
-        0.2, ``a_log`` 0, ``dt_bias`` -1, ``d_skip`` 1) but torch's numbers:
+        """Random init with the reference's scheme (normal x 0.02, the
+        router too, output projections and each expert's ``w_down``
+        0.02/sqrt(2L), norms 1, biases 0; the mixer's conv taps x 0.2,
+        ``a_log`` 0, ``dt_bias`` -1, ``d_skip`` 1) but torch's numbers:
         the values differ from ``repro``'s for the same seed.  ``generator``
         lives on the model's device, so a model on the card is initialised
         there."""
@@ -263,9 +281,11 @@ class Model(nn.Module):
                 layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), ctx.positions,
                 cache=kv, slot_idx=ctx.slot_idx, kv_pos=kv_pos, rope=rope,
                 scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask,
-                window=ctx.window_override, anchor=ctx.anchor,
+                window=layer_window(cfg, g, ctx.window_override), anchor=ctx.anchor,
                 bc_start=ctx.bc_start, bc_block=ctx.bc_block)
-            h = h + mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps))
+            hn = rms_norm(h, layer.ln2, cfg.rms_eps)
+            h = h + (moe_apply(layer.ffn, cfg, hn) if layer.moe
+                     else mlp_apply(layer.ffn, hn, cfg.act))
         return h
 
     def _apply_ssm(self, layer: Block, g: int, h: torch.Tensor, ctx: ForwardCtx,

@@ -1,0 +1,124 @@
+"""Mixture-of-Experts FFN with GShard-style capacity routing, the port's
+counterpart of ``repro/models/moe.py``.
+
+The ``B * K`` rows a pass hands the FFN are flattened b-major and cut into
+routing groups of ``min(router_group_size, B * K)`` rows, the last group
+zero-padded.  In each group every row makes ``experts_per_token`` choices
+in rounds, and each expert takes at most ``capacity`` rows; a pick past it
+is dropped.  Which picks drop depends on the order of the rows within the
+group, so the engine hands the stack its rows in the reference's order
+(``core/engine.py::_top_k``), and pad rows and the rows a mixed-mode pass
+does not own take capacity as they do in the reference.
+
+The reference dispatches with dense one-hot einsums over ``[G, S, E, C]``;
+the port dispatches by index: each expert's ``C`` capacity slots gather
+their rows (an empty slot is a zero row, as in the einsum), the experts run
+as one batched matmul per projection over ``[E, G * C, d]`` (plain
+``torch.bmm``: XLA computes them in the reference), and each row sums its
+kept picks' outputs with their combine weights.  Same drops, same weights.
+
+Left out: the load-balance aux loss, which only training reads (ROADMAP.md
+Queue A7).  A non-finite row stays in its own output here, where the
+reference's dense einsum spreads it (``0 * NaN``) over its whole group.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.attention import _param
+from repro_torch.models.common import activation
+
+
+class MoE(nn.Module):
+    """The expert FFN of one layer: ``router [d, E]`` in float32 whatever the
+    parameter dtype (the reference's ``moe_init`` makes it f32), and the
+    experts' stacked gated-MLP weights for ``x @ W``."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        m, d = cfg.moe, cfg.d_model
+        self.router = _param((d, m.n_experts), device, torch.float32)
+        self.w_gate = _param((m.n_experts, d, m.d_ff_expert), device, dtype)
+        self.w_up = _param((m.n_experts, d, m.d_ff_expert), device, dtype)
+        self.w_down = _param((m.n_experts, m.d_ff_expert, d), device, dtype)
+
+
+class Routing(NamedTuple):
+    """A group's picks, ``[G, S, k]`` each, in round order: the expert, the
+    capacity slot in it, whether the pick fits (``slot < capacity``) and its
+    combine weight (0 where it does not fit)."""
+    expert: torch.Tensor     # int64
+    slot: torch.Tensor       # int64
+    kept: torch.Tensor       # bool
+    weight: torch.Tensor     # float32
+
+
+def capacity(m: MoEConfig, group_size: int) -> int:
+    """Slots per expert and group, as the reference computes them."""
+    c = max(int(group_size * m.experts_per_token / m.n_experts * m.capacity_factor), 1)
+    return min(c, group_size)
+
+
+def routing(probs: torch.Tensor, m: MoEConfig, cap: int) -> Routing:
+    """The reference's ``_routing`` on ``probs [G, S, E]`` f32, whose round r
+    picks each row's largest remaining probability (the first index on ties)
+    and zeroes it by a multiply.  So round r picks the r-th entry of the
+    row's stable descending sort while that is above 0; once it is 0 every
+    remaining probability is 0 (they have underflowed) and the argmax is
+    expert 0, picked again with probability 0, as the reference does.  A
+    pick's slot is the number of earlier rows of its group that picked the
+    expert in this round plus every pick of it in earlier rounds, dropped
+    ones included; picks at or past ``cap`` drop.  The kept picks'
+    probabilities are renormalised by their sum (taken in round order),
+    clamped at 1e-9."""
+    k, e = m.experts_per_token, probs.shape[-1]
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    expert = torch.where(vals > 0, idx, 0)                              # [G, S, k]
+    # a comparison, not F.one_hot, whose range check reads the card
+    onehot = (expert[..., None] == torch.arange(e, device=probs.device)).long()  # [G, S, k, E]
+    per_round = onehot.sum(dim=1, keepdim=True)                         # [G, 1, k, E]
+    fill = per_round.cumsum(dim=2) - per_round                          # earlier rounds
+    before = onehot.cumsum(dim=1) - onehot + fill                       # + earlier rows
+    slot = torch.gather(before, -1, expert[..., None])[..., 0]
+    kept = slot < cap
+    chosen = torch.where(kept, vals, 0.0)
+    denom = torch.clamp(chosen.cumsum(dim=-1)[..., -1:], min=1e-9)
+    return Routing(expert, slot, kept, chosen / denom)
+
+
+def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The expert FFN on ``x [B, K, d]`` -> ``[B, K, d]`` in ``x.dtype``: the
+    reference's ``moe_apply`` without its aux loss."""
+    m = cfg.moe
+    b, k, d = x.shape
+    t = b * k
+    gsz = min(m.router_group_size, t)
+    xf = F.pad(x.reshape(t, d), (0, 0, 0, (-t) % gsz))
+    ng = xf.shape[0] // gsz
+    xg = xf.view(ng, gsz, d)
+    probs = torch.softmax(xg.float() @ moe.router, dim=-1)                # [G, S, E]
+    cap = capacity(m, gsz)
+    r = routing(probs, m, cap)
+    e = m.n_experts
+    # each (group, expert, slot) takes the row that was given it, or none
+    flat = (torch.arange(ng, device=x.device)[:, None, None] * e + r.expert) * cap + r.slot
+    src = torch.full((ng * e * cap + 1,), ng * gsz, dtype=torch.int64, device=x.device)
+    rows = torch.arange(ng * gsz, device=x.device).view(ng, gsz, 1).expand_as(flat)
+    src.scatter_(0, torch.where(r.kept, flat, ng * e * cap).reshape(-1), rows.reshape(-1))
+    xpad = torch.cat([xg.reshape(-1, d), xg.new_zeros((1, d))])          # the empty slot's row
+    xd = xpad[src[:-1]].view(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
+    act = activation(cfg.act)
+    hid = act(torch.bmm(xd, moe.w_gate)) * torch.bmm(xd, moe.w_up)
+    down = torch.bmm(hid, moe.w_down)                                     # [E, G * C, d]
+    down = down.view(e, ng, cap, d).transpose(0, 1).reshape(ng * e * cap, d)
+    # the combine in f32, its weights rounded to x's dtype as the reference's
+    picked = down[torch.where(r.kept, flat, 0)].float()                   # [G, S, k, d]
+    w = r.weight.to(x.dtype).float()[..., None]
+    out = torch.where(r.kept[..., None], w * picked, 0.0).sum(dim=2).to(x.dtype)
+    return out.reshape(-1, d)[:t].view(b, k, d)

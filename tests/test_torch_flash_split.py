@@ -147,8 +147,11 @@ def _view(dtype, d, pad=0, b=2, h=4, n=40):
     (torch.bfloat16, 72, 0, "cuda_core"),
     (torch.bfloat16, 100, 0, "cuda_core"),
     (torch.bfloat16, 64, 2, "cuda_core"),
+    (torch.bfloat16, 256, 0, "tensor_core"),
+    (torch.bfloat16, 192, 0, "cuda_core"),
+    (torch.float32, 256, 0, "cuda_core"),
 ], ids=["bf16_d128", "bf16_d80", "bf16_d16", "f32", "bf16_d72", "bf16_d100",
-        "bf16_unaligned_strides"])
+        "bf16_unaligned_strides", "bf16_d256", "bf16_d192", "f32_d256"])
 def test_body_choice(dtype, d, pad, body):
     q, k, v = _view(dtype, d, pad, n=8), _view(dtype, d, pad, h=2), _view(dtype, d, pad, h=2)
     p = plan(q, k, v, 40, 2)
@@ -206,7 +209,9 @@ def test_block_causal_row_bound_equals_block_rule(bc_start, bc_block):
     (torch.float32, 128, 0, "cuda_core"),
     (torch.bfloat16, 72, 0, "cuda_core"),
     (torch.bfloat16, 64, 8, "cuda_core"),
-], ids=["bf16_q_d128", "bf16_q_d32", "f32_q", "bf16_q_d72", "bf16_q_unaligned_codes"])
+    (torch.bfloat16, 256, 0, "tensor_core"),
+], ids=["bf16_q_d128", "bf16_q_d32", "f32_q", "bf16_q_d72", "bf16_q_unaligned_codes",
+        "bf16_q_d256"])
 def test_int8_kv_body_choice(qdtype, d, pad, body):
     """int8 K/V (the int8 cache's codes) with bf16 q take the tensor-core
     body when every code row is a multiple of 16 bytes (head_dim a multiple

@@ -592,3 +592,83 @@ def test_cuda_int8_kernels_match_plain_versions(cuda_device, dtype):
             quantize_scatter_rows(pairs, idx, **mk)
         cut = 1 if paged else 0
         assert all(torch.equal(a[cut:], b[cut:]) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_head_dim_256_matches_plain_versions(cuda_device, dtype):
+    """Gemma-3's head_dim 256 (4 query heads on 1 KV head) in both bodies:
+    kernels 1 and 2 on bf16/f32 K/V and on int8 codes, with the local
+    window 512 and without, a dense cache of 704 rows and a split one of
+    4096, and the paged pool through a shuffled block table.  Before the
+    D = 256 instantiations the dispatchers ran the 128 body on these rows.
+    Then the quantizing scatter at 256-element heads (8 elements a thread),
+    dense and paged, bit-equal to its plain version."""
+    from repro_torch.kernels.scatter_kv import (
+        quantize_scatter_rows,
+        quantize_scatter_rows_paged,
+    )
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    body = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    hq, hkv, lq, d = 4, 1, 32, 256
+    for lkv in (704, 4096):
+        q = torch.randn(2, lq, hq, d, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+        kv = [torch.randn(2, lkv, hkv, d, generator=g, device=cuda_device) for _ in "kv"]
+        q_pos = torch.arange(lkv - 64, lkv - 32, dtype=torch.int32,
+                             device=cuda_device).repeat(2, 1)
+        kv_pos = torch.arange(lkv, dtype=torch.int32, device=cuda_device).repeat(2, 1)
+        kv_pos[1, :7] = -1
+        (k8, ks), (v8, vs) = (ref.quantize_rows(t) for t in kv)
+        for window in (0, 512):
+            for k, v, sc in ((kv[0].to(dtype).transpose(1, 2), kv[1].to(dtype).transpose(1, 2),
+                              {}),
+                             (k8.transpose(1, 2), v8.transpose(1, 2),
+                              dict(k_scale=ks.transpose(1, 2), v_scale=vs.transpose(1, 2)))):
+                pl = plan(q, k, v, lkv, hkv)
+                assert pl.body == body and (lkv == 704 or body == "cuda_core"
+                                            or pl.n_splits > 1)
+                got = flash_attention(q, k, v, q_pos, kv_pos, window=window, **sc)
+                want = ref.attention_reference(q, k, v, q_pos, kv_pos, window=window, **sc)
+                assert (got.float() - want.float()).abs().max().item() <= tol, (lkv, window)
+        ps = 16
+        n_vp = lkv // ps
+        bt = (torch.randperm(2 * n_vp, generator=g, device=cuda_device) + 1).int().view(2, n_vp)
+        bt[0, 5] = -1
+        pools = [torch.randn(2 * n_vp + 1, ps, hkv, d, generator=g, device=cuda_device)
+                 for _ in "kv"]
+        (kp8, kps), (vp8, vps) = (ref.quantize_rows(t) for t in pools)
+        for window in (0, 512):
+            for kp, vp, sc in ((pools[0].to(dtype), pools[1].to(dtype), {}),
+                               (kp8, vp8, dict(k_scale=kps, v_scale=vps))):
+                assert plan(q, kp, vp, lkv, hkv, ps).body == body
+                args = (q, kp, vp, q_pos, kv_pos, bt)
+                got = paged_flash_attention(*args, window=window, **sc)
+                want = ref.paged_attention_reference(*args, window=window, **sc)
+                assert (got.float() - want.float()).abs().max().item() <= tol, (lkv, window)
+    idx = torch.stack([torch.randperm(64, generator=g, device=cuda_device)[:32]
+                       for _ in range(2)]).to(torch.int32)
+    mk = dict(row_mask=torch.tensor([True, True], device=cuda_device),
+              token_mask=torch.rand(2, 32, generator=g, device=cuda_device) < 0.8)
+    bt = (torch.randperm(8, generator=g, device=cuda_device) + 1).int().view(2, 4)
+    new = [torch.randn(2, 32, hkv, d, generator=g, device=cuda_device).to(dtype) for _ in "kv"]
+    for paged in (False, True):
+        lead = (9, 16) if paged else (2, 64)
+        planes = [torch.randint(-127, 128, (*lead, hkv, d), generator=g,
+                                device=cuda_device).to(torch.int8) for _ in "kv"]
+        scales = [torch.rand(*lead, hkv, generator=g, device=cuda_device) for _ in "kv"]
+        want = [t.clone() for t in planes + scales]
+        got = [t.clone() for t in planes + scales]
+        pairs = (((got[0], got[2]), new[0]), ((got[1], got[3]), new[1]))
+        for i in range(2):
+            if paged:
+                ref.quantize_scatter_rows_paged_reference(want[i], want[i + 2], new[i], idx, bt,
+                                                          **mk)
+            else:
+                ref.quantize_scatter_rows_reference(want[i], want[i + 2], new[i], idx, **mk)
+        if paged:
+            quantize_scatter_rows_paged(pairs, idx, bt, **mk)
+        else:
+            quantize_scatter_rows(pairs, idx, **mk)
+        cut = 1 if paged else 0
+        assert all(torch.equal(a[cut:], b[cut:]) for a, b in zip(got, want))

@@ -42,7 +42,8 @@ def _close(got: torch.Tensor, want, atol=ATOL):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=atol, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["mamba2-370m"])
+@pytest.mark.parametrize("arch", ARCHS + ["mamba2-370m", "olmoe-1b-7b", "granite-moe-1b-a400m",
+                                  "gemma3-1b", "llama3-8b", "qwen2-1.5b", "chatglm3-6b"])
 def test_configs_match_reference(arch):
     full_j, full_t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(full_j) == dataclasses.asdict(full_t)
@@ -86,7 +87,7 @@ def test_common_blocks_match_reference(fraction):
     w = {n: rng.standard_normal(s, np.float32) * 0.1
          for n, s in (("w_gate", (64, 96)), ("w_up", (64, 96)), ("w_down", (96, 64)))}
     tw = type("W", (), {n: torch.from_numpy(a) for n, a in w.items()})
-    _close(tcommon.mlp_apply(tw, torch.from_numpy(h)),
+    _close(tcommon.mlp_apply(tw, torch.from_numpy(h), "silu"),
            jcommon.mlp_apply({n: jnp.asarray(a) for n, a in w.items()}, jnp.asarray(h), "silu"),
            atol=1e-5)
 

@@ -170,15 +170,18 @@ def quant_coverage(pl: sk.QuantPlan, b: int, k: int, hkv: int, dh: int) -> np.nd
     items = b * k * 2 * hkv
     t = np.arange(pl.threads)
     item = np.arange(pl.blocks(b, k, hkv))[:, None] * pl.per_block + t // pl.group
-    d = np.broadcast_to((4 * (t % pl.group))[None, :, None] + np.arange(4), item.shape + (4,))
+    e = pl.elems
+    d = np.broadcast_to((e * (t % pl.group))[None, :, None] + np.arange(e), item.shape + (e,))
     live = (item < items)[..., None] & (d < dh)
     flat = (item[..., None] * dh + d)[live]
     return np.bincount(flat, minlength=items * dh).reshape(b * k, 2, hkv, dh)
 
 
 @pytest.mark.parametrize("b,k", [(1, 1), (2, 8), (4, 32), (2, 192), (4, 192)])
-@pytest.mark.parametrize("hkv,dh", [(32, 128), (4, 128), (4, 32), (1, 32), (2, 80), (3, 4)],
-                         ids=["llada", "dream", "reduced_llada", "reduced_dream", "d80", "d4"])
+@pytest.mark.parametrize("hkv,dh", [(32, 128), (4, 128), (4, 32), (1, 32), (2, 80), (3, 4),
+                                    (1, 256), (2, 136)],
+                         ids=["llada", "dream", "reduced_llada", "reduced_dream", "d80", "d4",
+                              "gemma3", "d136"])
 def test_quant_plan_holds_every_element_once(hkv, dh, k, b):
     """Every element of every (token, K or V, head) is held by exactly one
     thread, a group's xor shuffles stay inside it (a power of two of
@@ -186,16 +189,20 @@ def test_quant_plan_holds_every_element_once(hkv, dh, k, b):
     bound, and the grid fits what ``repro_quant_scatter_rows`` takes."""
     pl = sk.quant_plan(b, k, hkv, dh)
     assert (quant_coverage(pl, b, k, hkv, dh) == 1).all()
-    assert pl.group & (pl.group - 1) == 0 and pl.group * 4 >= dh and pl.group <= 32
+    assert pl.group & (pl.group - 1) == 0 and pl.group * pl.elems >= dh and pl.group <= 32
+    assert pl.elems == (8 if dh > 128 else 4)
     assert pl.threads % 32 == 0 and pl.threads <= sk.MAX_THREADS
     assert b * k * 2 * hkv + pl.per_block <= sk.GRID_LIMIT
 
 
 def test_quant_plan_shapes():
     """LLaDA's decode block fills blocks of 8 items; Dream's few items keep
-    whole warps."""
+    whole warps; Gemma-3's head of 256 takes 8 elements a thread, one warp
+    an item.  Past 128 a head must be a multiple of 8, and at most 256."""
     assert sk.quant_plan(4, 32, 32, 128) == sk.QuantPlan(32, 8)
     assert sk.quant_plan(1, 1, 1, 32) == sk.QuantPlan(8, 4)
-    for args in ((2, 8, 4, 130), (2, 8, 4, 256), (2, 8, 4, 0), (0, 8, 4, 128)):
+    assert sk.quant_plan(4, 32, 1, 256) == sk.QuantPlan(32, 1, 8)
+    for args in ((2, 8, 4, 130), (2, 8, 4, 132), (2, 8, 4, 264), (2, 8, 4, 512), (2, 8, 4, 0),
+                 (0, 8, 4, 128)):
         with pytest.raises(ValueError):
             sk.quant_plan(*args)
