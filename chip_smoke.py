@@ -39,7 +39,10 @@ no result):
    1, 2, 1q and 2q at gemma3-1b's head_dim 256 (Lq 32, 4 query heads on 1
    KV head; a dense cache of 704 rows, 4 paged slots of 704, a split cache
    of 4096; window 512 and off; bf16 on the tensor-core body, f32 on the
-   CUDA-core body) and the K/V scatters at its 512-byte rows; the
+   CUDA-core body) and the K/V scatters at its 512-byte rows; the SSD
+   chunk step at Jamba's widths (128 heads of 64, d_state 64), its served
+   decode and offline prefill shapes, bf16 on the tensor-core body and f32
+   on the CUDA-core body (8j); the
    threefry key chain's known answers on the card, a draw of the sampled
    path's shape with bits equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -64,14 +67,17 @@ no result):
    picks drop), granite-moe-1b-a400m, gemma3-1b (window 16, every second
    layer global, prompt 40) and chatglm3-6b offline es (tokens equal), and
    gemma3 and olmoe served through the paged scheduler (tokens equal);
+   reduced Jamba (16 layers, two periods; capacity factor 0.5, weights x2)
+   offline es (tokens equal), and served on the paged pool with sampled
+   prefix sharing (forks) and with preemption (a spill; tokens equal);
 5. offline path: LLaDA-8B at full width in bfloat16 (random weights from a
    seeded generator on the card), ES generation, with each kernel's
    launches counted over that run;
 6. serving path: the same model through the paged ``StreamScheduler``
    (early advance, adaptive cache) with staggered requests, launches
    counted over that run;
-7. sampled serving: Dream-7B at full width in bfloat16 through the paged
-   scheduler, temperature 0.2 and top-p 0.95, the same requests three
+7. sampled serving: Dream-7B at full width in bfloat16, depth cut to
+   ``DEPTH_7`` of its 28 layers, through the paged scheduler, temperature 0.2 and top-p 0.95, the same requests three
    times: with prefix sharing (7a: the copy-on-write fork runs), with
    preemption on a tight pool (7b: a class-1 arrival spills a class-0
    resident, which resumes) and with neither (7c);
@@ -104,23 +110,34 @@ no result):
    decode lane at 64; page conservation checked after every step; each
    decode-lane request of (ii) equal to its single-shard replay);
 13. the MoE and remaining dense archs at full width in bfloat16 (seeded
-   random weights on the card): olmoe-1b-7b (13a: 16 layers, 64 experts
-   top-8) offline es at phase 5's shape and phase 6's served trace, the
+   random weights on the card): olmoe-1b-7b (13a: depth cut to
+   ``DEPTH_13A`` of its 16 layers, 64 experts top-8) offline es at phase 5's shape and phase 6's served trace, the
    share of routing picks dropped at capacity over one prefill and one
    decode, and one profiled window of the served trace split into the
    expert matmuls, the rest of the MoE FFN and kernels 2 and 4;
-   gemma3-1b (13b: 26 layers, head_dim 256, window 512 on 22 local layers)
+   gemma3-1b (13b: depth cut to ``DEPTH_13B`` of its 26 layers, head_dim
+   256, window 512 on its local layers)
    offline es at prompt 640 and served with prompts of 544-640, its
    attention launches carrying the window on the local layers only; and
    one offline es ``generate`` each of llama3-8b, qwen2-1.5b, chatglm3-6b
-   and granite-moe-1b-a400m at full width, depth cut to ``DEPTH_13C`` (13c).
+   and granite-moe-1b-a400m at full width, depth cut to ``DEPTH_13C`` (13c);
+14. the Jamba hybrid: jamba-v0.1-52b at full width in bfloat16 (seeded
+   random weights on the card), two of its four periods (16 layers), every
+   earlier model freed first: offline es at phase 5's shape, three timed
+   ``generate`` calls and one dualcache, the launches per kernel, the MoE
+   share of picks dropped, a profiled ``generate``'s busy share and its
+   device ms split into kernels 1, 3, 6, 8, the MoE FFN and the rest (14a);
+   phase 6's served trace on the paged pool with early advance and no
+   adaptive cache, run twice with equal tokens (14b); a sampled
+   duplicate-cohort trace with prefix sharing (forks), then preemption on a
+   tight pool (a spill and a resume) (14c).
 
-On phases 5, 6, 7, 9, 10, 11, 12 and 13 every attention launch must take the
-tensor-core body (on phase 11 reading int8 codes, with every K/V write the
+On phases 5, 6, 7, 9, 10, 11, 12, 13 and 14 every attention launch must take
+the tensor-core body (on phase 11 reading int8 codes, with every K/V write the
 quantizing scatter), and phases 5 and 6 must keep one attention launch per
 call; on phase
-9 every attention launch must carry the block-causal options; on phase 8
-every SSD chunk launch must take the tensor-core body, and an offline es
+9 every attention launch must carry the block-causal options; on phases 8
+and 14 every SSD chunk launch must take the tensor-core body, and an offline es
 ``generate`` must keep its 1,584 of them (66 a layer).  Each path profile
 sums the device time of the port's kernels over its whole trace.
 
@@ -167,6 +184,8 @@ REPLACES = {
     # gemma3's head_dim 256 (the TPU kernels take any D % 128 == 0)
     "flash_attention_d256": "src/repro/kernels/flash_attention.py:146",
     "paged_flash_attention_d256": "src/repro/kernels/flash_attention.py:208",
+    # Jamba's SSD widths
+    "ssd_chunks_jamba": "src/repro/kernels/ssd_scan.py:70",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -184,6 +203,7 @@ SOURCES = {
     "fork_pages_scales": "src/repro_torch/kernels/csrc/scatter_kv.cu",
     "flash_attention_d256": "src/repro_torch/kernels/csrc/flash_tc.cuh",
     "paged_flash_attention_d256": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "ssd_chunks_jamba": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 # the serving path's shapes: 4 slots of prompt 128 + gen 64 tokens, blocks of
 # 32, partial refreshes of ceil(0.25 * (192 - 32)) = 40 tokens
@@ -1585,16 +1605,16 @@ def check_head_dim_256(ref, flash_attention, paged_flash_attention, gen):
 SSD_H, SSD_P, SSD_N, SSD_CHUNK = 32, 64, 128, 64
 
 
-def ssd_inputs(gen, b, l, g, dt_type):
+def ssd_inputs(gen, b, l, g, dt_type, h=SSD_H, p=SSD_P, n=SSD_N):
     """The chunk step's inputs as the mixer makes them: x [B, L, H, P],
     softplus dt f32, a_log f32, and B, C as strided views of one [B, L, 2GN]
     activation."""
-    x = (torch.randn(b, l, SSD_H, SSD_P, generator=gen, device="cuda") * 0.5).to(dt_type)
-    dt = F.softplus(torch.randn(b, l, SSD_H, generator=gen, device="cuda") - 1.0)
-    a_log = torch.randn(SSD_H, generator=gen, device="cuda") * 0.3
-    bc = (torch.randn(b, l, 2 * g * SSD_N, generator=gen, device="cuda") * 0.5).to(dt_type)
-    bm = bc[..., :g * SSD_N].reshape(b, l, g, SSD_N)
-    cm = bc[..., g * SSD_N:].reshape(b, l, g, SSD_N)
+    x = (torch.randn(b, l, h, p, generator=gen, device="cuda") * 0.5).to(dt_type)
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device="cuda") - 1.0)
+    a_log = torch.randn(h, generator=gen, device="cuda") * 0.3
+    bc = (torch.randn(b, l, 2 * g * n, generator=gen, device="cuda") * 0.5).to(dt_type)
+    bm = bc[..., :g * n].reshape(b, l, g, n)
+    cm = bc[..., g * n:].reshape(b, l, g, n)
     return x, dt, a_log, bm, cm
 
 
@@ -1688,6 +1708,68 @@ def check_ssd(ref, ops, ssd_chunks, gen):
             out.append(dict(kernel="ssd_chunks", case=label, dtype=str(dt_type),
                             max_abs_err=max(errs), errs=dict(zip(("y_intra", "contrib", "decay",
                                                                   "cs"), errs)),
+                            tol="1e-4 abs + 1e-4 rel (y_intra bf16: 1e-2)", ms=ms, wall_ms=wall,
+                            plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
+                            bytes_bound_ms=ssd_bytes_bound(*args, got), body=pl.body,
+                            heads_per_block=pl.heads_per_block, hb_ms=hb_ms))
+    return out
+
+
+# Jamba's mixer: 128 heads of 64, d_state 64, one B/C group; (label, B, L,
+# chunk, the planner's heads per block) at phase 14's served decode and
+# offline prefill
+JAMBA_SSD = (128, 64, 64)
+JAMBA_SSD_CASES = ((f"jamba decode [{SLOTS}, {BLOCK}] G=1", SLOTS, BLOCK, BLOCK, 2),
+                   (f"jamba prefill [2, {T_TOTAL}] G=1", 2, T_TOTAL, SSD_CHUNK, 4))
+
+
+def check_ssd_jamba(ref, ssd_chunks, gen):
+    """The SSD chunk kernel at Jamba's widths against ``ref.ssd_chunks`` on
+    all four outputs: bf16 on the tensor-core body with the planner's heads
+    per block (2 at the decode's 512 one-head blocks, 4 at the prefill's
+    768), f32 on the CUDA-core body; every heads-per-block choice timed on
+    the bf16 cases, each giving the planner's bits."""
+    from repro_torch.kernels.ssd_scan import HEADS_PER_BLOCK, plan
+
+    h, p, n = JAMBA_SSD
+    out = []
+    for dt_type in (torch.float32, torch.bfloat16):
+        for label, b, l, chunk, want_hb in JAMBA_SSD_CASES:
+            args = ssd_inputs(gen, b, l, 1, dt_type, h, p, n)
+            pl = plan(args[0], args[3], chunk, args[4])
+            body = "tensor_core" if dt_type == torch.bfloat16 else "cuda_core"
+            if pl.body != body or (body == "tensor_core" and pl.heads_per_block != want_hb):
+                raise AssertionError(f"ssd_chunks {label} {dt_type}: planned {pl}, not the "
+                                     f"{body} body at {want_hb} heads a block")
+            before = getattr(ssd_chunks, f"{body}_launches")
+            got = ssd_chunks(*args, chunk=chunk)
+            if getattr(ssd_chunks, f"{body}_launches") != before + 1:
+                raise AssertionError(f"ssd_chunks {label} {dt_type}: not launched on {body}")
+            want = ref.ssd_chunks(*args, chunk)
+            errs = []
+            for name, gt, wt in zip(("y_intra", "contrib", "decay", "cs"), got, want):
+                tol = 1e-2 if (name == "y_intra" and dt_type == torch.bfloat16) else 1e-4
+                diff = (gt.float() - wt.float()).abs()
+                if not (torch.isfinite(gt).all() and (diff <= tol + tol * wt.float().abs()).all()):
+                    raise AssertionError(f"ssd_chunks {label} {dt_type}: {name} max abs err "
+                                         f"{diff.max().item()} (tolerance {tol} abs + {tol} rel)")
+                errs.append(diff.max().item())
+            hb_ms = None
+            if body == "tensor_core":
+                hb_ms = {}
+                for hb in HEADS_PER_BLOCK:
+                    again = ssd_chunks(*args, chunk=chunk, heads_per_block=hb)
+                    if not all(torch.equal(a, c) for a, c in zip(again, got)):
+                        raise AssertionError(f"ssd_chunks {label}: {hb} heads a block gave "
+                                             f"other bits than {pl.heads_per_block}")
+                    hb_ms[hb], _ = device_ms(
+                        lambda: ssd_chunks(*args, chunk=chunk, heads_per_block=hb))
+            ms, wall = device_ms(lambda: ssd_chunks(*args, chunk=chunk))
+            plain_ms, _ = device_ms(lambda: ref.ssd_chunks(*args, chunk))
+            bms, by = ssd_bound(*args, got, chunk)
+            out.append(dict(kernel="ssd_chunks", row="ssd_chunks_jamba", case=label,
+                            dtype=str(dt_type), max_abs_err=max(errs),
+                            errs=dict(zip(("y_intra", "contrib", "decay", "cs"), errs)),
                             tol="1e-4 abs + 1e-4 rel (y_intra bf16: 1e-2)", ms=ms, wall_ms=wall,
                             plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by,
                             bytes_bound_ms=ssd_bytes_bound(*args, got), body=pl.body,
@@ -1846,14 +1928,18 @@ def cross_device_serving():
                 distinct_ids=len({int(t) for r in outs["cpu"][0] for t in r.output}))
 
 
-def reduced_models(arch: str, scale: float = 10.0, capacity_factor=None) -> dict:
-    """A reduced 4-layer model on the CPU, weight matrices x``scale`` (random
-    init repeats one id), and its copy on the card; an MoE arch at
+def reduced_models(arch: str, scale: float = 10.0, capacity_factor=None,
+                   n_layers=4) -> dict:
+    """A reduced model of ``n_layers`` layers (the reduced config's own
+    depth for None) on the CPU, weight matrices x``scale`` (random init
+    repeats one id), and its copy on the card; an MoE arch at
     ``capacity_factor`` where given."""
     from repro_torch import configs
     from repro_torch.models import Model
 
-    cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)), n_layers=4)
+    cfg = configs.reduced(configs.get_config(arch))
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if capacity_factor is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=capacity_factor))
@@ -1954,6 +2040,90 @@ def cross_device_archs(kernel_fns) -> dict:
             rec.update(served_tokens_equal=True, served_requests=len(prompts),
                        partial_refreshes=sched.engine.pass_counts["partial"])
         out[arch] = rec
+    return out
+
+
+# phase 4's and 14's hybrid
+JAMBA = "jamba-v0.1-52b"
+
+
+def cross_device_jamba() -> dict:
+    """Reduced Jamba (16 layers, two periods) in f32, the card's kernels
+    against the CPU's plain versions, at capacity factor 0.5 (picks drop)
+    and weights x2, as OLMoE's check: offline es tokens equal (the default
+    skip stages, on the group-1 boundary); a sampled paged trace of two
+    duplicate cohorts with prefix sharing (tokens equal, forks on both); and
+    preemption on one slot and a one-request pool (tokens equal, a spill on
+    both).  The share of routing picks dropped in the card's offline run is
+    reported."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+    from repro_torch.models import moe
+    from repro_torch.runtime import Request, StreamScheduler
+
+    models = reduced_models(JAMBA, 2.0, 0.5, n_layers=None)
+    cfg = models["cpu"].cfg
+    stages = configs.default_skip_stages(cfg.n_layers)
+    offline = configs.GenerationConfig(mode="es", gen_length=16, block_length=8,
+                                       skip_stages=stages)
+    prompt = torch.randint(3, cfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(SEED))
+    toks, kept = {}, []
+    routing = moe.routing
+
+    def recording(probs, m, cap):
+        r = routing(probs, m, cap)
+        kept.append(r.kept)
+        return r
+    for dev in ("cpu", "cuda"):
+        moe.routing = recording if dev == "cuda" else routing
+        try:
+            toks[dev] = make_engine(models[dev], offline, device=dev).generate(prompt).cpu()
+        finally:
+            moe.routing = routing
+    if not torch.equal(toks["cpu"], toks["cuda"]):
+        raise AssertionError(f"jamba: cross-device es tokens differ:\n{toks['cpu']}\n"
+                             f"{toks['cuda']}")
+    out = dict(layers=cfg.n_layers, weight_scale=2.0, capacity_factor=0.5,
+               es_tokens_equal=True, distinct_ids=len(torch.unique(toks["cpu"][:, 16:])),
+               dropped_share=(sum((~k).sum().item() for k in kept)
+                              / sum(k.numel() for k in kept)))
+    if not out["dropped_share"] > 0:
+        raise AssertionError("jamba: no routing pick dropped at capacity factor 0.5")
+    served = configs.GenerationConfig(skip_stages=stages, temperature=0.8, **SAMPLED_SERVE)
+    rng = np.random.default_rng(SEED)
+    a, b = (rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in (16, 12))
+    runs = {"sharing": (dict(max_slots=4, prefix_sharing=True), (a, a, b, b), (0, 0, 0, 0),
+                        (0, 0, 0, 0)),
+            "preemption": (dict(max_slots=1, kv_pages=5, preemption=True), (a, b), (0, 3),
+                           (0, 1))}
+    for name, (kw, prompts, arrivals, prios) in runs.items():
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            sched = StreamScheduler(models[dev], served, device=dev, prompt_len=16, paged=True,
+                                    page_size=8, early_advance=True, **kw)
+            reqs = [Request(prompt=p.copy(), priority=c, sample_seed=100 + i)
+                    for i, (p, c) in enumerate(zip(prompts, prios))]
+            step = 0
+            while step <= max(arrivals) or sched.has_work():
+                for at, r in zip(arrivals, reqs):
+                    if at == step:
+                        sched.submit(r)
+                sched.step()
+                step += 1
+            check_drained(sched, reqs, served.gen_length)
+            outs[dev] = ([r.output for r in reqs], sched.stats)
+            if (sched.stats.cow_forks if name == "sharing" else sched.stats.preemptions) < 1:
+                raise AssertionError(f"jamba {name} on {dev}: {sched.stats.gauges()}")
+        for i, (x, y) in enumerate(zip(outs["cpu"][0], outs["cuda"][0])):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"jamba {name}, request {i}: card {y}, CPU {x}")
+        st = outs["cuda"][1]
+        out[name] = dict(requests=len(prompts), tokens_equal=True, cow_forks=st.cow_forks,
+                         preemptions=st.preemptions, pages_spilled=st.pages_spilled,
+                         distinct_ids=len({int(t) for o in outs["cuda"][0] for t in o}))
     return out
 
 
@@ -3296,13 +3466,21 @@ DREAM_PROMPTS = dict(A=128, B=96, C=64, D=128, E=32, F=100)
 DREAM_PREEMPT_PAGES = 45
 
 
+# phase 7's depth: Dream-7B's 28 layers cut to 14, and 13a's and 13b's
+# (olmoe-1b-7b 16 to 8, gemma3-1b 26 to 13), so that the script's phases
+# with phase 14 stay within 790 s (PERF.md §4)
+DEPTH_7 = 14
+DEPTH_13A = 8
+DEPTH_13B = 13
+
+
 def dream_7b():
-    """Dream-7B at full width in bf16, random weights from a seeded
-    generator on the card."""
+    """Dream-7B at full width in bf16, ``DEPTH_7`` layers deep, random
+    weights from a seeded generator on the card."""
     from repro_torch import configs
     from repro_torch.models import Model
 
-    cfg = dataclasses.replace(configs.get_config("dream-7b"),
+    cfg = dataclasses.replace(configs.get_config("dream-7b"), n_layers=DEPTH_7,
                               param_dtype="bfloat16", compute_dtype="bfloat16")
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -3617,11 +3795,14 @@ def full_width(arch: str, n_layers=None):
 
 def arch_gen_config(cfg, served: bool):
     """Phase 5's offline cadence or phase 6's served one, with the arch's
-    default skip stages."""
+    default skip stages; served without the adaptive cache on a stack with
+    SSM layers, where the reference refuses it."""
     from repro_torch import configs
 
     kw = (dict(prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2)
           if served else dict(prompt_refresh_period=32, block_refresh_period=4))
+    if cfg.ssm is not None:
+        kw.pop("cache_prompt_interval", None)
     return configs.GenerationConfig(mode="es", gen_length=GEN, block_length=BLOCK,
                                     skip_stages=configs.default_skip_stages(cfg.n_layers), **kw)
 
@@ -3742,16 +3923,16 @@ def moe_attribution(prof) -> dict:
     return out
 
 
-def arch_served(model, kernel_fns, prompt_len: int, lens, profile=None) -> dict:
+def arch_served(model, kernel_fns, prompt_len: int, lens, profile=None,
+                repeat: bool = False) -> dict:
     """Phase 6's served trace (4 slots, pages of 16, early advance, prompt
-    refreshes every 8 with the adaptive cache, 8 requests one every 5
-    steps) at ``prompt_len`` with prompts of ``lens``, after a one-request
-    warm-up.  With ``profile = (a, b)`` a second run profiles steps [a, b)
-    with CPU and CUDA activity, each ``moe_apply`` in a ``chip_smoke.moe``
-    range (``moe_attribution``), and stops there."""
+    refreshes every 8 with the adaptive cache where the arch takes it, 8
+    requests one every 5 steps) at ``prompt_len`` with prompts of ``lens``,
+    after a one-request warm-up.  With ``repeat`` a second run must give
+    the same tokens.  With ``profile = (a, b)`` a further run profiles steps
+    [a, b) with CPU and CUDA activity (``MoEProfiled``) and stops there."""
     import numpy as np
 
-    from repro_torch.models import model as model_mod
     from repro_torch.runtime import Request, StreamScheduler
 
     cfg = model.cfg
@@ -3776,10 +3957,14 @@ def arch_served(model, kernel_fns, prompt_len: int, lens, profile=None) -> dict:
     for r, n in zip(reqs, SERVE_MAX_NEW):
         if r.output.shape != (n,):
             raise AssertionError(f"{cfg.name}: request {r.request_id} output {r.output.shape}")
-    for name in ("paged_flash_attention", "scatter_rows_paged", "variation", "importance"):
+    for name in ("paged_flash_attention", "scatter_rows_paged", "importance") + (
+            ("variation",) if gen_cfg.adaptive_cache else ()) + (
+            ("ssd_chunks",) if model.ssm else ()):
         if launches[name] <= 0:
             raise AssertionError(f"{cfg.name}: kernel {name} was not launched served")
-    check_tensor_core_path(launches, f"phase 13 {cfg.name} served")
+    check_tensor_core_path(launches, f"{cfg.name} served")
+    if model.ssm:
+        check_ssd_tensor_core_path(launches, f"{cfg.name} served")
     st = sched.stats
     rec = dict(arch=cfg.name, prompt_len=prompt_len, prompt_lens=list(lens),
                max_new_tokens=list(SERVE_MAX_NEW), steps=st.steps, wall_s=wall,
@@ -3789,57 +3974,83 @@ def arch_served(model, kernel_fns, prompt_len: int, lens, profile=None) -> dict:
                option_launches={str(k): n for k, n in kernel_fns[
                    "paged_flash_attention"].option_launches.items()},
                distinct_ids=len({int(t) for r in reqs for t in r.output}))
+    if repeat:
+        again = serve_trace(make(), prompts, SERVE_MAX_NEW, every=5)
+        if not all(np.array_equal(a.output, b.output) for a, b in zip(again, reqs)):
+            raise AssertionError(f"{cfg.name}: a repeated served trace gave other tokens")
+        rec["repeat_equal"] = True
     if profile is None:
         return rec
-    moe_apply = model_mod.moe_apply
-
-    def ranged(*args):
-        with torch.profiler.record_function("chip_smoke.moe"):
-            return moe_apply(*args)
     sched = make()
     trace = [Request(prompt=p.copy(), max_new_tokens=m) for p, m in zip(prompts, SERVE_MAX_NEW)]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for step in range(profile[1]):
         if step % 5 == 0 and step // 5 < len(trace):
             sched.submit(trace[step // 5])
         if step == profile[0]:
-            torch.cuda.synchronize()
-            model_mod.moe_apply = ranged
-            prof = torch.profiler.profile(activities=acts)
-            prof.__enter__()
-            t0 = time.perf_counter()
+            window = MoEProfiled().__enter__()
         sched.step()
-    torch.cuda.synchronize()
-    window_ms = (time.perf_counter() - t0) * 1e3
-    prof.__exit__(None, None, None)
-    model_mod.moe_apply = moe_apply
-    att = moe_attribution(prof)
-    cuda = torch.autograd.DeviceType.CUDA
-    port: dict = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda and "repro_torch" in e.name():
-            key = e.name().replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
-            key = key.split("<")[0]
-            port[key] = port.get(key, 0.0) + e.duration_ns() / 1e6
-    att.update(steps=list(profile), window_wall_ms=window_ms,
-               flash_tc_kernel_ms=port.get("flash_tc_kernel", 0.0),
-               scatter_rows_kernel_ms=port.get("scatter_rows_kernel", 0.0), port_kernels_ms=port)
-    rec["profile"] = att
+    window.__exit__(None, None, None)
+    rec["profile"] = dict(window.result, steps=list(profile))
     return rec
 
 
+class MoEProfiled:
+    """CPU and CUDA activity over whatever runs between enter and exit, each
+    ``moe_apply`` in a ``chip_smoke.moe`` range; ``result`` holds
+    :func:`moe_attribution`, the window's wall ms and the device ms of each
+    of the port's kernels (by symbol) after the exit."""
+
+    def __enter__(self):
+        from repro_torch.models import model as model_mod
+
+        self.mod, self.orig = model_mod, model_mod.moe_apply
+
+        def ranged(*args):
+            with torch.profiler.record_function("chip_smoke.moe"):
+                return self.orig(*args)
+        torch.cuda.synchronize()
+        model_mod.moe_apply = ranged
+        self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                       torch.profiler.ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(*exc)
+        self.mod.moe_apply = self.orig
+        if exc[0] is not None:
+            return
+        att = moe_attribution(self.prof)
+        cuda = torch.autograd.DeviceType.CUDA
+        port: dict = {}
+        for e in self.prof.profiler.kineto_results.events():
+            if e.device_type() == cuda and "repro_torch" in e.name():
+                key = e.name().replace("(anonymous namespace)::", "").split("(")[0]
+                key = key.split("::")[-1].split("<")[0]
+                port[key] = port.get(key, 0.0) + e.duration_ns() / 1e6
+        att.update(window_wall_ms=window_ms,
+                   flash_tc_kernel_ms=port.get("flash_tc_kernel", 0.0),
+                   scatter_rows_kernel_ms=port.get("scatter_rows_kernel", 0.0),
+                   port_kernels_ms=port)
+        self.result = att
+
+
 def phase13(kernel_fns) -> dict:
-    """13a olmoe-1b-7b, 13b gemma3-1b: offline es and served, full width and
-    depth; 13c one offline es each of ``ARCHS_13C`` at depth ``DEPTH_13C``."""
+    """13a olmoe-1b-7b, 13b gemma3-1b: offline es and served, full width,
+    depths ``DEPTH_13A`` and ``DEPTH_13B``; 13c one offline es each of
+    ``ARCHS_13C`` at depth ``DEPTH_13C``."""
     out = {}
-    model, init_s = full_width("olmoe-1b-7b")
+    model, init_s = full_width("olmoe-1b-7b", DEPTH_13A)
     out["13a"] = dict(init_s=init_s, offline=arch_offline(model, kernel_fns),
                       drops=moe_drop_share(model),
                       served=arch_served(model, kernel_fns, PROMPT, LENS_13A,
                                          profile=PROFILE_13A))
     del model
     torch.cuda.empty_cache()
-    model, init_s = full_width("gemma3-1b")
+    model, init_s = full_width("gemma3-1b", DEPTH_13B)
     cfg = model.cfg
     n_local = sum(not cfg.layer_is_global_attn(l) for l in range(cfg.n_layers))
     rec = dict(init_s=init_s, local_layers=n_local,
@@ -3861,6 +4072,155 @@ def phase13(kernel_fns) -> dict:
                                                offline=arch_offline(model, kernel_fns))
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the Jamba hybrid at full width
+# ---------------------------------------------------------------------------
+# 14's depth: two of Jamba's four periods of 8.  In bf16 all 32 layers take
+# 102.9 GB, three periods 77.5 GB (no room for caches and activations on an
+# 80 GB card), two 52.0 GB (PERF.md §4)
+DEPTH_14 = 16
+
+
+def jamba_offline(model, kernel_fns) -> dict:
+    """14a: offline es at phase 5's shape after a warm-up call, three timed
+    ``generate`` calls (equal tokens) with the launches of the first, one
+    dualcache ``generate`` after its own warm-up, a ``generate`` profiled on
+    the card alone (busy share) and one with CPU activity too
+    (``MoEProfiled``), split into kernels 1, 3, 6 and 8, the MoE FFN and
+    the rest.  Every attention and SSD launch on the tensor-core body."""
+    from repro_torch.core import make_engine
+
+    cfg = model.cfg
+    gen_cfg = arch_gen_config(cfg, served=False)
+    prompt = torch.randint(3, cfg.vocab_size, (2, PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    engine = make_engine(model, gen_cfg, device="cuda")
+    engine.generate(prompt)                       # warm-up
+    torch.cuda.synchronize()
+    walls, outs = [], []
+    for i in range(3):
+        zero_counts(kernel_fns)
+        t0 = time.perf_counter()
+        outs.append(engine.generate(prompt))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = counts(kernel_fns)
+    if not all(torch.equal(o, outs[0]) for o in outs):
+        raise AssertionError("jamba: a repeated greedy generate gave other tokens")
+    gen_tok = outs[0][:, PROMPT:]
+    if (gen_tok == engine.mask_id).any().item() or not (
+            (gen_tok >= 0) & (gen_tok < cfg.vocab_size)).all().item():
+        raise AssertionError("jamba: a [mask] id or an id outside the vocabulary")
+    for name in ("flash_attention", "scatter_rows", "importance", "ssd_chunks"):
+        if launches[name] <= 0:
+            raise AssertionError(f"jamba: kernel {name} was not launched offline")
+    check_tensor_core_path(launches, "phase 14a es")
+    check_ssd_tensor_core_path(launches, "phase 14a es")
+    dual = make_engine(model, dataclasses.replace(gen_cfg, mode="dualcache", skip_stages=()),
+                       device="cuda")
+    dual.generate(prompt)
+    torch.cuda.synchronize()
+    zero_counts(kernel_fns)
+    t0 = time.perf_counter()
+    dual_out = dual.generate(prompt)
+    torch.cuda.synchronize()
+    dual_wall = time.perf_counter() - t0
+    dual_launches = counts(kernel_fns)
+    check_tensor_core_path(dual_launches, "phase 14a dualcache")
+    check_ssd_tensor_core_path(dual_launches, "phase 14a dualcache")
+    profile = profile_run(lambda: engine.generate(prompt))
+    with MoEProfiled() as window:
+        engine.generate(prompt)
+    att = window.result
+    port = att["port_kernels_ms"]
+    split = {"1 flash_tc_kernel": port.get("flash_tc_kernel", 0.0),
+             "3 scatter_rows_kernel": port.get("scatter_rows_kernel", 0.0),
+             "6 score_kernel": port.get("score_kernel", 0.0),
+             "8 ssd_tc_kernel": port.get("ssd_tc_kernel", 0.0),
+             "moe_ffn": att["moe_ms"]}
+    split["rest"] = att["all_ms"] - sum(split.values())
+    return dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                attn_layers=model.attn_layers, weights_gb=sum(nbytes(p) for p in
+                                                              model.parameters()) / 1e9,
+                segments=[dataclasses.asdict(sg) for sg in engine.segments],
+                batch=2, prompt_len=PROMPT, gen_length=GEN, block_length=BLOCK,
+                iterations=engine.iterations, wall_s=walls[0], wall_s_repeats=walls,
+                tokens_per_s=2 * GEN / walls[0], tokens_per_s_best=2 * GEN / min(walls),
+                distinct_ids=len(torch.unique(gen_tok)), launches=launches,
+                dualcache=dict(wall_s=dual_wall, tokens_per_s=2 * GEN / dual_wall,
+                               iterations=dual.iterations, launches=dual_launches,
+                               tokens_equal_es=float((dual_out == outs[0]).float().mean())),
+                profile=profile, device_ms_split=split, moe_window=att)
+
+
+def jamba_sampled(model, kernel_fns) -> dict:
+    """14c: phase 7's request plan (two duplicate-prompt cohorts, then two
+    priority classes) sampled at temperature 0.2 and top-p 0.95 on the paged
+    pool with early advance, once with prefix sharing (the fork must run)
+    and once with preemption on phase 7b's tight pool (a spill and a
+    resume).  MoE rows share routing groups, so the two runs' tokens are
+    compared, not required equal."""
+    import numpy as np
+
+    from repro_torch.runtime import StreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = dataclasses.replace(arch_gen_config(cfg, served=True), temperature=0.2,
+                                  top_p=0.95)
+    rng = np.random.default_rng(SEED)
+    prompts = {k: rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+               for k, n in DREAM_PROMPTS.items()}
+    out, outputs = {}, {}
+    for name, kw in (("sharing", dict(prefix_sharing=True)),
+                     ("preemption", dict(preemption=True, kv_pages=DREAM_PREEMPT_PAGES))):
+        sched = StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
+                                prompt_len=PROMPT, paged=True, page_size=16, early_advance=True,
+                                **kw)
+        zero_counts(kernel_fns)
+        t0 = time.perf_counter()
+        reqs, peak_shared = dream_trace(sched, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_drained(sched, reqs, GEN)
+        launches = counts(kernel_fns)
+        check_tensor_core_path(launches, f"phase 14c {name}")
+        check_ssd_tensor_core_path(launches, f"phase 14c {name}")
+        st = sched.stats
+        outputs[name] = [r.output for r in reqs]
+        out[name] = dict(options={k: v for k, v in kw.items()}, steps=st.steps, wall_s=wall,
+                         tokens_per_s=len(reqs) * GEN / wall, ms_per_step=wall / st.steps * 1e3,
+                         latency_p50_s=st.latency_pct(50), latency_p95_s=st.latency_pct(95),
+                         cow_forks=st.cow_forks, peak_shared_mappings=peak_shared,
+                         preemptions=st.preemptions, pages_spilled=st.pages_spilled,
+                         resumes=len(st.resume_waits), pages_total=st.pages_total,
+                         peak_pages_in_use=st.peak_pages_in_use, launches=launches)
+    if out["sharing"]["cow_forks"] <= 0 or out["sharing"]["launches"]["fork_pages"] < 1:
+        raise AssertionError(f"14c: no copy-on-write fork on the path: {out['sharing']}")
+    if out["preemption"]["preemptions"] < 1 or out["preemption"]["resumes"] < 1:
+        raise AssertionError(f"14c: no preemption and resume: {out['preemption']}")
+    same = [np.array_equal(x, y) for x, y in zip(outputs["sharing"], outputs["preemption"])]
+    out["tokens_equal_share"] = sum(same) / len(same)
+    return out
+
+
+def phase14(kernel_fns) -> dict:
+    """jamba-v0.1-52b at full width, ``DEPTH_14`` layers: 14a offline, the
+    MoE drop share, 14b served (twice), 14c sampled sharing and
+    preemption; the card's memory before the model and at its peak."""
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = full_width(JAMBA, DEPTH_14)
+    out = dict(init_s=init_s, allocated_before_gb=before_gb,
+               offline=jamba_offline(model, kernel_fns), drops=moe_drop_share(model),
+               served=arch_served(model, kernel_fns, PROMPT, LENS_13A, repeat=True),
+               sampled=jamba_sampled(model, kernel_fns))
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3993,6 +4353,7 @@ def main() -> int:
     cases += check_variation(ref, variation, gen)
     cases += check_fork(ref, fork_pages, gen)
     cases += check_ssd(ref, ops, ssd_chunks, gen)
+    cases += check_ssd_jamba(ref, ssd_chunks, gen)
     cases += check_flash_int8(ref, flash_attention, gen)
     cases += check_paged_flash_int8(ref, paged_flash_attention, gen)
     cases += check_quant_scatter(ref, ops, gen)
@@ -4078,6 +4439,8 @@ def main() -> int:
     print(f"cross-device int8 cache and gather_refresh: {json.dumps(cross_int8)}")
     cross_archs = cross_device_archs(kernel_fns)
     print(f"cross-device MoE and dense archs: {json.dumps(cross_archs)}")
+    cross_jamba = cross_device_jamba()
+    print(f"cross-device jamba: {json.dumps(cross_jamba)}")
     lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
@@ -4203,6 +4566,31 @@ def main() -> int:
               f"{r['tokens_per_s']:.1f} tok/s; launches "
               f"{json.dumps({k: v for k, v in r['launches'].items() if v})}")
     lap("13")
+
+    # phase 14: jamba-v0.1-52b at full width, two of its four periods
+    jamba = phase14(kernel_fns)
+    r = jamba["offline"]
+    print(f"phase 14a: {json.dumps(r)}")
+    print(f"phase 14a {r['arch']} ({r['layers']} layers, {r['weights_gb']:.2f} GB): es "
+          f"{json.dumps(r['wall_s_repeats'])} s a generate, {r['tokens_per_s']:.1f} tok/s; "
+          f"dualcache {r['dualcache']['wall_s']:.2f} s; busy {r['profile']['device_busy_ms']:.1f}"
+          f" ms ({r['profile']['device_busy_share']:.3f}); device ms "
+          f"{json.dumps(r['device_ms_split'])}; launches "
+          f"{json.dumps({k: v for k, v in r['launches'].items() if v})}")
+    print(f"phase 14 drops at capacity: {json.dumps(jamba['drops'])}")
+    r = jamba["served"]
+    print(f"phase 14b: {json.dumps(r)}")
+    print(f"phase 14b: {r['steps']} steps at {r['ms_per_step']:.1f} ms, "
+          f"{r['tokens_per_s']:.1f} tok/s, p50/p95 {r['latency_p50_s']:.2f}/"
+          f"{r['latency_p95_s']:.2f} s, repeat equal {r['repeat_equal']}")
+    for name in ("sharing", "preemption"):
+        r = jamba["sampled"][name]
+        print(f"phase 14c {name}: {json.dumps(r)}")
+        print(f"phase 14c {name}: {r['steps']} steps at {r['ms_per_step']:.1f} ms, cow_forks "
+              f"{r['cow_forks']}, preemptions {r['preemptions']}, resumes {r['resumes']}")
+    print(f"phase 14: init {jamba['init_s']:.1f} s, allocated before "
+          f"{jamba['allocated_before_gb']:.2f} GB, peak memory {jamba['peak_mem_gb']:.2f} GB")
+    lap("14")
     print(f"phase seconds: {json.dumps(phase_s)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
@@ -4228,7 +4616,9 @@ def main() -> int:
                 "flash_attention_d256": (f"gemma3 dense Lq=32 Lkv={GEMMA_T} "
                                          f"window={GEMMA_WINDOW}", torch.bfloat16),
                 "paged_flash_attention_d256": (f"gemma3 paged Lq=32 Lkv={GEMMA_T} ps=16 "
-                                               f"window={GEMMA_WINDOW}", torch.bfloat16)}
+                                               f"window={GEMMA_WINDOW}", torch.bfloat16),
+                # Jamba's SSD widths (phase 14)
+                "ssd_chunks_jamba": (JAMBA_SSD_CASES[0][0], torch.bfloat16)}
     # the int8 rows' launches: phase 11's runs
     offline8 = int8_runs["11a"]["runs"]["int8"]["launches"]
     int8_launches = {
@@ -4242,9 +4632,13 @@ def main() -> int:
         "flash_attention_d256": arch_runs["13b"]["offline"]["launches"]["flash_attention"],
         "paged_flash_attention_d256":
             arch_runs["13b"]["served"]["launches"]["paged_flash_attention"]}
+    def case_row(x) -> str:
+        """The kernels line's row a phase-3 case belongs to."""
+        return x.get("row") or (x["kernel"] + "_d256" if x.get("head_dim") == 256
+                                else x["kernel"])
     kernels = []
     for name, (case, dt) in headline.items():
-        kernel = name.removesuffix("_d256")
+        kernel = name.removesuffix("_d256").removesuffix("_jamba")
         c = next(c for c in cases if c["kernel"] == kernel and c["case"] == case
                  and c["dtype"] == str(dt))
         if name in d256_launches:
@@ -4255,13 +4649,14 @@ def main() -> int:
             launches = sampled["runs"]["7a"]["launches"][name]
         elif name == "ssd_chunks":                  # the offline es run of phase 8
             launches = mamba_runs["es"]["launches"][name]
+        elif name == "ssd_chunks_jamba":            # the offline es run of phase 14a
+            launches = jamba["offline"]["launches"]["ssd_chunks"]
         else:
             launches = (serving if serving["launches"][name] else run)["launches"][name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches,
-            max_abs_err=max(x["max_abs_err"] for x in cases if x["kernel"] == kernel
-                            and (x.get("head_dim") == 256) == (name != kernel)),
+            max_abs_err=max(x["max_abs_err"] for x in cases if case_row(x) == name),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=c["library_ms"]))
     out_dir = ROOT / "build"
@@ -4279,7 +4674,7 @@ def main() -> int:
              int8_paths=int8_runs, runtime_paths=runtime_runs,
              offline_path=run, serving_path=serving, block_causal_window=bc_runs,
              sparse_lazy=sparse_runs, cross_device_archs=cross_archs, archs=arch_runs,
-             scatter_d256=scatter256,
+             scatter_d256=scatter256, cross_device_jamba=cross_jamba, jamba=jamba,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

@@ -1,6 +1,6 @@
 """Architecture config registry of the port: the two paper models, Mamba-2,
-the MoE models (OLMoE, Granite-MoE) and the dense decoders Gemma-3, Llama-3,
-Qwen2 and ChatGLM3.
+the MoE models (OLMoE, Granite-MoE), the dense decoders Gemma-3, Llama-3,
+Qwen2 and ChatGLM3, and the Jamba hybrid.
 
 ``get_config(arch_id)`` returns the published configuration; ``reduced(cfg)``
 returns the same small variant the reference package's ``reduced`` builds, so
@@ -15,6 +15,7 @@ from repro_torch.configs import (  # noqa: F401  (registers)
     dream_7b,
     gemma3_1b,
     granite_moe_1b_a400m,
+    jamba_v0_1_52b,
     llada_8b,
     llama3_8b,
     mamba2_370m,

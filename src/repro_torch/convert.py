@@ -1,15 +1,16 @@
 """Reference parameter tree (as numpy arrays) -> the port's parameters.
 
 The reference stores ``embed [Vp, d]``, ``final_norm [d]``, ``lm_head [d, Vp]``
-(absent with tied embeddings) and the layers stacked over groups under
-``layers["0"]``: ``ln1``, ``attn{wq, wk, wv, wo[, bq, bk, bv]}``, ``ln2`` and
-``ffn{w_gate, w_up, w_down}`` (an MoE layer's ``ffn{router, w_gate, w_up,
-w_down}``, the experts stacked on the axis after ``[G]``), or for an SSM
-stack ``ln1`` and
-``mixer{z_proj, x_proj, bc_proj, dt_proj, conv_*, a_log, dt_bias, d_skip,
-norm_scale, out_proj}``, each with a leading ``[G]`` axis and laid out for
-``x @ W``.  The port keeps that layout per layer, so conversion is an
-unstacking; no weight is transposed.
+(absent with tied embeddings) and the layers stacked over groups: pattern
+position j of a period-P stack under ``layers[str(j)]``, each leaf with a
+leading ``[G]`` axis (``G = n_layers / P``), holding ``ln1`` and
+``attn{wq, wk, wv, wo[, bq, bk, bv]}`` or ``mixer{z_proj, x_proj, bc_proj,
+dt_proj, conv_*, a_log, dt_bias, d_skip, norm_scale, out_proj}``, and, but on
+a pure SSM stack, ``ln2`` and ``ffn{w_gate, w_up, w_down}`` (an MoE layer's
+``ffn{router, w_gate, w_up, w_down}``, the experts stacked on the axis after
+``[G]``), all laid out for ``x @ W``.  Leaf ``[g]`` of position j is the
+port's layer ``g*P + j``; the port keeps the layout per layer, so conversion
+is an unstacking and no weight is transposed.
 """
 from __future__ import annotations
 
@@ -33,8 +34,10 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     Arrays are cast to ``cfg.param_dtype``, but the f32 leaves."""
     dev = resolve_device(device)
     dtype = DTYPES[cfg.param_dtype]
-    if set(tree["layers"]) != {"0"}:
-        raise NotImplementedError("params_from_numpy: period-1 stacks only")
+    period = cfg.pattern_period
+    if set(tree["layers"]) != {str(j) for j in range(period)}:
+        raise ValueError(f"params_from_numpy: layers {sorted(tree['layers'])} for a period "
+                         f"of {period}")
 
     def t(a, dt=dtype) -> torch.Tensor:
         return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
@@ -42,16 +45,14 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     out = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"])}
     if not cfg.tie_embeddings:
         out["lm_head"] = t(tree["lm_head"])
-    stack = tree["layers"]["0"]
-    for g in range(cfg.n_layers):
-        out[f"layers.{g}.ln1"] = t(stack["ln1"][g])
-        if "mixer" in stack:
-            for name, a in stack["mixer"].items():
-                out[f"layers.{g}.mixer.{name}"] = t(a[g], F32_LEAVES.get(name, dtype))
-            continue
-        out[f"layers.{g}.ln2"] = t(stack["ln2"][g])
-        for name, a in stack["attn"].items():
-            out[f"layers.{g}.attn.{name}"] = t(a[g])
-        for name, a in stack["ffn"].items():
-            out[f"layers.{g}.ffn.{name}"] = t(a[g], F32_LEAVES.get(name, dtype))
+    for j in range(period):
+        stack = tree["layers"][str(j)]
+        for g in range(cfg.n_layers // period):
+            pre = f"layers.{g * period + j}"
+            for name in ("ln1", "ln2"):
+                if name in stack:
+                    out[f"{pre}.{name}"] = t(stack[name][g])
+            for part in ("attn", "mixer", "ffn"):
+                for name, a in stack.get(part, {}).items():
+                    out[f"{pre}.{part}.{name}"] = t(a[g], F32_LEAVES.get(name, dtype))
     return out

@@ -16,13 +16,16 @@ every position is unmasked.
 Where the reference traces a ``lax.while_loop`` over iterations with a
 ``lax.switch`` over the branches, the port runs a Python loop whose exit
 check reads one host scalar per iteration, and branches in Python on the
-phase.  The KV cache planes are updated in place by the scatter kernel; an
-SSM stack's caches (state, conv tail, block buffer) are written in place too.
+phase.  The KV cache planes are updated in place by the scatter kernel; the
+SSM layers' caches (state, conv tail, block buffer) are written in place too.
+Segments are ranges of layer groups (``core.schedule.resolve_segments``), so
+a hybrid's skip stages land on its period boundaries, as in the reference.
 
-Paged KV (``paged=True``): the K/V caches are one pool ``[G, P, ps, Hkv,
-Dh]`` shared by every slot and addressed through a per-slot block table
+Paged KV (``paged=True``): the K/V caches are one pool ``[n_attn, P, ps,
+Hkv, Dh]`` shared by every slot and addressed through a per-slot block table
 (-1 = unmapped; page 0 is the garbage page).  Offline ``generate`` uses an
-identity table, so dense and paged greedy tokens agree.
+identity table, so dense and paged greedy tokens agree.  The SSM layers'
+caches stay per slot (a pure SSM stack's pool has no plane at all).
 
 Adaptive feature cache (``cache_prompt_interval > 1``): between full prompt
 refreshes, a partial refresh (branch 3) runs the shallow probe groups over
@@ -66,7 +69,8 @@ only shrinks it outside the current block.  Evicted rows read as ``kv_pos
 Page operations for the scheduler (paged serving): ``fork_pages`` (the
 copy-on-write copy behind prefix sharing, a hand-written kernel on the
 card), ``spill_pages``/``restore_pages`` (preemption) and ``scrub_pages``
-(quarantine), all in place on every pool plane: K, V and, int8, the scales.
+(quarantine), all in place on every pool plane: K, V and, int8, the scales;
+the SSM caches are per slot and no page operation touches them.
 
 The int8 KV cache (``kv_cache_dtype="int8"``): K/V rows stored as int8
 codes with f32 per-(token, head) scales, quantized by the scatter kernel and
@@ -77,8 +81,9 @@ half the slots take a prompt refresh in a step, the refreshing rows are
 gathered into a half-width prefill (``_compact_prefill``); the batch-free
 pool takes their writes in place through their gathered block tables.
 
-The beyond-paper features outside the port so far raise
-``NotImplementedError`` (see ROADMAP.md).
+On a stack with SSM layers the engine refuses what the reference's
+refuses: the adaptive cache, ``gather_refresh`` and sparse attention
+(``ValueError``).
 """
 from __future__ import annotations
 
@@ -108,7 +113,13 @@ from repro_torch.kernels import ops
 from repro_torch.models.attention import KVCache, QuantKVCache
 from repro_torch.models.common import apply_rope, rms_norm, row_gather, row_scatter
 from repro_torch.models.mamba import SSMCache
-from repro_torch.models.model import ForwardCtx, Model
+from repro_torch.models.model import (
+    ForwardCtx,
+    HybridCache,
+    Model,
+    cache_planes,
+    split_cache,
+)
 
 MODES = ("vanilla", "dualcache", "es")
 NEG_INF = -1e30
@@ -119,9 +130,10 @@ KV_DTYPES = (None, "int8")
 
 class BlockState(NamedTuple):
     tokens: torch.Tensor             # [B, T] int32
-    cache: Optional[KVCache | QuantKVCache | SSMCache]   # K/V planes or pools (int8:
-                                          # with scales), or the SSM caches
-                                          # (None for vanilla)
+    cache: Optional[KVCache | QuantKVCache | SSMCache | HybridCache]
+                                     # K/V planes or pools (int8: with
+                                     # scales) and the SSM caches (None for
+                                     # vanilla)
     conf: torch.Tensor               # [B, Lb] f32 confidence cache
     pred: torch.Tensor               # [B, Lb] int32 predicted-token cache
     hidden: tuple                    # per skip stage: [B, Lb, d] f32 indicator cache
@@ -137,7 +149,7 @@ class EngineState(NamedTuple):
     """Slot-addressable serving state: the block caches plus per-slot
     progress, every per-request quantity a ``[B]`` tensor."""
     tokens: torch.Tensor             # [B, T] int32
-    cache: Optional[KVCache | QuantKVCache | SSMCache]
+    cache: Optional[KVCache | QuantKVCache | SSMCache | HybridCache]
     conf: torch.Tensor               # [B, Lb]
     pred: torch.Tensor               # [B, Lb]
     hidden: tuple
@@ -184,8 +196,9 @@ class DiffusionEngine:
         if kv_cache_dtype not in KV_DTYPES:
             raise ValueError(f"kv_cache_dtype={kv_cache_dtype!r}: one of {KV_DTYPES}")
         if gather_refresh and model.ssm:
-            raise ValueError("gather_refresh: attention-only archs (an SSM stack's caches "
-                             "are batch-major and would need a second gather/scatter path)")
+            raise ValueError("gather_refresh: attention-only archs (SSM caches are batch-major "
+                             "and would need a second gather/scatter path); the reference "
+                             "refuses it too")
         if gather_refresh and not paged:
             raise ValueError("gather_refresh compaction needs the paged KV pool (batch-free "
                              "pool planes make row gathering transparent)")
@@ -197,11 +210,14 @@ class DiffusionEngine:
             raise ValueError("gen_length must be a multiple of block_length")
         if paged and (gen.mode == "vanilla" or page_size <= 0):
             raise ValueError("paged KV needs a cached engine mode and page_size > 0")
-        if model.ssm and (paged or gen.adaptive_cache or gen.sparse_attention):
-            what = ("paged KV" if paged else "the adaptive feature cache" if gen.adaptive_cache
-                    else "sparse attention (its probe scores a K cache)")
-            raise NotImplementedError(
-                f"{what} on an SSM stack is outside the port so far (ROADMAP.md open items)")
+        if model.ssm and gen.adaptive_cache:
+            raise ValueError("the adaptive feature cache needs an attention-only period-1 "
+                             "stack (its partial refresh cannot rejoin SSM layers); the "
+                             "reference refuses it too")
+        if model.ssm and gen.sparse_attention:
+            raise ValueError("sparse attention on a stack with SSM layers: its probe scores "
+                             "layer group 0's K cache; the reference refuses a period other "
+                             "than 1 and fails on a pure SSM stack too")
         self.model = model
         self.cfg = model.cfg
         self.gen = gen
@@ -223,7 +239,7 @@ class DiffusionEngine:
             self.segments = [Segment(0, model.n_groups, None, None)]
         self.n_stages = sum(1 for s in self.segments if s.keep_k is not None)
         self.sparse = gen.sparse_attention
-        if self.sparse and (self.cfg.pattern_period != 1 or self.n_stages == 0):
+        if self.sparse and (model.period != 1 or self.n_stages == 0):
             raise ValueError("sparse attention needs a period-1 stack and a skip stage as its "
                              "indicator probe; use a zero-ratio stage (SkipStage(l, 0.0)) "
                              "for sparse-only mode")
@@ -374,18 +390,18 @@ class DiffusionEngine:
     # ------------------------------------------------------------------
     # per-block loop
     # ------------------------------------------------------------------
-    def _init_cache(self, b: int, t_total: int) -> Optional[KVCache | QuantKVCache | SSMCache]:
+    def _init_cache(self, b: int, t_total: int):
         if self.gen.mode == "vanilla":
             return None
+        kw = {}
         if self.paged:
             if t_total % self.page_size:
                 raise ValueError(f"page_size {self.page_size} must divide the sequence "
                                  f"{t_total}")
-            kv_pages = self.kv_pages or b * (t_total // self.page_size) + 1
-            return self.model.init_cache(b, t_total, kv_pages=kv_pages,
-                                         page_size=self.page_size, kv_dtype=self.kv_cache_dtype)
+            kw = dict(kv_pages=self.kv_pages or b * (t_total // self.page_size) + 1,
+                      page_size=self.page_size)
         return self.model.init_cache(b, t_total, block_len=self.gen.block_length,
-                                     kv_dtype=self.kv_cache_dtype)
+                                     kv_dtype=self.kv_cache_dtype, **kw)
 
     def _feature_planes(self, b: int, t_total: int):
         if not self.adaptive_cache:
@@ -679,7 +695,7 @@ class DiffusionEngine:
         if inv is not None:
             refresh_tok = pos >= (inv[:, None] if torch.is_tensor(inv) else inv)
         if row_mask is None and inv is None:
-            for plane in st.cache:
+            for plane in cache_planes(st.cache):
                 plane.zero_()
         # the current block is always attendable and retained; every other
         # row keeps its carried validity
@@ -908,10 +924,11 @@ class DiffusionEngine:
     # page operations of the scheduler (paged serving)
     # ------------------------------------------------------------------
     def _pools(self, state: EngineState) -> tuple:
-        """Every pool plane: K and V, then, int8, their scales."""
+        """Every pool plane: K and V, then, int8, their scales; none on a
+        pure SSM stack."""
         if not self.paged:
             raise ValueError("page operations need the paged KV pool (paged=True)")
-        return tuple(state.cache)
+        return tuple(split_cache(state.cache)[0] or ())
 
     def _page_index(self, pages) -> torch.Tensor:
         return torch.as_tensor(np.asarray(pages, np.int64).ravel(), device=self.device)
@@ -919,9 +936,10 @@ class DiffusionEngine:
     def fork_pages(self, state: EngineState, src: Sequence[int],
                    dst: Sequence[int]) -> EngineState:
         """Copy-on-write fork: physical page ``src[i]`` is copied onto
-        ``dst[i]`` in the K and V pools of every layer, and in their scale
-        pools under the int8 cache, in place (one kernel launch on the card,
-        and one more for the scale pools).  The scheduler calls it right before a refresh
+        ``dst[i]`` in the K and V pools of every attention layer, and in
+        their scale pools under the int8 cache, in place (one kernel launch
+        on the card, and one more for the scale pools; none on a pure SSM
+        stack, whose pool has no plane).  The scheduler calls it right before a refresh
         would scatter diverged content into a page shared by several slots,
         then repoints the forking slot's block table at ``dst``.  The lists
         are padded to a multiple of 8 with ``(0, 0)`` no-ops, as the
@@ -930,18 +948,18 @@ class DiffusionEngine:
         dst = np.asarray(dst, np.int32).ravel()
         if src.shape != dst.shape:
             raise ValueError(f"fork_pages: {src.size} sources but {dst.size} destinations")
-        if src.size:
+        if src.size and self._pools(state):
+            kv = split_cache(state.cache)[0]
             pad = np.zeros(-(-src.size // 8) * 8 - src.size, np.int32)
-            k, v = self._pools(state)[:2]
-            ops.fork_pages(k, v, np.concatenate([src, pad]), np.concatenate([dst, pad]),
-                           k_scale=state.cache.k_scale, v_scale=state.cache.v_scale)
+            ops.fork_pages(kv.k, kv.v, np.concatenate([src, pad]), np.concatenate([dst, pad]),
+                           k_scale=kv.k_scale, v_scale=kv.v_scale)
         return state
 
     def spill_pages(self, state: EngineState, pages: Sequence[int]):
         """The exact bytes of physical ``pages`` (in that order) from every
-        pool plane, copied to host memory: ``(k, v)``, each ``[G, n, ps, Hkv,
-        Dh]``, and under the int8 cache ``(k, v, k_scale, v_scale)``, the
-        scales ``[G, n, ps, Hkv]``.  The pool is not modified; the pages can
+        pool plane, copied to host memory: ``(k, v)``, each ``[n_attn, n, ps,
+        Hkv, Dh]``, and under the int8 cache ``(k, v, k_scale, v_scale)``,
+        the scales ``[n_attn, n, ps, Hkv]``; ``()`` on a pure SSM stack.  The pool is not modified; the pages can
         be released as soon as this returns."""
         idx = self._page_index(pages)
         return tuple(pool.index_select(1, idx).to("cpu", copy=True)

@@ -24,6 +24,9 @@ kernels' plain PyTorch versions.  The model has random weights from
       --batch 2 --prompt-len 16 --gen-length 32 --block-length 8 --kv-pages 11
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch mamba2-370m \\
       --requests 6 --batch 3 --early-advance --gen-length 16 --block-length 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch jamba-v0.1-52b \\
+      --requests 3 --batch 2 --paged --page-size 8 --early-advance --gen-length 16 \\
+      --block-length 8 --prompt-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --runtime batch \\
       --requests 6 --batch 4 --prompt-len 16 --gen-length 16 --block-length 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --paged --page-size 8 \\
@@ -34,8 +37,9 @@ kernels' plain PyTorch versions.  The model has random weights from
       --gen-length 64 --block-length 32
 
 ``validate`` raises ``ConfigError`` before any model is built, for the
-argument sets the reference's launcher refuses and for what the port
-leaves out (paged KV, sharing and preemption on an SSM stack).
+argument sets the reference refuses: its launcher, and its engine's
+refusals of the adaptive cache and ``--gather-refresh`` on stacks with SSM
+layers.
 """
 from __future__ import annotations
 
@@ -139,7 +143,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def validate(args: argparse.Namespace) -> None:
     """Raises ConfigError, before any model is built, for bad values and
-    combinations and for what the port leaves out."""
+    combinations."""
     if args.priority_classes < 1:
         raise ConfigError(f"--priority-classes must be >= 1, got {args.priority_classes}")
     if args.deadline_s is not None and args.deadline_s <= 0:
@@ -153,12 +157,12 @@ def validate(args: argparse.Namespace) -> None:
     if args.preemption and not args.paged:
         raise ConfigError("--preemption requires --paged: spilling moves pool pages, "
                           "dense KV rows cannot be released")
-    if configs.get_config(args.arch).family == "ssm" and (
-            args.paged or args.prefix_sharing or args.preemption
-            or args.cache_prompt_interval > 1):
-        raise ConfigError("--paged, --prefix-sharing, --preemption and the adaptive cache "
-                          "(--cache-prompt-interval > 1) on an SSM stack are outside the "
-                          "port so far (ROADMAP.md)")
+    arch = configs.get_config(args.arch)
+    if (any(arch.layer_kind(l) == "ssm" for l in range(arch.n_layers))
+            and (args.cache_prompt_interval > 1 or args.gather_refresh)):
+        raise ConfigError("the adaptive cache (--cache-prompt-interval > 1) and "
+                          "--gather-refresh need an attention-only stack; the reference "
+                          "refuses them on stacks with SSM layers too")
     if args.window_blocks < 0:
         raise ConfigError(f"--window-blocks must be >= 0, got {args.window_blocks}")
     if args.preemption and args.prefix_sharing:

@@ -1,41 +1,51 @@
-"""The port's model: period-1 stacks, attention-only with a dense or an MoE
-FFN (LLaDA, Dream, Llama-3, Qwen2, ChatGLM3, Gemma-3 with its local:global
-windows; OLMoE, Granite-MoE) or pure SSM (Mamba-2).
+"""The port's model: attention-only stacks with a dense or an MoE FFN (LLaDA,
+Dream, Llama-3, Qwen2, ChatGLM3, Gemma-3 with its local:global windows;
+OLMoE, Granite-MoE), pure SSM (Mamba-2) and the hybrid (Jamba: attention,
+SSM and MoE layers in a period of 8).
 
-``run_layers(h, ctx, cache, group_lo, group_hi)`` runs a *segment* of the
-stack, so the engine can stop at a skip layer, shrink the active set and
-continue, as in the reference, where a ``lax.scan`` over layer groups runs
-the segment; here a Python loop over the layers does.  Cache modes
-(``ForwardCtx.mode``):
+Layers come in *groups* of ``cfg.pattern_period`` (P) layers, as in the
+reference, where ``params["layers"][str(j)]`` stacks pattern position j over
+the ``G = n_layers / P`` groups; here ``layers[g*P + j]`` is that layer.
+``run_layers(h, ctx, cache, group_lo, group_hi)`` runs a *segment* of
+groups, so the engine can stop at a skip boundary, shrink the active set and
+continue, as the reference's ``lax.scan`` over groups does; here a Python
+loop over the layers does.  Cache modes (``ForwardCtx.mode``):
 
   * ``nocache`` -- the vanilla engine: fresh K/V, the full SSD scan, no cache;
   * ``prefill`` -- write-through: every row scattered into the KV cache,
     which is then attended; an SSM layer captures its state and conv tail
-    at the block start and the block rows of its output into ``ssmh``;
+    at the block start, and block rows into ``ssmh`` (below);
   * ``decode``  -- one diffusion iteration: only the active rows scattered,
     the whole cache attended; an SSM layer scatters the active rows into
     ``ssmh``, runs the mixer over that whole block from the cached
     block-start state and gathers the active rows back (the reference's
     dense rejoin).
 
-The KV cache is ``KVCache(k, v)`` of ``[G, B, S, Hkv, Dh]`` planes, or of
-``[G, P, ps, Hkv, Dh]`` page pools shared by every slot and addressed through
-``ForwardCtx.block_tables`` (paged serving), or ``QuantKVCache`` with
-``k_scale``/``v_scale`` planes beside int8 codes; layer g reads and writes
-the views ``k[g]``/``v[g]`` (and its scales) in place.  An SSM stack's cache is ``SSMCache``
-(``state``, ``conv_tail``, ``ssmh``), written in place too; under a
-``scatter_mask`` only the owned rows are written.
+Every layer of a hybrid has an FFN after its attention or mixer (the experts
+where ``cfg.layer_is_moe``); a pure SSM stack's layers have none.
 
-Prefill stores each SSM layer's *output* block rows in ``ssmh``, while a
-decode scatters the layer's *input* rows into it and runs the mixer on that
-buffer as the layer's input: the reference does so
-(``repro/models/model.py:_apply_ssm``), and the port mirrors it so that its
-tokens stay equal to the reference's (ROADMAP.md Queue C).
+The K/V planes cover the attention layers only (``Model.kv_plane[l]`` is
+layer l's): ``KVCache(k, v)`` of ``[n_attn, B, S, Hkv, Dh]`` planes, or of
+``[n_attn, P, ps, Hkv, Dh]`` page pools shared by every slot and addressed
+through ``ForwardCtx.block_tables`` (paged serving), or ``QuantKVCache``
+with ``k_scale``/``v_scale`` planes beside int8 codes.  The ``SSMCache``
+planes (``state``, ``conv_tail``, ``ssmh``) cover the SSM layers
+(``Model.ssm_plane``) and stay per slot when K/V is paged, the reference's
+rule.  An attention-only stack's cache is its K/V cache, a pure SSM stack's
+its ``SSMCache``, a hybrid's ``HybridCache(kv, ssm)``.  Every plane is
+written in place; under a ``scatter_mask`` only the owned rows are written.
+
+Prefill stores each SSM layer's block rows of ``h`` after the mixer's
+residual (before a hybrid layer's FFN) in ``ssmh``, while a decode scatters
+the layer's *input* rows into it and runs the mixer on that buffer as the
+layer's input: the reference does so (``repro/models/model.py:_apply_ssm``),
+and the port mirrors it so that its tokens stay equal to the reference's
+(ROADMAP.md Queue C).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -68,13 +78,13 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for archs outside the port so far."""
     kinds = {cfg.layer_kind(l) for l in range(cfg.n_layers)}
-    ssm_only = kinds == {"ssm"} and cfg.family == "ssm" and cfg.ssm is not None
-    if (cfg.pattern_period != 1 or not (kinds == {"attn"} or ssm_only)
-            or cfg.family in ("hybrid", "audio", "vlm") or cfg.logit_softcap):
+    ssm_family = cfg.ssm is not None and cfg.family in ("ssm", "hybrid")
+    if ("cross" in kinds or cfg.family in ("audio", "vlm") or ("ssm" in kinds) != ssm_family
+            or cfg.logit_softcap):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers period-1 stacks that are attention-only (dense "
-            f"or MoE FFN, per-layer windows) or pure SSM; see ROADMAP.md Queue A for "
-            f"the other families")
+            f"{cfg.name}: the port covers attention-only stacks (dense or MoE FFN, per-layer "
+            f"windows), pure SSM stacks and attention/SSM hybrids; see ROADMAP.md Queue A "
+            f"for cross-attention and the encoder families")
     for field in ("param_dtype", "compute_dtype"):
         if getattr(cfg, field) not in DTYPES:
             raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: float32 or bfloat16")
@@ -90,6 +100,30 @@ def layer_window(cfg: ModelConfig, layer: int, window_override: int = 0) -> int:
     if window_override:
         w = min(w, window_override) if w else window_override
     return w
+
+
+class HybridCache(NamedTuple):
+    """A hybrid stack's caches: the K/V planes or pools over its attention
+    layers and the per-slot ``SSMCache`` over its SSM layers."""
+    kv: KVCache | QuantKVCache
+    ssm: SSMCache
+
+
+def split_cache(cache) -> tuple[Optional[KVCache | QuantKVCache], Optional[SSMCache]]:
+    """``(K/V planes or None, SSM caches or None)`` of any stack's cache."""
+    if cache is None:
+        return None, None
+    if isinstance(cache, HybridCache):
+        return cache.kv, cache.ssm
+    if isinstance(cache, SSMCache):
+        return None, cache
+    return cache, None
+
+
+def cache_planes(cache) -> tuple[torch.Tensor, ...]:
+    """Every tensor of a cache: K/V planes (and scales), then SSM planes."""
+    kv, ssm = split_cache(cache)
+    return tuple(kv or ()) + tuple(ssm or ())
 
 
 @dataclasses.dataclass
@@ -126,21 +160,25 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """``ln1`` + attention + ``ln2`` + the FFN (a gated MLP, or the experts
-    where ``cfg.layer_is_moe``), or for a pure SSM stack ``ln1`` + mixer (no
-    FFN, as the reference decides for ``family="ssm"``)."""
+    """The reference's ``init_one_layer``: ``ln1`` + attention, or ``ln1`` +
+    mixer on an SSM layer; then ``ln2`` + the FFN (a gated MLP, or the
+    experts where ``cfg.layer_is_moe``) on every layer but those of a pure
+    SSM stack."""
 
     def __init__(self, cfg: ModelConfig, layer: int, device, dtype):
         super().__init__()
+        self.kind = cfg.layer_kind(layer)
         self.ln1 = _param((cfg.d_model,), device, dtype)
-        if cfg.family == "ssm":
+        if self.kind == "ssm":
             self.mixer = Mixer(cfg, device, dtype)
-            return
-        self.attn = Attention(cfg, device, dtype)
-        self.ln2 = _param((cfg.d_model,), device, dtype)
+        else:
+            self.attn = Attention(cfg, device, dtype)
         self.moe = cfg.layer_is_moe(layer)
-        self.ffn = (MoE(cfg, device, dtype) if self.moe
-                    else MLP(cfg.d_model, cfg.d_ff, device, dtype))
+        self.ffn = None
+        if self.kind != "ssm" or cfg.family == "hybrid":
+            self.ln2 = _param((cfg.d_model,), device, dtype)
+            self.ffn = (MoE(cfg, device, dtype) if self.moe
+                        else MLP(cfg.d_model, cfg.d_ff, device, dtype))
 
 
 def _store(dst: torch.Tensor, new: torch.Tensor, row_mask: Optional[torch.Tensor]) -> None:
@@ -165,8 +203,15 @@ class Model(nn.Module):
         self.device = resolve_device(device)
         self.dtype = DTYPES[cfg.param_dtype]
         self.compute_dtype = DTYPES[cfg.compute_dtype]
-        self.n_groups = cfg.n_layers           # period 1: one layer per group
-        self.ssm = cfg.family == "ssm"
+        self.period = cfg.pattern_period
+        self.n_groups = cfg.n_layers // self.period
+        kinds = [cfg.layer_kind(l) for l in range(cfg.n_layers)]
+        self.attn_layers = [l for l, k in enumerate(kinds) if k == "attn"]
+        self.ssm_layers = [l for l, k in enumerate(kinds) if k == "ssm"]
+        # layer -> its plane in the K/V or the SSM caches
+        self.kv_plane = {l: i for i, l in enumerate(self.attn_layers)}
+        self.ssm_plane = {l: i for i, l in enumerate(self.ssm_layers)}
+        self.ssm = bool(self.ssm_layers)       # the stack has SSM layers
         vp = padded_vocab(cfg)
         self.embed = _param((vp, cfg.d_model), self.device, self.dtype)
         self.final_norm = _param((cfg.d_model,), self.device, self.dtype)
@@ -201,44 +246,50 @@ class Model(nn.Module):
         return self
 
     def init_cache(self, batch: int, seq_len: int, *, block_len: int = 0, kv_pages: int = 0,
-                   page_size: int = 0,
-                   kv_dtype: Optional[str] = None) -> KVCache | QuantKVCache | SSMCache:
-        """Zeroed caches.  Attention: KV planes in the parameter dtype, ``[G,
-        B, S, Hkv, Dh]``, or with ``kv_pages`` the page pool ``[G, kv_pages,
-        page_size, Hkv, Dh]`` shared by every slot (page 0 is the garbage
-        page); ``kv_dtype="int8"`` makes them a ``QuantKVCache``: int8 codes
-        with f32 scale planes ``[G, B, S, Hkv]`` (``[G, kv_pages, page_size,
-        Hkv]``).  SSM:
-        ``SSMCache`` with ``block_len`` rows of ``ssmh`` per slot; there is
-        no paged layout (nothing grows with the sequence) and ``kv_dtype``
-        does not apply."""
+                   page_size: int = 0, kv_dtype: Optional[str] = None):
+        """Zeroed caches.  K/V planes over the attention layers in the
+        parameter dtype, ``[n_attn, B, S, Hkv, Dh]``, or with ``kv_pages``
+        the page pool ``[n_attn, kv_pages, page_size, Hkv, Dh]`` shared by
+        every slot (page 0 is the garbage page); ``kv_dtype="int8"`` makes
+        them a ``QuantKVCache``: int8 codes with f32 scale planes
+        ``[n_attn, B, S, Hkv]`` (``[n_attn, kv_pages, page_size, Hkv]``).
+        The SSM layers' ``SSMCache`` has ``block_len`` rows of ``ssmh`` per
+        slot and is per slot whether K/V is paged or not (nothing in it
+        grows with the sequence).  Returns the K/V cache of an
+        attention-only stack, the ``SSMCache`` of a pure SSM stack and a
+        ``HybridCache`` otherwise."""
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype={kv_dtype!r}: None or 'int8'")
         cfg = self.cfg
-        if self.ssm:
-            if kv_pages or block_len <= 0:
-                raise ValueError("an SSM cache is dense and needs block_len > 0")
+        ssm = kv = None
+        if self.ssm_layers:
+            if block_len <= 0:
+                raise ValueError("the SSM caches need block_len > 0")
             base = init_ssm_state(cfg, batch, self.dtype, self.device)
-            g = self.n_groups
-            return SSMCache(
-                base.state[None].repeat(g, 1, 1, 1, 1),
-                base.conv_tail[None].repeat(g, 1, 1, 1),
-                torch.zeros((g, batch, block_len, cfg.d_model), dtype=self.dtype,
+            n = len(self.ssm_layers)
+            ssm = SSMCache(
+                base.state[None].repeat(n, 1, 1, 1, 1),
+                base.conv_tail[None].repeat(n, 1, 1, 1),
+                torch.zeros((n, batch, block_len, cfg.d_model), dtype=self.dtype,
                             device=self.device))
-        if kv_pages:
-            if page_size <= 0 or seq_len % page_size:
-                raise ValueError(f"page_size {page_size} must divide the sequence {seq_len}")
-            shape = (self.n_groups, kv_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-        else:
-            shape = (self.n_groups, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        if kv_pages and (page_size <= 0 or seq_len % page_size):
+            raise ValueError(f"page_size {page_size} must divide the sequence {seq_len}")
+        if self.attn_layers:
+            n = len(self.attn_layers)
+            shape = ((n, kv_pages, page_size) if kv_pages else (n, batch, seq_len)) \
+                + (cfg.n_kv_heads, cfg.head_dim)
 
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-        if kv_dtype == "int8":
-            return QuantKVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
-                                zeros(shape[:-1], torch.float32),
-                                zeros(shape[:-1], torch.float32))
-        return KVCache(zeros(shape, self.dtype), zeros(shape, self.dtype))
+            def zeros(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=self.device)
+            if kv_dtype == "int8":
+                kv = QuantKVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                                  zeros(shape[:-1], torch.float32),
+                                  zeros(shape[:-1], torch.float32))
+            else:
+                kv = KVCache(zeros(shape, self.dtype), zeros(shape, self.dtype))
+        if ssm is None:
+            return kv
+        return ssm if kv is None else HybridCache(kv, ssm)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens.long()].to(self.compute_dtype)
@@ -248,61 +299,65 @@ class Model(nn.Module):
         head = self.embed.T if self.lm_head is None else self.lm_head
         return h @ head.to(h.dtype)
 
-    def run_layers(self, h: torch.Tensor, ctx: ForwardCtx,
-                   cache: Optional[KVCache | SSMCache] = None, *, group_lo: int = 0,
+    def run_layers(self, h: torch.Tensor, ctx: ForwardCtx, cache=None, *, group_lo: int = 0,
                    group_hi: Optional[int] = None) -> torch.Tensor:
-        """Runs layers ``[group_lo, group_hi)`` on ``h [B, K, d]``; in the
-        prefill/decode modes the caches are updated in place.  The sliding
-        window's clamp of ``kv_pos`` and its read view of the block table
-        are made once here for the whole segment."""
+        """Runs the layers of groups ``[group_lo, group_hi)`` on ``h [B, K,
+        d]``; in the prefill/decode modes the caches are updated in place.
+        The RoPE tables, the sliding window's clamp of ``kv_pos`` and its
+        read view of the block table are made once here for the whole
+        segment."""
         cfg = self.cfg
         group_hi = self.n_groups if group_hi is None else group_hi
         if not 0 <= group_lo < group_hi <= self.n_groups:
             raise ValueError(f"bad layer segment [{group_lo}, {group_hi})")
         use_cache = ctx.mode in ("prefill", "decode") and cache is not None
-        if self.ssm:
-            for g in range(group_lo, group_hi):
-                h = self._apply_ssm(self.layers[g], g, h, ctx, cache if use_cache else None)
-            return h
-        rope = rope_tables(ctx.positions, cfg.head_dim, theta=cfg.rope_theta,
-                           fraction=cfg.rope_fraction)
-        kv_pos, read_bt = ctx.kv_pos, None
-        if use_cache and ctx.window_limit is not None:
-            kv_pos = ops.window_kv_clamp(kv_pos, ctx.window_limit)
-            if ctx.block_tables is not None:
-                read_bt = ops.window_block_tables(ctx.block_tables, ctx.window_limit,
-                                                  cache.k.shape[2])
-        for g in range(group_lo, group_hi):
-            layer = self.layers[g]
-            kv = cache.layer(g) if use_cache else None
-            if kv is not None and ctx.block_tables is not None:
-                kv = PagedKVCache(kv, ctx.block_tables, read_bt)
-            h = h + self_attention(
-                layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), ctx.positions,
-                cache=kv, slot_idx=ctx.slot_idx, kv_pos=kv_pos, rope=rope,
-                scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask,
-                window=layer_window(cfg, g, ctx.window_override), anchor=ctx.anchor,
-                bc_start=ctx.bc_start, bc_block=ctx.bc_block)
-            hn = rms_norm(h, layer.ln2, cfg.rms_eps)
-            h = h + (moe_apply(layer.ffn, cfg, hn) if layer.moe
-                     else mlp_apply(layer.ffn, hn, cfg.act))
+        kv_cache, ssm_cache = split_cache(cache) if use_cache else (None, None)
+        rope = kv_pos = read_bt = None
+        if self.attn_layers:
+            rope = rope_tables(ctx.positions, cfg.head_dim, theta=cfg.rope_theta,
+                               fraction=cfg.rope_fraction)
+            kv_pos = ctx.kv_pos
+            if kv_cache is not None and ctx.window_limit is not None:
+                kv_pos = ops.window_kv_clamp(kv_pos, ctx.window_limit)
+                if ctx.block_tables is not None:
+                    read_bt = ops.window_block_tables(ctx.block_tables, ctx.window_limit,
+                                                      kv_cache.k.shape[2])
+        for l in range(group_lo * self.period, group_hi * self.period):
+            layer = self.layers[l]
+            if layer.kind == "ssm":
+                h = self._apply_ssm(layer, self.ssm_plane[l], h, ctx, ssm_cache)
+            else:
+                kv = kv_cache.layer(self.kv_plane[l]) if kv_cache is not None else None
+                if kv is not None and ctx.block_tables is not None:
+                    kv = PagedKVCache(kv, ctx.block_tables, read_bt)
+                h = h + self_attention(
+                    layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), ctx.positions,
+                    cache=kv, slot_idx=ctx.slot_idx, kv_pos=kv_pos, rope=rope,
+                    scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask,
+                    window=layer_window(cfg, l, ctx.window_override), anchor=ctx.anchor,
+                    bc_start=ctx.bc_start, bc_block=ctx.bc_block)
+            if layer.ffn is not None:
+                hn = rms_norm(h, layer.ln2, cfg.rms_eps)
+                h = h + (moe_apply(layer.ffn, cfg, hn) if layer.moe
+                         else mlp_apply(layer.ffn, hn, cfg.act))
         return h
 
-    def _apply_ssm(self, layer: Block, g: int, h: torch.Tensor, ctx: ForwardCtx,
+    def _apply_ssm(self, layer: Block, i: int, h: torch.Tensor, ctx: ForwardCtx,
                    cache: Optional[SSMCache]) -> torch.Tensor:
-        """One SSM layer, the reference's ``_apply_ssm``: decode rebuilds the
-        block from ``ssmh`` and resumes from the block-start state, prefill
-        captures that state and the block rows of the layer's output."""
+        """One SSM mixer on plane ``i`` of the SSM caches, the reference's
+        ``_apply_ssm``: decode rebuilds the block from ``ssmh`` and resumes
+        from the block-start state, prefill captures that state and the
+        block rows of ``h`` after the mixer's residual."""
         cfg = self.cfg
         if ctx.mode == "decode" and cache is not None:
             if ctx.block_idx is None:
                 raise ValueError("an SSM decode needs block_idx")
-            full_in = row_scatter(cache.ssmh[g], h, ctx.block_idx)
+            full_in = row_scatter(cache.ssmh[i], h, ctx.block_idx)
             y_full, _, _ = mamba_apply(
                 layer.mixer, cfg, rms_norm(full_in, layer.ln1, cfg.rms_eps),
-                state=SSMState(cache.state[g], cache.conv_tail[g]))
+                state=SSMState(cache.state[i], cache.conv_tail[i]))
             h = h + row_gather(y_full, ctx.block_idx).to(h.dtype)
-            _store(cache.ssmh[g], full_in, ctx.scatter_mask)   # the state stays at block start
+            _store(cache.ssmh[i], full_in, ctx.scatter_mask)   # the state stays at block start
             return h
         capture = None
         if ctx.mode == "prefill" and cache is not None:
@@ -315,7 +370,7 @@ class Model(nn.Module):
         if capture is not None:
             lb = cache.ssmh.shape[2]
             cols = capture[:, None] + torch.arange(lb, dtype=capture.dtype, device=h.device)
-            _store(cache.state[g], captured.state, ctx.scatter_mask)
-            _store(cache.conv_tail[g], captured.conv_tail, ctx.scatter_mask)
-            _store(cache.ssmh[g], row_gather(h, cols), ctx.scatter_mask)
+            _store(cache.state[i], captured.state, ctx.scatter_mask)
+            _store(cache.conv_tail[i], captured.conv_tail, ctx.scatter_mask)
+            _store(cache.ssmh[i], row_gather(h, cols), ctx.scatter_mask)
         return h

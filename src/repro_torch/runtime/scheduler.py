@@ -73,12 +73,15 @@ preemption and the copy-on-write fork need, and their block starts, which
 window growth needs, are kept on the host from that second read; the
 block tables, which only the scheduler writes, have a host copy.
 
-An SSM stack (Mamba-2) serves on dense slots, with early advance or without.
-
-Outside the port so far (each raises ``ConfigError`` at construction, see
-ROADMAP.md): paged KV, prefix sharing and preemption on an SSM stack (the
-engine raises ``NotImplementedError`` for its adaptive cache and sparse
-attention).
+Stacks with SSM layers (Mamba-2, the Jamba hybrid) serve on dense slots or
+on the paged pool, with sharing and preemption, as in the reference: pages
+hold the attention layers' K/V only (a pure SSM stack's pool has no plane),
+and each slot keeps its own SSM caches.  A shared prompt forks K/V pages
+only, every slot computing its own SSM caches; a resumed slot re-enters at
+phase 0, whose prompt refresh rebuilds its SSM caches wholesale; a
+quarantine scrubs K/V pages, and the next occupant's prefill rewrites the
+slot's SSM caches.  The engine refuses, as the reference's does, the
+adaptive cache, ``gather_refresh`` and sparse attention on such stacks.
 """
 from __future__ import annotations
 
@@ -412,9 +415,6 @@ class StreamScheduler:
         if preemption and lazy_reserve:
             raise ConfigError("preemption=True is incompatible with lazy_reserve: spills "
                               "would invalidate the max-deficit window-growth accounting")
-        if model.ssm and (paged or prefix_sharing or preemption):
-            raise ConfigError("paged KV, prefix sharing and preemption on an SSM stack are "
-                              "outside the port so far (ROADMAP.md): it serves on dense slots")
         if prefix_sharing and not paged:
             raise ConfigError("prefix_sharing shares pool pages: it requires paged=True")
         if preemption and not paged:

@@ -17,8 +17,8 @@ the local layers mask keys.  The same numpy tree goes to both packages:
   equal, for Gemma-3 and OLMoE;
 * the per-layer windows equal the reference's ``window_meta`` (0 for its
   ``BIG_WINDOW``);
-* ``check_supported`` still refuses Jamba, the vision model and
-  SeamlessM4T, built from copies of the reference's configs.
+* ``check_supported`` still refuses the vision model and SeamlessM4T
+  (cross-attention), built from copies of the reference's configs.
 """
 import dataclasses
 import functools
@@ -180,8 +180,7 @@ def _port_copy(jcfg):
     return tconfigs.ModelConfig(**fields)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "llama-3.2-vision-11b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "seamless-m4t-large-v2"])
 def test_families_outside_the_port_are_refused(arch):
     for cfg in (jconfigs.get_config(arch), jconfigs.reduced(jconfigs.get_config(arch))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

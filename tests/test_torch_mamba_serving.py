@@ -10,9 +10,14 @@ Reduced mamba2-370m (4 layers, as in ``test_torch_mamba``) on dense slots:
 * every request of a staggered trace gets the reference scheduler's tokens,
   with early advance and without (weights x10), and equals the port's own
   offline replay;
-* the options outside this slice raise, naming ROADMAP.md.
+* on the paged pool (which holds no plane on a pure SSM stack) the
+  offline engine, a staggered trace, sampled prefix sharing and preemption
+  get the reference's tokens;
+* what the reference refuses on an SSM stack (the adaptive cache,
+  ``gather_refresh``) raises, saying so.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -132,23 +137,94 @@ def test_scheduler_matches_reference_and_offline_replay(early_advance):
         np.testing.assert_array_equal(reqs[i].output, replay[j, PL:])
 
 
+def test_paged_ssm_engine_generate_matches_reference():
+    """The paged engine on a pure SSM stack (a pool with no plane): es
+    tokens equal the reference's paged engine's and the port's dense one's."""
+    jm, params, tm = models()
+    jgen, tgen = _gen_configs(mode="es", skip_stages=STAGES)
+    prompt = np.random.default_rng(3).integers(3, tm.cfg.vocab_size, (2, PL)).astype(np.int32)
+    want = np.asarray(jmake(jm, jgen, importance_impl="pallas", paged=True, page_size=8)
+                      .generate(params, jnp.asarray(prompt), jax.random.PRNGKey(0)))
+    eng = tmake(tm, tgen, device="cpu", paged=True, page_size=8)
+    got = eng.generate(torch.from_numpy(prompt)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, tmake(tm, tgen, device="cpu").generate(
+        torch.from_numpy(prompt)).numpy())
+    assert eng.spill_pages(eng.init_engine_state(2, PL), [1, 2]) == ()
+
+
 @pytest.mark.parametrize("kw", [dict(paged=True), dict(prefix_sharing=True),
                                 dict(preemption=True)], ids=lambda k: next(iter(k)))
-def test_ssm_serving_options_outside_the_slice_raise(kw):
-    _, _, tm = models()
-    with pytest.raises(ConfigError, match="SSM stack.*ROADMAP"):
-        StreamScheduler(tm, _gen_configs(**SERVE)[1], device="cpu", prompt_len=PL, **kw)
+def test_ssm_serving_options_match_reference(kw):
+    """Paged serving on a pure SSM stack, as the reference serves it: the
+    staggered trace with early advance; sampled duplicate cohorts with
+    prefix sharing (forks of pages that hold no plane, counted as the
+    reference counts them); preemption on one slot and a one-request pool
+    (the resumed request equals its run alone)."""
+    jm, params, tm = models()
+    temp = 0.8 if "prefix_sharing" in kw else 0.0
+    jgen, tgen = _gen_configs(parallel_decoding=True, pd_threshold=0.5, temperature=temp,
+                              **SERVE)
+    n_vp = (PL + 16) // 8
+    skw = dict(dict(max_slots=3, prompt_len=PL, paged=True, page_size=8, early_advance=True),
+               **kw)
+    if "preemption" in kw:
+        skw.update(max_slots=1, kv_pages=n_vp + 1)
+    rng = np.random.default_rng(12)
+    if "prefix_sharing" in kw:
+        a, b = (rng.integers(3, tm.cfg.vocab_size, n).astype(np.int32) for n in (16, 12))
+        prompts, arrivals = [a, a, b, b], [0, 0, 0, 0]
+        extra = [dict(sample_seed=100 + i) for i in range(4)]
+    elif "preemption" in kw:
+        prompts = [rng.integers(3, tm.cfg.vocab_size, PL).astype(np.int32) for _ in range(2)]
+        arrivals, extra = [0, 3], [dict(priority=0), dict(priority=1)]
+    else:
+        prompts = [rng.integers(3, tm.cfg.vocab_size, n).astype(np.int32) for _, n, _ in TRACE]
+        arrivals = [at for at, _, _ in TRACE]
+        extra = [dict(max_new_tokens=m) for _, _, m in TRACE]
+    outs, scheds = [], []
+    for make_req, sched in ((JRequest, JScheduler(jm, params, jgen, **skw)),
+                            (Request, StreamScheduler(tm, tgen, device="cpu", **skw))):
+        reqs = [make_req(prompt=p.copy(), **e) for p, e in zip(prompts, extra)]
+        step = 0
+        while step <= max(arrivals) or sched.has_work():
+            for at, r in zip(arrivals, reqs):
+                if at == step:
+                    sched.submit(r)
+            sched.step()
+            step += 1
+        assert all(r.error is None and r.output is not None for r in reqs)
+        outs.append([r.output for r in reqs])
+        scheds.append(sched)
+    for i, (x, y) in enumerate(zip(*outs)):
+        np.testing.assert_array_equal(y, x, err_msg=f"request {i}")
+    jsched, sched = scheds
+    assert sched.allocator.free_pages == sched.allocator.num_pages - 1
+    if "prefix_sharing" in kw:
+        assert sched.stats.cow_forks > 0 and sched.stats.cow_forks == jsched.stats.cow_forks
+    elif "preemption" in kw:
+        assert sched.stats.preemptions >= 1 and sched.stats.preemptions == \
+            jsched.stats.preemptions
+        alone = tmake(tm, tgen, device="cpu").generate(torch.from_numpy(np.stack(prompts)))
+        for i in range(2):
+            np.testing.assert_array_equal(outs[1][i], alone.numpy()[i, PL:])
+    else:
+        assert sched.stats.early_advances > 0
 
 
 def test_ssm_engine_options_outside_the_slice_raise():
+    """What the reference refuses on an SSM stack the port refuses too: the
+    adaptive cache, ``gather_refresh`` and sparse attention, in the engine
+    and in the launcher."""
     _, _, tm = models()
     adaptive = _gen_configs(cache_prompt_interval=2, **SERVE)[1]
-    with pytest.raises(NotImplementedError, match="adaptive feature cache.*ROADMAP"):
+    with pytest.raises(ValueError, match="adaptive feature cache.*reference refuses"):
         StreamScheduler(tm, adaptive, device="cpu", prompt_len=PL)
-    with pytest.raises(NotImplementedError, match="paged KV.*ROADMAP"):
-        tmake(tm, _gen_configs(**SERVE)[1], device="cpu", paged=True, page_size=8)
-    for flags in (["--paged"], ["--cache-prompt-interval", "2"]):
-        with pytest.raises(ConfigError, match="SSM stack.*ROADMAP"):
+    with pytest.raises(ValueError, match="gather_refresh.*reference refuses"):
+        tmake(tm, _gen_configs(**SERVE)[1], device="cpu", paged=True, page_size=8,
+              gather_refresh=True)
+    for flags in (["--cache-prompt-interval", "2"], ["--paged", "--gather-refresh"]):
+        with pytest.raises(ConfigError, match="reference refuses"):
             serve.main(["--device", "cpu", "--arch", "mamba2-370m", *flags])
 
 

@@ -14,7 +14,7 @@
 * the reduced counterpart of the card's served trace: lazy reservation, a
   one-block window, the adaptive cache and sparse retention 0.5 together;
 * the engine refuses sparse attention without a skip stage (``ValueError``)
-  and on a pure SSM stack (``NotImplementedError``);
+  and on a pure SSM stack (``ValueError``, as the reference fails there);
 * at x10 weights, on the inputs of each refresh, the two packages' retained
   sets differ only at rows whose pooled score lies within ``ULP_GAP`` ulp
   of the row's threshold.
@@ -345,5 +345,5 @@ def test_sparse_refusals():
                                n_layers=4)
     mamba = Model(mcfg, device="cpu")
     gen = dataclasses.replace(_gens()[1], gen_length=16, block_length=8)
-    with pytest.raises(NotImplementedError, match="sparse attention"):
+    with pytest.raises(ValueError, match="sparse attention.*reference"):
         tmake(mamba, gen, device="cpu")

@@ -91,6 +91,28 @@ def test_heads_per_block(b, nc, h, g, chunk, want):
     assert hb == 1 or b * nc * h // hb >= RESIDENT_BLOCKS // 4
 
 
+# Jamba's mixer (128 heads of 64, d_state 64, one group): (B, L, chunk,
+# heads per block) at the offline decode and prefill and the served ones
+JAMBA_GRIDS = [
+    (2, 32, 32, 1),           # offline decode: 256 blocks at one head
+    (4, 32, 32, 2),           # served decode: 512 blocks at 1, 256 at 2
+    (2, 192, 64, 4),          # offline prefill: 768 blocks at 1, 192 at 4
+    (4, 192, 64, 8),          # served prefill: 1,536 blocks at 1, 192 at 8
+]
+
+
+@pytest.mark.parametrize("b,l,chunk,want", JAMBA_GRIDS)
+def test_jamba_widths_take_the_tensor_core_body(b, l, chunk, want):
+    """At Jamba's widths bf16 takes the tensor-core body with the rule's
+    heads per block, in shared memory; f32 takes the CUDA-core body."""
+    x, bm, cm = _views(torch.bfloat16, chunk, 64, 64, b=b, h=128, nc=l // chunk)
+    pl = plan(x, bm, chunk, cm)
+    assert (pl.body, pl.heads_per_block) == ("tensor_core", want)
+    assert smem_bytes_tc(chunk, 64, 64, want) < SMEM_LIMIT
+    x, bm, cm = _views(torch.float32, chunk, 64, 64, b=b, h=128, nc=l // chunk)
+    assert plan(x, bm, chunk, cm).body == "cuda_core"
+
+
 @pytest.mark.parametrize("hb", HEADS_PER_BLOCK)
 def test_shared_memory_fits(hb):
     """Every HB the planner can pick fits in a block's shared memory at
