@@ -42,7 +42,10 @@ no result):
    CUDA-core body) and the K/V scatters at its 512-byte rows; the SSD
    chunk step at Jamba's widths (128 heads of 64, d_state 64), its served
    decode and offline prefill shapes, bf16 on the tensor-core body and f32
-   on the CUDA-core body (8j); the
+   on the CUDA-core body (8j); kernel 1 as the vision model's
+   cross-attention (1x: Lq 32 over 1,601 keys, 32 on 8 heads of 128),
+   SeamlessM4T's (1xs: 256 keys, 16 heads of 64) and its encoder's
+   attention (1e: 256 x 256, D 64), both bodies, each beside SDPA; the
    threefry key chain's known answers on the card, a draw of the sampled
    path's shape with bits equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -70,6 +73,9 @@ no result):
    reduced Jamba (16 layers, two periods; capacity factor 0.5, weights x2)
    offline es (tokens equal), and served on the paged pool with sampled
    prefix sharing (forks) and with preemption (a spill; tokens equal);
+   reduced llama-3.2-vision-11b (with ``enc_proj``) and seamless-m4t-large-v2
+   offline es with ``enc_embeds`` (tokens equal; SeamlessM4T greedy and
+   sampled), kernel 1 launched as cross-attention and in the encoder;
 5. offline path: LLaDA-8B at full width in bfloat16 (random weights from a
    seeded generator on the card), ES generation, with each kernel's
    launches counted over that run;
@@ -130,9 +136,22 @@ no result):
    phase 6's served trace on the paged pool with early advance and no
    adaptive cache, run twice with equal tokens (14b); a sampled
    duplicate-cohort trace with prefix sharing (forks), then preemption on a
-   tight pool (a spill and a resume) (14c).
+   tight pool (a spill and a resume) (14c);
+15. the encoder-conditioned archs at full width in bfloat16 (seeded random
+   weights and ``enc_embeds`` made on the card): llama-3.2-vision-11b, all
+   40 layers (8 cross layers over 1,601 image tokens), offline es at phase
+   5's shape, timed twice (equal tokens) and dualcache, kernel 1's launches
+   as self- and as cross-attention, the cross planes' bytes, a profiled
+   ``generate``'s busy share and the cross-attention's device ms (15a);
+   phase 6's trace on the paged pool without the adaptive cache, with a
+   profiled window, then 7b's plan on its tight pool (spills, and every
+   resume encoded again: ``Model.encode`` counted) (15b);
+   seamless-m4t-large-v2, 24 decoder and 6 encoder layers, offline es
+   greedy (a block's [mask] rows tie: each block unmasks in its prefill)
+   and sampled, and phase 6's trace on a paged pool with no K/V plane, run
+   twice with equal tokens (15c).
 
-On phases 5, 6, 7, 9, 10, 11, 12, 13 and 14 every attention launch must take
+On phases 5, 6, 7, 9, 10, 11, 12, 13, 14 and 15 every attention launch must take
 the tensor-core body (on phase 11 reading int8 codes, with every K/V write the
 quantizing scatter), and phases 5 and 6 must keep one attention launch per
 call; on phase
@@ -186,6 +205,10 @@ REPLACES = {
     "paged_flash_attention_d256": "src/repro/kernels/flash_attention.py:208",
     # Jamba's SSD widths
     "ssd_chunks_jamba": "src/repro/kernels/ssd_scan.py:70",
+    # kernel 1 as the encoder archs' cross-attention and encoder attention
+    "flash_attention_cross": "src/repro/kernels/flash_attention.py:146",
+    "flash_attention_cross_seamless": "src/repro/kernels/flash_attention.py:146",
+    "flash_attention_encoder": "src/repro/kernels/flash_attention.py:146",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -204,6 +227,9 @@ SOURCES = {
     "flash_attention_d256": "src/repro_torch/kernels/csrc/flash_tc.cuh",
     "paged_flash_attention_d256": "src/repro_torch/kernels/csrc/flash_tc.cuh",
     "ssd_chunks_jamba": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "flash_attention_cross": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "flash_attention_cross_seamless": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "flash_attention_encoder": "src/repro_torch/kernels/csrc/flash_tc.cuh",
 }
 # the serving path's shapes: 4 slots of prompt 128 + gen 64 tokens, blocks of
 # 32, partial refreshes of ceil(0.25 * (192 - 32)) = 40 tokens
@@ -314,9 +340,10 @@ BODIES = ("tensor_core", "cuda_core")
 # body must keep one launch per call
 LAUNCHES_OFFLINE_GENERATE = 2048
 LAUNCHES_SERVING_TRACE = 7872
-# phases 9 and 10's depth: LLaDA-8B's 32 layers cut to 16, after 13c's cut,
-# so that the script's phases stay within 760 s (PERF.md §4)
-DEPTH_9_10 = 16
+# phases 9 and 10's depth: LLaDA-8B's 32 layers cut to 16 after 13c's cut,
+# then to 8 beside phase 15, so that the script's phases stay within 850 s
+# (PERF.md §4)
+DEPTH_9_10 = 8
 # phase 8's depth: mamba2-370m's 48 layers cut to 6, so that the whole run
 # with phases 9 and 10 stays within about the time phases 1-8 took at full depth
 MAMBA_LAYERS = 6
@@ -1601,6 +1628,70 @@ def check_head_dim_256(ref, flash_attention, paged_flash_attention, gen):
     return out, checked
 
 
+# ---------------------------------------------------------------------------
+# phase 3, the encoder-conditioned archs: kernel 1 as cross-attention and as
+# SeamlessM4T's encoder attention
+# ---------------------------------------------------------------------------
+# (row, label, B, Hq, Hkv, Lq, Lkv, D, cross): the vision model's cross
+# layers (32 query heads on 8 KV heads of 128, the 1,601 image tokens: no
+# multiple of a tile), SeamlessM4T's (16 heads of 64 on its 256 frame
+# tokens) at a decode block of 32, and its encoder's self-attention over the
+# 256 tokens at batch 2 (phase 15's offline shape)
+CROSS_CASES = (("flash_attention_cross", "vlm cross Lq=32 Lkv=1601", 2, 32, 8, 32, 1601, 128,
+                True),
+               ("flash_attention_cross_seamless", "seamless cross Lq=32 Lkv=256", 2, 16, 16, 32,
+                256, 64, True),
+               ("flash_attention_encoder", "seamless encoder Lq=Lkv=256", 2, 16, 16, 256, 256,
+                64, False))
+
+
+def check_cross(ref, flash_attention, gen):
+    """Kernel 1 at the cross-attention and encoder shapes of phase 15, in the
+    path's layouts (q ``[B, L, H, D]`` viewed ``[B, H, L, D]``, K/V the
+    cross plane's ``[B, E, Hkv, D]`` views) and positions (cross: every
+    query at 0, keys at ``0..E-1``; encoder: both ``0..E-1``, no mask):
+    bf16 on the tensor-core body and f32 on the CUDA-core body, each held
+    against its plain version, with the library time of SDPA with a bool
+    mask.  Every key is admitted, so the bound reads all K/V rows."""
+    from repro_torch.kernels.flash_attention import plan
+
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        body = "tensor_core" if dt == torch.bfloat16 else "cuda_core"
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        for row, label, b, hq, hkv, lq, lkv, d, cross in CROSS_CASES:
+            q = torch.randn(b, lq, hq, d, generator=gen, device="cuda").to(dt).transpose(1, 2)
+            k, v = (torch.randn(b, lkv, hkv, d, generator=gen, device="cuda").to(dt)
+                    .transpose(1, 2) for _ in "kv")
+            kv_pos = torch.arange(lkv, dtype=torch.int32, device="cuda")[None].repeat(b, 1)
+            q_pos = (torch.zeros((b, lq), dtype=torch.int32, device="cuda") if cross
+                     else kv_pos[:, :lq].contiguous())
+            pl = plan(q, k, v, lkv, hkv)
+            if pl.body != body:
+                raise AssertionError(f"{row} {dt}: {pl}, not the {body} body")
+            n_tc = flash_attention.tensor_core_launches
+            got = flash_attention(q, k, v, q_pos, kv_pos)
+            if (flash_attention.tensor_core_launches - n_tc) != (body == "tensor_core"):
+                raise AssertionError(f"{row} {dt}: not launched on the {body} body")
+            want = ref.attention_reference(q, k, v, q_pos, kv_pos)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"{row} {label} {dt}: max abs err {err} > {tol}")
+            ms, wall = device_ms(lambda: flash_attention(q, k, v, q_pos, kv_pos))
+            plain_ms, _ = device_ms(lambda: ref.attention_reference(q, k, v, q_pos, kv_pos))
+            mask = ref.attention_mask(q_pos, kv_pos)[:, None]
+            lib_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=hq != hkv))
+            kv_bytes = 2 * admitted_kv_rows(mask).sum().item() * hkv * d * k.element_size()
+            bms, by = bound(nbytes(q, q_pos, kv_pos, got) + kv_bytes,
+                            4.0 * hq * d * mask.sum().item(), dt)
+            out.append(dict(kernel="flash_attention", row=row, case=label, dtype=str(dt),
+                            max_abs_err=err, tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms,
+                            library_ms=lib_ms, library="scaled_dot_product_attention",
+                            bound_ms=bms, bound_by=by, body=pl.body, n_splits=pl.n_splits,
+                            ks=pl.ks, head_dim=d))
+    return out
+
 # mamba2-370m's mixer: 32 heads of 64, d_state 128, one B/C group, chunk 64
 SSD_H, SSD_P, SSD_N, SSD_CHUNK = 32, 64, 128, 64
 
@@ -2126,6 +2217,90 @@ def cross_device_jamba() -> dict:
                          distinct_ids=len({int(t) for o in outs["cuda"][0] for t in o}))
     return out
 
+
+# phase 4's and 15's encoder-conditioned archs
+VLM = "llama-3.2-vision-11b"
+AUDIO = "seamless-m4t-large-v2"
+
+
+def cross_device_encoders(kernel_fns) -> dict:
+    """Reduced Llama-3.2-Vision (10 layers, cross layers 3 and 8, patch
+    embeddings of 128 projected by ``enc_proj`` to 256) and reduced
+    SeamlessM4T (2 encoder and 2 decoder layers) in f32, weights x10, the
+    card's kernels against the CPU's plain versions: offline es tokens equal
+    with one ``enc_embeds`` a row, greedy, and sampled on SeamlessM4T, whose
+    greedy blocks unmask in their prefill (its decoder has no
+    self-attention, so a block's [mask] rows tie).  On the card, kernel 1
+    must run as cross-attention (and as SeamlessM4T's encoder)."""
+    from repro_torch import configs
+    from repro_torch.core import make_engine
+
+    out = {}
+    for arch, temps in ((VLM, (0.0,)), (AUDIO, (0.0, 0.8))):
+        models = reduced_models(arch, 10.0, n_layers=None)
+        cfg = models["cpu"].cfg
+        g = torch.Generator().manual_seed(SEED)
+        prompt = torch.randint(3, cfg.vocab_size, (2, 16), generator=g)
+        enc = torch.randn(2, cfg.n_enc_tokens, cfg.d_enc, generator=g)
+        rec = dict(layers=cfg.n_layers, cross_layers=models["cpu"].cross_layers,
+                   enc_proj=models["cpu"].enc_proj is not None, weight_scale=10.0)
+        for temp in temps:
+            gen_cfg = configs.GenerationConfig(
+                mode="es", gen_length=16, block_length=8, temperature=temp,
+                skip_stages=configs.default_skip_stages(cfg.n_layers))
+            toks = {}
+            for dev in ("cpu", "cuda"):
+                zero_counts(kernel_fns)
+                with CrossLaunches(models[dev]) as cl:
+                    toks[dev] = make_engine(models[dev], gen_cfg, device=dev).generate(
+                        prompt, enc_embeds=enc).cpu()
+            if not torch.equal(toks["cpu"], toks["cuda"]):
+                raise AssertionError(f"{arch} t={temp}: cross-device es tokens differ:\n"
+                                     f"{toks['cpu']}\n{toks['cuda']}")
+            if cl.cross <= 0 or (models["cuda"].encoder is not None and cl.encoder <= 0):
+                raise AssertionError(f"{arch}: kernel 1 launches as cross-attention "
+                                     f"{cl.cross}, in the encoder {cl.encoder}")
+            rec[f"t{temp}"] = dict(es_tokens_equal=True,
+                                   distinct_ids=len(torch.unique(toks["cpu"][:, 16:])),
+                                   cross_launches=cl.cross, encoder_launches=cl.encoder,
+                                   flash_attention=kernel_fns["flash_attention"].launches)
+        out[arch] = rec
+    return out
+
+
+class CrossLaunches:
+    """Counts kernel 1's launches (``flash_attention.launches``) made inside
+    the cross-attention layers (``cross``) and inside ``model.encode``
+    (``encoder``), and the ``model.encode`` calls (``encodes``), while the
+    context is open; on the CPU the launches stay 0."""
+
+    def __init__(self, model):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.models import model as model_mod
+
+        self.fa, self.mod, self.model = fa.flash_attention, model_mod, model
+        self.cross = self.encoder = self.encodes = 0
+
+    def __enter__(self):
+        orig_cross, orig_encode = self.mod.cross_attention, self.model.encode
+
+        def counted(count, fn):
+            def wrapper(*args, **kw):
+                n0 = self.fa.launches
+                self.encodes += count == "encoder"
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    setattr(self, count, getattr(self, count) + self.fa.launches - n0)
+            return wrapper
+        self.restore = (orig_cross, orig_encode)
+        self.mod.cross_attention = counted("cross", orig_cross)
+        self.model.encode = counted("encoder", orig_encode)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.cross_attention = self.restore[0]
+        del self.model.encode                  # the class's method again
 
 def check_drained(sched, reqs, n_tokens=None) -> None:
     """Every request finished cleanly and every page came back."""
@@ -3796,12 +3971,12 @@ def full_width(arch: str, n_layers=None):
 def arch_gen_config(cfg, served: bool):
     """Phase 5's offline cadence or phase 6's served one, with the arch's
     default skip stages; served without the adaptive cache on a stack with
-    SSM layers, where the reference refuses it."""
+    SSM or cross layers, where the reference refuses it."""
     from repro_torch import configs
 
     kw = (dict(prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2)
           if served else dict(prompt_refresh_period=32, block_refresh_period=4))
-    if cfg.ssm is not None:
+    if cfg.ssm is not None or cfg.cross_every:
         kw.pop("cache_prompt_interval", None)
     return configs.GenerationConfig(mode="es", gen_length=GEN, block_length=BLOCK,
                                     skip_stages=configs.default_skip_stages(cfg.n_layers), **kw)
@@ -4224,6 +4399,321 @@ def phase14(kernel_fns) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the encoder-conditioned archs at full width
+# ---------------------------------------------------------------------------
+PROFILE_15B = (40, 70)          # the profiled window of 15b's served trace (steps)
+
+
+def enc_embeds_on_card(cfg, n: int, seed: int) -> torch.Tensor:
+    """``[n, E, d_enc]`` float32 stub frontend embeddings, made on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(n, cfg.n_enc_tokens, cfg.d_enc, generator=g, device="cuda")
+
+
+class CrossProfiled:
+    """CPU and CUDA activity over whatever runs between enter and exit, each
+    cross-attention layer in a ``chip_smoke.cross`` range; ``result`` holds
+    the device ms of every kernel, of those inside the ranges (the query,
+    K/V and output projections and kernel 1) and of kernel 1's launches
+    among them."""
+
+    def __init__(self):
+        from repro_torch.models import model as model_mod
+
+        self.mod, self.orig = model_mod, model_mod.cross_attention
+
+    def __enter__(self):
+        def ranged(*args, **kw):
+            with torch.profiler.record_function("chip_smoke.cross"):
+                return self.orig(*args, **kw)
+        torch.cuda.synchronize()
+        self.mod.cross_attention = ranged
+        self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                       torch.profiler.ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import bisect
+
+        torch.cuda.synchronize()
+        self.prof.__exit__(*exc)
+        self.mod.cross_attention = self.orig
+        if exc[0] is not None:
+            return
+        cuda = torch.autograd.DeviceType.CUDA
+        evs = [e for e in self.prof.profiler.kineto_results.events() if e.device_type() == cuda]
+        spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns()) for e in evs
+                       if e.name() == "chip_smoke.cross")
+        starts = [a for a, _ in spans]
+        res = dict(all_ms=0.0, cross_ms=0.0, cross_kernel1_ms=0.0, cross_kernel1_launches=0,
+                   spans=len(spans))
+        for e in evs:
+            if (e.name() == "chip_smoke.cross" or e.is_user_annotation()
+                    or "Memcpy" in e.name() or "Memset" in e.name()):
+                continue
+            ms = e.duration_ns() / 1e6
+            res["all_ms"] += ms
+            i = bisect.bisect_right(starts, e.start_ns()) - 1
+            if i >= 0 and e.start_ns() < spans[i][1]:
+                res["cross_ms"] += ms
+                if "flash_tc_kernel" in e.name() or "flash_attention_kernel" in e.name():
+                    res["cross_kernel1_ms"] += ms
+                    res["cross_kernel1_launches"] += 1
+        res["cross_share"] = res["cross_ms"] / res["all_ms"] if res["all_ms"] else 0.0
+        self.result = res
+
+
+def encoder_offline(model, kernel_fns, temperature: float = 0.0, dualcache: bool = False,
+                    profile: bool = False) -> dict:
+    """Offline es at phase 5's shape with one ``enc_embeds`` a row made on
+    the card, after a warm-up call: one timed ``generate`` with its launches
+    (kernel 1 as self-attention, as cross-attention, in the encoder), a
+    second that must give the same tokens; with ``dualcache`` one dualcache
+    ``generate`` after its warm-up; with ``profile`` a ``generate`` traced
+    on the card alone (busy share) and one with CPU activity (the
+    cross-attention's device ms).  Every attention launch on the tensor-core
+    body."""
+    from repro_torch.core import make_engine
+
+    cfg = model.cfg
+    gen_cfg = dataclasses.replace(arch_gen_config(cfg, served=False), temperature=temperature)
+    prompt = torch.randint(3, cfg.vocab_size, (2, PROMPT), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(SEED + 1))
+    enc = enc_embeds_on_card(cfg, 2, SEED + 2)
+    engine = make_engine(model, gen_cfg, device="cuda")
+    engine.generate(prompt, enc_embeds=enc)                   # warm-up
+    torch.cuda.synchronize()
+    zero_counts(kernel_fns)
+    passes0 = dict(engine.pass_counts)
+    with CrossLaunches(model) as cl:
+        t0 = time.perf_counter()
+        out = engine.generate(prompt, enc_embeds=enc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts(kernel_fns)
+    passes = {k: n - passes0[k] for k, n in engine.pass_counts.items()}
+    t0 = time.perf_counter()
+    again = engine.generate(prompt, enc_embeds=enc)
+    torch.cuda.synchronize()
+    walls = [wall, time.perf_counter() - t0]
+    if not torch.equal(again, out):
+        raise AssertionError(f"{cfg.name}: a repeated generate gave other tokens")
+    gen_tok = out[:, PROMPT:]
+    if (gen_tok == engine.mask_id).any().item() or not (
+            (gen_tok >= 0) & (gen_tok < cfg.vocab_size)).all().item():
+        raise AssertionError(f"{cfg.name}: a [mask] id or an id outside the vocabulary")
+    need = ["flash_attention"] + (["scatter_rows"] if model.attn_layers else []) + (
+        ["importance"] if passes["skip"] else [])
+    for name in need:
+        if launches[name] <= 0:
+            raise AssertionError(f"{cfg.name}: kernel {name} was not launched offline")
+    if cl.cross <= 0 or (model.encoder is not None and cl.encoder <= 0):
+        raise AssertionError(f"{cfg.name}: kernel 1 as cross-attention {cl.cross}, in the "
+                             f"encoder {cl.encoder}")
+    check_tensor_core_path(launches, f"phase 15 {cfg.name} offline")
+    cross = engine.last_state.cache.cross
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+               cross_layers=len(model.cross_layers), d_model=cfg.d_model,
+               enc_tokens=cfg.n_enc_tokens, temperature=temperature,
+               weights_gb=sum(nbytes(p) for p in model.parameters()) / 1e9,
+               segments=[dataclasses.asdict(sg) for sg in engine.segments],
+               batch=2, prompt_len=PROMPT, gen_length=GEN, block_length=BLOCK,
+               iterations=engine.iterations, passes=passes,
+               wall_s=wall, wall_s_repeats=walls, tokens_per_s=2 * GEN / wall,
+               distinct_ids=len(torch.unique(gen_tok)), launches=launches,
+               kernel1_self=launches["flash_attention"] - cl.cross - cl.encoder,
+               kernel1_cross=cl.cross, kernel1_encoder=cl.encoder,
+               cross_plane_bytes_per_row=nbytes(cross.k, cross.v) / 2)
+    if dualcache:
+        dual = make_engine(model, dataclasses.replace(gen_cfg, mode="dualcache",
+                                                      skip_stages=()), device="cuda")
+        dual.generate(prompt, enc_embeds=enc)
+        torch.cuda.synchronize()
+        zero_counts(kernel_fns)
+        t0 = time.perf_counter()
+        dual_out = dual.generate(prompt, enc_embeds=enc)
+        torch.cuda.synchronize()
+        dual_wall = time.perf_counter() - t0
+        dual_launches = counts(kernel_fns)
+        check_tensor_core_path(dual_launches, f"phase 15 {cfg.name} dualcache")
+        rec["dualcache"] = dict(wall_s=dual_wall, tokens_per_s=2 * GEN / dual_wall,
+                                iterations=dual.iterations, launches=dual_launches,
+                                tokens_equal_es=float((dual_out == out).float().mean()))
+    if profile:
+        rec["profile"] = profile_run(lambda: engine.generate(prompt, enc_embeds=enc))
+        with CrossProfiled() as window:
+            engine.generate(prompt, enc_embeds=enc)
+        rec["cross_profile"] = window.result
+    return rec
+
+
+def enc_trace(sched, prompts, encs, plan):
+    """Submits ``plan``'s requests ``(step, prompt index, priority,
+    max_new_tokens)``, each with its own row of ``encs``, at their steps and
+    drains.  Returns the requests in plan order."""
+    from repro_torch.runtime import Request
+
+    reqs = [Request(prompt=prompts[i].copy(), enc_embeds=encs[i], priority=prio,
+                    max_new_tokens=m, sample_seed=1000 + n)
+            for n, (_, i, prio, m) in enumerate(plan)]
+    last = max(at for at, *_ in plan)
+    step = 0
+    while step <= last or sched.has_work():
+        for (at, *_), r in zip(plan, reqs):
+            if at == step:
+                sched.submit(r)
+        sched.step()
+        step += 1
+    return reqs
+
+
+# phase 6's plan (8 requests, one every 5 steps, on its prompts) and 7b's
+# (two priority classes, on Dream's prompts: the first four fill 44 of the
+# 45 pages, so the class-1 arrival spills a resident)
+PLAN_15 = tuple((5 * i, i, 0, m) for i, m in enumerate(SERVE_MAX_NEW))
+PLAN_15_PREEMPT = tuple((at, i, prio, None) for i, (at, _, prio) in enumerate(DREAM_PLAN))
+
+
+def encoder_served(model, kernel_fns, preempt: bool = False, profile=None,
+                   repeat: bool = False) -> dict:
+    """Phase 6's trace on the paged pool (4 slots, pages of 16, early
+    advance, no adaptive cache: the reference refuses it on these stacks),
+    each request with its own ``enc_embeds`` made on the card, after a
+    one-request warm-up; ``Model.encode`` calls counted (one a request).
+    With ``repeat`` a second run must give the same tokens; with ``profile
+    = (a, b)`` a further run profiles steps [a, b) on the card.  With
+    ``preempt``, 7b's plan of two priority classes on its 45-page pool:
+    spills and resumes, each resume encoded again."""
+    import numpy as np
+
+    from repro_torch.runtime import StreamScheduler
+
+    cfg = model.cfg
+    gen_cfg = arch_gen_config(cfg, served=True)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in LENS_13A]
+    dream = {k: rng.integers(3, cfg.vocab_size, n).astype(np.int32)
+             for k, n in DREAM_PROMPTS.items()}
+    encs = enc_embeds_on_card(cfg, len(prompts), SEED + 3)
+
+    def make(**kw):
+        return StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
+                               prompt_len=PROMPT, paged=True, page_size=16,
+                               early_advance=True, **kw)
+    enc_trace(make(), prompts, encs, PLAN_15[:1])               # warm-up
+    torch.cuda.synchronize()
+    runs = {"served": (PLAN_15, prompts, {})}
+    if preempt:
+        runs["preemption"] = (PLAN_15_PREEMPT, [dream[name] for _, name, _ in DREAM_PLAN],
+                              dict(preemption=True, kv_pages=DREAM_PREEMPT_PAGES))
+    out = {}
+    for name, (plan, run_prompts, kw) in runs.items():
+        sched = make(**kw)
+        zero_counts(kernel_fns)
+        passes0 = dict(sched.engine.pass_counts)
+        with CrossLaunches(model) as cl:
+            t0 = time.perf_counter()
+            reqs = enc_trace(sched, run_prompts, encs, plan)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts(kernel_fns)
+        check_drained(sched, reqs)
+        for r, (*_, m) in zip(reqs, plan):
+            if r.output.shape != (m or GEN,):
+                raise AssertionError(f"{cfg.name}: request {r.request_id} {r.output.shape}")
+        passes = {k: n - passes0[k] for k, n in sched.engine.pass_counts.items()}
+        need = ("flash_attention",) + (("importance",) if passes["skip"] else ()) + (
+            ("paged_flash_attention", "scatter_rows_paged") if model.attn_layers else ())
+        for k in need:
+            if launches[k] <= 0:
+                raise AssertionError(f"{cfg.name} {name}: kernel {k} was not launched")
+        check_tensor_core_path(launches, f"phase 15 {cfg.name} {name}")
+        st = sched.stats
+        resumes = len(st.resume_waits)
+        if cl.encodes != len(plan) + resumes or cl.cross <= 0:
+            raise AssertionError(f"{cfg.name} {name}: {cl.encodes} encodes for {len(plan)} "
+                                 f"requests and {resumes} resumes; {cl.cross} cross launches")
+        if name == "preemption" and (st.preemptions < 1 or resumes < 1):
+            raise AssertionError(f"{cfg.name}: no preemption and resume: {st.gauges()}")
+        tokens = sum(len(r.output) for r in reqs)
+        out[name] = dict(requests=len(reqs), steps=st.steps, wall_s=wall,
+                         tokens_per_s=tokens / wall, ms_per_step=wall / st.steps * 1e3,
+                         latency_p50_s=st.latency_pct(50), latency_p95_s=st.latency_pct(95),
+                         encodes=cl.encodes, preemptions=st.preemptions, resumes=resumes,
+                         pages_spilled=st.pages_spilled, pages_total=st.pages_total,
+                         peak_pages_in_use=st.peak_pages_in_use,
+                         passes=passes, launches=launches,
+                         kernel1_cross=cl.cross, kernel1_encoder=cl.encoder,
+                         distinct_ids=len({int(t) for r in reqs for t in r.output}))
+        if name == "served" and repeat:
+            again = enc_trace(make(), prompts, encs, plan)
+            if not all(np.array_equal(a.output, b.output) for a, b in zip(again, reqs)):
+                raise AssertionError(f"{cfg.name}: a repeated served trace gave other tokens")
+            out[name]["repeat_equal"] = True
+    if profile is not None:
+        sched = make()
+        from repro_torch.runtime import Request
+        trace = [Request(prompt=prompts[i].copy(), enc_embeds=encs[i], max_new_tokens=m)
+                 for _, i, _, m in PLAN_15]
+        for step in range(profile[1]):
+            if step % 5 == 0 and step // 5 < len(trace):
+                sched.submit(trace[step // 5])
+            if step == profile[0]:
+                window = Profiled().__enter__()
+            sched.step()
+        window.__exit__(None, None, None)
+        out["served"]["profile"] = dict(window.result, steps=list(profile))
+    return out
+
+
+def phase15(kernel_fns) -> dict:
+    """15a-b llama-3.2-vision-11b (all 40 layers): offline es and dualcache
+    with profiles, then served with a profiled window and under preemption;
+    15c seamless-m4t-large-v2 (24 decoder and 6 encoder layers): offline es
+    greedy and sampled, and served twice on the paged pool (no K/V plane)."""
+    out = {}
+    model, init_s = full_width(VLM)
+    out["15a"] = dict(init_s=init_s, offline=encoder_offline(model, kernel_fns, dualcache=True,
+                                                             profile=True))
+    out["15b"] = encoder_served(model, kernel_fns, preempt=True, profile=PROFILE_15B)
+    del model
+    torch.cuda.empty_cache()
+    model, init_s = full_width(AUDIO)
+    out["15c"] = dict(init_s=init_s, offline=encoder_offline(model, kernel_fns),
+                      sampled=encoder_offline(model, kernel_fns, temperature=0.2),
+                      served=encoder_served(model, kernel_fns, repeat=True)["served"])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+def report15(enc_runs: dict) -> None:
+    """Phase 15's lines: each run's record and a summary."""
+    for name, run in (("15a", enc_runs["15a"]["offline"]), ("15c es", enc_runs["15c"]["offline"]),
+                      ("15c sampled", enc_runs["15c"]["sampled"])):
+        print(f"phase {name}: {json.dumps(run)}")
+        print(f"phase {name} {run['arch']} ({run['layers']} layers, {run['weights_gb']:.2f} GB): "
+              f"{json.dumps(run['wall_s_repeats'])} s a generate, {run['tokens_per_s']:.1f} "
+              f"tok/s, {run['iterations']} iterations; kernel 1 self {run['kernel1_self']}, "
+              f"cross {run['kernel1_cross']}, encoder {run['kernel1_encoder']}; cross planes "
+              f"{run['cross_plane_bytes_per_row'] / 1e6:.1f} MB a row")
+    r = enc_runs["15a"]["offline"]
+    print(f"phase 15a: dualcache {r['dualcache']['wall_s']:.2f} s; busy "
+          f"{r['profile']['device_busy_ms']:.1f} ms ({r['profile']['device_busy_share']:.3f}); "
+          f"cross-attention {r['cross_profile']['cross_ms']:.2f} ms of "
+          f"{r['cross_profile']['all_ms']:.1f} ({r['cross_profile']['cross_share']:.3f}), "
+          f"kernel 1 in it {r['cross_profile']['cross_kernel1_ms']:.2f} ms")
+    for name, r in (("15b served", enc_runs["15b"]["served"]),
+                    ("15b preemption", enc_runs["15b"]["preemption"]),
+                    ("15c served", enc_runs["15c"]["served"])):
+        print(f"phase {name}: {json.dumps(r)}")
+        print(f"phase {name}: {r['steps']} steps at {r['ms_per_step']:.1f} ms, "
+              f"{r['tokens_per_s']:.1f} tok/s, p50/p95 {r['latency_p50_s']:.2f}/"
+              f"{r['latency_p95_s']:.2f} s, encodes {r['encodes']}, preemptions "
+              f"{r['preemptions']}, resumes {r['resumes']}")
+
+
 def profile_run(fn, top: int = 8) -> dict:
     """Where one run's time goes on the device: the share of the wall time
     some kernel was running, and the kernels with the most device time."""
@@ -4360,6 +4850,7 @@ def main() -> int:
     cases += check_fork_scales(ref, fork_pages, gen)
     d256, scatter256 = check_head_dim_256(ref, flash_attention, paged_flash_attention, gen)
     cases += d256
+    cases += check_cross(ref, flash_attention, gen)
     print(f"timer: {len(TIMER_FALLBACKS)} incomplete profiler traces {TIMER_FALLBACKS[:20]}, "
           f"{len(EVENT_TIMED)} measurements timed by CUDA events")
     for c in cases:           # below the bound, the timer and not the kernel is at fault
@@ -4441,6 +4932,8 @@ def main() -> int:
     print(f"cross-device MoE and dense archs: {json.dumps(cross_archs)}")
     cross_jamba = cross_device_jamba()
     print(f"cross-device jamba: {json.dumps(cross_jamba)}")
+    cross_enc = cross_device_encoders(kernel_fns)
+    print(f"cross-device encoder archs: {json.dumps(cross_enc)}")
     lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
@@ -4591,6 +5084,11 @@ def main() -> int:
     print(f"phase 14: init {jamba['init_s']:.1f} s, allocated before "
           f"{jamba['allocated_before_gb']:.2f} GB, peak memory {jamba['peak_mem_gb']:.2f} GB")
     lap("14")
+
+    # phase 15: llama-3.2-vision-11b and seamless-m4t-large-v2 at full width
+    enc_runs = phase15(kernel_fns)
+    report15(enc_runs)
+    lap("15")
     print(f"phase seconds: {json.dumps(phase_s)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
@@ -4618,7 +5116,9 @@ def main() -> int:
                 "paged_flash_attention_d256": (f"gemma3 paged Lq=32 Lkv={GEMMA_T} ps=16 "
                                                f"window={GEMMA_WINDOW}", torch.bfloat16),
                 # Jamba's SSD widths (phase 14)
-                "ssd_chunks_jamba": (JAMBA_SSD_CASES[0][0], torch.bfloat16)}
+                "ssd_chunks_jamba": (JAMBA_SSD_CASES[0][0], torch.bfloat16),
+                # kernel 1 as cross-attention and encoder attention (phase 15)
+                **{row: (label, torch.bfloat16) for row, label, *_ in CROSS_CASES}}
     # the int8 rows' launches: phase 11's runs
     offline8 = int8_runs["11a"]["runs"]["int8"]["launches"]
     int8_launches = {
@@ -4632,16 +5132,25 @@ def main() -> int:
         "flash_attention_d256": arch_runs["13b"]["offline"]["launches"]["flash_attention"],
         "paged_flash_attention_d256":
             arch_runs["13b"]["served"]["launches"]["paged_flash_attention"]}
+    # kernel 1's launches as cross-attention in 15a's es generate and 15c's
+    # sampled one (greedy, a block unmasks in its prefill), and in 15c's
+    # encoder
+    cross_launches = {
+        "flash_attention_cross": enc_runs["15a"]["offline"]["kernel1_cross"],
+        "flash_attention_cross_seamless": enc_runs["15c"]["sampled"]["kernel1_cross"],
+        "flash_attention_encoder": enc_runs["15c"]["offline"]["kernel1_encoder"]}
+
     def case_row(x) -> str:
         """The kernels line's row a phase-3 case belongs to."""
         return x.get("row") or (x["kernel"] + "_d256" if x.get("head_dim") == 256
                                 else x["kernel"])
     kernels = []
     for name, (case, dt) in headline.items():
-        kernel = name.removesuffix("_d256").removesuffix("_jamba")
-        c = next(c for c in cases if c["kernel"] == kernel and c["case"] == case
+        c = next(c for c in cases if case_row(c) == name and c["case"] == case
                  and c["dtype"] == str(dt))
-        if name in d256_launches:
+        if name in cross_launches:
+            launches = cross_launches[name]
+        elif name in d256_launches:
             launches = d256_launches[name]
         elif name in int8_launches:
             launches = int8_launches[name]
@@ -4675,6 +5184,7 @@ def main() -> int:
              offline_path=run, serving_path=serving, block_causal_window=bc_runs,
              sparse_lazy=sparse_runs, cross_device_archs=cross_archs, archs=arch_runs,
              scatter_d256=scatter256, cross_device_jamba=cross_jamba, jamba=jamba,
+             cross_device_encoders=cross_enc, encoder_archs=enc_runs,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

@@ -1,6 +1,7 @@
 """Architecture config registry of the port: the two paper models, Mamba-2,
 the MoE models (OLMoE, Granite-MoE), the dense decoders Gemma-3, Llama-3,
-Qwen2 and ChatGLM3, and the Jamba hybrid.
+Qwen2 and ChatGLM3, the Jamba hybrid, and the encoder-conditioned
+Llama-3.2-Vision and SeamlessM4T (cross-attention).
 
 ``get_config(arch_id)`` returns the published configuration; ``reduced(cfg)``
 returns the same small variant the reference package's ``reduced`` builds, so
@@ -17,10 +18,12 @@ from repro_torch.configs import (  # noqa: F401  (registers)
     granite_moe_1b_a400m,
     jamba_v0_1_52b,
     llada_8b,
+    llama3_2_vision_11b,
     llama3_8b,
     mamba2_370m,
     olmoe_1b_7b,
     qwen2_1_5b,
+    seamless_m4t_large_v2,
 )
 from repro_torch.configs.base import (  # noqa: F401
     GenerationConfig,

@@ -8,9 +8,14 @@ leading ``[G]`` axis (``G = n_layers / P``), holding ``ln1`` and
 dt_proj, conv_*, a_log, dt_bias, d_skip, norm_scale, out_proj}``, and, but on
 a pure SSM stack, ``ln2`` and ``ffn{w_gate, w_up, w_down}`` (an MoE layer's
 ``ffn{router, w_gate, w_up, w_down}``, the experts stacked on the axis after
-``[G]``), all laid out for ``x @ W``.  Leaf ``[g]`` of position j is the
-port's layer ``g*P + j``; the port keeps the layout per layer, so conversion
-is an unstacking and no weight is transposed.
+``[G]``), all laid out for ``x @ W``.  A cross layer holds ``lnx``,
+``xattn{wq, wk, wv, wo}`` and the f32 scalar ``gate_attn`` in place of
+``ln1``/``attn``.  Leaf ``[g]`` of position j is the port's layer ``g*P +
+j``; the port keeps the layout per layer, so conversion is an unstacking
+and no weight is transposed.  The encoder (SeamlessM4T) is stacked over its
+layers the same way under ``encoder`` (``ln1``, ``attn``, ``ln2``, ``ffn``,
+and ``final_norm`` unstacked), and the vision model's ``enc_proj [d_enc,
+d_model]`` is a leaf of its own.
 """
 from __future__ import annotations
 
@@ -23,9 +28,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import DTYPES
 
-# the mixer's per-head parameters and the MoE router are f32 whatever the
-# parameter dtype
-F32_LEAVES = dict.fromkeys(("a_log", "dt_bias", "d_skip", "router"), torch.float32)
+# the mixer's per-head parameters, the MoE router and the cross layers' gate
+# are f32 whatever the parameter dtype
+F32_LEAVES = dict.fromkeys(("a_log", "dt_bias", "d_skip", "router", "gate_attn"),
+                           torch.float32)
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
@@ -45,14 +51,22 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     out = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"])}
     if not cfg.tie_embeddings:
         out["lm_head"] = t(tree["lm_head"])
-    for j in range(period):
-        stack = tree["layers"][str(j)]
-        for g in range(cfg.n_layers // period):
-            pre = f"layers.{g * period + j}"
-            for name in ("ln1", "ln2"):
+    if "enc_proj" in tree:
+        out["enc_proj"] = t(tree["enc_proj"])
+
+    def unstack(stack, prefixes) -> None:
+        """Leaf ``[i]`` of each stacked leaf goes under ``prefixes[i]``."""
+        for i, pre in enumerate(prefixes):
+            for name in ("ln1", "ln2", "lnx", "gate_attn"):
                 if name in stack:
-                    out[f"{pre}.{name}"] = t(stack[name][g])
-            for part in ("attn", "mixer", "ffn"):
+                    out[f"{pre}.{name}"] = t(stack[name][i], F32_LEAVES.get(name, dtype))
+            for part in ("attn", "xattn", "mixer", "ffn"):
                 for name, a in stack.get(part, {}).items():
-                    out[f"{pre}.{part}.{name}"] = t(a[g], F32_LEAVES.get(name, dtype))
+                    out[f"{pre}.{part}.{name}"] = t(a[i], F32_LEAVES.get(name, dtype))
+    for j in range(period):
+        unstack(tree["layers"][str(j)],
+                [f"layers.{g * period + j}" for g in range(cfg.n_layers // period)])
+    if "encoder" in tree:
+        unstack(tree["encoder"], [f"encoder.layers.{i}" for i in range(cfg.n_encoder_layers)])
+        out["encoder.final_norm"] = t(tree["encoder"]["final_norm"])
     return out

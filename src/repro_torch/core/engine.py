@@ -84,6 +84,17 @@ pool takes their writes in place through their gathered block tables.
 On a stack with SSM layers the engine refuses what the reference's
 refuses: the adaptive cache, ``gather_refresh`` and sparse attention
 (``ValueError``).
+
+Encoder-conditioned stacks (cross layers: Llama-3.2-Vision, SeamlessM4T):
+``generate(prompt, enc_embeds=...)`` encodes once (``Model.encode``) and the
+encoder output rides in ``BlockState.enc_out`` through every pass; serving
+passes the scheduler's per-slot plane as ``step(state, enc_out)``.  A
+prefill projects each cross layer's K/V from it into the per-slot cross
+planes (the owned rows only), the decode passes read the planes, a vanilla
+pass projects them afresh.  The engine refuses on these stacks what the
+reference refuses or fails on: the adaptive cache, ``gather_refresh`` and
+sparse attention.  The int8 cache covers the self-attention K/V only; the
+cross planes stay in the parameter dtype.
 """
 from __future__ import annotations
 
@@ -143,6 +154,9 @@ class BlockState(NamedTuple):
     # last-observed confidence at every position, carried across blocks
     feat: Optional[torch.Tensor] = None        # [B, T, d] f32
     conf_full: Optional[torch.Tensor] = None   # [B, T] f32
+    # the encoder output a prefill projects the cross K/V from (None on a
+    # stack without cross layers)
+    enc_out: Optional[torch.Tensor] = None     # [B, E, d_out]
 
 
 class EngineState(NamedTuple):
@@ -218,6 +232,20 @@ class DiffusionEngine:
             raise ValueError("sparse attention on a stack with SSM layers: its probe scores "
                              "layer group 0's K cache; the reference refuses a period other "
                              "than 1 and fails on a pure SSM stack too")
+        if model.cross and gen.adaptive_cache:
+            raise ValueError("the adaptive feature cache needs an attention-only period-1 "
+                             "stack (its partial refresh cannot rejoin cross layers); the "
+                             "reference refuses it too ('adaptive feature cache: "
+                             "attention-only period-1 archs only')")
+        if model.cross and gather_refresh:
+            raise ValueError("gather_refresh: attention-only archs (the cross caches are "
+                             "batch-major and would need a second gather/scatter path); the "
+                             "reference refuses it too")
+        if model.cross and gen.sparse_attention:
+            raise ValueError("sparse attention on a stack with cross layers: its probe scores "
+                             "layer group 0's self-attention K cache; the reference refuses "
+                             "a period other than 1 (the vision model) and fails on "
+                             "SeamlessM4T, whose decoder has no K/V cache")
         self.model = model
         self.cfg = model.cfg
         self.gen = gen
@@ -324,6 +352,7 @@ class DiffusionEngine:
     @torch.no_grad()
     def generate(self, prompt: torch.Tensor,
                  prompt_start: Optional[torch.Tensor] = None, *,
+                 enc_embeds: Optional[torch.Tensor] = None,
                  key: Optional[torch.Tensor] = None,
                  sample_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Generates ``gen.gen_length`` tokens after ``prompt [B, P]``;
@@ -334,9 +363,11 @@ class DiffusionEngine:
         draws with ``fold_in(fold_in(key, sample_seeds[b]), iteration)``, and
         ``sample_seeds`` defaults to the row index, so duplicate prompts
         sample distinct completions.  Pass a request's serving seed to replay
-        it."""
+        it.  ``enc_embeds [B, E, d_enc]`` (float32 stub frontend embeddings)
+        condition an encoder arch's cross layers; they are encoded once."""
         gen = self.gen
         b, p = prompt.shape
+        enc_out = None if enc_embeds is None else self.model.encode(enc_embeds)
         lb = gen.block_length
         t_total = p + gen.gen_length
         tokens = torch.cat([
@@ -358,7 +389,7 @@ class DiffusionEngine:
         for blk in range(gen.gen_length // lb):
             self.last_state = self._run_block(tokens, cache, kv_valid, feat, conf_full,
                                               p + blk * lb, blk * gen.resolved_steps(),
-                                              prompt_start, bt, key, seeds)
+                                              prompt_start, bt, key, seeds, enc_out)
             tokens, kv_valid, feat, conf_full = (
                 self.last_state.tokens, self.last_state.kv_valid, self.last_state.feat,
                 self.last_state.conf_full)
@@ -410,7 +441,8 @@ class DiffusionEngine:
                             device=self.device),
                 torch.zeros((b, t_total), dtype=torch.float32, device=self.device))
 
-    def _block_state(self, tokens, cache, kv_valid, feat=None, conf_full=None) -> BlockState:
+    def _block_state(self, tokens, cache, kv_valid, feat=None, conf_full=None,
+                     enc_out=None) -> BlockState:
         b, lb, d = tokens.shape[0], self.gen.block_length, self.cfg.d_model
         dev = self.device
         return BlockState(
@@ -419,7 +451,7 @@ class DiffusionEngine:
             pred=torch.zeros((b, lb), dtype=torch.int32, device=dev),
             hidden=tuple(torch.zeros((b, lb, d), dtype=torch.float32, device=dev)
                          for _ in range(self.n_stages)),
-            kv_valid=kv_valid, t=0, feat=feat, conf_full=conf_full)
+            kv_valid=kv_valid, t=0, feat=feat, conf_full=conf_full, enc_out=enc_out)
 
     def _offline_rows(self, st: BlockState, bs: int):
         """(bs [B], prompt_start [B], block tables) of the offline layout."""
@@ -454,9 +486,9 @@ class DiffusionEngine:
         return self._row_keys(key, seeds, st.t)
 
     def _run_block(self, tokens, cache, kv_valid, feat, conf_full, bs: int, iters0: int,
-                   prompt_start, bt, key, seeds) -> BlockState:
+                   prompt_start, bt, key, seeds, enc_out=None) -> BlockState:
         gen = self.gen
-        st = self._block_state(tokens, cache, kv_valid, feat, conf_full)
+        st = self._block_state(tokens, cache, kv_valid, feat, conf_full, enc_out)
         bs_rows = torch.full((tokens.shape[0],), bs, dtype=torch.int32, device=self.device)
         max_steps = gen.resolved_steps() + 1
         while st.t == 0 or (st.t < max_steps and self._any_masked(st, bs)):
@@ -500,7 +532,7 @@ class DiffusionEngine:
             # settled blocks keep their final values for the refresh priority
             conf_full = st.conf_full.scatter(1, cols.long(), conf)
         return BlockState(tokens, cache, conf, pred, hidden, kv_valid, st.t + 1,
-                          st.feat if feat is None else feat, conf_full)
+                          st.feat if feat is None else feat, conf_full, st.enc_out)
 
     # ------------------------------------------------------------------
     # serving
@@ -533,15 +565,17 @@ class DiffusionEngine:
             poisoned=zeros(torch.bool))
 
     @torch.no_grad()
-    def step(self, state: EngineState) -> EngineState:
+    def step(self, state: EngineState, enc_out: Optional[torch.Tensor] = None) -> EngineState:
         """One denoising iteration for every resident slot.  Each row's branch
         comes from its own phase; the KV caches are updated in place, every
-        other field of the returned state is new."""
+        other field of the returned state is new.  ``enc_out [B, E, d_out]``
+        is the encoder output of each slot's request (the scheduler's
+        plane), which an encoder arch's prefill passes read."""
         gen = self.gen
         steps_pb, lb = gen.resolved_steps(), gen.block_length
         bs = state.bs
         st = BlockState(state.tokens, state.cache, state.conf, state.pred, state.hidden,
-                        state.kv_valid, state.phase, state.feat, state.conf_full)
+                        state.kv_valid, state.phase, state.feat, state.conf_full, enc_out)
         keys = self._row_keys(state.key, state.sample_seeds, state.iters)
         if gen.mode == "vanilla":
             conf, pred = self._vanilla_compute(st, bs, keys)
@@ -646,7 +680,7 @@ class DiffusionEngine:
             return None if a is None else a[rows]
         st_g = st._replace(tokens=g(st.tokens), conf=g(st.conf), pred=g(st.pred),
                            hidden=tuple(g(h) for h in st.hidden), kv_valid=g(st.kv_valid),
-                           feat=g(st.feat), conf_full=g(st.conf_full))
+                           feat=g(st.feat), conf_full=g(st.conf_full), enc_out=g(st.enc_out))
         out = self._prefill_step(st_g, g(state.bs), g(state.iters), g(state.prompt_start),
                                  g(state.block_tables), g(keys), row_mask=sub_mask)
 
@@ -703,7 +737,8 @@ class DiffusionEngine:
         ctx = self._ctx(pos, "prefill", t_total=t_total,
                         kv_pos=self._kv_pos(attend_valid, prompt_start), slot_idx=pos,
                         block_tables=bt, scatter_mask=row_mask, refresh_mask=refresh_tok,
-                        block_start=bs, window_limit=window_limit(self.gen, bs))
+                        block_start=bs, window_limit=window_limit(self.gen, bs),
+                        enc_out=st.enc_out)
         h = model.embed_tokens(st.tokens)
         hidden, feat = [], st.feat
         for seg in self.segments:
@@ -744,7 +779,7 @@ class DiffusionEngine:
             rows = bs[:, None] + s_idx
             ctx = self._ctx(rows, "decode", t_total=t_total, kv_pos=kv_pos, slot_idx=rows,
                             block_tables=bt, scatter_mask=row_mask, block_idx=s_idx,
-                            window_limit=wl)
+                            window_limit=wl, enc_out=st.enc_out)
             h = model.run_layers(h, ctx, st.cache, group_lo=seg.group_lo,
                                  group_hi=seg.group_hi)
             if seg.keep_k is not None:
@@ -836,7 +871,8 @@ class DiffusionEngine:
         model = self.model
         b, t_total = st.tokens.shape
         h = model.run_layers(model.embed_tokens(st.tokens),
-                             self._ctx(self._rows(b, t_total), t_total=t_total))
+                             self._ctx(self._rows(b, t_total), t_total=t_total,
+                                       enc_out=st.enc_out))
         return self._confidence(st, bs, model.logits(row_gather(h, self._block_cols(bs))),
                                 keys)
 
@@ -1018,8 +1054,10 @@ class DiffusionEngine:
 def _merge_step_outputs(mask: torch.Tensor, old, new):
     """Per-row merge of one pass's ``(cache, conf, pred, hidden, kv_valid,
     feat, stats)`` into the carried tuple: rows in ``mask`` take the pass's
-    results.  The cache is taken as it is: the pass's K/V scatters and SSM
-    cache writes already left the other rows unwritten.  A retention set the
+    results.  The cache is taken as it is: the pass's K/V scatters and its
+    SSM and cross cache writes (``model._store`` under the pass's row mask,
+    where the reference merges those planes per row here) already left the
+    other rows unwritten.  A retention set the
     pass handed back unchanged (every pass but a sparse refresh) is kept."""
     o_cache, o_conf, o_pred, o_hidden, o_kv, o_feat, o_stats = old
     n_cache, n_conf, n_pred, n_hidden, n_kv, n_feat, n_stats = new

@@ -158,11 +158,11 @@ def validate(args: argparse.Namespace) -> None:
         raise ConfigError("--preemption requires --paged: spilling moves pool pages, "
                           "dense KV rows cannot be released")
     arch = configs.get_config(args.arch)
-    if (any(arch.layer_kind(l) == "ssm" for l in range(arch.n_layers))
+    if (any(arch.layer_kind(l) in ("ssm", "cross") for l in range(arch.n_layers))
             and (args.cache_prompt_interval > 1 or args.gather_refresh)):
         raise ConfigError("the adaptive cache (--cache-prompt-interval > 1) and "
                           "--gather-refresh need an attention-only stack; the reference "
-                          "refuses them on stacks with SSM layers too")
+                          "refuses them on stacks with SSM or cross layers too")
     if args.window_blocks < 0:
         raise ConfigError(f"--window-blocks must be >= 0, got {args.window_blocks}")
     if args.preemption and args.prefix_sharing:

@@ -1,4 +1,5 @@
-"""Self-attention with the in-place KV-cache scatter of ES-dLLM (Alg. 1).
+"""Self-attention with the in-place KV-cache scatter of ES-dLLM (Alg. 1), and
+cross-attention to the encoder's tokens.
 
 Three cache modes, as in the reference: no cache (the vanilla engine: fresh
 K/V), write-through (prefill: every row scattered, then the cache attended)
@@ -11,6 +12,11 @@ The int8 cache (``Model.init_cache(kv_dtype="int8")``) holds int8 codes
 with f32 per-(token, head) scales: the scatter kernel quantizes the fresh
 rows as it writes them, and the attention kernels read the codes and the
 scales, so no layer's cache is ever widened.
+
+Cross-attention (``cross_attention``) reads a fixed key set, the encoder's
+tokens, with no RoPE and no mask: its K/V are projected from the encoder
+output once per prefill and kept in a per-slot cross plane, which the
+decode passes read.
 """
 from __future__ import annotations
 
@@ -74,16 +80,21 @@ def _param(shape, device, dtype) -> nn.Parameter:
 
 class Attention(nn.Module):
     """Projections for ``x @ W`` (weights ``[in, out]``, the reference's
-    layout), with the optional qkv bias (Dream)."""
+    layout), with the optional qkv bias (Dream).  A cross-attention layer's
+    (``cross=True``) has no bias, and its ``wk``/``wv`` take ``kv_width``
+    inputs, the width of the encoder tokens it reads (the reference's
+    ``attn_init``)."""
 
-    def __init__(self, cfg: ModelConfig, device, dtype):
+    def __init__(self, cfg: ModelConfig, device, dtype, *, cross: bool = False,
+                 kv_width: Optional[int] = None):
         super().__init__()
         d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        d_kv = (kv_width or cfg.d_enc or d) if cross else d
         self.wq = _param((d, h * dh), device, dtype)
-        self.wk = _param((d, hkv * dh), device, dtype)
-        self.wv = _param((d, hkv * dh), device, dtype)
+        self.wk = _param((d_kv, hkv * dh), device, dtype)
+        self.wv = _param((d_kv, hkv * dh), device, dtype)
         self.wo = _param((h * dh, d), device, dtype)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.bq = _param((h * dh,), device, dtype)
             self.bk = _param((hkv * dh,), device, dtype)
             self.bv = _param((hkv * dh,), device, dtype)
@@ -172,6 +183,42 @@ def self_attention(
         **opts,
     )
     return out.transpose(1, 2).reshape(b, k, -1) @ p.wo
+
+
+def cross_attention(
+    p: Attention,
+    cfg: ModelConfig,
+    x: torch.Tensor,                        # [B, K, d] active rows
+    *,
+    enc_out: Optional[torch.Tensor] = None,    # [B, E, kv_width] encoder output
+    cache: Optional[KVCache] = None,           # [B, E, Hkv, Dh] views of a cross plane
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Cross-attention to the encoder's ``E`` tokens, the reference's
+    ``cross_attention``: no RoPE on either side, every query at position 0
+    and the keys at ``0..E-1``, so no key is masked.  With ``cache`` its K/V
+    are read; without, they are projected from ``enc_out``.  Returns the
+    output ``[B, K, d]`` and the K/V ``[B, E, Hkv, Dh]`` it attended, which a
+    prefill stores in the cross plane."""
+    b, k, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(b, k, h, dh)
+    if cache is None:
+        if enc_out is None:
+            raise ValueError("a cross-attention layer needs enc_out or its cross cache")
+        e = enc_out.shape[1]
+        # the encoder output is float32, as in the reference; under bf16
+        # parameters (port only) it is cast to the compute dtype here, before
+        # the K/V projections, since torch's matmul takes one dtype
+        enc = enc_out.to(x.dtype)
+        ck = (enc @ p.wk).reshape(b, e, hkv, dh)
+        cv = (enc @ p.wv).reshape(b, e, hkv, dh)
+    else:
+        ck, cv = cache.k.to(q.dtype), cache.v.to(q.dtype)
+    e = ck.shape[1]
+    q_pos = torch.zeros((b, k), dtype=torch.int32, device=x.device)
+    kv_pos = torch.arange(e, dtype=torch.int32, device=x.device)[None].expand(b, e).contiguous()
+    out = ops.attention(q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), q_pos, kv_pos)
+    return out.transpose(1, 2).reshape(b, k, -1) @ p.wo, (ck, cv)
 
 
 def _write_pairs(cache: KVCache | QuantKVCache, kk: torch.Tensor, vv: torch.Tensor) -> tuple:

@@ -1,7 +1,9 @@
 """The port's model: attention-only stacks with a dense or an MoE FFN (LLaDA,
 Dream, Llama-3, Qwen2, ChatGLM3, Gemma-3 with its local:global windows;
-OLMoE, Granite-MoE), pure SSM (Mamba-2) and the hybrid (Jamba: attention,
-SSM and MoE layers in a period of 8).
+OLMoE, Granite-MoE), pure SSM (Mamba-2), the hybrid (Jamba: attention,
+SSM and MoE layers in a period of 8) and the encoder-conditioned stacks
+with cross-attention layers (Llama-3.2-Vision: one in a period of 5;
+SeamlessM4T: every layer, after a 6-layer encoder).
 
 Layers come in *groups* of ``cfg.pattern_period`` (P) layers, as in the
 reference, where ``params["layers"][str(j)]`` stacks pattern position j over
@@ -22,7 +24,13 @@ loop over the layers does.  Cache modes (``ForwardCtx.mode``):
     dense rejoin).
 
 Every layer of a hybrid has an FFN after its attention or mixer (the experts
-where ``cfg.layer_is_moe``); a pure SSM stack's layers have none.
+where ``cfg.layer_is_moe``); a pure SSM stack's layers have none.  A
+cross layer (``cfg.layer_kind(l) == "cross"``) has no self-attention: its
+``lnx`` + ``xattn`` attend the encoder output ``ForwardCtx.enc_out``,
+scaled by ``tanh(gate_attn)``, then ``ln2`` + the FFN.  ``Model.encode``
+makes ``enc_out`` from a request's stub frontend embeddings: the vision
+model projects them (``enc_proj``, where ``d_enc != d_model``), SeamlessM4T
+runs its ``Encoder`` over them.
 
 The K/V planes cover the attention layers only (``Model.kv_plane[l]`` is
 layer l's): ``KVCache(k, v)`` of ``[n_attn, B, S, Hkv, Dh]`` planes, or of
@@ -32,8 +40,14 @@ with ``k_scale``/``v_scale`` planes beside int8 codes.  The ``SSMCache``
 planes (``state``, ``conv_tail``, ``ssmh``) cover the SSM layers
 (``Model.ssm_plane``) and stay per slot when K/V is paged, the reference's
 rule.  An attention-only stack's cache is its K/V cache, a pure SSM stack's
-its ``SSMCache``, a hybrid's ``HybridCache(kv, ssm)``.  Every plane is
-written in place; under a ``scatter_mask`` only the owned rows are written.
+its ``SSMCache``, a hybrid's ``HybridCache(kv, ssm)``, a stack with cross
+layers ``EncDecCache(kv, cross)``: ``cross`` holds ``[n_cross, B, E, Hkv,
+Dh]`` K/V planes over the cross layers (``Model.cross_plane``), per slot
+and dense even when K/V is paged, as in the reference; ``kv`` is None on
+SeamlessM4T, whose decoder has no self-attention.  A prefill projects each
+cross layer's K/V from ``enc_out`` and stores them; a decode reads them.
+Every plane is written in place; under a ``scatter_mask`` only the owned
+rows are written.
 
 Prefill stores each SSM layer's block rows of ``h`` after the mixer's
 residual (before a hybrid layer's FFN) in ``ssmh``, while a decode scatters
@@ -59,6 +73,7 @@ from repro_torch.models.attention import (
     PagedKVCache,
     QuantKVCache,
     _param,
+    cross_attention,
     self_attention,
 )
 from repro_torch.models.common import (
@@ -79,12 +94,11 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for archs outside the port so far."""
     kinds = {cfg.layer_kind(l) for l in range(cfg.n_layers)}
     ssm_family = cfg.ssm is not None and cfg.family in ("ssm", "hybrid")
-    if ("cross" in kinds or cfg.family in ("audio", "vlm") or ("ssm" in kinds) != ssm_family
-            or cfg.logit_softcap):
+    if ("ssm" in kinds) != ssm_family or cfg.logit_softcap:
         raise NotImplementedError(
             f"{cfg.name}: the port covers attention-only stacks (dense or MoE FFN, per-layer "
-            f"windows), pure SSM stacks and attention/SSM hybrids; see ROADMAP.md Queue A "
-            f"for cross-attention and the encoder families")
+            f"windows), pure SSM stacks, attention/SSM hybrids and stacks with "
+            f"cross-attention layers, without logit soft-capping; see ROADMAP.md Queue A")
     for field in ("param_dtype", "compute_dtype"):
         if getattr(cfg, field) not in DTYPES:
             raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: float32 or bfloat16")
@@ -109,21 +123,37 @@ class HybridCache(NamedTuple):
     ssm: SSMCache
 
 
+class EncDecCache(NamedTuple):
+    """The caches of a stack with cross layers: the K/V planes or pools over
+    its self-attention layers (None on a stack without any) and the per-slot
+    cross planes ``[n_cross, B, E, Hkv, Dh]`` in the parameter dtype."""
+    kv: Optional[KVCache | QuantKVCache]
+    cross: KVCache
+
+
 def split_cache(cache) -> tuple[Optional[KVCache | QuantKVCache], Optional[SSMCache]]:
     """``(K/V planes or None, SSM caches or None)`` of any stack's cache."""
     if cache is None:
         return None, None
     if isinstance(cache, HybridCache):
         return cache.kv, cache.ssm
+    if isinstance(cache, EncDecCache):
+        return cache.kv, None
     if isinstance(cache, SSMCache):
         return None, cache
     return cache, None
 
 
+def cross_cache(cache) -> Optional[KVCache]:
+    """The cross planes of a stack with cross layers, else None."""
+    return cache.cross if isinstance(cache, EncDecCache) else None
+
+
 def cache_planes(cache) -> tuple[torch.Tensor, ...]:
-    """Every tensor of a cache: K/V planes (and scales), then SSM planes."""
+    """Every tensor of a cache: K/V planes (and scales), SSM planes, then
+    cross planes."""
     kv, ssm = split_cache(cache)
-    return tuple(kv or ()) + tuple(ssm or ())
+    return tuple(kv or ()) + tuple(ssm or ()) + tuple(cross_cache(cache) or ())
 
 
 @dataclasses.dataclass
@@ -149,6 +179,9 @@ class ForwardCtx:
     anchor: int = 0                               # positions below it bypass the window
     bc_start: int = 0                             # block-causal: first generation position
     bc_block: int = 0                             # block-causal block length; 0 = off
+    enc_out: Optional[torch.Tensor] = None        # [B, E, d_out] encoder output
+                                                  # (Model.encode): a prefill's or a
+                                                  # cacheless pass's cross K/V
 
 
 class MLP(nn.Module):
@@ -161,17 +194,26 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     """The reference's ``init_one_layer``: ``ln1`` + attention, or ``ln1`` +
-    mixer on an SSM layer; then ``ln2`` + the FFN (a gated MLP, or the
-    experts where ``cfg.layer_is_moe``) on every layer but those of a pure
-    SSM stack."""
+    mixer on an SSM layer, or on a cross layer ``lnx`` + cross-attention
+    and its f32 scalar ``gate_attn``; then ``ln2`` + the FFN (a gated MLP,
+    or the experts where ``cfg.layer_is_moe``) on every layer but those of
+    a pure SSM stack."""
 
     def __init__(self, cfg: ModelConfig, layer: int, device, dtype):
         super().__init__()
         self.kind = cfg.layer_kind(layer)
-        self.ln1 = _param((cfg.d_model,), device, dtype)
+        if self.kind == "cross":
+            self.lnx = _param((cfg.d_model,), device, dtype)
+            # the vision model's patch embeddings are projected to d_model
+            # before the cross-attention reads them
+            kv_width = cfg.d_model if cfg.family == "vlm" else (cfg.d_enc or cfg.d_model)
+            self.xattn = Attention(cfg, device, dtype, cross=True, kv_width=kv_width)
+            self.gate_attn = _param((), device, torch.float32)
+        else:
+            self.ln1 = _param((cfg.d_model,), device, dtype)
         if self.kind == "ssm":
             self.mixer = Mixer(cfg, device, dtype)
-        else:
+        elif self.kind == "attn":
             self.attn = Attention(cfg, device, dtype)
         self.moe = cfg.layer_is_moe(layer)
         self.ffn = None
@@ -181,10 +223,38 @@ class Block(nn.Module):
                         else MLP(cfg.d_model, cfg.d_ff, device, dtype))
 
 
+class Encoder(nn.Module):
+    """The modality encoder (SeamlessM4T): ``n_encoder_layers`` blocks of
+    ``ln1``, self-attention with RoPE and no bias, ``ln2`` and a gated MLP,
+    at width ``d_enc``, then ``final_norm``; non-causal over positions
+    ``0..E-1``, with no cache (the reference's ``Model.encode``)."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        # the reference's enc_cfg (width d_enc, no qkv bias), every layer a
+        # self-attention layer with a dense MLP
+        self.cfg = dataclasses.replace(cfg, d_model=cfg.d_enc, qkv_bias=False, cross_every=0,
+                                       moe=None, ssm=None, attn_every=0, family="dense")
+        self.layers = nn.ModuleList(Block(self.cfg, l, device, dtype)
+                                    for l in range(cfg.n_encoder_layers))
+        self.final_norm = _param((cfg.d_enc,), device, dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, e, _ = h.shape
+        pos = torch.arange(e, dtype=torch.int32, device=h.device)[None].expand(b, e).contiguous()
+        rope = rope_tables(pos, cfg.head_dim, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+        for layer in self.layers:
+            h = h + self_attention(layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), pos,
+                                   rope=rope)
+            h = h + mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps), cfg.act)
+        return rms_norm(h, self.final_norm, cfg.rms_eps)
+
+
 def _store(dst: torch.Tensor, new: torch.Tensor, row_mask: Optional[torch.Tensor]) -> None:
     """In place ``dst[:] = new`` on the rows of ``row_mask`` (all rows without
-    one): a pass leaves the SSM caches of the rows it does not own as they
-    were, as the reference's per-row merge of a pass's outputs does."""
+    one): a pass leaves the SSM and cross caches of the rows it does not own
+    as they were, as the reference's per-row merge of a pass's outputs does."""
     new = new.to(dst.dtype)
     if row_mask is not None:
         new = torch.where(row_mask.view((-1,) + (1,) * (new.dim() - 1)), new, dst)
@@ -208,10 +278,13 @@ class Model(nn.Module):
         kinds = [cfg.layer_kind(l) for l in range(cfg.n_layers)]
         self.attn_layers = [l for l, k in enumerate(kinds) if k == "attn"]
         self.ssm_layers = [l for l, k in enumerate(kinds) if k == "ssm"]
-        # layer -> its plane in the K/V or the SSM caches
+        self.cross_layers = [l for l, k in enumerate(kinds) if k == "cross"]
+        # layer -> its plane in the K/V, the SSM or the cross caches
         self.kv_plane = {l: i for i, l in enumerate(self.attn_layers)}
         self.ssm_plane = {l: i for i, l in enumerate(self.ssm_layers)}
+        self.cross_plane = {l: i for i, l in enumerate(self.cross_layers)}
         self.ssm = bool(self.ssm_layers)       # the stack has SSM layers
+        self.cross = bool(self.cross_layers)   # the stack has cross layers
         vp = padded_vocab(cfg)
         self.embed = _param((vp, cfg.d_model), self.device, self.dtype)
         self.final_norm = _param((cfg.d_model,), self.device, self.dtype)
@@ -220,21 +293,31 @@ class Model(nn.Module):
                         else _param((cfg.d_model, vp), self.device, self.dtype))
         self.layers = nn.ModuleList(
             Block(cfg, l, self.device, self.dtype) for l in range(cfg.n_layers))
+        self.encoder = (Encoder(cfg, self.device, self.dtype) if cfg.n_encoder_layers
+                        else None)
+        # the vision model's patch projection, only where the widths differ
+        self.enc_proj = (_param((cfg.d_enc, cfg.d_model), self.device, self.dtype)
+                         if cfg.family == "vlm" and cfg.d_enc and cfg.d_enc != cfg.d_model
+                         else None)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Random init with the reference's scheme (normal x 0.02, the
         router too, output projections and each expert's ``w_down``
-        0.02/sqrt(2L), norms 1, biases 0; the mixer's conv taps x 0.2,
+        0.02/sqrt(2L), the encoder's ``w_down`` with its own depth, norms
+        and ``gate_attn`` 1, biases 0; the mixer's conv taps x 0.2,
         ``a_log`` 0, ``dt_bias`` -1, ``d_skip`` 1) but torch's numbers:
         the values differ from ``repro``'s for the same seed.  ``generator``
         lives on the model's device, so a model on the card is initialised
         there."""
         out_scale = 0.02 / max(2.0 * self.cfg.n_layers, 1.0) ** 0.5
+        enc_scale = 0.02 / max(2.0 * self.cfg.n_encoder_layers, 1.0) ** 0.5
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("final_norm", "ln1", "ln2", "norm_scale", "d_skip"):
+            if leaf in ("final_norm", "ln1", "ln2", "lnx", "gate_attn", "norm_scale", "d_skip"):
                 p.fill_(1.0)
+            elif name.startswith("encoder.") and leaf == "w_down":
+                p.normal_(0.0, enc_scale, generator=generator)
             elif leaf in ("bq", "bk", "bv", "conv_xb", "conv_bcb", "a_log"):
                 p.zero_()
             elif leaf == "dt_bias":
@@ -255,9 +338,12 @@ class Model(nn.Module):
         ``[n_attn, B, S, Hkv]`` (``[n_attn, kv_pages, page_size, Hkv]``).
         The SSM layers' ``SSMCache`` has ``block_len`` rows of ``ssmh`` per
         slot and is per slot whether K/V is paged or not (nothing in it
-        grows with the sequence).  Returns the K/V cache of an
-        attention-only stack, the ``SSMCache`` of a pure SSM stack and a
-        ``HybridCache`` otherwise."""
+        grows with the sequence).  The cross planes ``[n_cross, B,
+        n_enc_tokens, Hkv, Dh]`` are per slot and dense too, in the
+        parameter dtype under the int8 cache as well.  Returns the K/V cache
+        of an attention-only stack, the ``SSMCache`` of a pure SSM stack, an
+        ``EncDecCache`` of a stack with cross layers and a ``HybridCache``
+        otherwise."""
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype={kv_dtype!r}: None or 'int8'")
         cfg = self.cfg
@@ -287,12 +373,29 @@ class Model(nn.Module):
                                   zeros(shape[:-1], torch.float32))
             else:
                 kv = KVCache(zeros(shape, self.dtype), zeros(shape, self.dtype))
+        if self.cross_layers:
+            shape = (len(self.cross_layers), batch, cfg.n_enc_tokens, cfg.n_kv_heads,
+                     cfg.head_dim)
+            return EncDecCache(kv, KVCache(*(torch.zeros(shape, dtype=self.dtype,
+                                                         device=self.device) for _ in "kv")))
         if ssm is None:
             return kv
         return ssm if kv is None else HybridCache(kv, ssm)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens.long()].to(self.compute_dtype)
+
+    def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """The encoder output ``[B, E, d_out]`` of stub frontend embeddings
+        ``[B, E, d_enc]``, in the compute dtype (the reference's
+        ``Model.encode``): the vision model's projection to ``d_model`` (or
+        the embeddings as they are where the widths agree), SeamlessM4T's
+        encoder stack; other stacks return the embeddings unchanged, and no
+        layer reads them."""
+        x = enc_embeds.to(device=self.device, dtype=self.compute_dtype)
+        if self.cfg.family == "vlm":
+            return x if self.enc_proj is None else x @ self.enc_proj
+        return x if self.encoder is None else self.encoder(x)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, self.final_norm, self.cfg.rms_eps)
@@ -312,6 +415,7 @@ class Model(nn.Module):
             raise ValueError(f"bad layer segment [{group_lo}, {group_hi})")
         use_cache = ctx.mode in ("prefill", "decode") and cache is not None
         kv_cache, ssm_cache = split_cache(cache) if use_cache else (None, None)
+        x_cache = cross_cache(cache) if use_cache else None
         rope = kv_pos = read_bt = None
         if self.attn_layers:
             rope = rope_tables(ctx.positions, cfg.head_dim, theta=cfg.rope_theta,
@@ -326,6 +430,8 @@ class Model(nn.Module):
             layer = self.layers[l]
             if layer.kind == "ssm":
                 h = self._apply_ssm(layer, self.ssm_plane[l], h, ctx, ssm_cache)
+            elif layer.kind == "cross":
+                h = self._apply_cross(layer, self.cross_plane[l], h, ctx, x_cache)
             else:
                 kv = kv_cache.layer(self.kv_plane[l]) if kv_cache is not None else None
                 if kv is not None and ctx.block_tables is not None:
@@ -341,6 +447,21 @@ class Model(nn.Module):
                 h = h + (moe_apply(layer.ffn, cfg, hn) if layer.moe
                          else mlp_apply(layer.ffn, hn, cfg.act))
         return h
+
+    def _apply_cross(self, layer: Block, i: int, h: torch.Tensor, ctx: ForwardCtx,
+                     cache: Optional[KVCache]) -> torch.Tensor:
+        """One cross-attention on plane ``i`` of the cross caches: a decode
+        reads the plane, a prefill projects the K/V from ``ctx.enc_out`` and
+        stores them (the owned rows only), a pass without caches projects
+        them and keeps nothing."""
+        planes = None if cache is None else cache.layer(i)
+        x, (ck, cv) = cross_attention(
+            layer.xattn, self.cfg, rms_norm(h, layer.lnx, self.cfg.rms_eps), enc_out=ctx.enc_out,
+            cache=planes if ctx.mode == "decode" else None)
+        if planes is not None and ctx.mode == "prefill":
+            _store(planes.k, ck, ctx.scatter_mask)
+            _store(planes.v, cv, ctx.scatter_mask)
+        return h + x * torch.tanh(layer.gate_attn).to(x.dtype)
 
     def _apply_ssm(self, layer: Block, i: int, h: torch.Tensor, ctx: ForwardCtx,
                    cache: Optional[SSMCache]) -> torch.Tensor:

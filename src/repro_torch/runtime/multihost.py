@@ -27,6 +27,9 @@ card and ``torch.cuda.device_count() >= shards``, else every lane on the
 model's device; ``None`` keeps every lane on the model's device; a list
 names one device per shard.  A lane on another device gets its own copy of
 the model and its own engine, and its steps run under that device's guard.
+An encoder arch's lanes each own their encoder plane (``_enc_out``): a
+request's ``enc_embeds`` travel with it to the lane it is placed on, which
+encodes them at admission.
 """
 from __future__ import annotations
 

@@ -82,6 +82,18 @@ phase 0, whose prompt refresh rebuilds its SSM caches wholesale; a
 quarantine scrubs K/V pages, and the next occupant's prefill rewrites the
 slot's SSM caches.  The engine refuses, as the reference's does, the
 adaptive cache, ``gather_refresh`` and sparse attention on such stacks.
+
+Encoder-conditioned archs (Llama-3.2-Vision, SeamlessM4T) take
+``Request.enc_embeds`` on every request, other archs on none: ``submit``
+checks it both ways (``expects_enc``).  Each request is encoded once at
+admission into its slot's row of ``_enc_out``, a float32 plane ``[slots,
+E, d_out]`` on the engine's device, which every step passes to the engine;
+the row's prefill then writes its cross planes.  A resumed request is
+encoded again into its new slot, and its phase-0 refresh rebuilds the
+slot's cross planes.  Prefix sharing is off for these archs, as in the
+reference: their prompt K/V depend on the encoder tokens too.
+SeamlessM4T's decoder has no self-attention, so its paged pool has no
+K/V plane, like a pure SSM stack's.
 """
 from __future__ import annotations
 
@@ -509,14 +521,26 @@ class StreamScheduler:
         if self.allocator is not None:
             self.stats.pages_total = self.allocator.num_pages - 1
         self._completed: list[Request] = []
+        # the modality contract, checked at submit: encoder-conditioned archs
+        # need enc_embeds on every request, the others on none
+        cfg = self.engine.model.cfg
+        self.expects_enc = bool(cfg.n_encoder_layers) or cfg.family in ("audio", "vlm")
+        self._enc_out: Optional[torch.Tensor] = None
+        if self.expects_enc:
+            # the vision model's patch embeddings are projected to d_model
+            d_out = cfg.d_model if cfg.family == "vlm" else (cfg.d_enc or cfg.d_model)
+            self._enc_out = torch.zeros((max_slots, cfg.n_enc_tokens, d_out),
+                                        dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------
     # submission / admission
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.enc_embeds is not None:
-            raise ValueError(f"modality mismatch: model does not accept enc_embeds but "
-                             f"request {req.request_id} supplied them")
+        if (req.enc_embeds is not None) != self.expects_enc:
+            raise ValueError(
+                f"modality mismatch: model "
+                f"{'requires' if self.expects_enc else 'does not accept'} enc_embeds but "
+                f"request {req.request_id} {'omitted' if self.expects_enc else 'supplied'} them")
         req.arrival_s = self.clock()
         self.stats.submitted += 1
         self._seq[req.request_id] = self._submit_seq
@@ -660,7 +684,7 @@ class StreamScheduler:
                 need = map_last - first_vp
                 vp0 = -(-(self.prompt_len - len(p)) // self.page_size)   # first full prompt page
                 vp1 = self.prompt_len // self.page_size
-                if self.prefix_sharing and vp1 > vp0:
+                if self.prefix_sharing and not self.expects_enc and vp1 > vp0:
                     share_key = ((p.tobytes(), len(p)) if self.persistent_prefix
                                  else (p.tobytes(), len(p), n_blocks))
                     share_hit = self.allocator.lookup_prefix(share_key)
@@ -748,6 +772,8 @@ class StreamScheduler:
                 self._page_gauges()
             self.slot_blocks[slot] = n_blocks
             self.slot_no_grow[slot] = no_grow
+            if self.expects_enc:
+                self._encode_into(slot, req)
             req.admit_s = now
             self.stats.admission_waits.append(now - req.arrival_s)
             self.slot_req[slot] = req
@@ -886,8 +912,18 @@ class StreamScheduler:
         self.slot_frontier[slot] = rec.frontier
         self.slot_order[slot] = self._admit_seq
         self._admit_seq += 1
+        if self.expects_enc:
+            # the resumed row's phase-0 refresh rebuilds its cross planes from
+            # the encoder plane, which another request may have overwritten
+            self._encode_into(slot, rec.req)
         self.stats.resume_waits.append(now - rec.spill_s)
         self._page_gauges()
+
+    def _encode_into(self, slot: int, req: Request) -> None:
+        """Encodes the request's ``enc_embeds`` (an array, or a tensor on any
+        device) into the slot's row of the float32 encoder plane."""
+        enc = torch.as_tensor(req.enc_embeds, dtype=torch.float32)[None]
+        self._enc_out[slot] = self.engine.model.encode(enc)[0]
 
     # ------------------------------------------------------------------
     # the serving loop
@@ -922,7 +958,7 @@ class StreamScheduler:
         if self.cohorts and refresh_rows.any():
             self._cow_fork_before_refresh(refresh_rows)
         pre = self.state
-        self.state = self.engine.step(pre)
+        self.state = self.engine.step(pre, self._enc_out)
         # one read of the per-row counters (and, after a sparse refresh, of
         # the dead-page report): it waits for the step to finish
         host = torch.stack([pre.blocks_left, self.state.blocks_left, self.state.phase,

@@ -10,8 +10,10 @@ an output and count in ``stats``, whose ``tps`` is Table 1's metric.
 As in the reference, no ``prompt_start`` is passed, so the left pad rows
 are attended, and each batch's sample seeds are the row indices; the base
 key of batch ``n`` is the second half of the ``n``-th ``prng.split`` of
-``prng_key(seed)``.  The port has no encoder, so a request with
-``enc_embeds`` is refused at submit.
+``prng_key(seed)``.  Batches are modality-homogeneous, as the reference's:
+requests whose ``enc_embeds`` presence differs from the queue head's wait
+for a later batch, and an encoder arch's batch is encoded once by its
+``generate``.
 """
 from __future__ import annotations
 
@@ -62,23 +64,33 @@ class BatchServer:
         self.batch_wall_s: list[float] = []      # wall seconds of each batch, in order
 
     def submit(self, req: Request) -> None:
-        if req.enc_embeds is not None:
-            raise ValueError(f"modality mismatch: model does not accept enc_embeds but "
-                             f"request {req.request_id} supplied them")
         self.queue.append(req)
 
     def step(self) -> list[Request]:
-        """Serves one batch from the head of the queue, the tail batch padded
-        by repeating its last request; returns the batch's real requests."""
+        """Serves one batch from the queue: the first ``batch_size`` requests
+        whose ``enc_embeds`` presence matches the head's, the tail batch
+        padded by repeating its last request; returns the batch's real
+        requests."""
         if not self.queue:
             return []
-        batch, self.queue = self.queue[:self.batch_size], self.queue[self.batch_size:]
+        head_has_enc = self.queue[0].enc_embeds is not None
+        batch, rest = [], []
+        for r in self.queue:
+            if len(batch) < self.batch_size and (r.enc_embeds is not None) == head_has_enc:
+                batch.append(r)
+            else:
+                rest.append(r)
+        self.queue = rest
         real = len(batch)
         batch += [batch[-1]] * (self.batch_size - real)
         prompts = torch.from_numpy(pad_and_stack(batch, self.pad_id, self.prompt_len))
+        enc = None
+        if head_has_enc:
+            enc = torch.stack([torch.as_tensor(r.enc_embeds, dtype=torch.float32)
+                               for r in batch])
         self.key, sub = prng.split(self.key)
         t0 = time.time()
-        tokens = self.engine.generate(prompts, key=sub).cpu().numpy()
+        tokens = self.engine.generate(prompts, enc_embeds=enc, key=sub).cpu().numpy()
         dt = time.time() - t0
         for i, req in enumerate(batch[:real]):
             req.output = tokens[i, self.prompt_len:]

@@ -17,8 +17,9 @@ the local layers mask keys.  The same numpy tree goes to both packages:
   equal, for Gemma-3 and OLMoE;
 * the per-layer windows equal the reference's ``window_meta`` (0 for its
   ``BIG_WINDOW``);
-* ``check_supported`` still refuses the vision model and SeamlessM4T
-  (cross-attention), built from copies of the reference's configs.
+* ``check_supported`` accepts the vision model and SeamlessM4T
+  (cross-attention), built from copies of the reference's configs, and
+  both are registered in the port.
 """
 import dataclasses
 import functools
@@ -182,11 +183,16 @@ def _port_copy(jcfg):
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "seamless-m4t-large-v2"])
 def test_families_outside_the_port_are_refused(arch):
+    """No family is left outside the port: ``check_supported`` accepts
+    copies of the reference's vision and SeamlessM4T configs, full and
+    reduced, both are registered in the port as the reference has them, and
+    the reduced ones build (their parity: ``test_torch_cross.py``)."""
     for cfg in (jconfigs.get_config(arch), jconfigs.reduced(jconfigs.get_config(arch))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(_port_copy(cfg))
-    with pytest.raises(KeyError):
-        tconfigs.get_config(arch)     # not registered in the port
+        check_supported(_port_copy(cfg))
+    assert dataclasses.asdict(tconfigs.get_config(arch)) == dataclasses.asdict(
+        jconfigs.get_config(arch))
+    model = Model(tconfigs.reduced(tconfigs.get_config(arch)), device="cpu")
+    assert model.cross_layers and len(model.cross_layers) == len(model.cross_plane)
 
 
 def test_serve_launcher_with_an_moe_arch(capsys):

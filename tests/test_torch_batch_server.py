@@ -7,8 +7,8 @@
   at temperature 0.7: every request's tokens equal the reference server's,
   and so do ``stats.requests`` and ``stats.tokens_generated`` (only the
   real requests count);
-* the reference groups requests by ``enc_embeds`` presence; the port has no
-  encoder, so its server refuses a request with ``enc_embeds`` at submit;
+* both servers group a mixed queue by ``enc_embeds`` presence into
+  modality-homogeneous batches, with equal tokens;
 * the launcher's ``--runtime batch`` runs end to end.
 
 Reduced LLaDA-8B (4 layers, weight matrices x10) from ``test_torch_engine``.
@@ -101,17 +101,32 @@ def test_first_batch_equals_generate_with_the_chain_key():
 
 
 def test_enc_embeds_refused_at_submit():
-    """The reference's server batches requests with and without
-    ``enc_embeds`` apart (its encoder archs); the port has no encoder, so a
-    request that carries them is refused at submit and nothing is queued."""
-    _, _, tm = models("llada-8b")
-    server = BatchServer(tm, gen_configs(mode="es", skip_stages=((1, 0.5),))[1],
-                         batch_size=BATCH, prompt_len=PL, device="cpu")
-    req = Request(prompt=np.arange(3, 9, dtype=np.int32),
-                  enc_embeds=np.zeros((4, 8), np.float32))
-    with pytest.raises(ValueError, match="modality mismatch"):
-        server.submit(req)
-    assert server.queue == [] and server.drain() == []
+    """A mixed queue: the port's server groups requests by ``enc_embeds``
+    presence, as the reference's does (its ``tests/test_scheduler.py``
+    case): 5 requests, every second one with zero embeddings, which LLaDA
+    has no layer to read, through batches of 4.  Nothing is refused at
+    submit; the first batch takes requests 0, 2 and 4, the second 1 and 3,
+    and every request's tokens equal the reference server's."""
+    jm, params, tm = models("llada-8b")
+    jgen, tgen = gen_configs(mode="es", skip_stages=((1, 0.5),))
+    outs = []
+    for server, make_req in ((JBatchServer(jm, params, jgen, batch_size=BATCH, prompt_len=PL,
+                                           seed=5), JRequest),
+                             (BatchServer(tm, tgen, batch_size=BATCH, prompt_len=PL, seed=5,
+                                          device="cpu"), Request)):
+        rng = np.random.default_rng(2)
+        reqs = [make_req(prompt=rng.integers(3, tm.cfg.vocab_size, 8).astype(np.int32),
+                         enc_embeds=np.zeros((4, tm.cfg.d_model), np.float32) if i % 2 else None)
+                for i in range(5)]
+        for r in reqs:
+            server.submit(r)
+        first = server.step()
+        assert [r.request_id for r in first] == [reqs[i].request_id for i in (0, 2, 4)]
+        assert [r.request_id for r in server.drain()] == [reqs[i].request_id for i in (1, 3)]
+        assert all(r.output is not None and (r.output < tm.cfg.vocab_size).all() for r in reqs)
+        outs.append([r.output for r in reqs])
+    for i, (x, y) in enumerate(zip(*outs)):
+        np.testing.assert_array_equal(y, np.asarray(x), err_msg=f"request {i}")
 
 
 def test_launcher_batch_runtime(capsys):

@@ -44,13 +44,14 @@ def _close(got: torch.Tensor, want, atol=ATOL):
 
 @pytest.mark.parametrize("arch", ARCHS + ["mamba2-370m", "olmoe-1b-7b", "granite-moe-1b-a400m",
                                   "gemma3-1b", "llama3-8b", "qwen2-1.5b", "chatglm3-6b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
 def test_configs_match_reference(arch):
     full_j, full_t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(full_j) == dataclasses.asdict(full_t)
     assert dataclasses.asdict(jconfigs.reduced(full_j)) == dataclasses.asdict(tconfigs.reduced(full_t))
-    assert full_t.pattern_period == full_j.pattern_period == (8 if arch.startswith("jamba")
-                                                              else 1)
+    assert full_t.pattern_period == full_j.pattern_period == {
+        "jamba-v0.1-52b": 8, "llama-3.2-vision-11b": 5}.get(arch, 1)
     for n in (4, 28, 32):
         assert ([dataclasses.astuple(s) for s in jconfigs.default_skip_stages(n)]
                 == [dataclasses.astuple(s) for s in tconfigs.default_skip_stages(n)])
@@ -181,9 +182,10 @@ def test_model_init_scheme():
 
 
 def test_unsupported_arch_raises():
-    """Cross-attention layers stay outside the port: a LLaDA stack given a
-    cross layer every second layer, as the vision model has them."""
-    cross = dataclasses.replace(tconfigs.reduced(tconfigs.get_config("llada-8b")),
-                                cross_every=2, cross_offset=1, family="vlm", d_enc=64)
+    """Logit soft-capping stays outside the port (no config of the repo sets
+    it): a LLaDA stack given a non-zero ``logit_softcap`` is refused.
+    Cross-attention layers are ported (``test_torch_cross.py``)."""
+    capped = dataclasses.replace(tconfigs.reduced(tconfigs.get_config("llada-8b")),
+                                 logit_softcap=30.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cross, device="cpu")
+        Model(capped, device="cpu")
