@@ -149,7 +149,16 @@ no result):
    seamless-m4t-large-v2, 24 decoder and 6 encoder layers, offline es
    greedy (a block's [mask] rows tie: each block unmasks in its prefill)
    and sampled, and phase 6's trace on a paged pool with no K/V plane, run
-   twice with equal tokens (15c).
+   twice with equal tokens (15c);
+16. training: qwen2-1.5b at full width and depth (28 layers, 1.544 B
+   parameters) in its config's float32, seeded random weights made on the
+   card, 8 ``make_train_step`` steps with remat on synthetic 4 x 512
+   batches (CE chunks of 256, lr 1e-3, warmup 1): every loss finite and
+   falling, no hand-written kernel launched; s a step, tokens/s, TFLOP/s
+   and peak memory.  Phase 4 also trains reduced qwen2-1.5b and
+   olmoe-1b-7b two steps on the card against the CPU (losses, the
+   parameters' moves, no kernel launch) and checks that every kernel
+   wrapper refuses an input that requires grad.
 
 On phases 5, 6, 7, 9, 10, 11, 12, 13, 14 and 15 every attention launch must take
 the tensor-core body (on phase 11 reading int8 codes, with every K/V write the
@@ -168,6 +177,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -4714,6 +4725,225 @@ def report15(enc_runs: dict) -> None:
               f"{r['preemptions']}, resumes {r['resumes']}")
 
 
+# ---------------------------------------------------------------------------
+# phases 4 and 16: training
+# ---------------------------------------------------------------------------
+# phase 4's reduced training check: (arch, MoE capacity factor)
+TRAIN_CROSS = (("qwen2-1.5b", None), ("olmoe-1b-7b", 0.5))
+# phase 16: the reference launcher's own example at full width and depth
+# (repro/launch/train.py:4), f32 as its config; 8 steps of 4 x 512 tokens
+TRAIN_FULL = dict(arch="qwen2-1.5b", batch=4, seq=512, ce_chunk=256, lr=1e-3, steps=8)
+
+
+def train_agreement(card: dict, cpu: dict) -> dict:
+    """Card against CPU after the same training steps (flat trees of numpy
+    arrays): the first step's gradients (equal parameters going in) within
+    1e-4 of each leaf's largest |g|, as the CPU tests hold the port to
+    ``jax.value_and_grad``; after the last step, each leaf's move from the
+    start within 1e-2 of the CPU's move in l2.  The moves are looser than
+    the gradients: Adam divides each gradient element by its own size plus
+    1e-8, so an element whose gradient is near 1e-8 turns a rounding
+    difference into a visible part of its step (a bias that starts at 0
+    shows it most, against its own largest value).  Also reports the
+    largest parameter difference over each leaf's largest |value| and over
+    the summed learning rates."""
+    import numpy as np
+
+    out = dict(grad_err=0.0, move_l2_ratio=0.0, max_err_over_leaf_max=0.0,
+               max_err_over_lr_sum=0.0)
+    for path, g in cpu["grads"].items():
+        out["grad_err"] = max(out["grad_err"], float(np.abs(card["grads"][path] - g).max())
+                              / max(float(np.abs(g).max()), 1e-30))
+    for path, w in cpu["params"].items():
+        d = card["params"][path] - w
+        move = float(np.linalg.norm(w - cpu["start"][path]))
+        out["move_l2_ratio"] = max(out["move_l2_ratio"],
+                                   float(np.linalg.norm(d)) / max(move, 1e-30))
+        err = float(np.abs(d).max())
+        out["max_err_over_leaf_max"] = max(out["max_err_over_leaf_max"],
+                                           err / max(float(np.abs(w).max()), 1e-30))
+        out["max_err_over_lr_sum"] = max(out["max_err_over_lr_sum"], err / cpu["lr_sum"])
+    if not (out["grad_err"] <= 1e-4 and out["move_l2_ratio"] <= 1e-2):
+        raise AssertionError(f"training on the card and the CPU differ: {out}")
+    return out
+
+
+def cross_device_training(kernel_fns) -> dict:
+    """Reduced qwen2-1.5b and olmoe-1b-7b (capacity factor 0.5: picks drop)
+    at 4 layers in f32, at the init scale: two ``make_train_step`` steps on
+    the card against the same two on the CPU, from the same weights, key and
+    batches (2 x 64, CE chunks of 32): losses within 1e-5 relative, the
+    gradients and the parameters' moves by :func:`train_agreement`; no
+    hand-written kernel launches during the card's steps (the training
+    forward takes the plain versions).  Then :func:`grad_guard`."""
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.core import prng
+    from repro_torch.train import (
+        DataConfig,
+        OptimizerConfig,
+        SyntheticTextDataset,
+        TrainState,
+        init_opt_state,
+        make_train_step,
+    )
+    from repro_torch.utils.tree import flatten_with_paths
+
+    out = {}
+    for arch, cf in TRAIN_CROSS:
+        models = reduced_models(arch, 1.0, capacity_factor=cf)
+        start = flatten_with_paths(params_to_numpy(models["cpu"]))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = models[dev]
+            step = make_train_step(model, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                          total_steps=4), ce_chunk=32)
+            state = TrainState(model, init_opt_state(model), prng.prng_key(SEED, device=dev))
+            ds = SyntheticTextDataset(DataConfig(vocab_size=model.cfg.vocab_size, seq_len=64,
+                                                 global_batch=2, seed=SEED))
+            zero_counts(kernel_fns)
+            run = dict(losses=[], lr_sum=0.0, start=start)
+            for i in range(2):
+                state, m = step(state, ds.next_batch())
+                run["losses"].append(float(m["loss"]))
+                run["lr_sum"] += float(m["lr"])
+                if i == 0:
+                    run["grads"] = flatten_with_paths(params_to_numpy(model, grads=True))
+            launched = {k: v for k, v in counts(kernel_fns).items() if v}
+            if launched:
+                raise AssertionError(f"{arch} training on {dev} launched kernels {launched}")
+            runs[dev] = dict(run, params=flatten_with_paths(params_to_numpy(model)))
+        for a, b in zip(runs["cuda"]["losses"], runs["cpu"]["losses"]):
+            if not abs(a - b) <= 1e-5 * abs(b):
+                raise AssertionError(f"{arch}: card losses {runs['cuda']['losses']}, CPU "
+                                     f"{runs['cpu']['losses']}")
+        out[arch] = dict(losses_card=runs["cuda"]["losses"], losses_cpu=runs["cpu"]["losses"],
+                         kernel_launches=0, **train_agreement(runs["cuda"], runs["cpu"]))
+    out["grad_guard"] = grad_guard(kernel_fns)
+    return out
+
+
+def grad_guard(kernel_fns) -> list:
+    """Every kernel wrapper raises when handed an input that requires grad
+    (the kernels have no backward), and runs on the same inputs with grad
+    mode off.  Returns the wrappers checked."""
+    dev = torch.device("cuda")
+
+    def f(*shape, grad):
+        return torch.randn(*shape, device=dev).requires_grad_(grad)
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, dtype=dtype, device=dev)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)[None].contiguous()
+    bt = torch.ones(1, 1, dtype=torch.int32, device=dev)
+
+    def q8(*lead):
+        return (z(*lead, 2, 32, dtype=torch.int8), z(*lead, 2))
+    calls = {
+        "flash_attention": lambda g: (f(1, 2, 8, 32, grad=g), z(1, 2, 8, 32), z(1, 2, 8, 32),
+                                      pos, pos),
+        "paged_flash_attention": lambda g: (f(1, 2, 8, 32, grad=g), z(2, 8, 2, 32),
+                                            z(2, 8, 2, 32), pos, pos, bt),
+        "scatter_rows": lambda g: (((z(1, 16, 2, 32), f(1, 8, 2, 32, grad=g)),
+                                    (z(1, 16, 2, 32), f(1, 8, 2, 32, grad=g))), pos),
+        "scatter_rows_paged": lambda g: (((z(2, 8, 2, 32), f(1, 8, 2, 32, grad=g)),
+                                          (z(2, 8, 2, 32), f(1, 8, 2, 32, grad=g))), pos, bt),
+        "quantize_scatter_rows": lambda g: (((q8(1, 16), f(1, 8, 2, 32, grad=g)),
+                                             (q8(1, 16), f(1, 8, 2, 32, grad=g))), pos),
+        "quantize_scatter_rows_paged": lambda g: (((q8(2, 8), f(1, 8, 2, 32, grad=g)),
+                                                   (q8(2, 8), f(1, 8, 2, 32, grad=g))), pos, bt),
+        "fork_pages": lambda g: (f(1, 4, 8, 2, 32, grad=g), z(1, 4, 8, 2, 32), [1], [2]),
+        "importance": lambda g: (f(1, 8, 64, grad=g), z(1, 8, 64), z(1, 8)),
+        "variation": lambda g: (f(1, 8, 64, grad=g), z(1, 8, 64), z(1, 8)),
+        "ssd_chunks": lambda g: (f(1, 16, 2, 16, grad=g), z(1, 16, 2) + 0.1, z(2),
+                                 z(1, 16, 1, 16), z(1, 16, 1, 16)),
+    }
+    extra = {"importance": dict(alpha=0.5), "variation": dict(alpha=0.5),
+             "ssd_chunks": dict(chunk=16)}
+    if set(calls) != set(kernel_fns):
+        raise AssertionError(f"grad guard: wrappers {sorted(kernel_fns)}, checked {sorted(calls)}")
+    for name, fn in kernel_fns.items():
+        try:
+            fn(*calls[name](True), **extra.get(name, {}))
+        except RuntimeError as e:
+            if "requires grad" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} took an input that requires grad")
+        with torch.no_grad():
+            fn(*calls[name](True), **extra.get(name, {}))
+    torch.cuda.synchronize()
+    return sorted(calls)
+
+
+def phase16(kernel_fns) -> dict:
+    """qwen2-1.5b at full width and depth in its config's float32 (28
+    layers, d 1536, 12 on 2 KV heads of 128, tied vocab 151,936), seeded
+    random weights made on the card (``init_train_state``), trained with
+    remat for ``TRAIN_FULL["steps"]`` steps of synthetic 4 x 512 batches:
+    every loss finite and the least of the last three below the first; no
+    hand-written kernel launched.  Times each step (host clock, synchronized
+    at both ends); FLOPs counted as 8 N tokens (forward, the remat's second
+    forward and the backward pass), attention's score products left out.
+    A ninth step, out of the timing, is profiled: the device's busy share
+    and the kernels with the most device time."""
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.models import Model
+    from repro_torch.train import (
+        DataConfig,
+        OptimizerConfig,
+        SyntheticTextDataset,
+        init_train_state,
+        make_train_step,
+    )
+    from repro_torch.utils.tree import param_count
+
+    t = TRAIN_FULL
+    cfg = configs.get_config(t["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    state = init_train_state(model, prng.prng_key(SEED, device="cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(dict(model.named_parameters()))
+    step = make_train_step(model, OptimizerConfig(lr=t["lr"], warmup_steps=1,
+                                                  total_steps=t["steps"]),
+                           ce_chunk=t["ce_chunk"])
+    ds = SyntheticTextDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                                         global_batch=t["batch"], seed=SEED))
+    zero_counts(kernel_fns)
+    losses, walls, grad_norms = [], [], []
+    for _ in range(t["steps"]):
+        batch = ds.next_batch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+    with Profiled(top=10) as prof:          # one more step, profiled, out of the timing
+        state, _ = step(state, ds.next_batch())
+    launched = {k: v for k, v in counts(kernel_fns).items() if v}
+    if launched:
+        raise AssertionError(f"phase 16: training launched kernels {launched}")
+    if not all(map(math.isfinite, losses)) or not min(losses[-3:]) < losses[0]:
+        raise AssertionError(f"phase 16: losses {losses}")
+    tokens = t["batch"] * t["seq"]
+    s_step = statistics.median(walls[1:])
+    flops = 8 * n_params * tokens
+    out = dict(t, layers=cfg.n_layers, params=n_params, tokens_per_step=tokens,
+               init_s=init_s, losses=losses, grad_norms=grad_norms, step_s=walls,
+               median_s_per_step=s_step, tokens_per_s=tokens / s_step,
+               tflops=flops / s_step / 1e12, peak_tflops=PEAK_FLOPS[torch.float32] / 1e12,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+               reckoned_gb=16 * n_params / 1e9, kernel_launches=0, profile=prof.result)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_run(fn, top: int = 8) -> dict:
     """Where one run's time goes on the device: the share of the wall time
     some kernel was running, and the kernels with the most device time."""
@@ -4934,6 +5164,8 @@ def main() -> int:
     print(f"cross-device jamba: {json.dumps(cross_jamba)}")
     cross_enc = cross_device_encoders(kernel_fns)
     print(f"cross-device encoder archs: {json.dumps(cross_enc)}")
+    cross_train = cross_device_training(kernel_fns)
+    print(f"cross-device training: {json.dumps(cross_train)}")
     lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
@@ -5089,6 +5321,22 @@ def main() -> int:
     enc_runs = phase15(kernel_fns)
     report15(enc_runs)
     lap("15")
+
+    # phase 16: qwen2-1.5b trained at full width and depth, f32
+    train_run = phase16(kernel_fns)
+    r = train_run
+    print(f"phase 16: {json.dumps(r)}")
+    print(f"phase 16 {r['arch']} ({r['layers']} layers, {r['params'] / 1e9:.3f} B params, f32): "
+          f"median {r['median_s_per_step']:.3f} s a step over steps 2-{r['steps']}, "
+          f"{r['tokens_per_s']:.0f} tokens/s, {r['tflops']:.1f} TFLOP/s (8 N tokens) of "
+          f"{r['peak_tflops']:.0f} f32 peak; max_memory_allocated "
+          f"{r['max_memory_allocated_gb']:.2f} GB, reckoned {r['reckoned_gb']:.2f} GB "
+          f"(params, grads, two moments); losses {json.dumps([round(x, 4) for x in r['losses']])}")
+    p = r["profile"]
+    print(f"phase 16 profiled step: busy {p['device_busy_ms']:.1f} ms of "
+          f"{p['profiled_wall_ms']:.1f} ({p['device_busy_share']:.3f}), {p['kernels_launched']} "
+          f"kernels; top {json.dumps([(t['name'], round(t['ms'], 1), t['count']) for t in p['top']])}")
+    lap("16")
     print(f"phase seconds: {json.dumps(phase_s)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
@@ -5185,6 +5433,7 @@ def main() -> int:
              sparse_lazy=sparse_runs, cross_device_archs=cross_archs, archs=arch_runs,
              scatter_d256=scatter256, cross_device_jamba=cross_jamba, jamba=jamba,
              cross_device_encoders=cross_enc, encoder_archs=enc_runs,
+             cross_device_training=cross_train, training=train_run,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

@@ -1,4 +1,4 @@
-"""Reference parameter tree (as numpy arrays) -> the port's parameters.
+"""Reference parameter tree (as numpy arrays) <-> the port's parameters.
 
 The reference stores ``embed [Vp, d]``, ``final_norm [d]``, ``lm_head [d, Vp]``
 (absent with tied embeddings) and the layers stacked over groups: pattern
@@ -15,7 +15,9 @@ j``; the port keeps the layout per layer, so conversion is an unstacking
 and no weight is transposed.  The encoder (SeamlessM4T) is stacked over its
 layers the same way under ``encoder`` (``ln1``, ``attn``, ``ln2``, ``ffn``,
 and ``final_norm`` unstacked), and the vision model's ``enc_proj [d_enc,
-d_model]`` is a leaf of its own.
+d_model]`` is a leaf of its own.  :func:`params_to_numpy` restacks the
+port's parameters (or their gradients) into that tree, so a port checkpoint
+has the reference's layout and its leaves its paths.
 """
 from __future__ import annotations
 
@@ -69,4 +71,48 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     if "encoder" in tree:
         unstack(tree["encoder"], [f"encoder.layers.{i}" for i in range(cfg.n_encoder_layers)])
         out["encoder.final_norm"] = t(tree["encoder"]["final_norm"])
+    return out
+
+
+def params_to_numpy(model, *, grads: bool = False) -> dict:
+    """The inverse of :func:`params_from_numpy`: the reference's nested tree
+    of numpy arrays, layer ``g*P + j`` restacked as ``layers[str(j)][g]``
+    and the encoder's layers as ``encoder[...][i]``.  The f32 leaves
+    (``F32_LEAVES``) and float32 parameters stay float32; bfloat16 ones are
+    widened to float32, which numpy holds and which converts back exactly.
+    With ``grads``, the parameters' ``.grad`` (zeros where None) in the same
+    tree, under the same paths."""
+    cfg = model.cfg
+    period, n_groups = cfg.pattern_period, cfg.n_layers // cfg.pattern_period
+
+    def a(name: str) -> np.ndarray:
+        p = model.get_parameter(name)
+        if grads:
+            p = torch.zeros_like(p) if p.grad is None else p.grad
+        return p.detach().to("cpu", torch.float32).numpy().copy()
+
+    def stack(prefixes) -> dict:
+        first = prefixes[0]
+        tree: dict = {}
+        for name, _ in model.named_parameters():
+            if not name.startswith(first + "."):
+                continue
+            path = name[len(first) + 1:].split(".")
+            leaf = np.stack([a(f"{pre}.{name[len(first) + 1:]}") for pre in prefixes])
+            node = tree
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = leaf
+        return tree
+
+    out = {"embed": a("embed"), "final_norm": a("final_norm"),
+           "layers": {str(j): stack([f"layers.{g * period + j}" for g in range(n_groups)])
+                      for j in range(period)}}
+    if model.lm_head is not None:
+        out["lm_head"] = a("lm_head")
+    if model.enc_proj is not None:
+        out["enc_proj"] = a("enc_proj")
+    if model.encoder is not None:
+        out["encoder"] = stack([f"encoder.layers.{i}" for i in range(cfg.n_encoder_layers)])
+        out["encoder"]["final_norm"] = a("encoder.final_norm")
     return out

@@ -97,12 +97,16 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
     """float32 ``jax.random.uniform`` in ``[minval, maxval)``: the top 23 bits
     as the mantissa of a float in ``[1, 2)``, shifted and scaled, and never
-    below ``minval``."""
+    below ``minval``.  The scale and shift ``floats * (hi - lo) + lo`` round
+    once, as XLA's fused multiply-add does: the f32 operands' exact result
+    fits a float64 whenever ``lo`` is a multiple of 2**-47 (1e-3 is), and
+    otherwise the float64 rounding cannot move the float32 one (``lo`` far
+    below an ulp of ``floats``, as Gumbel's ``tiny``)."""
     bits = random_bits(key, shape)
     floats = ((bits >> (32 - _NMANT)) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
     lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    return torch.maximum(lo, (floats.double() * (hi - lo).double() + lo.double()).float())
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

@@ -125,6 +125,17 @@ def check(status: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {status}")
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raises if grad mode is on and an input requires grad.  The kernels
+    have no backward: autograd does not see them, so their output would
+    carry no ``grad_fn`` and every parameter below it would get no
+    gradient, silently.  A differentiable caller takes the plain versions
+    (``impl="plain"`` in ``ops``).  ``None`` entries are skipped."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, and the hand-written kernel has "
+                           f"no backward; call the op with impl=\"plain\" to differentiate")
+
+
 def stream_ptr(device: torch.device) -> int:
     """PyTorch's current stream on the CUDA ``device`` (a tensor's), as the
     ``cudaStream_t`` the C entry points take.  Read raw, as PyTorch's own

@@ -130,9 +130,10 @@ def _launch(fn, q, k, v, q_pos, kv_pos, k_strides, v_strides, lkv, bt, page_size
     that :func:`plan` picks and counts the launch on ``fn``.  ``scales`` is
     None, or ``(k_scale, v_scale, their 6 strides)`` for int8 K/V."""
     name = fn.__name__
+    scale_ts = () if scales is None else scales[:2]
+    build.refuse_grad(name, q, k, v, *scale_ts)
     b, hq, lq, d = q.shape
     hkv = k.shape[-2] if bt is not None else k.shape[1]
-    scale_ts = () if scales is None else scales[:2]
     for arg, t in (("q", q), ("k", k), ("v", v), ("q_pos", q_pos), ("kv_pos", kv_pos),
                    ("block_tables", q if bt is None else bt),
                    *(("scales", t) for t in scale_ts)):

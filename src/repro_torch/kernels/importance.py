@@ -56,6 +56,7 @@ def _launch(fn, variation, h_new, h_old, conf, idx, alpha, eps):
     ``fn``.  The checks read each tensor's properties once: the skip stage
     calls this at every stage of every iteration."""
     name = fn.__name__
+    build.refuse_grad(name, h_new, h_old, conf)
     card = h_new.get_device()                   # -1 off the card
     for arg, t in (("h_new", h_new), ("h_old", h_old), ("conf", conf), ("idx", idx)):
         if t is None:

@@ -3,7 +3,12 @@
 Each op picks its implementation by where its tensors lie: CUDA tensors go
 through the hand-written kernel, CPU tensors through the plain PyTorch
 version in ``ref``.  There is no fallback: a failed build or launch raises,
-and tensors split across devices raise.
+and tensors split across devices raise.  ``attention`` and ``ssd`` also take
+``impl``: ``"kernel"`` (the default, the choice by device) or ``"plain"``,
+the ``ref`` version on either device, which autograd differentiates (the
+training forward's, as the reference trains on its XLA lowerings).  The
+kernels have no backward, and each wrapper raises when grad mode is on and
+an input requires grad.
 """
 from __future__ import annotations
 
@@ -25,6 +30,14 @@ from repro_torch.kernels.scatter_kv import quantize_scatter_rows, quantize_scatt
 from repro_torch.kernels.scatter_kv import scatter_rows as scatter_rows_kernel
 from repro_torch.kernels.scatter_kv import scatter_rows_paged as scatter_rows_paged_kernel
 from repro_torch.kernels.ssd_scan import ssd_chunks as ssd_chunks_kernel
+
+
+IMPLS = ("kernel", "plain")
+
+
+def _check_impl(op: str, impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"{op}: impl={impl!r}, one of {IMPLS}")
 
 
 def _on_card(*tensors: Optional[torch.Tensor]) -> bool:
@@ -51,14 +64,17 @@ def attention(
     bc_block: int = 0,
     k_scale: Optional[torch.Tensor] = None,   # [B, Hkv, Lkv] f32: k, v are int8 codes
     v_scale: Optional[torch.Tensor] = None,
+    impl: str = "kernel",
 ) -> torch.Tensor:
     """Rectangular GQA attention with position-based masking -> [B, Hq, Lq, D].
     With ``k_scale``/``v_scale``, ``k``/``v`` are int8 codes read with their
     per-(token, head) scales: the kernel dequantizes as it reads, so the
-    cache is never widened."""
+    cache is never widened.  ``impl="plain"`` runs the plain version on
+    either device."""
+    _check_impl("attention", impl)
     kw = dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
               bc_block=bc_block, k_scale=k_scale, v_scale=v_scale)
-    if _on_card(q, k, v, q_pos, kv_pos, k_scale, v_scale):
+    if _on_card(q, k, v, q_pos, kv_pos, k_scale, v_scale) and impl == "kernel":
         return flash_attention(q, k, v, q_pos, kv_pos, **kw)
     return ref.attention_reference(q, k, v, q_pos, kv_pos, **kw)
 
@@ -221,6 +237,7 @@ def ssd(
     *,
     chunk: int = 64,
     init_state: Optional[torch.Tensor] = None,   # [B, H, N, P] f32
+    impl: str = "kernel",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan (Mamba-2) -> ``(y [B, L, H, P] in x's dtype, final
     state [B, H, N, P] f32)``.  The reference's chunk choice and zero-``dt``
@@ -228,7 +245,9 @@ def ssd(
     chunk step is one kernel launch on the card; the recurrence across
     chunks ``S_c = decay_c S_{c-1} + contrib_c`` (``init_state`` folded into
     chunk 0), the states entering each chunk and ``y_inter = (C exp(cs)) @
-    S_in`` are plain PyTorch, as the reference leaves them to XLA."""
+    S_in`` are plain PyTorch, as the reference leaves them to XLA.
+    ``impl="plain"`` runs the chunk step's plain version on either device."""
+    _check_impl("ssd", impl)
     b, l, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     ck = min(chunk, l) if l % min(chunk, l) == 0 else chunk
@@ -236,7 +255,7 @@ def ssd(
     if pad:
         x, dt, bmat, cmat = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
                              for t in (x, dt, bmat, cmat))
-    if _on_card(x, dt, a_log, bmat, cmat, init_state):
+    if _on_card(x, dt, a_log, bmat, cmat, init_state) and impl == "kernel":
         y_intra, contrib, decay, cs = ssd_chunks_kernel(x.contiguous(), dt.contiguous(),
                                                         a_log, bmat, cmat, chunk=ck)
     else:

@@ -413,9 +413,10 @@ def ssd_chunks(
     cr = cmat.float().reshape(b, nc, chunk, g, n).repeat_interleave(hpg, dim=3)
     cs = torch.cumsum(dtr * a, dim=2)                                 # [B, nC, Q, H]
     tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
-    # exp of the i < j entries may overflow to inf: the select drops it
-    lmat = torch.where(tri[:, :, None], torch.exp(cs[:, :, :, None, :] - cs[:, :, None, :, :]),
-                       0.0)                                           # [B, nC, Q, Q, H]
+    # the i < j entries are masked before the exp, which may overflow there:
+    # the same values as masking after it, and a gradient without 0 * inf
+    lmat = torch.exp(torch.where(tri[:, :, None], cs[:, :, :, None, :] - cs[:, :, None, :, :],
+                                 -torch.inf))                         # [B, nC, Q, Q, H]
     scores = torch.einsum("bcqhn,bckhn->bcqkh", cr, br) * lmat
     xdt = xr * dtr[..., None]
     y = torch.einsum("bcqkh,bckhp->bcqhp", scores, xdt)

@@ -103,6 +103,7 @@ def _launch(fn, pairs, idx, row_mask, token_mask, bt, s, num_pages, page_size):
     if not 1 <= len(pairs) <= 2:
         raise ValueError(f"{name}: one or two (cache, new) pairs")
     (c0, n0), (c1, n1) = pairs[0], pairs[-1]
+    build.refuse_grad(name, c0, n0, c1, n1)
     card = c0.get_device()                      # -1 off the card
     for arg, t in (("cache", c0), ("new", n0), ("cache", c1), ("new", n1)):
         if card < 0 or t.get_device() != card:
@@ -232,6 +233,7 @@ def _launch_quant(fn, pairs, idx, row_mask, token_mask, bt, s, num_pages, page_s
     if len(pairs) != 2:
         raise ValueError(f"{name}: the K and the V pair")
     ((kc, ksc), kn), ((vc, vsc), vn) = pairs
+    build.refuse_grad(name, kc, ksc, kn, vc, vsc, vn)
     card = kc.get_device()
     for arg, t in (("codes", kc), ("scales", ksc), ("new", kn), ("codes", vc),
                    ("scales", vsc), ("new", vn)):
@@ -336,6 +338,7 @@ def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst) -> None:
     bytes and the pools must start 16-byte aligned.  The int8 cache's scale
     pools ``[G, P, ps, Hkv]`` take a launch of their own, counted also in
     ``scale_launches`` (the only 4-dimensional pools)."""
+    build.refuse_grad("fork_pages", k, v)
     for t in (k, v):
         if not t.is_cuda or t.device != k.device:
             raise ValueError(f"fork_pages: pools must be CUDA tensors on {k.device}")

@@ -94,6 +94,7 @@ def ssd_chunks(
     the planner's for the tensor-core body (to time the choices); the body
     stays the planner's."""
     name = "ssd_chunks"
+    build.refuse_grad(name, x, dt, a_log, bmat, cmat)
     for arg, t in (("x", x), ("dt", dt), ("a_log", a_log), ("bmat", bmat), ("cmat", cmat)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name}: {arg} must be a CUDA tensor on {x.device}")

@@ -75,6 +75,8 @@ class PagedKVCache(NamedTuple):
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
+    """A frozen parameter: only a trainer turns grads on
+    (``model.requires_grad_(True)``), so no inference pass records a graph."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
 
 
@@ -132,6 +134,7 @@ def self_attention(
     anchor: int = 0,
     bc_start: int = 0,              # block-causal: first generation position
     bc_block: int = 0,              # block-causal block length; 0 = off
+    impl: str = "kernel",           # ops.attention's: "plain" is differentiable
 ) -> torch.Tensor:
     """Returns the attention output ``[B, K, d]``; with a cache, first
     scatters the fresh K/V rows into it, then attends the whole cache.
@@ -181,6 +184,7 @@ def self_attention(
         kv_positions,
         **scales,
         **opts,
+        impl=impl,
     )
     return out.transpose(1, 2).reshape(b, k, -1) @ p.wo
 
@@ -192,6 +196,7 @@ def cross_attention(
     *,
     enc_out: Optional[torch.Tensor] = None,    # [B, E, kv_width] encoder output
     cache: Optional[KVCache] = None,           # [B, E, Hkv, Dh] views of a cross plane
+    impl: str = "kernel",                      # ops.attention's
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
     """Cross-attention to the encoder's ``E`` tokens, the reference's
     ``cross_attention``: no RoPE on either side, every query at position 0
@@ -217,7 +222,8 @@ def cross_attention(
     e = ck.shape[1]
     q_pos = torch.zeros((b, k), dtype=torch.int32, device=x.device)
     kv_pos = torch.arange(e, dtype=torch.int32, device=x.device)[None].expand(b, e).contiguous()
-    out = ops.attention(q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), q_pos, kv_pos)
+    out = ops.attention(q.transpose(1, 2), ck.transpose(1, 2), cv.transpose(1, 2), q_pos, kv_pos,
+                        impl=impl)
     return out.transpose(1, 2).reshape(b, k, -1) @ p.wo, (ck, cv)
 
 

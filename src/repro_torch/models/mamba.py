@@ -88,6 +88,7 @@ def mamba_apply(
     *,
     state: Optional[SSMState] = None,             # resume point (decode); None = sequence start
     capture_pos: Optional[torch.Tensor] = None,   # [B] int: also return the state there
+    impl: str = "kernel",                         # ops.ssd's: "plain" is differentiable
 ) -> tuple[torch.Tensor, SSMState, Optional[SSMState]]:
     """Runs the mixer over a span.  Returns ``(y [B, L, d], the state after
     the span, the state at capture_pos or None)``.  The capture re-runs the
@@ -117,7 +118,8 @@ def mamba_apply(
     cmat = bc[..., g * n:].reshape(b, l, g, n)
     dt = F.softplus(dt_raw.float() + mixer.dt_bias)                  # [B, L, H]
 
-    y, final_state = ops.ssd(xs, dt, mixer.a_log, bmat, cmat, chunk=s.chunk, init_state=init)
+    y, final_state = ops.ssd(xs, dt, mixer.a_log, bmat, cmat, chunk=s.chunk, init_state=init,
+                             impl=impl)
     y = y + xs * mixer.d_skip[None, None, :, None]      # f32: d_skip is f32, as in the reference
     y = gated_rms_norm(y.reshape(b, l, d_inner), z, mixer.norm_scale, cfg.rms_eps)
     out = y @ mixer.out_proj.to(y.dtype)
@@ -127,7 +129,7 @@ def mamba_apply(
         span = torch.arange(l, device=x.device)[None, :, None]
         dt_masked = torch.where(span < capture_pos[:, None, None], dt, 0.0)
         _, cap_state = ops.ssd(xs, dt_masked, mixer.a_log, bmat, cmat, chunk=s.chunk,
-                               init_state=init)
+                               init_state=init, impl=impl)
         # the conv inputs [capture_pos - W + 1, capture_pos), zeros before the span
         full = torch.cat([tail.to(x_in.dtype), torch.cat([x_in, bc_in], dim=-1)], dim=1)
         cols = capture_pos.long()[:, None] + torch.arange(s.conv_width - 1, device=x.device)

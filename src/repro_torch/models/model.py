@@ -49,6 +49,14 @@ cross layer's K/V from ``enc_out`` and stores them; a decode reads them.
 Every plane is written in place; under a ``scatter_mask`` only the owned
 rows are written.
 
+Training (``repro_torch.train``) runs the stack in ``nocache`` mode on the
+plain versions of attention and the SSD scan (``ForwardCtx.attn_impl =
+"plain"``; the kernels have no backward, as the reference trains on its XLA
+lowerings), with ``run_layers(..., with_aux=True)`` summing the MoE layers'
+load-balance losses and ``ForwardCtx.remat`` recomputing each group (each
+layer where ``P > 1``) in the backward pass.  ``Model.forward`` is one such
+pass to logits.
+
 Prefill stores each SSM layer's block rows of ``h`` after the mixer's
 residual (before a hybrid layer's FFN) in ``ssmh``, while a decode scatters
 the layer's *input* rows into it and runs the mixer on that buffer as the
@@ -63,6 +71,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -182,6 +191,10 @@ class ForwardCtx:
     enc_out: Optional[torch.Tensor] = None        # [B, E, d_out] encoder output
                                                   # (Model.encode): a prefill's or a
                                                   # cacheless pass's cross K/V
+    attn_impl: str = "kernel"                     # attention and SSD scan: "kernel"
+                                                  # (by device) or "plain" (training)
+    remat: bool = False                           # recompute groups in the backward
+                                                  # (nocache passes only)
 
 
 class MLP(nn.Module):
@@ -239,14 +252,14 @@ class Encoder(nn.Module):
                                     for l in range(cfg.n_encoder_layers))
         self.final_norm = _param((cfg.d_enc,), device, dtype)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
         cfg = self.cfg
         b, e, _ = h.shape
         pos = torch.arange(e, dtype=torch.int32, device=h.device)[None].expand(b, e).contiguous()
         rope = rope_tables(pos, cfg.head_dim, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
         for layer in self.layers:
             h = h + self_attention(layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), pos,
-                                   rope=rope)
+                                   rope=rope, impl=impl)
             h = h + mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps), cfg.act)
         return rms_norm(h, self.final_norm, cfg.rms_eps)
 
@@ -385,35 +398,59 @@ class Model(nn.Module):
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.embed[tokens.long()].to(self.compute_dtype)
 
-    def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+    def encode(self, enc_embeds: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
         """The encoder output ``[B, E, d_out]`` of stub frontend embeddings
         ``[B, E, d_enc]``, in the compute dtype (the reference's
         ``Model.encode``): the vision model's projection to ``d_model`` (or
         the embeddings as they are where the widths agree), SeamlessM4T's
         encoder stack; other stacks return the embeddings unchanged, and no
-        layer reads them."""
+        layer reads them.  ``impl`` is the encoder attention's."""
         x = enc_embeds.to(device=self.device, dtype=self.compute_dtype)
         if self.cfg.family == "vlm":
             return x if self.enc_proj is None else x @ self.enc_proj
-        return x if self.encoder is None else self.encoder(x)
+        return x if self.encoder is None else self.encoder(x, impl)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, self.final_norm, self.cfg.rms_eps)
         head = self.embed.T if self.lm_head is None else self.lm_head
         return h @ head.to(h.dtype)
 
+    def forward(self, tokens: torch.Tensor, *, enc_embeds: Optional[torch.Tensor] = None,
+                impl: str = "plain", remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """One cacheless pass over ``tokens [B, L]`` at positions ``0..L-1``
+        -> ``(logits [B, L, Vp], aux)``, aux the MoE layers' summed
+        load-balance loss (the reference's ``Model.forward``).  ``impl``
+        defaults to the differentiable plain versions, as the reference's
+        to its XLA lowerings."""
+        b, l = tokens.shape
+        h = self.embed_tokens(tokens.to(self.device))
+        enc_out = None if enc_embeds is None else self.encode(enc_embeds, impl)
+        pos = torch.arange(l, dtype=torch.int32, device=self.device)[None].expand(b, l)
+        ctx = ForwardCtx(positions=pos.contiguous(), enc_out=enc_out, attn_impl=impl,
+                         remat=remat)
+        h, aux = self.run_layers(h, ctx, with_aux=True)
+        return self.logits(h), aux
+
     def run_layers(self, h: torch.Tensor, ctx: ForwardCtx, cache=None, *, group_lo: int = 0,
-                   group_hi: Optional[int] = None) -> torch.Tensor:
+                   group_hi: Optional[int] = None, with_aux: bool = False):
         """Runs the layers of groups ``[group_lo, group_hi)`` on ``h [B, K,
         d]``; in the prefill/decode modes the caches are updated in place.
         The RoPE tables, the sliding window's clamp of ``kv_pos`` and its
         read view of the block table are made once here for the whole
-        segment."""
+        segment.  With ``with_aux`` it returns ``(h, aux)``, aux the f32 sum
+        of the MoE layers' load-balance losses, in layer order (the
+        reference's ``SegmentOut.aux_loss``).  Under ``ctx.remat`` each group
+        runs in ``torch.utils.checkpoint``, and each layer in it where ``P >
+        1`` (the reference's ``jax.checkpoint`` of its scan body and, on
+        Jamba, of each layer): the backward recomputes the activations, and
+        no value changes."""
         cfg = self.cfg
         group_hi = self.n_groups if group_hi is None else group_hi
         if not 0 <= group_lo < group_hi <= self.n_groups:
             raise ValueError(f"bad layer segment [{group_lo}, {group_hi})")
         use_cache = ctx.mode in ("prefill", "decode") and cache is not None
+        if ctx.remat and use_cache:
+            raise ValueError("remat recomputes cacheless passes only")
         kv_cache, ssm_cache = split_cache(cache) if use_cache else (None, None)
         x_cache = cross_cache(cache) if use_cache else None
         rope = kv_pos = read_bt = None
@@ -426,7 +463,8 @@ class Model(nn.Module):
                 if ctx.block_tables is not None:
                     read_bt = ops.window_block_tables(ctx.block_tables, ctx.window_limit,
                                                       kv_cache.k.shape[2])
-        for l in range(group_lo * self.period, group_hi * self.period):
+
+        def run_layer(l: int, h: torch.Tensor, aux: Optional[torch.Tensor]):
             layer = self.layers[l]
             if layer.kind == "ssm":
                 h = self._apply_ssm(layer, self.ssm_plane[l], h, ctx, ssm_cache)
@@ -441,12 +479,33 @@ class Model(nn.Module):
                     cache=kv, slot_idx=ctx.slot_idx, kv_pos=kv_pos, rope=rope,
                     scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask,
                     window=layer_window(cfg, l, ctx.window_override), anchor=ctx.anchor,
-                    bc_start=ctx.bc_start, bc_block=ctx.bc_block)
+                    bc_start=ctx.bc_start, bc_block=ctx.bc_block, impl=ctx.attn_impl)
             if layer.ffn is not None:
                 hn = rms_norm(h, layer.ln2, cfg.rms_eps)
-                h = h + (moe_apply(layer.ffn, cfg, hn) if layer.moe
-                         else mlp_apply(layer.ffn, hn, cfg.act))
-        return h
+                if not layer.moe:
+                    h = h + mlp_apply(layer.ffn, hn, cfg.act)
+                elif aux is None:
+                    h = h + moe_apply(layer.ffn, cfg, hn)
+                else:
+                    f, a = moe_apply(layer.ffn, cfg, hn, with_aux=True)
+                    h, aux = h + f, aux + a
+            return h, aux
+
+        def run_group(g: int, h: torch.Tensor, aux: Optional[torch.Tensor]):
+            for l in range(g * self.period, (g + 1) * self.period):
+                if ctx.remat and self.period > 1:
+                    h, aux = checkpoint(run_layer, l, h, aux, use_reentrant=False)
+                else:
+                    h, aux = run_layer(l, h, aux)
+            return h, aux
+
+        aux = torch.zeros((), dtype=torch.float32, device=h.device) if with_aux else None
+        for g in range(group_lo, group_hi):
+            if ctx.remat:
+                h, aux = checkpoint(run_group, g, h, aux, use_reentrant=False)
+            else:
+                h, aux = run_group(g, h, aux)
+        return (h, aux) if with_aux else h
 
     def _apply_cross(self, layer: Block, i: int, h: torch.Tensor, ctx: ForwardCtx,
                      cache: Optional[KVCache]) -> torch.Tensor:
@@ -457,7 +516,7 @@ class Model(nn.Module):
         planes = None if cache is None else cache.layer(i)
         x, (ck, cv) = cross_attention(
             layer.xattn, self.cfg, rms_norm(h, layer.lnx, self.cfg.rms_eps), enc_out=ctx.enc_out,
-            cache=planes if ctx.mode == "decode" else None)
+            cache=planes if ctx.mode == "decode" else None, impl=ctx.attn_impl)
         if planes is not None and ctx.mode == "prefill":
             _store(planes.k, ck, ctx.scatter_mask)
             _store(planes.v, cv, ctx.scatter_mask)
@@ -476,7 +535,7 @@ class Model(nn.Module):
             full_in = row_scatter(cache.ssmh[i], h, ctx.block_idx)
             y_full, _, _ = mamba_apply(
                 layer.mixer, cfg, rms_norm(full_in, layer.ln1, cfg.rms_eps),
-                state=SSMState(cache.state[i], cache.conv_tail[i]))
+                state=SSMState(cache.state[i], cache.conv_tail[i]), impl=ctx.attn_impl)
             h = h + row_gather(y_full, ctx.block_idx).to(h.dtype)
             _store(cache.ssmh[i], full_in, ctx.scatter_mask)   # the state stays at block start
             return h
@@ -486,7 +545,7 @@ class Model(nn.Module):
                 raise ValueError("an SSM prefill needs block_start")
             capture = ctx.block_start
         y, _, captured = mamba_apply(layer.mixer, cfg, rms_norm(h, layer.ln1, cfg.rms_eps),
-                                     capture_pos=capture)
+                                     capture_pos=capture, impl=ctx.attn_impl)
         h = h + y.to(h.dtype)
         if capture is not None:
             lb = cache.ssmh.shape[2]

@@ -17,9 +17,11 @@ as one batched matmul per projection over ``[E, G * C, d]`` (plain
 ``torch.bmm``: XLA computes them in the reference), and each row sums its
 kept picks' outputs with their combine weights.  Same drops, same weights.
 
-Left out: the load-balance aux loss, which only training reads (ROADMAP.md
-Queue A7).  A non-finite row stays in its own output here, where the
-reference's dense einsum spreads it (``0 * NaN``) over its whole group.
+The Switch load-balance aux loss, which only training reads, is computed
+when the caller asks for it (``with_aux``), so an inference pass does no
+more work.  A non-finite row stays in its own output here, where the
+reference's dense einsum spreads it (``0 * NaN``) over its whole group
+(ROADMAP.md, the reference-side faults the port does not mirror).
 """
 from __future__ import annotations
 
@@ -92,9 +94,24 @@ def routing(probs: torch.Tensor, m: MoEConfig, cap: int) -> Routing:
     return Routing(expert, slot, kept, chosen / denom)
 
 
-def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The expert FFN on ``x [B, K, d]`` -> ``[B, K, d]`` in ``x.dtype``: the
-    reference's ``moe_apply`` without its aux loss."""
+def aux_loss(probs: torch.Tensor, r: Routing, m: MoEConfig) -> torch.Tensor:
+    """The Switch load-balance loss of the reference's ``_routing``, times
+    ``aux_loss_coef``: ``E * sum(frac * mean_prob)``, ``frac[e]`` the share
+    of a group's ``S`` rows with a kept pick of expert ``e`` (averaged over
+    the groups), ``mean_prob`` the router probabilities averaged over every
+    row of every group, the zero pad rows of the last group included (their
+    probabilities are uniform).  Only ``mean_prob`` carries a gradient."""
+    g, s, e = probs.shape
+    hit = ((r.expert[..., None] == torch.arange(e, device=probs.device))
+           & r.kept[..., None]).any(dim=2)                               # [G, S, E]
+    frac = hit.sum(dim=1).float().mean(dim=0) / s
+    return e * torch.sum(frac * probs.mean(dim=(0, 1))) * m.aux_loss_coef
+
+
+def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *, with_aux: bool = False):
+    """The expert FFN on ``x [B, K, d]`` -> ``[B, K, d]`` in ``x.dtype``, the
+    reference's ``moe_apply``; with ``with_aux``, ``(out, aux)`` with the
+    f32 scalar :func:`aux_loss`."""
     m = cfg.moe
     b, k, d = x.shape
     t = b * k
@@ -121,4 +138,5 @@ def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     picked = down[torch.where(r.kept, flat, 0)].float()                   # [G, S, k, d]
     w = r.weight.to(x.dtype).float()[..., None]
     out = torch.where(r.kept[..., None], w * picked, 0.0).sum(dim=2).to(x.dtype)
-    return out.reshape(-1, d)[:t].view(b, k, d)
+    out = out.reshape(-1, d)[:t].view(b, k, d)
+    return (out, aux_loss(probs, r, m)) if with_aux else out

@@ -672,3 +672,118 @@ def test_cuda_head_dim_256_matches_plain_versions(cuda_device, dtype):
             quantize_scatter_rows(pairs, idx, **mk)
         cut = 1 if paged else 0
         assert all(torch.equal(a[cut:], b[cut:]) for a, b in zip(got, want))
+
+
+def _wrapper_calls(dev, grad: bool) -> dict:
+    """Each kernel wrapper on small valid inputs on ``dev``, its float input
+    (the one a training pass would differentiate) requiring grad when
+    ``grad``: name -> a call."""
+    from repro_torch.kernels.scatter_kv import quantize_scatter_rows, quantize_scatter_rows_paged
+
+    def f(*shape):
+        return torch.randn(*shape, device=dev).requires_grad_(grad)
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, dtype=dtype, device=dev)
+    pos = torch.arange(8, dtype=torch.int32, device=dev)[None].contiguous()
+    bt = torch.ones(1, 1, dtype=torch.int32, device=dev)
+
+    def q8(*lead):
+        return (z(*lead, 2, 32, dtype=torch.int8), z(*lead, 2))
+    return {
+        "flash_attention": lambda: flash_attention(f(1, 2, 8, 32), z(1, 2, 8, 32),
+                                                   z(1, 2, 8, 32), pos, pos),
+        "paged_flash_attention": lambda: paged_flash_attention(
+            f(1, 2, 8, 32), z(2, 8, 2, 32), z(2, 8, 2, 32), pos, pos, bt),
+        "scatter_rows": lambda: scatter_rows(((z(1, 16, 2, 32), f(1, 8, 2, 32)),
+                                              (z(1, 16, 2, 32), f(1, 8, 2, 32))), pos),
+        "scatter_rows_paged": lambda: scatter_rows_paged(
+            ((z(2, 8, 2, 32), f(1, 8, 2, 32)), (z(2, 8, 2, 32), f(1, 8, 2, 32))), pos, bt),
+        "quantize_scatter_rows": lambda: quantize_scatter_rows(
+            ((q8(1, 16), f(1, 8, 2, 32)), (q8(1, 16), f(1, 8, 2, 32))), pos),
+        "quantize_scatter_rows_paged": lambda: quantize_scatter_rows_paged(
+            ((q8(2, 8), f(1, 8, 2, 32)), (q8(2, 8), f(1, 8, 2, 32))), pos, bt),
+        "fork_pages": lambda: fork_pages(f(1, 4, 8, 2, 32), z(1, 4, 8, 2, 32), [1], [2]),
+        "importance": lambda: importance(f(1, 8, 64), z(1, 8, 64), z(1, 8), alpha=0.5),
+        "variation": lambda: variation(f(1, 8, 64), z(1, 8, 64), z(1, 8), alpha=0.5),
+        "ssd_chunks": lambda: ssd_chunks(f(1, 16, 2, 16), z(1, 16, 2) + 0.1, z(2),
+                                         z(1, 16, 1, 16), z(1, 16, 1, 16), chunk=16),
+    }
+
+
+WRAPPERS = list(_wrapper_calls("cpu", False))
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_wrappers_refuse_inputs_that_require_grad(name):
+    """A kernel has no backward, so a wrapper handed an input that requires
+    grad raises (naming ``impl="plain"``) before anything else, on any
+    device; with grad mode off the same call gets as far as its device
+    check."""
+    with pytest.raises(RuntimeError, match='requires grad.*impl="plain"'):
+        _wrapper_calls("cpu", True)[name]()
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        _wrapper_calls("cpu", True)[name]()
+
+
+class _Reached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "seamless-m4t-large-v2"])
+def test_training_forward_takes_no_kernel_route(arch, monkeypatch):
+    """With every op told its tensors lie on the card, a training loss and
+    its backward pass still reach no kernel wrapper: the training forward
+    chooses the plain versions itself (``impl="plain"``), whatever the
+    device.  Jamba runs attention, the SSD scan and MoE; SeamlessM4T the
+    encoder and cross-attention.  The same stack run with ``impl="kernel"``
+    reaches a wrapper at once."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.models import Model
+    from repro_torch.train.loss import diffusion_loss
+
+    def reached(*_, **__):
+        raise _Reached()
+    monkeypatch.setattr(ops, "_on_card", lambda *t: True)
+    for name in ("flash_attention", "paged_flash_attention", "scatter_rows_kernel",
+                 "scatter_rows_paged_kernel", "quantize_scatter_rows",
+                 "quantize_scatter_rows_paged", "fork_pages_kernel", "importance", "variation",
+                 "ssd_chunks_kernel"):
+        monkeypatch.setattr(ops, name, reached)
+    cfg = configs.reduced(configs.get_config(arch))
+    if cfg.pattern_period > 1:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.pattern_period)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        model.requires_grad_(True)
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(3, cfg.vocab_size, (2, 16), generator=gen, dtype=torch.int32)
+        region = torch.ones(2, 16, dtype=torch.bool)
+        enc = (torch.randn(2, cfg.n_enc_tokens, cfg.d_enc, generator=gen)
+               if cfg.family == "audio" else None)
+        loss, _ = diffusion_loss(model, prng.prng_key(0), tokens, region, enc_embeds=enc,
+                                 ce_chunk=8)
+        loss.backward()
+        assert torch.isfinite(loss)
+        assert all(p.grad is not None for p in model.parameters())
+        with torch.no_grad(), pytest.raises(_Reached):
+            model.forward(tokens, enc_embeds=enc, impl="kernel")
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_inputs_that_require_grad(cuda_device):
+    """On the card each wrapper raises on an input that requires grad, and
+    launches on the same inputs with grad mode off."""
+    for name in WRAPPERS:
+        with pytest.raises(RuntimeError, match="requires grad"):
+            _wrapper_calls(cuda_device, True)[name]()
+        with torch.no_grad():
+            _wrapper_calls(cuda_device, True)[name]()
+    torch.cuda.synchronize()
