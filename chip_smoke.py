@@ -138,8 +138,8 @@ no result):
    duplicate-cohort trace with prefix sharing (forks), then preemption on a
    tight pool (a spill and a resume) (14c);
 15. the encoder-conditioned archs at full width in bfloat16 (seeded random
-   weights and ``enc_embeds`` made on the card): llama-3.2-vision-11b, all
-   40 layers (8 cross layers over 1,601 image tokens), offline es at phase
+   weights and ``enc_embeds`` made on the card): llama-3.2-vision-11b, 20
+   of its 40 layers (4 cross layers over 1,601 image tokens), offline es at phase
    5's shape, timed twice (equal tokens) and dualcache, kernel 1's launches
    as self- and as cross-attention, the cross planes' bytes, a profiled
    ``generate``'s busy share and the cross-attention's device ms (15a);
@@ -158,7 +158,19 @@ no result):
    and peak memory.  Phase 4 also trains reduced qwen2-1.5b and
    olmoe-1b-7b two steps on the card against the CPU (losses, the
    parameters' moves, no kernel launch) and checks that every kernel
-   wrapper refuses an input that requires grad.
+   wrapper refuses an input that requires grad;
+17. tensor parallelism: LLaDA-8B at TP 2, two processes on the one card,
+   one rank each, over gloo (its ``all_reduce`` takes CUDA tensors through
+   the host; NCCL refuses two ranks on one card): f32 at ``TP_DEPTH_A``
+   layers, offline es greedy, every rank's tokens equal to TP 1's (17a);
+   bf16 at all 32 layers, one offline generate of one block and phase 6's
+   served trace cut to three requests, per-rank memory, times, all-reduces a
+   step and the device time inside them (17b); the dry run of 17b's
+   configuration (``launch/dryrun.py`` on fake tensors: its rank-0
+   ``argument_size`` must equal rank 0's measured bytes of parameters and
+   state) and the single-pod dry runs of llada-8b and dream-7b at
+   decode_32k (17c).  Phase 3 also holds kernels 1-4 at the 16 heads a
+   TP-2 rank launches them with.
 
 On phases 5, 6, 7, 9, 10, 11, 12, 13, 14 and 15 every attention launch must take
 the tensor-core body (on phase 11 reading int8 codes, with every K/V write the
@@ -220,6 +232,11 @@ REPLACES = {
     "flash_attention_cross": "src/repro/kernels/flash_attention.py:146",
     "flash_attention_cross_seamless": "src/repro/kernels/flash_attention.py:146",
     "flash_attention_encoder": "src/repro/kernels/flash_attention.py:146",
+    # kernels 1-4 at the head counts a tensor-parallel rank launches them with
+    "flash_attention_tp2": "src/repro/kernels/flash_attention.py:146",
+    "paged_flash_attention_tp2": "src/repro/kernels/flash_attention.py:208",
+    "scatter_rows_tp2": "src/repro/kernels/scatter_kv.py:45",
+    "scatter_rows_paged_tp2": "src/repro/kernels/scatter_kv.py:78",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -241,6 +258,10 @@ SOURCES = {
     "flash_attention_cross": "src/repro_torch/kernels/csrc/flash_tc.cuh",
     "flash_attention_cross_seamless": "src/repro_torch/kernels/csrc/flash_tc.cuh",
     "flash_attention_encoder": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "flash_attention_tp2": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "paged_flash_attention_tp2": "src/repro_torch/kernels/csrc/flash_tc.cuh",
+    "scatter_rows_tp2": "src/repro_torch/kernels/csrc/scatter_kv.cu",
+    "scatter_rows_paged_tp2": "src/repro_torch/kernels/csrc/scatter_kv.cu",
 }
 # the serving path's shapes: 4 slots of prompt 128 + gen 64 tokens, blocks of
 # 32, partial refreshes of ceil(0.25 * (192 - 32)) = 40 tokens
@@ -438,6 +459,131 @@ def flash_cases():
         cases.append(("D=72 block", 2, 32, 32, 32, 192, 72, 0, dt, {}, False))
         cases.append(("llada block unaligned strides", 2, 32, 32, 32, 192, 128, 2, dt, {}, False))
     return cases
+
+
+# the heads of LLaDA-8B's 32 that a rank holds at TP 2 (phase 17)
+TP_HEADS = 32 // 2
+
+
+def check_tp_local(ref, fns, gen):
+    """Kernels 1-4 at the head count a TP-2 rank launches them with in phase
+    17 (LLaDA-8B's 16 of 32 heads of 128, bf16): the block's dense attention
+    and K/V scatter at phase 5's shape (Lq 32 over 192 rows), the paged ones
+    at phase 6's serving layout (4 slots, pages of 16); each against its
+    plain version and timed as the other rows, beside its bound and its
+    library call."""
+    from repro_torch.kernels.flash_attention import plan as attn_plan
+    from repro_torch.kernels.scatter_kv import plan as scatter_plan
+
+    dt, h, d, lq = torch.bfloat16, TP_HEADS, 128, BLOCK
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    def timed(kernel, row, case, run, plain, lib_call, moved, flops, err, tol, **extra):
+        if not err <= tol:
+            raise AssertionError(f"{kernel} {case} {dt}: max abs err {err} > {tol}")
+        ms, wall = device_ms(run)
+        plain_ms, _ = device_ms(plain)
+        lib_ms, _ = device_ms(lib_call)
+        bms, by = bound(moved, flops, dt)
+        return dict(kernel=kernel, row=row, case=case, dtype=str(dt), max_abs_err=err,
+                    tol=tol, ms=ms, wall_ms=wall, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bms, bound_by=by, **extra)
+    out = []
+    # kernel 1: the block's queries over the dense cache
+    q, k, v = (randn(2, n, h, d).transpose(1, 2) for n in (lq, T_TOTAL, T_TOTAL))
+    q_pos = torch.arange(T_TOTAL - lq, T_TOTAL, dtype=torch.int32,
+                         device="cuda")[None].repeat(2, 1)
+    kv_pos = torch.arange(T_TOTAL, dtype=torch.int32, device="cuda")[None].repeat(2, 1)
+    args = (q, k, v, q_pos, kv_pos)
+    got = fns["flash_attention"](*args)
+    err = (got.float() - ref.attention_reference(*args).float()).abs().max().item()
+    mask = ref.attention_mask(q_pos, kv_pos)[:, None]
+    pl = attn_plan(q, k, v, T_TOTAL, h)
+    kv_bytes = 2 * admitted_kv_rows(mask).sum().item() * h * d * k.element_size()
+    out.append(timed("flash_attention", "flash_attention_tp2", f"llada tp2 block Lq={lq} H={h}",
+                     lambda: fns["flash_attention"](*args),
+                     lambda: ref.attention_reference(*args),
+                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                     nbytes(q, q_pos, kv_pos, got) + kv_bytes, 4.0 * h * d * mask.sum().item(),
+                     err, 2e-2, body=pl.body, n_splits=pl.n_splits, options={}, bidi_ms=None,
+                     empty_splits=0))
+    # kernel 2: the same through phase 6's page layout
+    ps = 16
+    bt, kv_pos, n_pages = serving_layout(gen, ps)
+    kp, vp = randn(n_pages, ps, h, d), randn(n_pages, ps, h, d)
+    q = randn(SLOTS, lq, h, d).transpose(1, 2)
+    q_pos = torch.arange(PROMPT, PROMPT + lq, dtype=torch.int32,
+                         device="cuda")[None].repeat(SLOTS, 1)
+    args = (q, kp, vp, q_pos, kv_pos, bt)
+    got = fns["paged_flash_attention"](*args)
+    err = (got.float() - ref.paged_attention_reference(*args).float()).abs().max().item()
+    mask = ref.attention_mask(q_pos, ref.paged_kv_mask(bt, kv_pos, ps))[:, None]
+    phys = (bt.repeat_interleave(ps, dim=1).long() * ps
+            + torch.arange(T_TOTAL, device="cuda") % ps)
+    n_rows = phys[admitted_kv_rows(mask)].unique().numel()
+    pl = attn_plan(q, kp, vp, T_TOTAL, h, ps)
+
+    def gathered():
+        return F.scaled_dot_product_attention(q, ref.gather_pages(kp, bt).transpose(1, 2),
+                                              ref.gather_pages(vp, bt).transpose(1, 2),
+                                              attn_mask=mask)
+    out.append(timed("paged_flash_attention", "paged_flash_attention_tp2",
+                     f"llada tp2 block Lq={lq} ps={ps} H={h}",
+                     lambda: fns["paged_flash_attention"](*args),
+                     lambda: ref.paged_attention_reference(*args), gathered,
+                     nbytes(q, q_pos, kv_pos, bt, got) + 2 * n_rows * h * d * kp.element_size(),
+                     4.0 * h * d * mask.sum().item(), err, 2e-2, body=pl.body,
+                     n_splits=pl.n_splits, options={}, bidi_ms=None, empty_splits=0,
+                     library="gather_pages + scaled_dot_product_attention"))
+    # kernel 3: the block's K/V rows into the dense cache
+    row_bytes = h * d * 2
+    kc, vc, kn, vn = randn(2, T_TOTAL, h, d), randn(2, T_TOTAL, h, d), randn(2, lq, h, d), \
+        randn(2, lq, h, d)
+    idx = torch.stack([torch.randperm(T_TOTAL, generator=gen, device="cuda")[:lq]
+                       for _ in range(2)]).to(torch.int32)
+    want = (ref.scatter_rows_reference(kc.clone(), kn, idx),
+            ref.scatter_rows_reference(vc.clone(), vn, idx))
+    fns["scatter_rows"](((kc, kn), (vc, vn)), idx)
+    if not (torch.equal(kc, want[0]) and torch.equal(vc, want[1])):
+        raise AssertionError("scatter_rows tp2: not bit-exact")
+    flat = (idx.long() + torch.arange(2, device="cuda")[:, None] * T_TOTAL).reshape(-1)
+    fk, fv = kc.view(-1, h, d), vc.view(-1, h, d)
+    sk, sv = kn.reshape(-1, h, d), vn.reshape(-1, h, d)
+    out.append(timed("scatter_rows", "scatter_rows_tp2", f"llada tp2 block K={lq} H={h}",
+                     lambda: fns["scatter_rows"](((kc, kn), (vc, vn)), idx),
+                     lambda: (ref.scatter_rows_reference(kc, kn, idx),
+                              ref.scatter_rows_reference(vc, vn, idx)),
+                     lambda: (fk.index_copy_(0, flat, sk), fv.index_copy_(0, flat, sv)),
+                     2 * 2 * 2 * lq * row_bytes + nbytes(idx), 0.0, 0.0, 0.0,
+                     library="index_copy_ (K and V)", rows_written=2 * lq, row_bytes=row_bytes,
+                     plan=dataclasses.asdict(scatter_plan(2, lq, 2, row_bytes))))
+    # kernel 4: the same through phase 6's page layout
+    kc, vc = randn(n_pages, ps, h, d), randn(n_pages, ps, h, d)
+    kn, vn = randn(SLOTS, lq, h, d), randn(SLOTS, lq, h, d)
+    idx = torch.stack([torch.randperm(T_TOTAL, generator=gen, device="cuda")[:lq]
+                       for _ in range(SLOTS)]).to(torch.int32)
+    want = (ref.scatter_rows_paged_reference(kc.clone(), kn, idx, bt),
+            ref.scatter_rows_paged_reference(vc.clone(), vn, idx, bt))
+    fns["scatter_rows_paged"](((kc, kn), (vc, vn)), idx, bt)
+    if not (torch.equal(kc[1:], want[0][1:]) and torch.equal(vc[1:], want[1][1:])):
+        raise AssertionError("scatter_rows_paged tp2: not bit-exact")
+    page = torch.gather(bt.long(), 1, idx.long() // ps).clamp(min=0)
+    dest = (page * ps + idx.long() % ps).reshape(-1)
+    fk, fv = kc.view(-1, h, d), vc.view(-1, h, d)
+    sk, sv = kn.reshape(-1, h, d), vn.reshape(-1, h, d)
+    out.append(timed("scatter_rows_paged", "scatter_rows_paged_tp2",
+                     f"llada tp2 block K={lq} ps={ps} H={h}",
+                     lambda: fns["scatter_rows_paged"](((kc, kn), (vc, vn)), idx, bt),
+                     lambda: (ref.scatter_rows_paged_reference(kc, kn, idx, bt),
+                              ref.scatter_rows_paged_reference(vc, vn, idx, bt)),
+                     lambda: (fk.index_copy_(0, dest, sk), fv.index_copy_(0, dest, sv)),
+                     2 * 2 * SLOTS * lq * row_bytes + nbytes(idx, bt), 0.0, 0.0, 0.0,
+                     library="index_copy_ (K and V)", rows_written=SLOTS * lq,
+                     row_bytes=row_bytes,
+                     plan=dataclasses.asdict(scatter_plan(SLOTS, lq, 2, row_bytes))))
+    return out
 
 
 def check_flash(ref, flash_attention, gen):
@@ -3654,8 +3800,9 @@ DREAM_PREEMPT_PAGES = 45
 
 # phase 7's depth: Dream-7B's 28 layers cut to 14, and 13a's and 13b's
 # (olmoe-1b-7b 16 to 8, gemma3-1b 26 to 13), so that the script's phases
-# with phase 14 stay within 790 s (PERF.md §4)
-DEPTH_7 = 14
+# with phase 14 stay within 790 s; then Dream's to 7, to make room for phase
+# 17's served trace of three requests (PERF.md §4)
+DEPTH_7 = 7
 DEPTH_13A = 8
 DEPTH_13B = 13
 
@@ -4191,9 +4338,9 @@ class MoEProfiled:
 
         self.mod, self.orig = model_mod, model_mod.moe_apply
 
-        def ranged(*args):
+        def ranged(*args, **kw):
             with torch.profiler.record_function("chip_smoke.moe"):
-                return self.orig(*args)
+                return self.orig(*args, **kw)
         torch.cuda.synchronize()
         model_mod.moe_apply = ranged
         self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -4266,7 +4413,8 @@ def phase13(kernel_fns) -> dict:
 # ---------------------------------------------------------------------------
 # 14's depth: two of Jamba's four periods of 8.  In bf16 all 32 layers take
 # 102.9 GB, three periods 77.5 GB (no room for caches and activations on an
-# 80 GB card), two 52.0 GB (PERF.md §4)
+# 80 GB card), two 52.0 GB (PERF.md §4).  Not one: the engine's skip stages
+# sit between period groups, so one group runs no early skip
 DEPTH_14 = 16
 
 
@@ -4414,6 +4562,9 @@ def phase14(kernel_fns) -> dict:
 # phase 15: the encoder-conditioned archs at full width
 # ---------------------------------------------------------------------------
 PROFILE_15B = (40, 70)          # the profiled window of 15b's served trace (steps)
+# 15a-b's depth: the vision model's 40 layers cut to 20 (4 of its 8 periods of
+# 5, 4 cross layers), to make room for phase 17 (PERF.md §4)
+DEPTH_15A = 20
 
 
 def enc_embeds_on_card(cfg, n: int, seed: int) -> torch.Tensor:
@@ -4680,12 +4831,13 @@ def encoder_served(model, kernel_fns, preempt: bool = False, profile=None,
 
 
 def phase15(kernel_fns) -> dict:
-    """15a-b llama-3.2-vision-11b (all 40 layers): offline es and dualcache
-    with profiles, then served with a profiled window and under preemption;
+    """15a-b llama-3.2-vision-11b (``DEPTH_15A`` of its 40 layers): offline es
+    and dualcache with profiles, then served with a profiled window and under
+    preemption;
     15c seamless-m4t-large-v2 (24 decoder and 6 encoder layers): offline es
     greedy and sampled, and served twice on the paged pool (no K/V plane)."""
     out = {}
-    model, init_s = full_width(VLM)
+    model, init_s = full_width(VLM, DEPTH_15A)
     out["15a"] = dict(init_s=init_s, offline=encoder_offline(model, kernel_fns, dualcache=True,
                                                              profile=True))
     out["15b"] = encoder_served(model, kernel_fns, preempt=True, profile=PROFILE_15B)
@@ -4944,6 +5096,299 @@ def phase16(kernel_fns) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism, two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+TP = 2
+# 17a's depth: LLaDA-8B's 32 layers cut to 8 for the f32 parity check
+TP_DEPTH_A = 8
+# 17b's work, cut to what the phase's time allows (gloo through the host
+# takes 4-9 ms an all-reduce on one card, 66 a pass, PERF.md §5): a
+# generate of one block at phase 5's shape, and phase 6's trace cut to three
+# of its requests of one block each (prompts 64, 128 and 32, 32 new tokens),
+# submitted 5 steps apart, so that three slots are live at once
+TP_GEN_B = BLOCK
+TP_SERVE_REQUESTS = (1, 3, 4)
+# the dry run beside 17b's configuration: one decode step at phase 5's shape
+TP_DRYRUN_SHAPE = (T_TOTAL, 2)
+
+
+def tp_gen_config(cfg):
+    """Phase 5's generation config."""
+    from repro_torch import configs
+
+    return configs.GenerationConfig(
+        mode="es", gen_length=GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=32, block_refresh_period=4)
+
+
+def tp_llada(dtype: str, n_layers=None):
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config("llada-8b"), param_dtype=dtype,
+                              compute_dtype=dtype)
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def tp_prompt(cfg):
+    import numpy as np
+
+    return np.random.default_rng(SEED + 1).integers(3, cfg.vocab_size, (2, PROMPT)) \
+        .astype(np.int32)
+
+
+def tp_rank_job(mesh) -> dict:
+    """One rank of phase 17 (its own process, sharing the card): 17a's f32
+    generate at ``TP_DEPTH_A`` layers; 17b's bf16 model at all 32 layers, a
+    idle all-reduce's time, one timed generate of one block with its launches and
+    collectives, phase 6's trace cut to three requests with the device time
+    inside the collectives, the bytes of the rank's parameters and of the
+    state the dry run is held to (17c)."""
+    import numpy as np
+
+    from repro_torch.core import make_engine
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
+    from repro_torch.kernels.importance import importance, variation
+    from repro_torch.kernels.scatter_kv import scatter_rows, scatter_rows_paged
+    from repro_torch.launch.tp import build_model
+    from repro_torch.runtime import StreamScheduler
+    from repro_torch.sharding.comm import COUNTER
+    from repro_torch import configs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    fns = {"flash_attention": flash_attention, "paged_flash_attention": paged_flash_attention,
+           "scatter_rows": scatter_rows, "scatter_rows_paged": scatter_rows_paged,
+           "importance": importance, "variation": variation}
+
+    def launches() -> dict:
+        return {k: f.launches for k, f in fns.items()}
+
+    def zero() -> None:
+        for f in fns.values():
+            f.launches = 0
+    out = {}
+    # 17a: f32 parity at TP_DEPTH_A layers
+    cfg = tp_llada("float32", TP_DEPTH_A)
+    prompt = torch.from_numpy(tp_prompt(cfg)).cuda()
+    model = build_model(cfg, mesh, "cuda", seed=SEED)
+    engine = make_engine(model, tp_gen_config(cfg), device="cuda")
+    a = engine.generate(prompt)
+    out["a"] = dict(tokens=a.cpu().numpy(), conf=engine.last_state.conf.cpu().numpy())
+    del model, engine
+    torch.cuda.empty_cache()
+    # 17b: bf16 at full depth
+    cfg = tp_llada("bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, mesh, "cuda", seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen_cfg = tp_gen_config(cfg)
+    params_bytes = nbytes(*model.parameters())
+    engine = make_engine(model, gen_cfg, device="cuda")
+    state_bytes = nbytes(*[t for t in torch.utils._pytree.tree_leaves(engine.make_block_state(
+        torch.zeros(TP_DRYRUN_SHAPE[::-1], dtype=torch.int32, device="cuda")))
+        if torch.is_tensor(t)])
+    # the idle all-reduce of a served step's hidden states, [4, 32, 4096] bf16
+    x = torch.zeros((SLOTS, BLOCK, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        model.tp.all_reduce_sum(x, "idle")
+    torch.cuda.synchronize()
+    idle_ms = (time.perf_counter() - t0) / 20 * 1e3
+    # 17a's generate warmed this process (cuBLAS handles, the allocator)
+    engine = make_engine(model, dataclasses.replace(gen_cfg, gen_length=TP_GEN_B),
+                         device="cuda")
+    zero()
+    COUNTER.reset()
+    t0 = time.perf_counter()
+    b = engine.generate(prompt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    offline = dict(tokens=b.cpu().numpy(), wall_s=wall, iterations=engine.iterations,
+                   launches=launches(), all_reduce=dict(COUNTER.count_by_site),
+                   all_reduce_bytes=dict(COUNTER.bytes_by_site))
+    rng = np.random.default_rng(SEED)
+    lens = (32, 64, 96, 128, 32, 64, 96, 128)
+    max_new = (64, 32, 64, 32, 32, 64, 32, 64)
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    prompts = [prompts[i] for i in TP_SERVE_REQUESTS]
+    max_new = [max_new[i] for i in TP_SERVE_REQUESTS]
+    serve_cfg = configs.GenerationConfig(
+        mode="es", gen_length=GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2)
+    sched = StreamScheduler(model, serve_cfg, device="cuda", max_slots=SLOTS,
+                            prompt_len=PROMPT, paged=True, page_size=16, early_advance=True)
+    zero()
+    COUNTER.reset()
+    COUNTER.timing = True
+    t0 = time.perf_counter()
+    reqs = serve_trace(sched, prompts, max_new, every=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    coll_ms = COUNTER.device_ms()
+    COUNTER.timing = False
+    steps = sched.stats.steps
+    n_ar, ar_bytes = sum(COUNTER.count_by_kind.values()), sum(COUNTER.bytes_by_kind.values())
+    served = dict(outputs=[r.output for r in reqs], steps=steps, wall_s=wall,
+                  ms_per_step=wall / steps * 1e3, tokens_per_s=sum(max_new) / wall,
+                  resident_peak=sched.stats.resident_peak,
+                  launches=launches(), all_reduce_per_step=n_ar / steps,
+                  all_reduce_bytes_per_step=ar_bytes / steps,
+                  all_reduce_device_ms=coll_ms, all_reduce_device_ms_per_step=coll_ms / steps,
+                  passes=dict(sched.engine.pass_counts))
+    out["b"] = dict(offline=offline, served=served, init_s=init_s, params_bytes=params_bytes,
+                    all_reduce_idle_ms=idle_ms,
+                    state_bytes=state_bytes,
+                    max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    local_heads=model.layers[0].attn.wq.shape[1] // cfg.head_dim,
+                    local_kv_heads=model.layers[0].attn.wk.shape[1] // cfg.head_dim)
+    return out
+
+
+def phase17(kernel_fns) -> dict:
+    """Tensor parallelism at TP 2: two processes on the one card, one rank
+    each, over gloo (its ``all_reduce`` takes CUDA tensors through the host;
+    NCCL refuses two ranks on one card), every kernel launch in the ranks
+    on the card.  17a: LLaDA-8B at full width, ``TP_DEPTH_A`` layers, f32,
+    offline es greedy: both ranks' tokens equal, and equal to TP 1's (one
+    process, this one, the same seeded weights).  17b: LLaDA-8B at all 32
+    layers, bf16: one offline generate of one block and phase 6's served
+    trace cut to three requests (``TP_GEN_B``, ``TP_SERVE_REQUESTS``: times,
+    memory, all-reduces and their device time: gloo through the host on one
+    card, not a multi-card figure).  17c: the dry run of 17b's
+    configuration at TP 2 (``launch/dryrun.py``, fake tensors) beside rank
+    0's measured bytes of parameters and state, and the single-pod dry run
+    of llada-8b and dream-7b at decode_32k."""
+    import numpy as np
+
+    from repro_torch.configs import InputShape
+    from repro_torch.core import make_engine
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.tp import spawn
+
+    t0 = time.perf_counter()
+    cfg = tp_llada("float32", TP_DEPTH_A)
+    model = seeded_model(cfg)
+    engine = make_engine(model, tp_gen_config(cfg), device="cuda")
+    tp1 = engine.generate(torch.from_numpy(tp_prompt(cfg)).cuda()).cpu().numpy()
+    tp1_conf = engine.last_state.conf.cpu().numpy()
+    del model, engine
+    torch.cuda.empty_cache()
+    tp1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn(tp_rank_job, TP, workdir=ROOT / "build" / f"tp17_{time.time_ns()}")
+    ranks_s = time.perf_counter() - t0
+    a = [r["a"] for r in ranks]
+    b = [r["b"] for r in ranks]
+    if not all(np.array_equal(r["tokens"], a[0]["tokens"]) for r in a):
+        raise AssertionError("phase 17a: the ranks' tokens differ")
+    diff = int((a[0]["tokens"] != tp1).sum())
+    if diff:
+        raise AssertionError(f"phase 17a: TP {TP} tokens differ from TP 1's at {diff} positions")
+    for key in ("offline",):
+        if not all(np.array_equal(r[key]["tokens"], b[0][key]["tokens"]) for r in b):
+            raise AssertionError("phase 17b: the ranks' offline tokens differ")
+    for r in b[1:]:
+        if not all(np.array_equal(x, y) for x, y in zip(r["served"]["outputs"],
+                                                        b[0]["served"]["outputs"])):
+            raise AssertionError("phase 17b: the ranks' served tokens differ")
+    gen_tok = b[0]["offline"]["tokens"][:, PROMPT:]
+    if gen_tok.shape != (2, TP_GEN_B) or not ((gen_tok >= 0)
+                                              & (gen_tok < cfg.vocab_size)).all():
+        raise AssertionError(f"phase 17b: generated ids {gen_tok}")
+    outs = b[0]["served"]["outputs"]
+    if len(outs) != len(TP_SERVE_REQUESTS) or any(r is None or r.shape != (BLOCK,)
+                                                  for r in outs):
+        raise AssertionError(f"phase 17b: served outputs {outs}")
+    if b[0]["served"]["resident_peak"] < 2:
+        raise AssertionError(f"phase 17b: at most {b[0]['served']['resident_peak']} request "
+                             f"live at once")
+    for name in ("flash_attention", "scatter_rows", "importance"):
+        if b[0]["offline"]["launches"][name] <= 0:
+            raise AssertionError(f"phase 17b: {name} not launched on the offline path")
+    for name in ("paged_flash_attention", "scatter_rows_paged", "importance", "variation"):
+        if b[0]["served"]["launches"][name] <= 0:
+            raise AssertionError(f"phase 17b: {name} not launched on the served path")
+    # 17c: the dry run of 17b's configuration beside rank 0's bytes
+    t0 = time.perf_counter()
+    cfg_b = tp_llada("bfloat16")
+    dry = dryrun.run_one("llada-8b", "phase17", "debug", debug=(1, TP), cfg=cfg_b,
+                         shape=InputShape("phase17_decode", *TP_DRYRUN_SHAPE, "decode"),
+                         gen=tp_gen_config(cfg_b), verbose=False)
+    measured = b[0]["params_bytes"] + b[0]["state_bytes"]
+    if dry["memory"]["argument_size"] != measured:
+        raise AssertionError(f"phase 17c: dry-run argument_size {dry['memory']['argument_size']}"
+                             f" != measured {measured}")
+    single = {arch: dryrun.run_one(arch, "decode_32k", "single", verbose=False)
+              for arch in ("llada-8b", "dream-7b")}
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dry_s = time.perf_counter() - t0
+    return dict(tp=TP, backend="gloo", depth_a=TP_DEPTH_A, tp1_s=tp1_s, ranks_s=ranks_s,
+                dryrun_s=dry_s, a=dict(tokens_equal_tp1=True, ranks_equal=True,
+                                       conf_max_abs_diff=float(np.abs(a[0]["conf"] - tp1_conf)
+                                                               .max()),
+                                       distinct_ids=len(np.unique(tp1[:, PROMPT:]))),
+                b=[dict(r, offline={k: v for k, v in r["offline"].items() if k != "tokens"},
+                        served={k: v for k, v in r["served"].items() if k != "outputs"})
+                   for r in b],
+                c=dict(dryrun=dry, measured_bytes=measured, single=single))
+
+
+def seeded_model(cfg):
+    """``cfg``'s model on the card, its weights from the seeded generator."""
+    from repro_torch.models import Model
+
+    return Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
+
+
+def report17(r: dict) -> None:
+    print(f"phase 17: TP {r['tp']} over {r['backend']}, two ranks on one card (times are gloo "
+          f"through the host on one card, not a multi-card figure); TP 1 {r['tp1_s']:.1f} s, "
+          f"ranks {r['ranks_s']:.1f} s, dry runs {r['dryrun_s']:.1f} s")
+    a = r["a"]
+    print(f"phase 17a (f32, {r['depth_a']} layers): tokens equal TP 1's {a['tokens_equal_tp1']}, "
+          f"ranks equal {a['ranks_equal']}, final-block confidences within "
+          f"{a['conf_max_abs_diff']:.2e} of TP 1's, {a['distinct_ids']} distinct ids")
+    for rank, b in enumerate(r["b"]):
+        off, srv = b["offline"], b["served"]
+        print(f"phase 17b rank {rank} (bf16, 32 layers, {b['local_heads']} heads and "
+              f"{b['local_kv_heads']} KV heads a rank): max_memory_allocated "
+              f"{b['max_memory_allocated_gb']:.2f} GB, params {b['params_bytes'] / 1e9:.2f} GB, "
+              f"init {b['init_s']:.1f} s; idle all-reduce {b['all_reduce_idle_ms']:.2f} ms; "
+              f"generate of {TP_GEN_B} tokens {off['wall_s']:.2f} s "
+              f"({off['iterations']} iterations, all-reduces {json.dumps(off['all_reduce'])}); "
+              f"served ({len(TP_SERVE_REQUESTS)} requests, {srv['resident_peak']} live at "
+              f"most) {srv['steps']} steps at {srv['ms_per_step']:.1f} ms, "
+              f"{srv['tokens_per_s']:.1f} tok/s, {srv['all_reduce_per_step']:.1f} all-reduces and "
+              f"{srv['all_reduce_bytes_per_step'] / 1e6:.2f} MB a step, "
+              f"{srv['all_reduce_device_ms_per_step']:.2f} ms a step inside them (CUDA events); "
+              f"launches offline {json.dumps({k: v for k, v in off['launches'].items() if v})}, "
+              f"served {json.dumps({k: v for k, v in srv['launches'].items() if v})}")
+    c = r["c"]
+    mem = c["dryrun"]["memory"]
+    print(f"phase 17c: dry run of 17b's TP-2 decode step: argument_size {mem['argument_size']} "
+          f"= rank 0's measured {c['measured_bytes']}, temp_size {mem['temp_size']}, flops "
+          f"{c['dryrun']['flops']:.3e}, all-reduces {c['dryrun']['collectives']['total_count']} "
+          f"({c['dryrun']['collectives']['total_bytes']} B)")
+    for arch, d in c["single"].items():
+        if "unsupported" in d:
+            print(f"phase 17c: {arch} decode_32k single: unsupported ({d['unsupported']})")
+        else:
+            print(f"phase 17c: {arch} decode_32k single ({d['n_chips']} ranks): flops "
+                  f"{d['flops']:.3e}, argument_size {d['memory']['argument_size'] / 2**30:.2f} "
+                  f"GiB, temp {d['memory']['temp_size'] / 2**30:.2f} GiB, all-reduces "
+                  f"{d['collectives']['total_count']} ({d['collectives']['total_bytes']:.3e} B)")
+
+
 def profile_run(fn, top: int = 8) -> dict:
     """Where one run's time goes on the device: the share of the wall time
     some kernel was running, and the kernels with the most device time."""
@@ -5081,6 +5526,7 @@ def main() -> int:
     d256, scatter256 = check_head_dim_256(ref, flash_attention, paged_flash_attention, gen)
     cases += d256
     cases += check_cross(ref, flash_attention, gen)
+    cases += check_tp_local(ref, kernel_fns, gen)
     print(f"timer: {len(TIMER_FALLBACKS)} incomplete profiler traces {TIMER_FALLBACKS[:20]}, "
           f"{len(EVENT_TIMED)} measurements timed by CUDA events")
     for c in cases:           # below the bound, the timer and not the kernel is at fault
@@ -5337,6 +5783,11 @@ def main() -> int:
           f"{p['profiled_wall_ms']:.1f} ({p['device_busy_share']:.3f}), {p['kernels_launched']} "
           f"kernels; top {json.dumps([(t['name'], round(t['ms'], 1), t['count']) for t in p['top']])}")
     lap("16")
+
+    # phase 17: LLaDA-8B at TP 2, two gloo ranks on the one card, and the dry run
+    tp_run = phase17(kernel_fns)
+    report17(tp_run)
+    lap("17")
     print(f"phase seconds: {json.dumps(phase_s)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
@@ -5366,7 +5817,15 @@ def main() -> int:
                 # Jamba's SSD widths (phase 14)
                 "ssd_chunks_jamba": (JAMBA_SSD_CASES[0][0], torch.bfloat16),
                 # kernel 1 as cross-attention and encoder attention (phase 15)
-                **{row: (label, torch.bfloat16) for row, label, *_ in CROSS_CASES}}
+                **{row: (label, torch.bfloat16) for row, label, *_ in CROSS_CASES},
+                # kernels 1-4 at a TP-2 rank's 16 heads (phase 17b)
+                "flash_attention_tp2": (f"llada tp2 block Lq={BLOCK} H={TP_HEADS}",
+                                        torch.bfloat16),
+                "paged_flash_attention_tp2": (f"llada tp2 block Lq={BLOCK} ps=16 H={TP_HEADS}",
+                                              torch.bfloat16),
+                "scatter_rows_tp2": (f"llada tp2 block K={BLOCK} H={TP_HEADS}", torch.bfloat16),
+                "scatter_rows_paged_tp2": (f"llada tp2 block K={BLOCK} ps=16 H={TP_HEADS}",
+                                           torch.bfloat16)}
     # the int8 rows' launches: phase 11's runs
     offline8 = int8_runs["11a"]["runs"]["int8"]["launches"]
     int8_launches = {
@@ -5387,6 +5846,13 @@ def main() -> int:
         "flash_attention_cross": enc_runs["15a"]["offline"]["kernel1_cross"],
         "flash_attention_cross_seamless": enc_runs["15c"]["sampled"]["kernel1_cross"],
         "flash_attention_encoder": enc_runs["15c"]["offline"]["kernel1_encoder"]}
+    # rank 0's launches in phase 17b: the offline generate and the served trace
+    tp_b = tp_run["b"][0]
+    tp_launches = {
+        "flash_attention_tp2": tp_b["offline"]["launches"]["flash_attention"],
+        "paged_flash_attention_tp2": tp_b["served"]["launches"]["paged_flash_attention"],
+        "scatter_rows_tp2": tp_b["offline"]["launches"]["scatter_rows"],
+        "scatter_rows_paged_tp2": tp_b["served"]["launches"]["scatter_rows_paged"]}
 
     def case_row(x) -> str:
         """The kernels line's row a phase-3 case belongs to."""
@@ -5396,7 +5862,9 @@ def main() -> int:
     for name, (case, dt) in headline.items():
         c = next(c for c in cases if case_row(c) == name and c["case"] == case
                  and c["dtype"] == str(dt))
-        if name in cross_launches:
+        if name in tp_launches:
+            launches = tp_launches[name]
+        elif name in cross_launches:
             launches = cross_launches[name]
         elif name in d256_launches:
             launches = d256_launches[name]
@@ -5433,7 +5901,7 @@ def main() -> int:
              sparse_lazy=sparse_runs, cross_device_archs=cross_archs, archs=arch_runs,
              scatter_d256=scatter256, cross_device_jamba=cross_jamba, jamba=jamba,
              cross_device_encoders=cross_enc, encoder_archs=enc_runs,
-             cross_device_training=cross_train, training=train_run,
+             cross_device_training=cross_train, training=train_run, tensor_parallel=tp_run,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

@@ -26,13 +26,16 @@ from repro_torch.configs import (  # noqa: F401  (registers)
     seamless_m4t_large_v2,
 )
 from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
     GenerationConfig,
+    InputShape,
     ModelConfig,
     MoEConfig,
     SkipStage,
     SSMConfig,
     default_skip_stages,
     get_config,
+    list_archs,
     register,
 )
 

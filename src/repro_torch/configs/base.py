@@ -200,6 +200,27 @@ def default_skip_stages(n_layers: int, ratio: float = 0.5) -> tuple[SkipStage, .
     return (SkipStage(l1, ratio), SkipStage(l2, ratio))
 
 
+# ---------------------------------------------------------------------------
+# Input shapes (the reference's, which its dry run lowers)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 
@@ -217,3 +238,7 @@ def get_config(arch_id: str) -> ModelConfig:
     cfg = _REGISTRY[arch_id]()
     cfg.validate()
     return cfg
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)

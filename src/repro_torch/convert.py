@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import DTYPES
+from repro_torch.sharding import specs
 
 # the mixer's per-head parameters, the MoE router and the cross layers' gate
 # are f32 whatever the parameter dtype
@@ -37,22 +38,34 @@ F32_LEAVES = dict.fromkeys(("a_log", "dt_bias", "d_skip", "router", "gate_attn")
 
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
-                      device: str | torch.device | None = None) -> dict[str, torch.Tensor]:
+                      device: str | torch.device | None = None, *,
+                      mesh=None) -> dict[str, torch.Tensor]:
     """Returns a state dict for ``Model(cfg)``: ``model.load_state_dict(...)``.
-    Arrays are cast to ``cfg.param_dtype``, but the f32 leaves."""
+    Arrays are cast to ``cfg.param_dtype``, but the f32 leaves.  With
+    ``mesh`` (a DeviceMesh with a ``model`` axis), each leaf is cut to this
+    rank's shard (``sharding/specs.py``) before it is copied to the device:
+    the state dict of ``Model(cfg, mesh=mesh)``."""
     dev = resolve_device(device)
+    sizes = coords = None
+    if mesh is not None:
+        sizes = {"model": specs.axis_sizes(mesh)["model"]}
+        coords = {"model": specs.mesh_coords(mesh)["model"]}
     dtype = DTYPES[cfg.param_dtype]
     period = cfg.pattern_period
     if set(tree["layers"]) != {str(j) for j in range(period)}:
         raise ValueError(f"params_from_numpy: layers {sorted(tree['layers'])} for a period "
                          f"of {period}")
 
-    def t(a, dt=dtype) -> torch.Tensor:
-        return torch.tensor(np.asarray(a, np.float32), device=dev).to(dt)
+    def t(a, dt=dtype, name: str = "") -> torch.Tensor:
+        a = np.asarray(a, np.float32)
+        if sizes is not None:
+            spec = specs.port_param_spec(name, a.shape, sizes, cfg.head_dim)
+            a = specs.local_slice(a, spec, sizes, coords).copy()
+        return torch.tensor(a, device=dev).to(dt)
 
-    out = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"])}
+    out = {"embed": t(tree["embed"], name="embed"), "final_norm": t(tree["final_norm"])}
     if not cfg.tie_embeddings:
-        out["lm_head"] = t(tree["lm_head"])
+        out["lm_head"] = t(tree["lm_head"], name="lm_head")
     if "enc_proj" in tree:
         out["enc_proj"] = t(tree["enc_proj"])
 
@@ -64,7 +77,8 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                     out[f"{pre}.{name}"] = t(stack[name][i], F32_LEAVES.get(name, dtype))
             for part in ("attn", "xattn", "mixer", "ffn"):
                 for name, a in stack.get(part, {}).items():
-                    out[f"{pre}.{part}.{name}"] = t(a[i], F32_LEAVES.get(name, dtype))
+                    key = f"{pre}.{part}.{name}"
+                    out[key] = t(a[i], F32_LEAVES.get(name, dtype), key)
     for j in range(period):
         unstack(tree["layers"][str(j)],
                 [f"layers.{g * period + j}" for g in range(cfg.n_layers // period)])
@@ -83,6 +97,9 @@ def params_to_numpy(model, *, grads: bool = False) -> dict:
     With ``grads``, the parameters' ``.grad`` (zeros where None) in the same
     tree, under the same paths."""
     cfg = model.cfg
+    if model.tp is not None:
+        raise NotImplementedError("params_to_numpy: a tensor-parallel model holds shards; "
+                                  "training under FSDP x TP is queued in ROADMAP.md (A8)")
     period, n_groups = cfg.pattern_period, cfg.n_layers // cfg.pattern_period
 
     def a(name: str) -> np.ndarray:

@@ -33,6 +33,11 @@ the whole sequence, scores each past token's feature variation, and pushes
 only the top tokens through the deep groups, whose K/V scatters are token-
 masked.  ``feat``/``conf_full`` carry across blocks.
 
+Tensor parallelism (``Model(cfg, mesh=...)``) needs nothing here: every
+rank runs this engine on the same values, and its host reads (the offline
+loop's exit check, ``step``'s choice of passes) read tokens and per-slot
+counters, which the model's sums make equal on every rank.
+
 Serving (``EngineState``, ``step``): every per-request quantity is a ``[B]``
 vector indexed by slot, including the within-block phase, so each row
 resolves its own branch per step.  ``step`` runs up to four passes in the
@@ -246,6 +251,10 @@ class DiffusionEngine:
                              "layer group 0's self-attention K cache; the reference refuses "
                              "a period other than 1 (the vision model) and fails on "
                              "SeamlessM4T, whose decoder has no K/V cache")
+        if model.tp is not None and gen.sparse_attention:
+            raise ValueError("sparse attention under tensor parallelism: its probe scores the "
+                             "rank's own K heads, so the ranks would keep different rows; "
+                             "see ROADMAP.md (A8)")
         self.model = model
         self.cfg = model.cfg
         self.gen = gen

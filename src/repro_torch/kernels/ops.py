@@ -8,7 +8,9 @@ and tensors split across devices raise.  ``attention`` and ``ssd`` also take
 the ``ref`` version on either device, which autograd differentiates (the
 training forward's, as the reference trains on its XLA lowerings).  The
 kernels have no backward, and each wrapper raises when grad mode is on and
-an input requires grad.
+an input requires grad.  On fake tensors (the dry run, ``FakeTensorMode``)
+each op returns an empty output of its shape and tallies the kernel's work
+(``kernels/fake.py``); it launches nothing.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import fake, ref
 from repro_torch.kernels.flash_attention import (
     flash_attention,
     paged_flash_attention,
@@ -74,6 +76,8 @@ def attention(
     _check_impl("attention", impl)
     kw = dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
               bc_block=bc_block, k_scale=k_scale, v_scale=v_scale)
+    if fake.is_fake(q, k, v):
+        return fake.attention(q, k, v, q_pos, kv_pos, k_scale=k_scale, v_scale=v_scale)
     if _on_card(q, k, v, q_pos, kv_pos, k_scale, v_scale) and impl == "kernel":
         return flash_attention(q, k, v, q_pos, kv_pos, **kw)
     return ref.attention_reference(q, k, v, q_pos, kv_pos, **kw)
@@ -100,6 +104,9 @@ def paged_attention(
     the mask options and the int8 scales work as in :func:`attention`."""
     kw = dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
               bc_block=bc_block, k_scale=k_scale, v_scale=v_scale)
+    if fake.is_fake(q, k_pool, v_pool):
+        return fake.attention(q, k_pool, v_pool, q_pos, kv_pos, k_scale=k_scale,
+                              v_scale=v_scale, block_tables=block_tables)
     if _on_card(q, k_pool, v_pool, q_pos, kv_pos, block_tables, k_scale, v_scale):
         return paged_flash_attention(q, k_pool, v_pool, q_pos, kv_pos, block_tables, **kw)
     return ref.paged_attention_reference(q, k_pool, v_pool, q_pos, kv_pos, block_tables, **kw)
@@ -137,6 +144,9 @@ def scatter_rows(pairs, idx: torch.Tensor, *, row_mask: Optional[torch.Tensor] =
     (``ref.quantize_rows``) and their codes and scales written.  One kernel
     launch on the card, which takes the masks (and quantizes) itself."""
     quantized = isinstance(pairs[0][0], tuple)
+    if fake.is_fake(idx, *_pair_tensors(pairs)):
+        return fake.scatter("quantize_scatter_rows" if quantized else "scatter_rows", pairs,
+                            idx, row_mask, token_mask)
     if _on_card(idx, row_mask, token_mask, *_pair_tensors(pairs)):
         kernel = quantize_scatter_rows if quantized else scatter_rows_kernel
         kernel(pairs, idx, row_mask=row_mask, token_mask=token_mask)
@@ -165,6 +175,9 @@ def scatter_rows_paged(pairs, idx: torch.Tensor, block_tables: torch.Tensor, *,
     garbage page 0.  The masks and the quantizing form (``(codes, scales)``
     pools) work as in :func:`scatter_rows`.  One kernel launch on the card."""
     quantized = isinstance(pairs[0][0], tuple)
+    if fake.is_fake(idx, *_pair_tensors(pairs)):
+        return fake.scatter("quantize_scatter_rows_paged" if quantized else
+                            "scatter_rows_paged", pairs, idx, block_tables, row_mask, token_mask)
     if _on_card(idx, block_tables, row_mask, token_mask, *_pair_tensors(pairs)):
         kernel = quantize_scatter_rows_paged if quantized else scatter_rows_paged_kernel
         kernel(pairs, idx, block_tables, row_mask=row_mask, token_mask=token_mask)
@@ -187,6 +200,10 @@ def fork_pages(k: torch.Tensor, v: torch.Tensor, src, dst, *,
     out of range or a real destination is also a source.  One kernel launch
     on the card for K and V, and a second one for the scale pools."""
     pools = [(k, v)] + ([] if k_scale is None else [(k_scale, v_scale)])
+    if fake.is_fake(k, v):
+        for i, (a, b) in enumerate(pools):
+            fake.fork_pages(a, b, src, dst, scales=i > 0)
+        return
     if _on_card(k, v, k_scale, v_scale):
         for a, b in pools:
             fork_pages_kernel(a, b, src, dst)
@@ -209,6 +226,8 @@ def importance_score(
     """Paper Eq. 1 importance -> f32 [B, K].  With ``idx`` (a skip stage's
     rows, all in ``[0, S)``), row ``k`` scores against ``h_old[b, idx[b, k]]``
     and ``conf[b, idx[b, k]]``: one kernel launch on the card, no gather."""
+    if fake.is_fake(h_new, h_old):
+        return fake.score("importance", h_new, h_old, conf, idx)
     if _on_card(h_new, h_old, conf, idx):
         return importance(h_new, h_old, conf, alpha=alpha, eps=eps, idx=idx)
     return ref.importance_reference(h_new, h_old, conf, alpha, eps, idx=idx)
@@ -223,6 +242,8 @@ def variation_score(
     eps: float = 1e-8,
 ) -> torch.Tensor:
     """Adaptive-cache refresh priority ``alpha*conf + (1-alpha)*(1-cosine)`` -> f32 [B, T]."""
+    if fake.is_fake(h_new, h_old):
+        return fake.score("variation", h_new, h_old, conf)
     if _on_card(h_new, h_old, conf):
         return variation(h_new, h_old, conf, alpha=alpha, eps=eps)
     return ref.variation_reference(h_new, h_old, conf, alpha, eps)
@@ -255,7 +276,9 @@ def ssd(
     if pad:
         x, dt, bmat, cmat = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
                              for t in (x, dt, bmat, cmat))
-    if _on_card(x, dt, a_log, bmat, cmat, init_state) and impl == "kernel":
+    if fake.is_fake(x, dt) and impl == "kernel":
+        y_intra, contrib, decay, cs = fake.ssd_chunks(x, dt, a_log, bmat, cmat, ck)
+    elif _on_card(x, dt, a_log, bmat, cmat, init_state) and impl == "kernel":
         y_intra, contrib, decay, cs = ssd_chunks_kernel(x.contiguous(), dt.contiguous(),
                                                         a_log, bmat, cmat, chunk=ck)
     else:

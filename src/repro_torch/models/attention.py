@@ -13,6 +13,13 @@ with f32 per-(token, head) scales: the scatter kernel quantizes the fresh
 rows as it writes them, and the attention kernels read the codes and the
 scales, so no layer's cache is ever widened.
 
+Under tensor parallelism (``Model(cfg, mesh=...)``) each rank's
+``Attention`` holds its whole query heads and the KV heads they read
+(``sharding/specs.py``: ``heads``, ``kv_heads``), and ``wo`` the matching
+rows: the projections and the kernels run at the local head counts, which
+they read from the weights, and ``Model.run_layers`` sums the output over
+the ranks once, after ``@ wo``.
+
 Cross-attention (``cross_attention``) reads a fixed key set, the encoder's
 tokens, with no RoPE and no mask: its K/V are projected from the encoder
 output once per prefill and kept in a per-slot cross plane, which the
@@ -104,9 +111,15 @@ class Attention(nn.Module):
             self.bq = self.bk = self.bv = None
 
 
+def local_heads(p: Attention, cfg: ModelConfig) -> tuple[int, int]:
+    """``(query heads, KV heads)`` that ``p`` holds: the config's, or a
+    tensor-parallel rank's share of them."""
+    return p.wq.shape[1] // cfg.head_dim, p.wk.shape[1] // cfg.head_dim
+
+
 def _project_qkv(p: Attention, cfg: ModelConfig, x, rope):
     b, k, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (h, hkv), dh = local_heads(p, cfg), cfg.head_dim
     q = x @ p.wq
     kk = x @ p.wk
     vv = x @ p.wv

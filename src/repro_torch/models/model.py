@@ -57,6 +57,18 @@ load-balance losses and ``ForwardCtx.remat`` recomputing each group (each
 layer where ``P > 1``) in the backward pass.  ``Model.forward`` is one such
 pass to logits.
 
+Tensor parallelism (``Model(cfg, mesh=...)``, a ``DeviceMesh`` with a
+``model`` axis): each rank holds its shard of every parameter, cut by
+``sharding/specs.py``'s serving rules from the full leaf (whole query and KV
+heads, whole ``d_ff`` columns, whole experts, a slice of the padded vocab;
+norms and the router whole).  The attention output after ``wo``, the MLP
+after ``w_down`` and the MoE combine are summed over the ranks
+(``sharding/comm.py``), the embedding is a masked local lookup, then a sum,
+and the logits are gathered to the full vocab, so every rank holds the same
+hidden states, logits and tokens, and every host decision above the stack
+reads replicated values.  Dense and MoE attention stacks only: a mesh on a
+stack with SSM or cross layers, or with an encoder, raises.
+
 Prefill stores each SSM layer's block rows of ``h`` after the mixer's
 residual (before a hybrid layer's FFN) in ``ssmh``, while a decode scatters
 the layer's *input* rows into it and runs the mixer on that buffer as the
@@ -95,12 +107,16 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.mamba import Mixer, SSMCache, SSMState, init_ssm_state, mamba_apply
 from repro_torch.models.moe import MoE, moe_apply
+from repro_torch.sharding import specs
+from repro_torch.sharding.comm import TPGroup, tp_sum
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError for archs outside the port so far."""
+def check_supported(cfg: ModelConfig, mesh=None) -> None:
+    """Raises NotImplementedError for archs outside the port so far, and for
+    tensor parallelism (a mesh) on a stack with SSM or cross layers or an
+    encoder."""
     kinds = {cfg.layer_kind(l) for l in range(cfg.n_layers)}
     ssm_family = cfg.ssm is not None and cfg.family in ("ssm", "hybrid")
     if ("ssm" in kinds) != ssm_family or cfg.logit_softcap:
@@ -111,6 +127,10 @@ def check_supported(cfg: ModelConfig) -> None:
     for field in ("param_dtype", "compute_dtype"):
         if getattr(cfg, field) not in DTYPES:
             raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: float32 or bfloat16")
+    if mesh is not None and (kinds != {"attn"} or cfg.n_encoder_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism covers dense and MoE attention stacks; SSM, "
+            f"hybrid, cross-attention and encoder stacks are queued in ROADMAP.md (A8)")
 
 
 def layer_window(cfg: ModelConfig, layer: int, window_override: int = 0) -> int:
@@ -278,12 +298,14 @@ class Model(nn.Module):
     """Parameters are allocated (uninitialised) on ``device``; fill them with
     :meth:`init` or ``load_state_dict(convert.params_from_numpy(...))``."""
 
-    def __init__(self, cfg: ModelConfig, *, device: str | torch.device | None = None):
+    def __init__(self, cfg: ModelConfig, *, device: str | torch.device | None = None,
+                 mesh=None):
         super().__init__()
         cfg.validate()
-        check_supported(cfg)
+        check_supported(cfg, mesh)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tp = TPGroup.from_mesh(mesh)
         self.dtype = DTYPES[cfg.param_dtype]
         self.compute_dtype = DTYPES[cfg.compute_dtype]
         self.period = cfg.pattern_period
@@ -298,20 +320,50 @@ class Model(nn.Module):
         self.cross_plane = {l: i for i, l in enumerate(self.cross_layers)}
         self.ssm = bool(self.ssm_layers)       # the stack has SSM layers
         self.cross = bool(self.cross_layers)   # the stack has cross layers
+        # a tensor-parallel model is laid out at full size on the meta device
+        # and each parameter then replaced by the rank's shard
+        dev = torch.device("meta") if self.tp is not None else self.device
         vp = padded_vocab(cfg)
-        self.embed = _param((vp, cfg.d_model), self.device, self.dtype)
-        self.final_norm = _param((cfg.d_model,), self.device, self.dtype)
+        self.embed = _param((vp, cfg.d_model), dev, self.dtype)
+        self.final_norm = _param((cfg.d_model,), dev, self.dtype)
         # tied embeddings: the head is embed.T, there is no lm_head
         self.lm_head = (None if cfg.tie_embeddings
-                        else _param((cfg.d_model, vp), self.device, self.dtype))
-        self.layers = nn.ModuleList(
-            Block(cfg, l, self.device, self.dtype) for l in range(cfg.n_layers))
-        self.encoder = (Encoder(cfg, self.device, self.dtype) if cfg.n_encoder_layers
-                        else None)
+                        else _param((cfg.d_model, vp), dev, self.dtype))
+        self.layers = nn.ModuleList(Block(cfg, l, dev, self.dtype) for l in range(cfg.n_layers))
+        self.encoder = Encoder(cfg, dev, self.dtype) if cfg.n_encoder_layers else None
         # the vision model's patch projection, only where the widths differ
-        self.enc_proj = (_param((cfg.d_enc, cfg.d_model), self.device, self.dtype)
+        self.enc_proj = (_param((cfg.d_enc, cfg.d_model), dev, self.dtype)
                          if cfg.family == "vlm" and cfg.d_enc and cfg.d_enc != cfg.d_model
                          else None)
+        # name -> (full shape, spec) of each parameter a rank holds a shard of
+        self.shards: dict = {}
+        if self.tp is not None:
+            self._shard()
+
+    def tp_mesh(self) -> tuple[dict, dict]:
+        """``({"model": size}, {"model": rank})``: the axis a rank's shards
+        are cut over, and its coordinate (one rank without a mesh)."""
+        tp = self.tp
+        return {"model": 1 if tp is None else tp.size}, {"model": 0 if tp is None else tp.rank}
+
+    def _shard(self) -> None:
+        """Replaces each meta parameter by an uninitialised shard on the
+        model's device.  A leaf the tensor-parallel forward reads as a shard
+        (every one but the norms and the router) must have been cut: a rule
+        that fell back to replication (an indivisible ``d_ff``, experts or
+        vocab) raises, where the sums would otherwise count it ``model``
+        times."""
+        sizes, _ = self.tp_mesh()
+        for name, p in list(self.named_parameters()):
+            spec = specs.port_param_spec(name, tuple(p.shape), sizes, self.cfg.head_dim)
+            if not any(spec) and p.dim() >= 2 and not name.endswith(".router"):
+                raise ValueError(f"{name} {tuple(p.shape)} does not divide over "
+                                 f"model={sizes['model']}")
+            mod, _, leaf = name.rpartition(".")
+            setattr(self.get_submodule(mod) if mod else self, leaf,
+                    _param(specs.local_shape(p.shape, spec, sizes), self.device, p.dtype))
+            if any(spec):
+                self.shards[name] = (tuple(p.shape), spec)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
@@ -325,8 +377,14 @@ class Model(nn.Module):
         there."""
         out_scale = 0.02 / max(2.0 * self.cfg.n_layers, 1.0) ** 0.5
         enc_scale = 0.02 / max(2.0 * self.cfg.n_encoder_layers, 1.0) ** 0.5
-        for name, p in self.named_parameters():
+        sizes, coords = self.tp_mesh()
+        for name, shard in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            # a sharded leaf is drawn whole, one at a time, and cut: the
+            # rank's shard of the weights a model without a mesh draws
+            full_shape, spec = self.shards.get(name, (None, None))
+            p = shard if spec is None else torch.empty(full_shape, dtype=shard.dtype,
+                                                       device=shard.device)
             if leaf in ("final_norm", "ln1", "ln2", "lnx", "gate_attn", "norm_scale", "d_skip"):
                 p.fill_(1.0)
             elif name.startswith("encoder.") and leaf == "w_down":
@@ -339,6 +397,8 @@ class Model(nn.Module):
                 std = {"wo": out_scale, "w_down": out_scale, "out_proj": out_scale,
                        "conv_x": 0.2, "conv_bc": 0.2}.get(leaf, 0.02)
                 p.normal_(0.0, std, generator=generator)
+            if spec is not None:
+                shard.copy_(specs.local_slice(p, spec, sizes, coords))
         return self
 
     def init_cache(self, batch: int, seq_len: int, *, block_len: int = 0, kv_pages: int = 0,
@@ -375,8 +435,12 @@ class Model(nn.Module):
             raise ValueError(f"page_size {page_size} must divide the sequence {seq_len}")
         if self.attn_layers:
             n = len(self.attn_layers)
-            shape = ((n, kv_pages, page_size) if kv_pages else (n, batch, seq_len)) \
+            full = ((n, kv_pages, page_size) if kv_pages else (n, batch, seq_len)) \
                 + (cfg.n_kv_heads, cfg.head_dim)
+            # a rank's planes hold its KV heads (``sharding/specs.py``'s rule)
+            sizes, _ = self.tp_mesh()
+            shape = specs.local_shape(
+                full, specs.cache_leaf_spec("kv", full, sizes, paged=bool(kv_pages)), sizes)
 
             def zeros(shape, dtype):
                 return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -396,7 +460,14 @@ class Model(nn.Module):
         return ssm if kv is None else HybridCache(kv, ssm)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens.long()].to(self.compute_dtype)
+        if self.tp is None:
+            return self.embed[tokens.long()].to(self.compute_dtype)
+        # the rank's rows of the vocab-sharded embedding, zero elsewhere, summed
+        n = self.embed.shape[0]
+        local = tokens.long() - self.tp.rank * n
+        mine = (local >= 0) & (local < n)
+        rows = self.embed[torch.where(mine, local, 0)].to(self.compute_dtype)
+        return self.tp.all_reduce_sum(torch.where(mine[..., None], rows, 0), "embed")
 
     def encode(self, enc_embeds: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
         """The encoder output ``[B, E, d_out]`` of stub frontend embeddings
@@ -413,7 +484,8 @@ class Model(nn.Module):
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, self.final_norm, self.cfg.rms_eps)
         head = self.embed.T if self.lm_head is None else self.lm_head
-        return h @ head.to(h.dtype)
+        out = h @ head.to(h.dtype)
+        return out if self.tp is None else self.tp.gather_vocab(out)
 
     def forward(self, tokens: torch.Tensor, *, enc_embeds: Optional[torch.Tensor] = None,
                 impl: str = "plain", remat: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
@@ -474,20 +546,20 @@ class Model(nn.Module):
                 kv = kv_cache.layer(self.kv_plane[l]) if kv_cache is not None else None
                 if kv is not None and ctx.block_tables is not None:
                     kv = PagedKVCache(kv, ctx.block_tables, read_bt)
-                h = h + self_attention(
+                h = h + tp_sum(self.tp, self_attention(
                     layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), ctx.positions,
                     cache=kv, slot_idx=ctx.slot_idx, kv_pos=kv_pos, rope=rope,
                     scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask,
                     window=layer_window(cfg, l, ctx.window_override), anchor=ctx.anchor,
-                    bc_start=ctx.bc_start, bc_block=ctx.bc_block, impl=ctx.attn_impl)
+                    bc_start=ctx.bc_start, bc_block=ctx.bc_block, impl=ctx.attn_impl), "attn")
             if layer.ffn is not None:
                 hn = rms_norm(h, layer.ln2, cfg.rms_eps)
                 if not layer.moe:
-                    h = h + mlp_apply(layer.ffn, hn, cfg.act)
+                    h = h + tp_sum(self.tp, mlp_apply(layer.ffn, hn, cfg.act), "mlp")
                 elif aux is None:
-                    h = h + moe_apply(layer.ffn, cfg, hn)
+                    h = h + moe_apply(layer.ffn, cfg, hn, tp=self.tp)
                 else:
-                    f, a = moe_apply(layer.ffn, cfg, hn, with_aux=True)
+                    f, a = moe_apply(layer.ffn, cfg, hn, with_aux=True, tp=self.tp)
                     h, aux = h + f, aux + a
             return h, aux
 

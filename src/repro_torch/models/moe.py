@@ -17,6 +17,12 @@ as one batched matmul per projection over ``[E, G * C, d]`` (plain
 ``torch.bmm``: XLA computes them in the reference), and each row sums its
 kept picks' outputs with their combine weights.  Same drops, same weights.
 
+Under tensor parallelism each rank holds ``E / model`` whole experts (the
+reference's rule, experts on ``model``), and the router whole: every rank
+routes every row of a group, so capacity and drops are the same on all of
+them.  A rank runs its own experts over their capacity slots and combines
+their kept picks; the combines are summed over the ranks in f32, then cast.
+
 The Switch load-balance aux loss, which only training reads, is computed
 when the caller asks for it (``with_aux``), so an inference pass does no
 more work.  A non-finite row stays in its own output here, where the
@@ -25,7 +31,7 @@ reference's dense einsum spreads it (``0 * NaN``) over its whole group
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +40,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.attention import _param
 from repro_torch.models.common import activation
+from repro_torch.sharding.comm import TPGroup, tp_sum
 
 
 class MoE(nn.Module):
@@ -108,10 +115,12 @@ def aux_loss(probs: torch.Tensor, r: Routing, m: MoEConfig) -> torch.Tensor:
     return e * torch.sum(frac * probs.mean(dim=(0, 1))) * m.aux_loss_coef
 
 
-def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *, with_aux: bool = False):
+def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *, with_aux: bool = False,
+              tp: Optional[TPGroup] = None):
     """The expert FFN on ``x [B, K, d]`` -> ``[B, K, d]`` in ``x.dtype``, the
     reference's ``moe_apply``; with ``with_aux``, ``(out, aux)`` with the
-    f32 scalar :func:`aux_loss`."""
+    f32 scalar :func:`aux_loss`.  With ``tp``, ``moe`` holds the rank's
+    experts ``[tp.rank * E_l, (tp.rank + 1) * E_l)``."""
     m = cfg.moe
     b, k, d = x.shape
     t = b * k
@@ -122,12 +131,14 @@ def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *, with_aux: bool = F
     probs = torch.softmax(xg.float() @ moe.router, dim=-1)                # [G, S, E]
     cap = capacity(m, gsz)
     r = routing(probs, m, cap)
-    e = m.n_experts
+    e = moe.w_gate.shape[0]                                               # local experts
+    expert = r.expert - (0 if tp is None else tp.rank * e)
+    kept = r.kept if tp is None else r.kept & (expert >= 0) & (expert < e)
     # each (group, expert, slot) takes the row that was given it, or none
-    flat = (torch.arange(ng, device=x.device)[:, None, None] * e + r.expert) * cap + r.slot
+    flat = (torch.arange(ng, device=x.device)[:, None, None] * e + expert) * cap + r.slot
     src = torch.full((ng * e * cap + 1,), ng * gsz, dtype=torch.int64, device=x.device)
     rows = torch.arange(ng * gsz, device=x.device).view(ng, gsz, 1).expand_as(flat)
-    src.scatter_(0, torch.where(r.kept, flat, ng * e * cap).reshape(-1), rows.reshape(-1))
+    src.scatter_(0, torch.where(kept, flat, ng * e * cap).reshape(-1), rows.reshape(-1))
     xpad = torch.cat([xg.reshape(-1, d), xg.new_zeros((1, d))])          # the empty slot's row
     xd = xpad[src[:-1]].view(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
     act = activation(cfg.act)
@@ -135,8 +146,8 @@ def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *, with_aux: bool = F
     down = torch.bmm(hid, moe.w_down)                                     # [E, G * C, d]
     down = down.view(e, ng, cap, d).transpose(0, 1).reshape(ng * e * cap, d)
     # the combine in f32, its weights rounded to x's dtype as the reference's
-    picked = down[torch.where(r.kept, flat, 0)].float()                   # [G, S, k, d]
+    picked = down[torch.where(kept, flat, 0)].float()                     # [G, S, k, d]
     w = r.weight.to(x.dtype).float()[..., None]
-    out = torch.where(r.kept[..., None], w * picked, 0.0).sum(dim=2).to(x.dtype)
-    out = out.reshape(-1, d)[:t].view(b, k, d)
+    out = tp_sum(tp, torch.where(kept[..., None], w * picked, 0.0).sum(dim=2), "moe")
+    out = out.to(x.dtype).reshape(-1, d)[:t].view(b, k, d)
     return (out, aux_loss(probs, r, m)) if with_aux else out

@@ -38,7 +38,13 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, *, ce_chunk: int = 2
     """Returns ``train_step(state, batch) -> (state, metrics)``.  ``batch`` is
     ``{tokens [B, L] int32, loss_region [B, L] bool, optional enc_embeds [B,
     E, d_enc]}`` as numpy arrays or tensors; the metrics (``loss``, ``ce``,
-    ``aux``, ``mask_frac``, ``lr``, ``grad_norm``) are 0-dim tensors."""
+    ``aux``, ``mask_frac``, ``lr``, ``grad_norm``) are 0-dim tensors.  A
+    tensor-parallel model (``Model(cfg, mesh=...)``) is refused: its sums
+    have no backward here, and training under FSDP x TP is queued
+    (ROADMAP.md, A8)."""
+    if model.tp is not None:
+        raise NotImplementedError("make_train_step: tensor-parallel training (FSDP x TP) is "
+                                  "queued in ROADMAP.md (A8)")
     model.requires_grad_(True)
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
