@@ -42,10 +42,12 @@ no result):
    CUDA-core body) and the K/V scatters at its 512-byte rows; the SSD
    chunk step at Jamba's widths (128 heads of 64, d_state 64), its served
    decode and offline prefill shapes, bf16 on the tensor-core body and f32
-   on the CUDA-core body (8j); kernel 1 as the vision model's
+   on the CUDA-core body (8j), and at a TP-2 rank's 64 heads (8t); kernel
+   1 as the vision model's
    cross-attention (1x: Lq 32 over 1,601 keys, 32 on 8 heads of 128),
    SeamlessM4T's (1xs: 256 keys, 16 heads of 64) and its encoder's
-   attention (1e: 256 x 256, D 64), both bodies, each beside SDPA; the
+   attention (1e: 256 x 256, D 64), and SeamlessM4T's at a TP-2 rank's 8
+   heads (1xt), both bodies, each beside SDPA; the
    threefry key chain's known answers on the card, a draw of the sampled
    path's shape with bits equal to the CPU's, and the draw's time;
 4. cross-device checks on reduced models in float32, the card (kernels)
@@ -76,9 +78,9 @@ no result):
    reduced llama-3.2-vision-11b (with ``enc_proj``) and seamless-m4t-large-v2
    offline es with ``enc_embeds`` (tokens equal; SeamlessM4T greedy and
    sampled), kernel 1 launched as cross-attention and in the encoder;
-5. offline path: LLaDA-8B at full width in bfloat16 (random weights from a
-   seeded generator on the card), ES generation, with each kernel's
-   launches counted over that run;
+5. offline path: LLaDA-8B at full width in bfloat16, ``DEPTH_5`` of its 32
+   layers (random weights from a seeded generator on the card), ES
+   generation, with each kernel's launches counted over that run;
 6. serving path: the same model through the paged ``StreamScheduler``
    (early advance, adaptive cache) with staggered requests, launches
    counted over that run;
@@ -88,9 +90,9 @@ no result):
    preemption on a tight pool (7b: a class-1 arrival spills a class-0
    resident, which resumes) and with neither (7c);
 8. Mamba-2: mamba2-370m at full width in bfloat16 (seeded random weights
-   on the card), depth cut to 6 of its 48 layers, offline es and
-   dualcache generation and the dense-slot ``StreamScheduler`` with early
-   advance, through the SSD chunk kernel;
+   on the card), depth cut to ``MAMBA_LAYERS`` of its 48 layers, offline es
+   and dualcache generation and the dense-slot ``StreamScheduler`` with
+   early advance, through the SSD chunk kernel;
 9. block-causal ES-dLLM with the sliding window: LLaDA-8B at full width,
    depth cut to ``DEPTH_9_10`` layers, offline and through the paged
    scheduler with the persistent prefix store;
@@ -138,10 +140,11 @@ no result):
    duplicate-cohort trace with prefix sharing (forks), then preemption on a
    tight pool (a spill and a resume) (14c);
 15. the encoder-conditioned archs at full width in bfloat16 (seeded random
-   weights and ``enc_embeds`` made on the card): llama-3.2-vision-11b, 20
-   of its 40 layers (4 cross layers over 1,601 image tokens), offline es at phase
-   5's shape, timed twice (equal tokens) and dualcache, kernel 1's launches
-   as self- and as cross-attention, the cross planes' bytes, a profiled
+   weights and ``enc_embeds`` made on the card): llama-3.2-vision-11b,
+   ``DEPTH_15A`` of its 40 layers (cross layers over 1,601 image tokens),
+   offline es at phase 5's shape, timed twice (equal tokens) and
+   dualcache, kernel 1's launches as self- and as cross-attention, the
+   cross planes' bytes, a profiled
    ``generate``'s busy share and the cross-attention's device ms (15a);
    phase 6's trace on the paged pool without the adaptive cache, with a
    profiled window, then 7b's plan on its tight pool (spills, and every
@@ -162,23 +165,37 @@ no result):
 17. tensor parallelism: LLaDA-8B at TP 2, two processes on the one card,
    one rank each, over gloo (its ``all_reduce`` takes CUDA tensors through
    the host; NCCL refuses two ranks on one card): f32 at ``TP_DEPTH_A``
-   layers, offline es greedy, every rank's tokens equal to TP 1's (17a);
-   bf16 at all 32 layers, one offline generate of one block and phase 6's
-   served trace cut to three requests, per-rank memory, times, all-reduces a
-   step and the device time inside them (17b); the dry run of 17b's
-   configuration (``launch/dryrun.py`` on fake tensors: its rank-0
-   ``argument_size`` must equal rank 0's measured bytes of parameters and
-   state) and the single-pod dry runs of llada-8b and dream-7b at
-   decode_32k (17c).  Phase 3 also holds kernels 1-4 at the 16 heads a
-   TP-2 rank launches them with.
+   layers, one block offline es greedy, every rank's tokens equal to TP 1's
+   (17a); bf16 at ``TP_DEPTH_B`` layers, one offline generate of one block
+   and phase 6's served trace cut to three requests, per-rank memory,
+   times, all-reduces a step and the device time inside them (17b); the dry
+   run of 17b's configuration (``launch/dryrun.py`` on fake tensors: its
+   rank-0 ``argument_size`` must equal rank 0's measured bytes of
+   parameters and state) and the single-pod dry runs of llada-8b and
+   dream-7b at decode_32k (17c).  Phase 3 also holds kernels 1-4 at the 16
+   heads a TP-2 rank launches them with;
+18. tensor parallelism on the SSM, hybrid, cross-attention and encoder
+   stacks, in phase 17's two ranks: mamba2-370m (8 of 48 layers) and
+   seamless-m4t-large-v2 (uncut) in f32, one block offline es greedy, every
+   rank's tokens equal to TP 1's and confidences within 1e-4 (18a);
+   jamba-v0.1-52b at 16 of 32 layers in bf16, one offline generate of one
+   block and phase 6's served trace cut to three requests, ``ssm`` and
+   ``ssm_norm`` all-reduces once a mixer layer and pass, kernel 8 at the
+   rank's 64 of 128 SSM heads, per-rank memory, times and the device time
+   inside the all-reduces (18b); the dry run of 18b's configuration
+   (rank-0 ``argument_size`` equal to the measured bytes) and the
+   single-pod dry runs of jamba-v0.1-52b at all 32 layers and
+   llama-3.2-vision-11b at decode_32k (18c).  Phase 3 also holds kernel 8
+   at a TP-2 rank's 64 Jamba heads (decode and prefill) and kernel 1 as
+   SeamlessM4T's cross-attention at 8 of 16 heads.
 
 On phases 5, 6, 7, 9, 10, 11, 12, 13, 14 and 15 every attention launch must take
 the tensor-core body (on phase 11 reading int8 codes, with every K/V write the
 quantizing scatter), and phases 5 and 6 must keep one attention launch per
 call; on phase
 9 every attention launch must carry the block-causal options; on phases 8
-and 14 every SSD chunk launch must take the tensor-core body, and an offline es
-``generate`` must keep its 1,584 of them (66 a layer).  Each path profile
+and 14 every SSD chunk launch must take the tensor-core body, and phase 8's
+offline es ``generate`` must keep its 66 a layer.  Each path profile
 sums the device time of the port's kernels over its whole trace.
 
 The second-to-last line is the ``kernels`` JSON record, the last line
@@ -237,6 +254,9 @@ REPLACES = {
     "paged_flash_attention_tp2": "src/repro/kernels/flash_attention.py:208",
     "scatter_rows_tp2": "src/repro/kernels/scatter_kv.py:45",
     "scatter_rows_paged_tp2": "src/repro/kernels/scatter_kv.py:78",
+    # kernels 8 and 1 at a TP-2 rank's SSM and cross-attention heads (phase 18)
+    "ssd_chunks_tp2": "src/repro/kernels/ssd_scan.py:70",
+    "flash_attention_cross_tp2": "src/repro/kernels/flash_attention.py:146",
 }
 SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -262,6 +282,8 @@ SOURCES = {
     "paged_flash_attention_tp2": "src/repro_torch/kernels/csrc/flash_tc.cuh",
     "scatter_rows_tp2": "src/repro_torch/kernels/csrc/scatter_kv.cu",
     "scatter_rows_paged_tp2": "src/repro_torch/kernels/csrc/scatter_kv.cu",
+    "ssd_chunks_tp2": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "flash_attention_cross_tp2": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 # the serving path's shapes: 4 slots of prompt 128 + gen 64 tokens, blocks of
 # 32, partial refreshes of ceil(0.25 * (192 - 32)) = 40 tokens
@@ -367,18 +389,23 @@ def admitted_kv_rows(mask) -> torch.Tensor:
 ATTENTION = ("flash_attention", "paged_flash_attention")
 TWO_BODIES = ATTENTION + ("ssd_chunks",)     # kernels with a tensor-core and a CUDA-core body
 BODIES = ("tensor_core", "cuda_core")
+# phases 5-6, 11 and 12's depth (one model): LLaDA-8B's 32 layers cut to 16
+# beside phase 18, so that the script's phases stay within 850 s on the
+# slower hosts (PERF.md §4)
+DEPTH_5 = 16
 # attention launches of one offline generate (phase 5) and one serving trace
-# (phase 6) with the CUDA-core body, one per attention call: the tensor-core
-# body must keep one launch per call
-LAUNCHES_OFFLINE_GENERATE = 2048
-LAUNCHES_SERVING_TRACE = 7872
+# (phase 6) with the CUDA-core body, one per attention call and layer (64
+# and 246 a layer): the tensor-core body must keep one launch per call
+LAUNCHES_OFFLINE_GENERATE = 64 * DEPTH_5
+LAUNCHES_SERVING_TRACE = 246 * DEPTH_5
 # phases 9 and 10's depth: LLaDA-8B's 32 layers cut to 16 after 13c's cut,
-# then to 8 beside phase 15, so that the script's phases stay within 850 s
-# (PERF.md §4)
-DEPTH_9_10 = 8
+# to 8 beside phase 15, then to 4 beside phase 18, so that the script's
+# phases stay within 850 s (PERF.md §4)
+DEPTH_9_10 = 4
 # phase 8's depth: mamba2-370m's 48 layers cut to 6, so that the whole run
-# with phases 9 and 10 stays within about the time phases 1-8 took at full depth
-MAMBA_LAYERS = 6
+# with phases 9 and 10 stays within about the time phases 1-8 took at full
+# depth; then to 4 beside phase 18 (PERF.md §4)
+MAMBA_LAYERS = 4
 # SSD chunk launches of one offline es mamba2 generate (phase 8), as the
 # CUDA-core body made them: one per decode pass and two per prefill in each
 # layer (66 a layer); the tensor-core body must keep them
@@ -1793,13 +1820,16 @@ def check_head_dim_256(ref, flash_attention, paged_flash_attention, gen):
 # layers (32 query heads on 8 KV heads of 128, the 1,601 image tokens: no
 # multiple of a tile), SeamlessM4T's (16 heads of 64 on its 256 frame
 # tokens) at a decode block of 32, and its encoder's self-attention over the
-# 256 tokens at batch 2 (phase 15's offline shape)
+# 256 tokens at batch 2 (phase 15's offline shape); SeamlessM4T's cross
+# layers at a TP-2 rank's 8 of 16 heads (phase 18a)
 CROSS_CASES = (("flash_attention_cross", "vlm cross Lq=32 Lkv=1601", 2, 32, 8, 32, 1601, 128,
                 True),
                ("flash_attention_cross_seamless", "seamless cross Lq=32 Lkv=256", 2, 16, 16, 32,
                 256, 64, True),
                ("flash_attention_encoder", "seamless encoder Lq=Lkv=256", 2, 16, 16, 256, 256,
-                64, False))
+                64, False),
+               ("flash_attention_cross_tp2", "seamless tp2 cross Lq=32 Lkv=256 H=8", 2, 8, 8, 32,
+                256, 64, True))
 
 
 def check_cross(ref, flash_attention, gen):
@@ -1965,24 +1995,31 @@ def check_ssd(ref, ops, ssd_chunks, gen):
 
 # Jamba's mixer: 128 heads of 64, d_state 64, one B/C group; (label, B, L,
 # chunk, the planner's heads per block) at phase 14's served decode and
-# offline prefill
+# offline prefill; the same at a TP-2 rank's 64 heads (phase 18b)
 JAMBA_SSD = (128, 64, 64)
 JAMBA_SSD_CASES = ((f"jamba decode [{SLOTS}, {BLOCK}] G=1", SLOTS, BLOCK, BLOCK, 2),
                    (f"jamba prefill [2, {T_TOTAL}] G=1", 2, T_TOTAL, SSD_CHUNK, 4))
+JAMBA_SSD_TP2_CASES = ((f"jamba tp2 decode [{SLOTS}, {BLOCK}] H=64", SLOTS, BLOCK, BLOCK, 1),
+                       (f"jamba tp2 prefill [2, {T_TOTAL}] H=64", 2, T_TOTAL, SSD_CHUNK, 2))
 
 
 def check_ssd_jamba(ref, ssd_chunks, gen):
     """The SSD chunk kernel at Jamba's widths against ``ref.ssd_chunks`` on
     all four outputs: bf16 on the tensor-core body with the planner's heads
     per block (2 at the decode's 512 one-head blocks, 4 at the prefill's
-    768), f32 on the CUDA-core body; every heads-per-block choice timed on
-    the bf16 cases, each giving the planner's bits."""
+    768; at a TP-2 rank's 64 heads 1 and 2), f32 on the CUDA-core body;
+    every heads-per-block choice timed on the bf16 cases, each giving the
+    planner's bits."""
     from repro_torch.kernels.ssd_scan import HEADS_PER_BLOCK, plan
 
-    h, p, n = JAMBA_SSD
+    _, p, n = JAMBA_SSD
     out = []
-    for dt_type in (torch.float32, torch.bfloat16):
-        for label, b, l, chunk, want_hb in JAMBA_SSD_CASES:
+    for dt_type, (row, h, cases) in ((dt, rc) for dt in (torch.float32, torch.bfloat16)
+                                     for rc in (("ssd_chunks_jamba", JAMBA_SSD[0],
+                                                 JAMBA_SSD_CASES),
+                                                ("ssd_chunks_tp2", JAMBA_SSD[0] // TP,
+                                                 JAMBA_SSD_TP2_CASES))):
+        for label, b, l, chunk, want_hb in cases:
             args = ssd_inputs(gen, b, l, 1, dt_type, h, p, n)
             pl = plan(args[0], args[3], chunk, args[4])
             body = "tensor_core" if dt_type == torch.bfloat16 else "cuda_core"
@@ -2015,7 +2052,7 @@ def check_ssd_jamba(ref, ssd_chunks, gen):
             ms, wall = device_ms(lambda: ssd_chunks(*args, chunk=chunk))
             plain_ms, _ = device_ms(lambda: ref.ssd_chunks(*args, chunk))
             bms, by = ssd_bound(*args, got, chunk)
-            out.append(dict(kernel="ssd_chunks", row="ssd_chunks_jamba", case=label,
+            out.append(dict(kernel="ssd_chunks", row=row, case=label,
                             dtype=str(dt_type), max_abs_err=max(errs),
                             errs=dict(zip(("y_intra", "contrib", "decay", "cs"), errs)),
                             tol="1e-4 abs + 1e-4 rel (y_intra bf16: 1e-2)", ms=ms, wall_ms=wall,
@@ -3801,10 +3838,12 @@ DREAM_PREEMPT_PAGES = 45
 # phase 7's depth: Dream-7B's 28 layers cut to 14, and 13a's and 13b's
 # (olmoe-1b-7b 16 to 8, gemma3-1b 26 to 13), so that the script's phases
 # with phase 14 stay within 790 s; then Dream's to 7, to make room for phase
-# 17's served trace of three requests (PERF.md §4)
-DEPTH_7 = 7
-DEPTH_13A = 8
-DEPTH_13B = 13
+# 17's served trace of three requests; then, beside phase 18, Dream's to 4,
+# olmoe's to 4 and gemma3's to 7 (6 local layers and the global layer 5)
+# (PERF.md §4)
+DEPTH_7 = 4
+DEPTH_13A = 4
+DEPTH_13B = 7
 
 
 def dream_7b():
@@ -4099,8 +4138,8 @@ def mamba_serving(model, kernel_fns) -> dict:
 # phase 13: the MoE and remaining dense archs at full width
 # ---------------------------------------------------------------------------
 # 13c's depth, cut from the published one so that the script's phases stay
-# within 760 s (PERF.md §4)
-DEPTH_13C = 8
+# within 760 s, then to 4 beside phase 18 (PERF.md §4)
+DEPTH_13C = 4
 ARCHS_13C = ("llama3-8b", "qwen2-1.5b", "chatglm3-6b", "granite-moe-1b-a400m")
 # phase 6's arrivals and lengths of new tokens; 13a takes its prompts, 13b
 # prompts of 544-640 against gemma3's 512 window
@@ -4563,8 +4602,9 @@ def phase14(kernel_fns) -> dict:
 # ---------------------------------------------------------------------------
 PROFILE_15B = (40, 70)          # the profiled window of 15b's served trace (steps)
 # 15a-b's depth: the vision model's 40 layers cut to 20 (4 of its 8 periods of
-# 5, 4 cross layers), to make room for phase 17 (PERF.md §4)
-DEPTH_15A = 20
+# 5, 4 cross layers) to make room for phase 17, then to 10 (2 periods, 2
+# cross layers) for phase 18 (PERF.md §4)
+DEPTH_15A = 10
 
 
 def enc_embeds_on_card(cfg, n: int, seed: int) -> torch.Tensor:
@@ -5097,20 +5137,26 @@ def phase16(kernel_fns) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: tensor parallelism, two gloo ranks on the one card
+# phases 17 and 18: tensor parallelism, two gloo ranks on the one card
 # ---------------------------------------------------------------------------
 TP = 2
 # 17a's depth: LLaDA-8B's 32 layers cut to 8 for the f32 parity check
 TP_DEPTH_A = 8
+# 17b's depth: LLaDA-8B's 32 layers cut to 16, to make room for phase 18
+# (PERF.md §4)
+TP_DEPTH_B = 16
 # 17b's work, cut to what the phase's time allows (gloo through the host
-# takes 4-9 ms an all-reduce on one card, 66 a pass, PERF.md §5): a
-# generate of one block at phase 5's shape, and phase 6's trace cut to three
-# of its requests of one block each (prompts 64, 128 and 32, 32 new tokens),
-# submitted 5 steps apart, so that three slots are live at once
+# takes 4-9 ms an all-reduce on one card, PERF.md §5): a generate of one
+# block at phase 5's shape, and phase 6's trace cut to three of its
+# requests of one block each (prompts 64, 128 and 32, 32 new tokens),
+# submitted 5 steps apart, so that three slots are live at once; 18b the same
 TP_GEN_B = BLOCK
 TP_SERVE_REQUESTS = (1, 3, 4)
-# the dry run beside 17b's configuration: one decode step at phase 5's shape
+# the dry runs beside 17b's and 18b's configurations: one decode step at
+# phase 5's shape
 TP_DRYRUN_SHAPE = (T_TOTAL, 2)
+# 18a: mamba2-370m's 48 layers cut to 8 and SeamlessM4T uncut, in f32
+TP_PARITY_18 = (("mamba2-370m", 8), (AUDIO, None))
 
 
 def tp_gen_config(cfg):
@@ -5123,11 +5169,10 @@ def tp_gen_config(cfg):
         prompt_refresh_period=32, block_refresh_period=4)
 
 
-def tp_llada(dtype: str, n_layers=None):
+def tp_cfg(arch: str, dtype: str, n_layers=None):
     from repro_torch import configs
 
-    cfg = dataclasses.replace(configs.get_config("llada-8b"), param_dtype=dtype,
-                              compute_dtype=dtype)
+    cfg = dataclasses.replace(configs.get_config(arch), param_dtype=dtype, compute_dtype=dtype)
     return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
 
 
@@ -5138,94 +5183,44 @@ def tp_prompt(cfg):
         .astype(np.int32)
 
 
-def tp_rank_job(mesh) -> dict:
-    """One rank of phase 17 (its own process, sharing the card): 17a's f32
-    generate at ``TP_DEPTH_A`` layers; 17b's bf16 model at all 32 layers, a
-    idle all-reduce's time, one timed generate of one block with its launches and
-    collectives, phase 6's trace cut to three requests with the device time
-    inside the collectives, the bytes of the rank's parameters and of the
-    state the dry run is held to (17c)."""
+def tp_enc(cfg):
+    """The encoder-conditioned archs' ``enc_embeds`` of the prompt's two
+    rows, made on the card from the seed; None on the others."""
+    if cfg.family not in ("audio", "vlm"):
+        return None
+    return enc_embeds_on_card(cfg, 2, SEED + 2)
+
+
+def tp_one_block(model, cfg) -> dict:
+    """One offline es greedy ``generate`` of one block at phase 5's prompt:
+    its tokens, the final block's confidences, and kernel 1's launches in
+    the cross-attention layers and the encoder."""
+    from repro_torch.core import make_engine
+
+    engine = make_engine(model, dataclasses.replace(tp_gen_config(cfg), gen_length=TP_GEN_B),
+                         device="cuda")
+    with CrossLaunches(model) as cl:
+        out = engine.generate(torch.from_numpy(tp_prompt(cfg)).cuda(), enc_embeds=tp_enc(cfg))
+    return dict(tokens=out.cpu().numpy(), conf=engine.last_state.conf.cpu().numpy(),
+                kernel1_cross=cl.cross, kernel1_encoder=cl.encoder)
+
+
+def tp_served_trace(model, gen_cfg, kernel_fns) -> dict:
+    """Phase 6's trace cut to ``TP_SERVE_REQUESTS`` on the paged pool, timed,
+    with the device ms inside the all-reduces (CUDA events)."""
     import numpy as np
 
-    from repro_torch.core import make_engine
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
-    from repro_torch.kernels.importance import importance, variation
-    from repro_torch.kernels.scatter_kv import scatter_rows, scatter_rows_paged
-    from repro_torch.launch.tp import build_model
     from repro_torch.runtime import StreamScheduler
     from repro_torch.sharding.comm import COUNTER
-    from repro_torch import configs
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    build.library()
-    fns = {"flash_attention": flash_attention, "paged_flash_attention": paged_flash_attention,
-           "scatter_rows": scatter_rows, "scatter_rows_paged": scatter_rows_paged,
-           "importance": importance, "variation": variation}
-
-    def launches() -> dict:
-        return {k: f.launches for k, f in fns.items()}
-
-    def zero() -> None:
-        for f in fns.values():
-            f.launches = 0
-    out = {}
-    # 17a: f32 parity at TP_DEPTH_A layers
-    cfg = tp_llada("float32", TP_DEPTH_A)
-    prompt = torch.from_numpy(tp_prompt(cfg)).cuda()
-    model = build_model(cfg, mesh, "cuda", seed=SEED)
-    engine = make_engine(model, tp_gen_config(cfg), device="cuda")
-    a = engine.generate(prompt)
-    out["a"] = dict(tokens=a.cpu().numpy(), conf=engine.last_state.conf.cpu().numpy())
-    del model, engine
-    torch.cuda.empty_cache()
-    # 17b: bf16 at full depth
-    cfg = tp_llada("bfloat16")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = build_model(cfg, mesh, "cuda", seed=SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    gen_cfg = tp_gen_config(cfg)
-    params_bytes = nbytes(*model.parameters())
-    engine = make_engine(model, gen_cfg, device="cuda")
-    state_bytes = nbytes(*[t for t in torch.utils._pytree.tree_leaves(engine.make_block_state(
-        torch.zeros(TP_DRYRUN_SHAPE[::-1], dtype=torch.int32, device="cuda")))
-        if torch.is_tensor(t)])
-    # the idle all-reduce of a served step's hidden states, [4, 32, 4096] bf16
-    x = torch.zeros((SLOTS, BLOCK, cfg.d_model), dtype=torch.bfloat16, device="cuda")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        model.tp.all_reduce_sum(x, "idle")
-    torch.cuda.synchronize()
-    idle_ms = (time.perf_counter() - t0) / 20 * 1e3
-    # 17a's generate warmed this process (cuBLAS handles, the allocator)
-    engine = make_engine(model, dataclasses.replace(gen_cfg, gen_length=TP_GEN_B),
-                         device="cuda")
-    zero()
-    COUNTER.reset()
-    t0 = time.perf_counter()
-    b = engine.generate(prompt)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    offline = dict(tokens=b.cpu().numpy(), wall_s=wall, iterations=engine.iterations,
-                   launches=launches(), all_reduce=dict(COUNTER.count_by_site),
-                   all_reduce_bytes=dict(COUNTER.bytes_by_site))
+    cfg = model.cfg
     rng = np.random.default_rng(SEED)
-    lens = (32, 64, 96, 128, 32, 64, 96, 128)
-    max_new = (64, 32, 64, 32, 32, 64, 32, 64)
-    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in lens]
+    prompts = [rng.integers(3, cfg.vocab_size, n).astype(np.int32) for n in LENS_13A]
     prompts = [prompts[i] for i in TP_SERVE_REQUESTS]
-    max_new = [max_new[i] for i in TP_SERVE_REQUESTS]
-    serve_cfg = configs.GenerationConfig(
-        mode="es", gen_length=GEN, block_length=BLOCK,
-        skip_stages=configs.default_skip_stages(cfg.n_layers),
-        prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2)
-    sched = StreamScheduler(model, serve_cfg, device="cuda", max_slots=SLOTS,
+    max_new = [SERVE_MAX_NEW[i] for i in TP_SERVE_REQUESTS]
+    sched = StreamScheduler(model, gen_cfg, device="cuda", max_slots=SLOTS,
                             prompt_len=PROMPT, paged=True, page_size=16, early_advance=True)
-    zero()
+    zero_counts(kernel_fns)
     COUNTER.reset()
     COUNTER.timing = True
     t0 = time.perf_counter()
@@ -5236,80 +5231,204 @@ def tp_rank_job(mesh) -> dict:
     COUNTER.timing = False
     steps = sched.stats.steps
     n_ar, ar_bytes = sum(COUNTER.count_by_kind.values()), sum(COUNTER.bytes_by_kind.values())
-    served = dict(outputs=[r.output for r in reqs], steps=steps, wall_s=wall,
-                  ms_per_step=wall / steps * 1e3, tokens_per_s=sum(max_new) / wall,
-                  resident_peak=sched.stats.resident_peak,
-                  launches=launches(), all_reduce_per_step=n_ar / steps,
-                  all_reduce_bytes_per_step=ar_bytes / steps,
-                  all_reduce_device_ms=coll_ms, all_reduce_device_ms_per_step=coll_ms / steps,
-                  passes=dict(sched.engine.pass_counts))
-    out["b"] = dict(offline=offline, served=served, init_s=init_s, params_bytes=params_bytes,
-                    all_reduce_idle_ms=idle_ms,
-                    state_bytes=state_bytes,
+    return dict(outputs=[r.output for r in reqs], steps=steps, wall_s=wall,
+                ms_per_step=wall / steps * 1e3, tokens_per_s=sum(max_new) / wall,
+                resident_peak=sched.stats.resident_peak,
+                launches=counts(kernel_fns), all_reduce_per_step=n_ar / steps,
+                all_reduce_bytes_per_step=ar_bytes / steps,
+                all_reduce_by_site=dict(COUNTER.count_by_site),
+                all_reduce_device_ms=coll_ms, all_reduce_device_ms_per_step=coll_ms / steps,
+                passes=dict(sched.engine.pass_counts))
+
+
+def tp_timed_block(model, gen_cfg, kernel_fns) -> dict:
+    """A timed one-block offline ``generate`` (the process is warm) with its
+    launches and its all-reduces and bytes by site."""
+    from repro_torch.core import make_engine
+    from repro_torch.sharding.comm import COUNTER
+
+    cfg = model.cfg
+    engine = make_engine(model, dataclasses.replace(gen_cfg, gen_length=TP_GEN_B),
+                         device="cuda")
+    prompt = torch.from_numpy(tp_prompt(cfg)).cuda()
+    zero_counts(kernel_fns)
+    COUNTER.reset()
+    t0 = time.perf_counter()
+    b = engine.generate(prompt, enc_embeds=tp_enc(cfg))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(tokens=b.cpu().numpy(), wall_s=wall, iterations=engine.iterations,
+                launches=counts(kernel_fns), all_reduce=dict(COUNTER.count_by_site),
+                all_reduce_bytes=dict(COUNTER.bytes_by_site))
+
+
+def tp_state_bytes(model, gen_cfg) -> int:
+    """Bytes of the offline state at ``TP_DRYRUN_SHAPE`` (what the dry run's
+    ``argument_size`` counts beside the parameters)."""
+    from repro_torch.core import make_engine
+
+    engine = make_engine(model, gen_cfg, device="cuda")
+    state = engine.make_block_state(torch.zeros(TP_DRYRUN_SHAPE[::-1], dtype=torch.int32,
+                                                device="cuda"))
+    return nbytes(*[t for t in torch.utils._pytree.tree_leaves(state) if torch.is_tensor(t)])
+
+
+def tp17_rank(mesh, kernel_fns) -> dict:
+    """Phase 17 on one rank: 17a's f32 generate at ``TP_DEPTH_A`` layers;
+    17b's bf16 model at ``TP_DEPTH_B`` layers, an idle all-reduce's time, a
+    timed one-block generate, phase 6's trace cut to three requests, the
+    bytes of the rank's parameters and of the state the dry run is held to
+    (17c)."""
+    from repro_torch import configs
+    from repro_torch.launch.tp import build_model
+
+    out = {}
+    cfg = tp_cfg("llada-8b", "float32", TP_DEPTH_A)
+    out["a"] = tp_one_block(build_model(cfg, mesh, "cuda", seed=SEED), cfg)
+    torch.cuda.empty_cache()
+    cfg = tp_cfg("llada-8b", "bfloat16", TP_DEPTH_B)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, mesh, "cuda", seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen_cfg = tp_gen_config(cfg)
+    # the idle all-reduce of a served step's hidden states, [4, 32, 4096] bf16
+    x = torch.zeros((SLOTS, BLOCK, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        model.tp.all_reduce_sum(x, "idle")
+    torch.cuda.synchronize()
+    idle_ms = (time.perf_counter() - t0) / 20 * 1e3
+    serve_cfg = configs.GenerationConfig(
+        mode="es", gen_length=GEN, block_length=BLOCK,
+        skip_stages=configs.default_skip_stages(cfg.n_layers),
+        prompt_refresh_period=8, block_refresh_period=4, cache_prompt_interval=2)
+    out["b"] = dict(offline=tp_timed_block(model, gen_cfg, kernel_fns),
+                    served=tp_served_trace(model, serve_cfg, kernel_fns), init_s=init_s,
+                    params_bytes=nbytes(*model.parameters()),
+                    state_bytes=tp_state_bytes(model, gen_cfg), all_reduce_idle_ms=idle_ms,
                     max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
                     local_heads=model.layers[0].attn.wq.shape[1] // cfg.head_dim,
                     local_kv_heads=model.layers[0].attn.wk.shape[1] // cfg.head_dim)
     return out
 
 
-def phase17(kernel_fns) -> dict:
+def tp18_rank(mesh, kernel_fns) -> dict:
+    """Phase 18 on one rank: 18a's f32 generates of ``TP_PARITY_18`` with
+    their all-reduces by site; 18b's bf16 Jamba at ``DEPTH_14`` layers, a
+    timed one-block generate, phase 6's trace cut to three requests, the
+    rank's memory, heads and bytes (18c)."""
+    from repro_torch.launch.tp import build_model
+    from repro_torch.sharding.comm import COUNTER
+
+    out = {"a": {}}
+    for arch, depth in TP_PARITY_18:
+        cfg = tp_cfg(arch, "float32", depth)
+        model = build_model(cfg, mesh, "cuda", seed=SEED)
+        zero_counts(kernel_fns)
+        COUNTER.reset()
+        out["a"][arch] = dict(tp_one_block(model, cfg), launches=counts(kernel_fns),
+                              all_reduce=dict(COUNTER.count_by_site))
+        del model
+        torch.cuda.empty_cache()
+    cfg = tp_cfg(JAMBA, "bfloat16", DEPTH_14)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, mesh, "cuda", seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen_cfg = tp_gen_config(cfg)
+    mixer = model.layers[model.ssm_layers[0]].mixer
+    out["b"] = dict(offline=tp_timed_block(model, gen_cfg, kernel_fns),
+                    served=tp_served_trace(model, arch_gen_config(cfg, served=True), kernel_fns),
+                    init_s=init_s, params_bytes=nbytes(*model.parameters()),
+                    state_bytes=tp_state_bytes(model, gen_cfg),
+                    max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    local_ssm_heads=mixer.dt_proj.shape[1], local_d_inner=mixer.x_proj.shape[1],
+                    local_heads=model.layers[model.attn_layers[0]].attn.wq.shape[1]
+                    // cfg.head_dim)
+    return out
+
+
+def tp_rank_job(mesh) -> dict:
+    """One rank of phases 17 and 18 (its own process, sharing the card):
+    the kernels built once, then each phase's work, each freed before the
+    next."""
+    import gc
+
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    kernel_fns = all_kernel_fns()
+    out = {}
+    for name, job in (("17", tp17_rank), ("18", tp18_rank)):
+        t0 = time.perf_counter()
+        out[name] = job(mesh, kernel_fns)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name]["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def tp1_one_block(arch: str, depth) -> dict:
+    """TP 1 of a parity check: ``tp_one_block`` in this process, on the same
+    seeded weights as the ranks'."""
+    cfg = tp_cfg(arch, "float32", depth)
+    model = seeded_model(cfg)
+    out = tp_one_block(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase17(kernel_fns) -> tuple[dict, dict]:
     """Tensor parallelism at TP 2: two processes on the one card, one rank
     each, over gloo (its ``all_reduce`` takes CUDA tensors through the host;
     NCCL refuses two ranks on one card), every kernel launch in the ranks
-    on the card.  17a: LLaDA-8B at full width, ``TP_DEPTH_A`` layers, f32,
-    offline es greedy: both ranks' tokens equal, and equal to TP 1's (one
-    process, this one, the same seeded weights).  17b: LLaDA-8B at all 32
-    layers, bf16: one offline generate of one block and phase 6's served
-    trace cut to three requests (``TP_GEN_B``, ``TP_SERVE_REQUESTS``: times,
-    memory, all-reduces and their device time: gloo through the host on one
-    card, not a multi-card figure).  17c: the dry run of 17b's
-    configuration at TP 2 (``launch/dryrun.py``, fake tensors) beside rank
-    0's measured bytes of parameters and state, and the single-pod dry run
-    of llada-8b and dream-7b at decode_32k."""
+    on the card.  The ranks run phase 17's work and phase 18's
+    (``phase18`` checks it).  17a: LLaDA-8B at full width, ``TP_DEPTH_A``
+    layers, f32, offline es greedy: both ranks' tokens equal, and equal to
+    TP 1's (this process, the same seeded weights).  17b: LLaDA-8B at
+    ``TP_DEPTH_B`` layers, bf16: one offline generate of one block and phase
+    6's served trace cut to three requests (``TP_GEN_B``,
+    ``TP_SERVE_REQUESTS``: times, memory, all-reduces and their device time:
+    gloo through the host on one card, not a multi-card figure).  17c: the
+    dry run of 17b's configuration at TP 2 (``launch/dryrun.py``, fake
+    tensors) beside rank 0's measured bytes of parameters and state, and the
+    single-pod dry run of llada-8b and dream-7b at decode_32k.  Returns
+    (phase 17's record, phase 18's inputs: its TP-1 runs and the ranks')."""
     import numpy as np
 
     from repro_torch.configs import InputShape
-    from repro_torch.core import make_engine
     from repro_torch.launch import dryrun
     from repro_torch.launch.tp import spawn
 
     t0 = time.perf_counter()
-    cfg = tp_llada("float32", TP_DEPTH_A)
-    model = seeded_model(cfg)
-    engine = make_engine(model, tp_gen_config(cfg), device="cuda")
-    tp1 = engine.generate(torch.from_numpy(tp_prompt(cfg)).cuda()).cpu().numpy()
-    tp1_conf = engine.last_state.conf.cpu().numpy()
-    del model, engine
-    torch.cuda.empty_cache()
+    tp1 = tp1_one_block("llada-8b", TP_DEPTH_A)
+    tp1_18 = {arch: tp1_one_block(arch, depth) for arch, depth in TP_PARITY_18}
     tp1_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks = spawn(tp_rank_job, TP, workdir=ROOT / "build" / f"tp17_{time.time_ns()}")
     ranks_s = time.perf_counter() - t0
-    a = [r["a"] for r in ranks]
-    b = [r["b"] for r in ranks]
+    a = [r["17"]["a"] for r in ranks]
+    b = [r["17"]["b"] for r in ranks]
     if not all(np.array_equal(r["tokens"], a[0]["tokens"]) for r in a):
         raise AssertionError("phase 17a: the ranks' tokens differ")
-    diff = int((a[0]["tokens"] != tp1).sum())
+    diff = int((a[0]["tokens"] != tp1["tokens"]).sum())
     if diff:
         raise AssertionError(f"phase 17a: TP {TP} tokens differ from TP 1's at {diff} positions")
-    for key in ("offline",):
-        if not all(np.array_equal(r[key]["tokens"], b[0][key]["tokens"]) for r in b):
-            raise AssertionError("phase 17b: the ranks' offline tokens differ")
-    for r in b[1:]:
-        if not all(np.array_equal(x, y) for x, y in zip(r["served"]["outputs"],
-                                                        b[0]["served"]["outputs"])):
-            raise AssertionError("phase 17b: the ranks' served tokens differ")
+    if not all(np.array_equal(r["offline"]["tokens"], b[0]["offline"]["tokens"]) for r in b):
+        raise AssertionError("phase 17b: the ranks' offline tokens differ")
+    check_tp_served(b, "phase 17b")
+    cfg = tp_cfg("llada-8b", "bfloat16", TP_DEPTH_B)
     gen_tok = b[0]["offline"]["tokens"][:, PROMPT:]
     if gen_tok.shape != (2, TP_GEN_B) or not ((gen_tok >= 0)
                                               & (gen_tok < cfg.vocab_size)).all():
         raise AssertionError(f"phase 17b: generated ids {gen_tok}")
-    outs = b[0]["served"]["outputs"]
-    if len(outs) != len(TP_SERVE_REQUESTS) or any(r is None or r.shape != (BLOCK,)
-                                                  for r in outs):
-        raise AssertionError(f"phase 17b: served outputs {outs}")
-    if b[0]["served"]["resident_peak"] < 2:
-        raise AssertionError(f"phase 17b: at most {b[0]['served']['resident_peak']} request "
-                             f"live at once")
     for name in ("flash_attention", "scatter_rows", "importance"):
         if b[0]["offline"]["launches"][name] <= 0:
             raise AssertionError(f"phase 17b: {name} not launched on the offline path")
@@ -5318,28 +5437,150 @@ def phase17(kernel_fns) -> dict:
             raise AssertionError(f"phase 17b: {name} not launched on the served path")
     # 17c: the dry run of 17b's configuration beside rank 0's bytes
     t0 = time.perf_counter()
-    cfg_b = tp_llada("bfloat16")
-    dry = dryrun.run_one("llada-8b", "phase17", "debug", debug=(1, TP), cfg=cfg_b,
+    dry = dryrun.run_one("llada-8b", "phase17", "debug", debug=(1, TP), cfg=cfg,
                          shape=InputShape("phase17_decode", *TP_DRYRUN_SHAPE, "decode"),
-                         gen=tp_gen_config(cfg_b), verbose=False)
+                         gen=tp_gen_config(cfg), verbose=False)
     measured = b[0]["params_bytes"] + b[0]["state_bytes"]
     if dry["memory"]["argument_size"] != measured:
         raise AssertionError(f"phase 17c: dry-run argument_size {dry['memory']['argument_size']}"
                              f" != measured {measured}")
     single = {arch: dryrun.run_one(arch, "decode_32k", "single", verbose=False)
               for arch in ("llada-8b", "dream-7b")}
+    end_dry_run_group()
+    dry_s = time.perf_counter() - t0
+    rec = dict(tp=TP, backend="gloo", depth_a=TP_DEPTH_A, depth_b=TP_DEPTH_B, tp1_s=tp1_s,
+               ranks_s=ranks_s, rank_s=[r["17"]["rank_s"] for r in ranks], dryrun_s=dry_s,
+               a=dict(tokens_equal_tp1=True, ranks_equal=True,
+                      conf_max_abs_diff=float(np.abs(a[0]["conf"] - tp1["conf"]).max()),
+                      distinct_ids=len(np.unique(tp1["tokens"][:, PROMPT:]))),
+               b=[served_summary(r) for r in b],
+               c=dict(dryrun=dry, measured_bytes=measured, single=single))
+    return rec, dict(tp1=tp1_18, ranks=[r["18"] for r in ranks])
+
+
+def check_tp_served(b: list, where: str) -> None:
+    """Every rank served the same tokens, three requests of one block, with
+    more than one live at once."""
+    import numpy as np
+
+    for r in b[1:]:
+        if not all(np.array_equal(x, y) for x, y in zip(r["served"]["outputs"],
+                                                        b[0]["served"]["outputs"])):
+            raise AssertionError(f"{where}: the ranks' served tokens differ")
+    outs = b[0]["served"]["outputs"]
+    if len(outs) != len(TP_SERVE_REQUESTS) or any(r is None or r.shape != (BLOCK,)
+                                                  for r in outs):
+        raise AssertionError(f"{where}: served outputs {outs}")
+    if b[0]["served"]["resident_peak"] < 2:
+        raise AssertionError(f"{where}: at most {b[0]['served']['resident_peak']} request "
+                             f"live at once")
+
+
+def served_summary(r: dict) -> dict:
+    """A rank's record without its tokens."""
+    return dict(r, offline={k: v for k, v in r["offline"].items() if k != "tokens"},
+                served={k: v for k, v in r["served"].items() if k != "outputs"})
+
+
+def end_dry_run_group() -> None:
+    """Tears down the dry run's fake process group."""
     import torch.distributed as dist
+
     if dist.is_initialized():
         dist.destroy_process_group()
-    dry_s = time.perf_counter() - t0
-    return dict(tp=TP, backend="gloo", depth_a=TP_DEPTH_A, tp1_s=tp1_s, ranks_s=ranks_s,
-                dryrun_s=dry_s, a=dict(tokens_equal_tp1=True, ranks_equal=True,
-                                       conf_max_abs_diff=float(np.abs(a[0]["conf"] - tp1_conf)
-                                                               .max()),
-                                       distinct_ids=len(np.unique(tp1[:, PROMPT:]))),
-                b=[dict(r, offline={k: v for k, v in r["offline"].items() if k != "tokens"},
-                        served={k: v for k, v in r["served"].items() if k != "outputs"})
-                   for r in b],
+
+
+def phase18(inputs: dict) -> dict:
+    """Tensor parallelism on the SSM, hybrid, cross-attention and encoder
+    stacks, from the ranks phase 17 started.  18a: mamba2-370m (8 of 48
+    layers) and seamless-m4t-large-v2 (uncut) in f32, offline es greedy, one
+    block: both ranks' tokens equal, and equal to TP 1's, confidences within
+    1e-4.  18b: jamba-v0.1-52b at ``DEPTH_14`` layers, bf16: one offline
+    generate of one block and phase 6's trace cut to three requests (ranks
+    equal; ``ssm`` and ``ssm_norm`` all-reduces once a mixer layer and pass;
+    kernel 8 at the rank's 64 of 128 SSM heads, every SSD launch on the
+    tensor-core body; kernels 1, 3, 6 offline, 2, 4, 6 served).  18c: the
+    dry run of 18b's configuration at TP 2 beside rank 0's measured bytes,
+    and the single-pod dry runs of jamba-v0.1-52b at all 32 layers and
+    llama-3.2-vision-11b at decode_32k."""
+    import numpy as np
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+
+    ranks, tp1 = inputs["ranks"], inputs["tp1"]
+    a = {}
+    for arch, depth in TP_PARITY_18:
+        got = [r["a"][arch] for r in ranks]
+        if not all(np.array_equal(g["tokens"], got[0]["tokens"]) for g in got):
+            raise AssertionError(f"phase 18a {arch}: the ranks' tokens differ")
+        diff = int((got[0]["tokens"] != tp1[arch]["tokens"]).sum())
+        if diff:
+            raise AssertionError(f"phase 18a {arch}: TP {TP} tokens differ from TP 1's at "
+                                 f"{diff} positions")
+        conf = float(np.abs(got[0]["conf"] - tp1[arch]["conf"]).max())
+        if not conf <= 1e-4:
+            raise AssertionError(f"phase 18a {arch}: confidences {conf} from TP 1's")
+        cfg = tp_cfg(arch, "float32", depth)
+        c = got[0]["all_reduce"]
+        n_ssm = sum(cfg.layer_kind(l) == "ssm" for l in range(cfg.n_layers))
+        if c.get("ssm", 0) != n_ssm * c["embed"] or c.get("ssm_norm", 0) != n_ssm * c["embed"]:
+            raise AssertionError(f"phase 18a {arch}: all-reduces {c}")
+        if cfg.n_encoder_layers and (got[0]["kernel1_cross"] <= 0
+                                     or got[0]["kernel1_encoder"] <= 0):
+            raise AssertionError(f"phase 18a {arch}: kernel 1 as cross-attention "
+                                 f"{got[0]['kernel1_cross']}, in the encoder "
+                                 f"{got[0]['kernel1_encoder']}")
+        a[arch] = dict(layers=cfg.n_layers, tokens_equal_tp1=True, ranks_equal=True,
+                       conf_max_abs_diff=conf, all_reduce=c, launches=got[0]["launches"],
+                       kernel1_cross=got[0]["kernel1_cross"],
+                       kernel1_encoder=got[0]["kernel1_encoder"],
+                       distinct_ids=len(np.unique(got[0]["tokens"][:, PROMPT:])))
+    b = [r["b"] for r in ranks]
+    if not all(np.array_equal(r["offline"]["tokens"], b[0]["offline"]["tokens"]) for r in b):
+        raise AssertionError("phase 18b: the ranks' offline tokens differ")
+    check_tp_served(b, "phase 18b")
+    cfg = tp_cfg(JAMBA, "bfloat16", DEPTH_14)
+    gen_tok = b[0]["offline"]["tokens"][:, PROMPT:]
+    if gen_tok.shape != (2, TP_GEN_B) or not ((gen_tok >= 0)
+                                              & (gen_tok < cfg.vocab_size)).all():
+        raise AssertionError(f"phase 18b: generated ids {gen_tok}")
+    n_ssm = sum(cfg.layer_kind(l) == "ssm" for l in range(cfg.n_layers))
+    for where, c in (("offline", b[0]["offline"]["all_reduce"]),
+                     ("served", b[0]["served"]["all_reduce_by_site"])):
+        if not c["ssm"] == c["ssm_norm"] == n_ssm * c["embed"]:
+            raise AssertionError(f"phase 18b {where}: all-reduces {c}, not {n_ssm} ssm and "
+                                 f"ssm_norm a pass")
+    if b[0]["local_ssm_heads"] != JAMBA_SSD[0] // TP:
+        raise AssertionError(f"phase 18b: {b[0]['local_ssm_heads']} SSM heads a rank")
+    for name in ("flash_attention", "scatter_rows", "importance", "ssd_chunks"):
+        if b[0]["offline"]["launches"][name] <= 0:
+            raise AssertionError(f"phase 18b: {name} not launched on the offline path")
+    # variation runs only with the adaptive cache, which stacks with SSM
+    # layers refuse (as the reference does)
+    for name in ("paged_flash_attention", "scatter_rows_paged", "importance", "ssd_chunks"):
+        if b[0]["served"]["launches"][name] <= 0:
+            raise AssertionError(f"phase 18b: {name} not launched on the served path")
+    for where in ("offline", "served"):
+        check_tensor_core_path(b[0][where]["launches"], f"phase 18b {where}")
+        check_ssd_tensor_core_path(b[0][where]["launches"], f"phase 18b {where}")
+    # 18c: the dry run of 18b's configuration beside rank 0's bytes
+    t0 = time.perf_counter()
+    dry = dryrun.run_one(JAMBA, "phase18", "debug", debug=(1, TP), cfg=cfg,
+                         shape=InputShape("phase18_decode", *TP_DRYRUN_SHAPE, "decode"),
+                         gen=tp_gen_config(cfg), verbose=False)
+    measured = b[0]["params_bytes"] + b[0]["state_bytes"]
+    if dry["memory"]["argument_size"] != measured:
+        raise AssertionError(f"phase 18c: dry-run argument_size {dry['memory']['argument_size']}"
+                             f" != measured {measured}")
+    single = {arch: dryrun.run_one(arch, "decode_32k", "single", verbose=False)
+              for arch in (JAMBA, VLM)}
+    end_dry_run_group()
+    for arch, d in single.items():
+        if "unsupported" in d:
+            raise AssertionError(f"phase 18c: {arch} decode_32k single: {d['unsupported']}")
+    return dict(tp=TP, backend="gloo", depth_b=DEPTH_14, dryrun_s=time.perf_counter() - t0,
+                rank_s=[r["rank_s"] for r in ranks], a=a, b=[served_summary(r) for r in b],
                 c=dict(dryrun=dry, measured_bytes=measured, single=single))
 
 
@@ -5350,43 +5591,79 @@ def seeded_model(cfg):
     return Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(SEED))
 
 
+def report_tp_rank(phase: str, rank: int, b: dict, layers: int, heads: str) -> None:
+    off, srv = b["offline"], b["served"]
+    print(f"phase {phase} rank {rank} (bf16, {layers} layers, {heads}): max_memory_allocated "
+          f"{b['max_memory_allocated_gb']:.2f} GB, params {b['params_bytes'] / 1e9:.2f} GB, "
+          f"init {b['init_s']:.1f} s"
+          + (f"; idle all-reduce {b['all_reduce_idle_ms']:.2f} ms" if "all_reduce_idle_ms" in b
+             else "")
+          + f"; generate of {TP_GEN_B} tokens {off['wall_s']:.2f} s "
+          f"({off['iterations']} iterations, all-reduces {json.dumps(off['all_reduce'])}, "
+          f"bytes {json.dumps(off['all_reduce_bytes'])}); "
+          f"served ({len(TP_SERVE_REQUESTS)} requests, {srv['resident_peak']} live at "
+          f"most) {srv['steps']} steps at {srv['ms_per_step']:.1f} ms, "
+          f"{srv['tokens_per_s']:.1f} tok/s, {srv['all_reduce_per_step']:.1f} all-reduces and "
+          f"{srv['all_reduce_bytes_per_step'] / 1e6:.2f} MB a step, "
+          f"{srv['all_reduce_device_ms_per_step']:.2f} ms a step inside them (CUDA events); "
+          f"launches offline {json.dumps({k: v for k, v in off['launches'].items() if v})}, "
+          f"served {json.dumps({k: v for k, v in srv['launches'].items() if v})}")
+
+
+def report_single(phase: str, single: dict) -> None:
+    for arch, d in single.items():
+        if "unsupported" in d:
+            print(f"phase {phase}: {arch} decode_32k single: unsupported ({d['unsupported']})")
+        else:
+            print(f"phase {phase}: {arch} decode_32k single ({d['n_chips']} ranks): flops "
+                  f"{d['flops']:.3e}, argument_size {d['memory']['argument_size'] / 2**30:.2f} "
+                  f"GiB, temp {d['memory']['temp_size'] / 2**30:.2f} GiB, all-reduces "
+                  f"{d['collectives']['total_count']} ({d['collectives']['total_bytes']:.3e} B)"
+                  f" by site {json.dumps(d['collectives_by_site']['count'])}")
+
+
 def report17(r: dict) -> None:
     print(f"phase 17: TP {r['tp']} over {r['backend']}, two ranks on one card (times are gloo "
-          f"through the host on one card, not a multi-card figure); TP 1 {r['tp1_s']:.1f} s, "
-          f"ranks {r['ranks_s']:.1f} s, dry runs {r['dryrun_s']:.1f} s")
+          f"through the host on one card, not a multi-card figure); TP 1 of 17a and 18a "
+          f"{r['tp1_s']:.1f} s, ranks {r['ranks_s']:.1f} s (phase 17's work "
+          f"{json.dumps([round(x, 1) for x in r['rank_s']])} s), dry runs {r['dryrun_s']:.1f} s")
     a = r["a"]
     print(f"phase 17a (f32, {r['depth_a']} layers): tokens equal TP 1's {a['tokens_equal_tp1']}, "
           f"ranks equal {a['ranks_equal']}, final-block confidences within "
           f"{a['conf_max_abs_diff']:.2e} of TP 1's, {a['distinct_ids']} distinct ids")
     for rank, b in enumerate(r["b"]):
-        off, srv = b["offline"], b["served"]
-        print(f"phase 17b rank {rank} (bf16, 32 layers, {b['local_heads']} heads and "
-              f"{b['local_kv_heads']} KV heads a rank): max_memory_allocated "
-              f"{b['max_memory_allocated_gb']:.2f} GB, params {b['params_bytes'] / 1e9:.2f} GB, "
-              f"init {b['init_s']:.1f} s; idle all-reduce {b['all_reduce_idle_ms']:.2f} ms; "
-              f"generate of {TP_GEN_B} tokens {off['wall_s']:.2f} s "
-              f"({off['iterations']} iterations, all-reduces {json.dumps(off['all_reduce'])}); "
-              f"served ({len(TP_SERVE_REQUESTS)} requests, {srv['resident_peak']} live at "
-              f"most) {srv['steps']} steps at {srv['ms_per_step']:.1f} ms, "
-              f"{srv['tokens_per_s']:.1f} tok/s, {srv['all_reduce_per_step']:.1f} all-reduces and "
-              f"{srv['all_reduce_bytes_per_step'] / 1e6:.2f} MB a step, "
-              f"{srv['all_reduce_device_ms_per_step']:.2f} ms a step inside them (CUDA events); "
-              f"launches offline {json.dumps({k: v for k, v in off['launches'].items() if v})}, "
-              f"served {json.dumps({k: v for k, v in srv['launches'].items() if v})}")
+        report_tp_rank("17b", rank, b, r["depth_b"], f"{b['local_heads']} heads and "
+                       f"{b['local_kv_heads']} KV heads a rank")
     c = r["c"]
     mem = c["dryrun"]["memory"]
     print(f"phase 17c: dry run of 17b's TP-2 decode step: argument_size {mem['argument_size']} "
           f"= rank 0's measured {c['measured_bytes']}, temp_size {mem['temp_size']}, flops "
           f"{c['dryrun']['flops']:.3e}, all-reduces {c['dryrun']['collectives']['total_count']} "
           f"({c['dryrun']['collectives']['total_bytes']} B)")
-    for arch, d in c["single"].items():
-        if "unsupported" in d:
-            print(f"phase 17c: {arch} decode_32k single: unsupported ({d['unsupported']})")
-        else:
-            print(f"phase 17c: {arch} decode_32k single ({d['n_chips']} ranks): flops "
-                  f"{d['flops']:.3e}, argument_size {d['memory']['argument_size'] / 2**30:.2f} "
-                  f"GiB, temp {d['memory']['temp_size'] / 2**30:.2f} GiB, all-reduces "
-                  f"{d['collectives']['total_count']} ({d['collectives']['total_bytes']:.3e} B)")
+    report_single("17c", c["single"])
+
+
+def report18(r: dict) -> None:
+    print(f"phase 18: TP {r['tp']} over {r['backend']} (phase 17's ranks; phase 18's work "
+          f"{json.dumps([round(x, 1) for x in r['rank_s']])} s a rank), dry runs "
+          f"{r['dryrun_s']:.1f} s")
+    for arch, a in r["a"].items():
+        print(f"phase 18a {arch} (f32, {a['layers']} layers): tokens equal TP 1's "
+              f"{a['tokens_equal_tp1']}, ranks equal {a['ranks_equal']}, final-block "
+              f"confidences within {a['conf_max_abs_diff']:.2e} of TP 1's, {a['distinct_ids']} "
+              f"distinct ids; all-reduces {json.dumps(a['all_reduce'])}; kernel 1 as "
+              f"cross-attention {a['kernel1_cross']}, in the encoder {a['kernel1_encoder']}")
+    for rank, b in enumerate(r["b"]):
+        report_tp_rank("18b", rank, b, r["depth_b"], f"{b['local_ssm_heads']} SSM heads "
+                       f"({b['local_d_inner']} channels) and {b['local_heads']} query heads a "
+                       f"rank")
+    c = r["c"]
+    mem = c["dryrun"]["memory"]
+    print(f"phase 18c: dry run of 18b's TP-2 decode step: argument_size {mem['argument_size']} "
+          f"= rank 0's measured {c['measured_bytes']}, temp_size {mem['temp_size']}, flops "
+          f"{c['dryrun']['flops']:.3e}, all-reduces by site "
+          f"{json.dumps(c['dryrun']['collectives_by_site']['count'])}")
+    report_single("18c", c["single"])
 
 
 def profile_run(fn, top: int = 8) -> dict:
@@ -5454,6 +5731,26 @@ def summarize_profile(prof, wall_us: float, top: int) -> dict:
                 scatter_launches=sum(c for _, c in scatter))
 
 
+def all_kernel_fns() -> dict:
+    """Every kernel wrapper by name: each counts its launches."""
+    from repro_torch.kernels.flash_attention import flash_attention, paged_flash_attention
+    from repro_torch.kernels.importance import importance, variation
+    from repro_torch.kernels.scatter_kv import (
+        fork_pages,
+        quantize_scatter_rows,
+        quantize_scatter_rows_paged,
+        scatter_rows,
+        scatter_rows_paged,
+    )
+    from repro_torch.kernels.ssd_scan import ssd_chunks
+
+    return {"flash_attention": flash_attention, "paged_flash_attention": paged_flash_attention,
+            "scatter_rows": scatter_rows, "scatter_rows_paged": scatter_rows_paged,
+            "importance": importance, "variation": variation, "fork_pages": fork_pages,
+            "ssd_chunks": ssd_chunks, "quantize_scatter_rows": quantize_scatter_rows,
+            "quantize_scatter_rows_paged": quantize_scatter_rows_paged}
+
+
 def main() -> int:
     # phase 1: environment
     smi = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader")
@@ -5483,12 +5780,7 @@ def main() -> int:
         print(f"triton {triton.__version__}")
     except ImportError:
         print("triton: not importable")
-    kernel_fns = {"flash_attention": flash_attention,
-                  "paged_flash_attention": paged_flash_attention,
-                  "scatter_rows": scatter_rows, "scatter_rows_paged": scatter_rows_paged,
-                  "importance": importance, "variation": variation, "fork_pages": fork_pages,
-                  "ssd_chunks": ssd_chunks, "quantize_scatter_rows": quantize_scatter_rows,
-                  "quantize_scatter_rows_paged": quantize_scatter_rows_paged}
+    kernel_fns = all_kernel_fns()
 
     phase_s: dict = {}                    # wall seconds of each phase
     t_phase = time.perf_counter()
@@ -5615,7 +5907,7 @@ def main() -> int:
     lap("4")
 
     # phases 5 and 6: the offline and serving paths at full width, one model
-    model, init_s = llada_8b()
+    model, init_s = llada_8b(DEPTH_5)
     run = main_path(model, init_s, kernel_fns)
     print(f"offline path: {json.dumps(run)}")
     serving = serving_path(model, kernel_fns)
@@ -5784,10 +6076,13 @@ def main() -> int:
           f"kernels; top {json.dumps([(t['name'], round(t['ms'], 1), t['count']) for t in p['top']])}")
     lap("16")
 
-    # phase 17: LLaDA-8B at TP 2, two gloo ranks on the one card, and the dry run
-    tp_run = phase17(kernel_fns)
+    # phases 17 and 18: TP 2, two gloo ranks on the one card, and the dry runs:
+    # LLaDA-8B (17), then mamba2-370m, SeamlessM4T and Jamba (18)
+    tp_run, tp18_inputs = phase17(kernel_fns)
     report17(tp_run)
-    lap("17")
+    tp18_run = phase18(tp18_inputs)
+    report18(tp18_run)
+    lap("17-18")
     print(f"phase seconds: {json.dumps(phase_s)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
@@ -5825,7 +6120,12 @@ def main() -> int:
                                               torch.bfloat16),
                 "scatter_rows_tp2": (f"llada tp2 block K={BLOCK} H={TP_HEADS}", torch.bfloat16),
                 "scatter_rows_paged_tp2": (f"llada tp2 block K={BLOCK} ps=16 H={TP_HEADS}",
-                                           torch.bfloat16)}
+                                           torch.bfloat16),
+                # kernel 8 at a TP-2 rank's 64 of Jamba's SSM heads (phase 18b), and
+                # kernel 1 as SeamlessM4T's cross-attention at 8 of 16 heads,
+                # in 18a's f32
+                "ssd_chunks_tp2": (JAMBA_SSD_TP2_CASES[0][0], torch.bfloat16),
+                "flash_attention_cross_tp2": (CROSS_CASES[-1][1], torch.float32)}
     # the int8 rows' launches: phase 11's runs
     offline8 = int8_runs["11a"]["runs"]["int8"]["launches"]
     int8_launches = {
@@ -5846,13 +6146,17 @@ def main() -> int:
         "flash_attention_cross": enc_runs["15a"]["offline"]["kernel1_cross"],
         "flash_attention_cross_seamless": enc_runs["15c"]["sampled"]["kernel1_cross"],
         "flash_attention_encoder": enc_runs["15c"]["offline"]["kernel1_encoder"]}
-    # rank 0's launches in phase 17b: the offline generate and the served trace
+    # rank 0's launches in phase 17b: the offline generate and the served
+    # trace; in 18b's offline generate (kernel 8) and 18a's SeamlessM4T
+    # generate (kernel 1 as cross-attention, f32)
     tp_b = tp_run["b"][0]
     tp_launches = {
         "flash_attention_tp2": tp_b["offline"]["launches"]["flash_attention"],
         "paged_flash_attention_tp2": tp_b["served"]["launches"]["paged_flash_attention"],
         "scatter_rows_tp2": tp_b["offline"]["launches"]["scatter_rows"],
-        "scatter_rows_paged_tp2": tp_b["served"]["launches"]["scatter_rows_paged"]}
+        "scatter_rows_paged_tp2": tp_b["served"]["launches"]["scatter_rows_paged"],
+        "ssd_chunks_tp2": tp18_run["b"][0]["offline"]["launches"]["ssd_chunks"],
+        "flash_attention_cross_tp2": tp18_run["a"][AUDIO]["kernel1_cross"]}
 
     def case_row(x) -> str:
         """The kernels line's row a phase-3 case belongs to."""
@@ -5902,6 +6206,7 @@ def main() -> int:
              scatter_d256=scatter256, cross_device_jamba=cross_jamba, jamba=jamba,
              cross_device_encoders=cross_enc, encoder_archs=enc_runs,
              cross_device_training=cross_train, training=train_run, tensor_parallel=tp_run,
+             tensor_parallel_stacks=tp18_run,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

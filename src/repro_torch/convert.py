@@ -59,7 +59,7 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     def t(a, dt=dtype, name: str = "") -> torch.Tensor:
         a = np.asarray(a, np.float32)
         if sizes is not None:
-            spec = specs.port_param_spec(name, a.shape, sizes, cfg.head_dim)
+            spec = specs.port_param_spec(name, a.shape, sizes, cfg.head_dim, ssm=cfg.ssm)
             a = specs.local_slice(a, spec, sizes, coords).copy()
         return torch.tensor(a, device=dev).to(dt)
 

@@ -26,9 +26,16 @@ counted.  Each JSON holds the reference's keys:
 A torch built without CUDA cannot index a fake ``cuda`` tensor (its Python
 indexing takes a CUDA device guard that the build lacks), so there the fake
 tensors sit on the CPU device (``fake_device`` in the JSON): shapes, bytes
-and FLOPs are the same.  A combination the port refuses (training, SSM,
-hybrid, cross and encoder stacks, head counts the mesh does not divide) is
-written with its ``unsupported`` reason.
+and FLOPs are the same.  A combination the port refuses (training, head
+counts the mesh does not divide) is written with its ``unsupported``
+reason.
+
+Every serving combination runs pure TP: each rank holds ``1/model`` of the
+weights.  The reference switches to FSDP x TP weights where a rank's share
+passes 4 GiB (jamba-v0.1-52b's 6.5 GiB, sized for v5e's 16 GiB); the port
+does not, and records jamba-v0.1-52b's per-rank ``argument_size`` as it is.
+The reference's ``--variant`` flag (``int8kv``, ``ssm_seqpar``,
+``moe_lean``) is not ported (``ROADMAP.md``, A8).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llada-8b --shape decode_32k --mesh single
@@ -138,8 +145,7 @@ def run_one(arch: str, shape_name: str, mesh_name: str, *, verbose: bool = True,
             print(f"[dryrun] {arch:24s} {shape_name:12s} {mesh_name:6s} unsupported: {e}")
         return result
     t_build = time.perf_counter() - t0
-    state, bs = args
-    params, arg_tensors = list(model.parameters()), tensors_of(state)
+    params, arg_tensors = list(model.parameters()), tensors_of(args)
     argument_size = nbytes(params) + nbytes(arg_tensors)
     COUNTER.reset()
     TALLY.reset()
@@ -149,7 +155,7 @@ def run_one(arch: str, shape_name: str, mesh_name: str, *, verbose: bool = True,
         t0 = time.perf_counter()
         with tracker, FlopCounterMode(display=False) as flops, CommDebugMode() as comm, \
                 OpBytes() as op_bytes:
-            out = step(state, bs)
+            out = step(*args)
         t_step = time.perf_counter() - t0
     peak = sum(snap["Total"] for snap in tracker.get_tracker_snapshot("peak").values())
     inputs = {t.untyped_storage()._cdata for t in params + arg_tensors}

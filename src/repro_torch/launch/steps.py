@@ -3,7 +3,9 @@ combination, the counterpart of ``repro/launch/steps.py``; the dry run
 (``launch/dryrun.py``) runs exactly these.
 
 Shape -> step (the reference's mapping):
-  prefill_32k -> prefill step (full forward, builds every ES cache)
+  prefill_32k -> prefill step (full forward, builds every ES cache); an
+                 encoder-conditioned arch's step takes ``enc_embeds [B,
+                 n_enc_tokens, d_enc]`` and encodes them first
   decode_32k  -> serve step   (ONE ES iteration: the active block against a
                  32k cache)
   long_500k   -> serve step at a 524,288-row cache; pure full-attention
@@ -102,9 +104,20 @@ def make_serve_fn(model: Model, shape: InputShape, arch: str, *, mesh=None,
 
 def make_prefill_fn(model: Model, shape: InputShape, arch: str, *, mesh=None,
                     gen: GenerationConfig | None = None):
-    """prefill step: the full forward that (re)builds every ES cache."""
+    """prefill step: the full forward that (re)builds every ES cache.  On
+    the audio and vision archs it takes the stub frontend embeddings too,
+    encodes them (``Model.encode``) and stores the cross planes; the serve
+    step then reads those planes from the state."""
     eng, state, bs = _step_inputs(model, shape, arch, mesh, gen)
-    return eng.prefill, (state, bs), eng
+    cfg = model.cfg
+    if cfg.family not in ("audio", "vlm"):
+        return eng.prefill, (state, bs), eng
+
+    def prefill_step(st, bs, enc_embeds):
+        return eng.prefill(st._replace(enc_out=model.encode(enc_embeds)), bs)
+    enc = torch.zeros((state.tokens.shape[0], cfg.n_enc_tokens, cfg.d_enc or cfg.d_model),
+                      dtype=model.compute_dtype, device=model.device)
+    return prefill_step, (state, bs, enc), eng
 
 
 def input_specs(arch: str, shape_name: str, mesh=None, *, device: str | torch.device = "cuda", cfg: ModelConfig | None = None,
@@ -113,8 +126,8 @@ def input_specs(arch: str, shape_name: str, mesh=None, *, device: str | torch.de
     tensor-parallel shard with ``mesh``).  ``cfg``, ``shape`` and ``gen``
     replace the arch's bf16 config, the named shape and the serving config
     (reduced runs).  Raises ``NotImplementedError`` for what the port does
-    not run sharded yet (training, SSM, hybrid, cross and encoder stacks)
-    and ``ValueError`` for head counts the mesh does not divide."""
+    not run sharded yet (training) and ``ValueError`` for head counts the
+    mesh does not divide."""
     shape = shape or INPUT_SHAPES[shape_name]
     if shape.kind == "train":
         raise NotImplementedError(f"{shape.name}: training under FSDP x TP is queued in "

@@ -18,7 +18,8 @@ Under tensor parallelism (``Model(cfg, mesh=...)``) each rank's
 (``sharding/specs.py``: ``heads``, ``kv_heads``), and ``wo`` the matching
 rows: the projections and the kernels run at the local head counts, which
 they read from the weights, and ``Model.run_layers`` sums the output over
-the ranks once, after ``@ wo``.
+the ranks once, after ``@ wo``; so do a cross layer's and the encoder's
+attention, whose cross planes hold the rank's KV heads.
 
 Cross-attention (``cross_attention``) reads a fixed key set, the encoder's
 tokens, with no RoPE and no mask: its K/V are projected from the encoder
@@ -218,7 +219,7 @@ def cross_attention(
     output ``[B, K, d]`` and the K/V ``[B, E, Hkv, Dh]`` it attended, which a
     prefill stores in the cross plane."""
     b, k, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    (h, hkv), dh = local_heads(p, cfg), cfg.head_dim
     q = (x @ p.wq).reshape(b, k, h, dh)
     if cache is None:
         if enc_out is None:

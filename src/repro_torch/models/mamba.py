@@ -6,6 +6,17 @@ projections, a depthwise causal conv over x and BC, the chunked SSD scan
 gated RMSNorm and the output projection.  A decode resumes from a cached
 state and conv tail at the block start, so one diffusion iteration replays
 only the current block; a prefill also captures that state (``capture_pos``).
+
+Under tensor parallelism (``Model(cfg, mesh=...)``) each rank's ``Mixer``
+holds whole SSM heads (``sharding/specs.py``: ``ssm_heads``): its columns of
+``z_proj``, ``x_proj``, ``dt_proj`` and ``conv_x``, the matching
+``norm_scale``, per-head leaves and rows of ``out_proj``, and the whole
+``bc_proj`` and ``conv_bc`` (``ssm_groups``: one group, read by every
+head).  The mixer runs at the widths it reads from its weights, and its
+state and conv tail hold the rank's heads and x channels
+(``ssm_conv_tail``).  Two sums over the ranks: the gated RMSNorm's sum of
+squares over ``d_inner`` (``[B, L, 1]``, site ``ssm_norm``) and the output
+after ``out_proj`` (``[B, L, d]``, site ``ssm``).
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import _param
 from repro_torch.models.common import gated_rms_norm
+from repro_torch.sharding.comm import TPGroup, tp_sum
 
 
 class SSMState(NamedTuple):
@@ -31,15 +43,6 @@ def mamba_dims(cfg: ModelConfig) -> dict:
     d_inner = s.expand * cfg.d_model
     return dict(d_inner=d_inner, n_heads=d_inner // s.headdim,
                 conv_ch=d_inner + 2 * s.n_groups * s.d_state)
-
-
-def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> SSMState:
-    s = cfg.ssm
-    dims = mamba_dims(cfg)
-    return SSMState(
-        torch.zeros((batch, dims["n_heads"], s.d_state, s.headdim), dtype=torch.float32,
-                    device=device),
-        torch.zeros((batch, s.conv_width - 1, dims["conv_ch"]), dtype=dtype, device=device))
 
 
 class Mixer(nn.Module):
@@ -89,15 +92,17 @@ def mamba_apply(
     state: Optional[SSMState] = None,             # resume point (decode); None = sequence start
     capture_pos: Optional[torch.Tensor] = None,   # [B] int: also return the state there
     impl: str = "kernel",                         # ops.ssd's: "plain" is differentiable
+    tp: Optional[TPGroup] = None,                 # the ranks the mixer's heads are split over
 ) -> tuple[torch.Tensor, SSMState, Optional[SSMState]]:
     """Runs the mixer over a span.  Returns ``(y [B, L, d], the state after
     the span, the state at capture_pos or None)``.  The capture re-runs the
     scan with ``dt`` zeroed at positions >= ``capture_pos`` (zero-dt steps are
     exact no-ops), which takes a per-row capture position without slicing,
-    and takes the conv tail of the inputs just before it."""
+    and takes the conv tail of the inputs just before it.  With ``tp`` the
+    mixer holds a rank's heads, and ``y`` is summed over the ranks."""
     s = cfg.ssm
-    dims = mamba_dims(cfg)
-    d_inner, n_heads = dims["d_inner"], dims["n_heads"]
+    # the widths the mixer holds: the config's, or a rank's share of them
+    d_inner, n_heads = mixer.x_proj.shape[1], mixer.dt_proj.shape[1]
     g, n = s.n_groups, s.d_state
     b, l, _ = x.shape
     z = x @ mixer.z_proj
@@ -105,8 +110,8 @@ def mamba_apply(
     bc_in = x @ mixer.bc_proj
     dt_raw = x @ mixer.dt_proj
     if state is None:
-        tail = torch.zeros((b, s.conv_width - 1, dims["conv_ch"]), dtype=x_in.dtype,
-                           device=x.device)
+        tail = torch.zeros((b, s.conv_width - 1, d_inner + bc_in.shape[-1]),
+                           dtype=x_in.dtype, device=x.device)
         init = None
     else:
         tail, init = state.conv_tail, state.state
@@ -121,8 +126,12 @@ def mamba_apply(
     y, final_state = ops.ssd(xs, dt, mixer.a_log, bmat, cmat, chunk=s.chunk, init_state=init,
                              impl=impl)
     y = y + xs * mixer.d_skip[None, None, :, None]      # f32: d_skip is f32, as in the reference
-    y = gated_rms_norm(y.reshape(b, l, d_inner), z, mixer.norm_scale, cfg.rms_eps)
-    out = y @ mixer.out_proj.to(y.dtype)
+    y = y.reshape(b, l, d_inner)
+    if tp is None:
+        y = gated_rms_norm(y, z, mixer.norm_scale, cfg.rms_eps)
+    else:
+        y = _gated_rms_norm_tp(y, z, mixer.norm_scale, cfg.rms_eps, tp, d_inner * tp.size)
+    out = tp_sum(tp, y @ mixer.out_proj.to(y.dtype), "ssm")
 
     captured = None
     if capture_pos is not None:
@@ -136,6 +145,16 @@ def mamba_apply(
         cap_tail = torch.gather(full, 1, cols[..., None].expand(-1, -1, full.shape[-1]))
         captured = SSMState(cap_state, cap_tail)
     return out, SSMState(final_state, torch.cat([tail_x, tail_bc], dim=-1)), captured
+
+
+def _gated_rms_norm_tp(x: torch.Tensor, gate: torch.Tensor, scale: torch.Tensor, eps: float,
+                       tp: TPGroup, width: int) -> torch.Tensor:
+    """``gated_rms_norm`` of a rank's channels of a ``width``-channel row:
+    the f32 sums of squares of every rank's channels are summed, then
+    divided by the full width (one ``[B, L, 1]`` all-reduce)."""
+    xf = (x * F.silu(gate.float()).to(x.dtype)).float()
+    var = tp.all_reduce_sum(xf.square().sum(dim=-1, keepdim=True), "ssm_norm") / width
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 class SSMCache(NamedTuple):

@@ -60,14 +60,16 @@ pass to logits.
 Tensor parallelism (``Model(cfg, mesh=...)``, a ``DeviceMesh`` with a
 ``model`` axis): each rank holds its shard of every parameter, cut by
 ``sharding/specs.py``'s serving rules from the full leaf (whole query and KV
-heads, whole ``d_ff`` columns, whole experts, a slice of the padded vocab;
-norms and the router whole).  The attention output after ``wo``, the MLP
-after ``w_down`` and the MoE combine are summed over the ranks
-(``sharding/comm.py``), the embedding is a masked local lookup, then a sum,
-and the logits are gathered to the full vocab, so every rank holds the same
-hidden states, logits and tokens, and every host decision above the stack
-reads replicated values.  Dense and MoE attention stacks only: a mesh on a
-stack with SSM or cross layers, or with an encoder, raises.
+heads, whole ``d_ff`` columns, whole experts, whole SSM heads, a slice of
+the padded vocab; norms, the router, the mixer's B/C projections and
+``enc_proj`` whole).  The attention and cross-attention outputs after
+``wo``, the MLP after ``w_down``, the MoE combine and the mixer's output
+after ``out_proj`` (and its gated norm's sum of squares) are summed over the
+ranks (``sharding/comm.py``), in the encoder's layers too; the embedding is
+a masked local lookup, then a sum, and the logits are gathered to the full
+vocab, so every rank holds the same hidden states, encoder output, logits
+and tokens, and every host decision above the stack reads replicated
+values.  The K/V, cross and SSM planes hold the rank's heads.
 
 Prefill stores each SSM layer's block rows of ``h`` after the mixer's
 residual (before a hybrid layer's FFN) in ``ssmh``, while a decode scatters
@@ -105,7 +107,7 @@ from repro_torch.models.common import (
     row_gather,
     row_scatter,
 )
-from repro_torch.models.mamba import Mixer, SSMCache, SSMState, init_ssm_state, mamba_apply
+from repro_torch.models.mamba import Mixer, SSMCache, SSMState, mamba_apply, mamba_dims
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.sharding import specs
 from repro_torch.sharding.comm import TPGroup, tp_sum
@@ -113,10 +115,8 @@ from repro_torch.sharding.comm import TPGroup, tp_sum
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def check_supported(cfg: ModelConfig, mesh=None) -> None:
-    """Raises NotImplementedError for archs outside the port so far, and for
-    tensor parallelism (a mesh) on a stack with SSM or cross layers or an
-    encoder."""
+def check_supported(cfg: ModelConfig) -> None:
+    """Raises NotImplementedError for archs outside the port so far."""
     kinds = {cfg.layer_kind(l) for l in range(cfg.n_layers)}
     ssm_family = cfg.ssm is not None and cfg.family in ("ssm", "hybrid")
     if ("ssm" in kinds) != ssm_family or cfg.logit_softcap:
@@ -127,10 +127,6 @@ def check_supported(cfg: ModelConfig, mesh=None) -> None:
     for field in ("param_dtype", "compute_dtype"):
         if getattr(cfg, field) not in DTYPES:
             raise NotImplementedError(f"{field}={getattr(cfg, field)!r}: float32 or bfloat16")
-    if mesh is not None and (kinds != {"attn"} or cfg.n_encoder_layers):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism covers dense and MoE attention stacks; SSM, "
-            f"hybrid, cross-attention and encoder stacks are queued in ROADMAP.md (A8)")
 
 
 def layer_window(cfg: ModelConfig, layer: int, window_override: int = 0) -> int:
@@ -272,15 +268,19 @@ class Encoder(nn.Module):
                                     for l in range(cfg.n_encoder_layers))
         self.final_norm = _param((cfg.d_enc,), device, dtype)
 
-    def forward(self, h: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+    def forward(self, h: torch.Tensor, impl: str = "kernel",
+                tp: Optional[TPGroup] = None) -> torch.Tensor:
+        """With ``tp`` each layer holds a rank's heads and ``d_ff`` columns,
+        and its attention and MLP outputs are summed over the ranks."""
         cfg = self.cfg
         b, e, _ = h.shape
         pos = torch.arange(e, dtype=torch.int32, device=h.device)[None].expand(b, e).contiguous()
         rope = rope_tables(pos, cfg.head_dim, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
         for layer in self.layers:
-            h = h + self_attention(layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), pos,
-                                   rope=rope, impl=impl)
-            h = h + mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps), cfg.act)
+            h = h + tp_sum(tp, self_attention(layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps),
+                                              pos, rope=rope, impl=impl), "attn")
+            h = h + tp_sum(tp, mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps), cfg.act),
+                           "mlp")
         return rms_norm(h, self.final_norm, cfg.rms_eps)
 
 
@@ -302,7 +302,7 @@ class Model(nn.Module):
                  mesh=None):
         super().__init__()
         cfg.validate()
-        check_supported(cfg, mesh)
+        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.tp = TPGroup.from_mesh(mesh)
@@ -349,14 +349,17 @@ class Model(nn.Module):
     def _shard(self) -> None:
         """Replaces each meta parameter by an uninitialised shard on the
         model's device.  A leaf the tensor-parallel forward reads as a shard
-        (every one but the norms and the router) must have been cut: a rule
-        that fell back to replication (an indivisible ``d_ff``, experts or
-        vocab) raises, where the sums would otherwise count it ``model``
-        times."""
+        (every one but the norms and those it reads whole: the router, the
+        mixer's ``bc_proj`` and ``conv_bc``, ``enc_proj``) must have been
+        cut: a rule that fell back to replication (an indivisible ``d_ff``,
+        experts or vocab) raises, where the sums would otherwise count it
+        ``model`` times."""
         sizes, _ = self.tp_mesh()
         for name, p in list(self.named_parameters()):
-            spec = specs.port_param_spec(name, tuple(p.shape), sizes, self.cfg.head_dim)
-            if not any(spec) and p.dim() >= 2 and not name.endswith(".router"):
+            spec = specs.port_param_spec(name, tuple(p.shape), sizes, self.cfg.head_dim,
+                                         ssm=self.cfg.ssm)
+            whole = name.rsplit(".", 1)[-1] in ("router", "bc_proj", "conv_bc", "enc_proj")
+            if not any(spec) and p.dim() >= 2 and not whole:
                 raise ValueError(f"{name} {tuple(p.shape)} does not divide over "
                                  f"model={sizes['model']}")
             mod, _, leaf = name.rpartition(".")
@@ -421,40 +424,41 @@ class Model(nn.Module):
             raise ValueError(f"kv_cache_dtype={kv_dtype!r}: None or 'int8'")
         cfg = self.cfg
         ssm = kv = None
+        # a rank's planes hold its heads (``sharding/specs.py``'s cache rules)
+        sizes, _ = self.tp_mesh()
+
+        def zeros(kind: str, full: tuple, dtype, **kw) -> torch.Tensor:
+            shape = specs.local_shape(full, specs.cache_leaf_spec(kind, full, sizes, **kw), sizes)
+            return torch.zeros(shape, dtype=dtype, device=self.device)
         if self.ssm_layers:
             if block_len <= 0:
                 raise ValueError("the SSM caches need block_len > 0")
-            base = init_ssm_state(cfg, batch, self.dtype, self.device)
+            s, dims = cfg.ssm, mamba_dims(cfg)
             n = len(self.ssm_layers)
             ssm = SSMCache(
-                base.state[None].repeat(n, 1, 1, 1, 1),
-                base.conv_tail[None].repeat(n, 1, 1, 1),
-                torch.zeros((n, batch, block_len, cfg.d_model), dtype=self.dtype,
-                            device=self.device))
+                zeros("ssm", (n, batch, dims["n_heads"], s.d_state, s.headdim), torch.float32),
+                zeros("ssm", (n, batch, s.conv_width - 1, dims["conv_ch"]), self.dtype,
+                      d_inner=dims["d_inner"]),
+                zeros("ssmh", (n, batch, block_len, cfg.d_model), self.dtype))
         if kv_pages and (page_size <= 0 or seq_len % page_size):
             raise ValueError(f"page_size {page_size} must divide the sequence {seq_len}")
         if self.attn_layers:
             n = len(self.attn_layers)
             full = ((n, kv_pages, page_size) if kv_pages else (n, batch, seq_len)) \
                 + (cfg.n_kv_heads, cfg.head_dim)
-            # a rank's planes hold its KV heads (``sharding/specs.py``'s rule)
-            sizes, _ = self.tp_mesh()
-            shape = specs.local_shape(
-                full, specs.cache_leaf_spec("kv", full, sizes, paged=bool(kv_pages)), sizes)
-
-            def zeros(shape, dtype):
-                return torch.zeros(shape, dtype=dtype, device=self.device)
+            paged = bool(kv_pages)
             if kv_dtype == "int8":
-                kv = QuantKVCache(zeros(shape, torch.int8), zeros(shape, torch.int8),
-                                  zeros(shape[:-1], torch.float32),
-                                  zeros(shape[:-1], torch.float32))
+                kv = QuantKVCache(zeros("kv", full, torch.int8, paged=paged),
+                                  zeros("kv", full, torch.int8, paged=paged),
+                                  zeros("kv", full[:-1], torch.float32, paged=paged),
+                                  zeros("kv", full[:-1], torch.float32, paged=paged))
             else:
-                kv = KVCache(zeros(shape, self.dtype), zeros(shape, self.dtype))
+                kv = KVCache(zeros("kv", full, self.dtype, paged=paged),
+                             zeros("kv", full, self.dtype, paged=paged))
         if self.cross_layers:
-            shape = (len(self.cross_layers), batch, cfg.n_enc_tokens, cfg.n_kv_heads,
-                     cfg.head_dim)
-            return EncDecCache(kv, KVCache(*(torch.zeros(shape, dtype=self.dtype,
-                                                         device=self.device) for _ in "kv")))
+            full = (len(self.cross_layers), batch, cfg.n_enc_tokens, cfg.n_kv_heads,
+                    cfg.head_dim)
+            return EncDecCache(kv, KVCache(*(zeros("cross", full, self.dtype) for _ in "kv")))
         if ssm is None:
             return kv
         return ssm if kv is None else HybridCache(kv, ssm)
@@ -479,7 +483,11 @@ class Model(nn.Module):
         x = enc_embeds.to(device=self.device, dtype=self.compute_dtype)
         if self.cfg.family == "vlm":
             return x if self.enc_proj is None else x @ self.enc_proj
-        return x if self.encoder is None else self.encoder(x, impl)
+        if self.encoder is None:
+            return x
+        # called as a function, as every other layer of the stack: no module
+        # hooks (the dry run's memory tracker hooks every module it sees)
+        return self.encoder.forward(x, impl, tp=self.tp)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, self.final_norm, self.cfg.rms_eps)
@@ -592,7 +600,7 @@ class Model(nn.Module):
         if planes is not None and ctx.mode == "prefill":
             _store(planes.k, ck, ctx.scatter_mask)
             _store(planes.v, cv, ctx.scatter_mask)
-        return h + x * torch.tanh(layer.gate_attn).to(x.dtype)
+        return h + tp_sum(self.tp, x, "cross") * torch.tanh(layer.gate_attn).to(x.dtype)
 
     def _apply_ssm(self, layer: Block, i: int, h: torch.Tensor, ctx: ForwardCtx,
                    cache: Optional[SSMCache]) -> torch.Tensor:
@@ -607,7 +615,8 @@ class Model(nn.Module):
             full_in = row_scatter(cache.ssmh[i], h, ctx.block_idx)
             y_full, _, _ = mamba_apply(
                 layer.mixer, cfg, rms_norm(full_in, layer.ln1, cfg.rms_eps),
-                state=SSMState(cache.state[i], cache.conv_tail[i]), impl=ctx.attn_impl)
+                state=SSMState(cache.state[i], cache.conv_tail[i]), impl=ctx.attn_impl,
+                tp=self.tp)
             h = h + row_gather(y_full, ctx.block_idx).to(h.dtype)
             _store(cache.ssmh[i], full_in, ctx.scatter_mask)   # the state stays at block start
             return h
@@ -617,7 +626,7 @@ class Model(nn.Module):
                 raise ValueError("an SSM prefill needs block_start")
             capture = ctx.block_start
         y, _, captured = mamba_apply(layer.mixer, cfg, rms_norm(h, layer.ln1, cfg.rms_eps),
-                                     capture_pos=capture, impl=ctx.attn_impl)
+                                     capture_pos=capture, impl=ctx.attn_impl, tp=self.tp)
         h = h + y.to(h.dtype)
         if capture is not None:
             lb = cache.ssmh.shape[2]

@@ -7,9 +7,10 @@ production meshes, in train and serve mode: the port's spec (with the
 arch's head width, the rules its tensor parallelism runs) equals the
 reference's, or differs in one of the divergences ``specs.DIVERGENCES``
 names, which this file lists by leaf (``divergence``).  The cache leaves of
-every attention arch (dense, ``B`` 128 and 1, paged, int8 scales), the
-``EngineState`` and ``BlockState`` specs, ``local_slice`` and
-``port_param_spec`` on the port's unstacked leaves are checked the same way.
+every attention arch (dense, ``B`` 128 and 1, paged, int8 scales, cross
+planes), the SSM caches of mamba2 and Jamba, the ``EngineState`` and
+``BlockState`` specs, ``local_slice`` and ``port_param_spec`` on the port's
+unstacked leaves are checked the same way.
 """
 import dataclasses
 
@@ -40,18 +41,23 @@ ARCHS = tconfigs.list_archs()
 # qwen2 (12); it is a multiple of the KV heads of chatglm3 (2), dream (4),
 # gemma3 (1), granite-moe (8), jamba (8), the vision model (8), llama3 (8)
 # and qwen2 (2); the qkv biases (chatglm3, dream, qwen2) follow their heads
-# where the query heads divide; every MoE router stays whole
+# where the query heads divide; every MoE router stays whole; the mixers
+# of mamba2 and jamba cut their norm scale and per-head leaves with their
+# SSM heads (the reference cuts the rest of a head's leaves alike, flat)
+# and keep B and C whole
 _QKV, _KV, _Q = {"bq", "bk", "bv"}, {"wk", "wv"}, {"wq", "wo", "bq"}
+_SSM = {"ssm_heads": {"norm_scale", "a_log", "dt_bias", "d_skip"},
+        "ssm_groups": {"bc_proj", "conv_bc", "conv_bcb"}}
 EXPECTED = {
     "chatglm3-6b": {"qkv_bias": _QKV, "kv_heads": _KV},
     "dream-7b": {"qkv_bias": {"bk", "bv"}, "heads": _Q, "kv_heads": _KV},
     "gemma3-1b": {"heads": {"wq", "wo"}, "kv_heads": _KV},
     "granite-moe-1b-a400m": {"kv_heads": _KV, "router": {"router"}},
-    "jamba-v0.1-52b": {"kv_heads": _KV, "router": {"router"}},
+    "jamba-v0.1-52b": {"kv_heads": _KV, "router": {"router"}, **_SSM},
     "llada-8b": {},
     "llama-3.2-vision-11b": {"kv_heads": _KV},
     "llama3-8b": {"kv_heads": _KV},
-    "mamba2-370m": {},
+    "mamba2-370m": _SSM,
     "olmoe-1b-7b": {"router": {"router"}},
     "qwen2-1.5b": {"qkv_bias": {"bk", "bv"}, "heads": _Q, "kv_heads": _KV},
     "seamless-m4t-large-v2": {},
@@ -81,6 +87,11 @@ def divergence(name: str, ref: tuple, port) -> str | None:
         return {"wq": "heads", "wo": "heads", "bq": "heads"}.get(name) or \
             ("kv_heads" if name in ("wk", "wv", "bk", "bv") else None)
     heads = port[-1]
+    if name in ("bc_proj", "conv_bc", "conv_bcb") and not any(port) and "model" in ref:
+        return "ssm_groups"
+    if name in ("norm_scale", "a_log", "dt_bias", "d_skip") and heads == "model" \
+            and not any(ref):
+        return "ssm_heads"
     if name in ("bq", "bk", "bv") and heads is not None and not any(ref):
         return "qkv_bias"
     if name == "router" and not any(port) and "model" in ref:
@@ -107,7 +118,8 @@ def test_param_specs_match_reference(arch):
                 ref = norm(jspecs.param_spec(path, shape, mesh, mode=mode), len(shape))
                 try:
                     port = norm(specs.param_spec(path, shape, sizes, mode=mode,
-                                                 head_dim=cfg.head_dim), len(shape))
+                                                 head_dim=cfg.head_dim, ssm=cfg.ssm),
+                                len(shape))
                 except ValueError:
                     port = "raises"
                 # without the head width the rules are the reference's
@@ -160,6 +172,53 @@ def test_cache_specs_match_reference(mesh_name):
             assert port == "raises" or isinstance(port[3], specs.Grouped), (arch, shape, port)
             assert port != "raises" or (h % 16 and 16 % h), (arch, shape)
     assert checked > 40
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-v0.1-52b"])
+def test_ssm_cache_specs_match_reference(arch, mesh_name):
+    """The SSM caches of a served batch of 128 at full width: the SSD state
+    keeps the reference's heads on ``model``; the conv tail differs in
+    ``ssm_conv_tail`` (each rank's x channels, then every B/C channel,
+    where the reference cuts the channels flat); ``ssmh`` in
+    ``activations`` (replicated, where the reference puts ``d`` on
+    ``model``)."""
+    from repro_torch.models.mamba import mamba_dims
+
+    sizes = MESHES[mesh_name]
+    mesh = FakeMesh(sizes)
+    cfg = tconfigs.get_config(arch)
+    s, dims = cfg.ssm, mamba_dims(cfg)
+    g, b = cfg.n_layers, 128
+    state = (g, b, dims["n_heads"], s.d_state, s.headdim)
+    tail = (g, b, s.conv_width - 1, dims["conv_ch"])
+    ssmh = (g, b, 64, cfg.d_model)
+    ref = {k: norm(jspecs.cache_leaf_spec(kind, shape, mesh), len(shape))
+           for k, kind, shape in (("state", "ssm", state), ("tail", "ssm", tail),
+                                  ("ssmh", "ssmh", ssmh))}
+    assert norm(specs.cache_leaf_spec("ssm", state, sizes), 5) == ref["state"] == \
+        (None, "data", "model", None, None)
+    port = norm(specs.cache_leaf_spec("ssm", tail, sizes, d_inner=dims["d_inner"]), 4)
+    assert ref["tail"] == (None, "data", None, "model")
+    assert port == (None, "data", None, specs.Leading("model", dims["d_inner"]))
+    bc = dims["conv_ch"] - dims["d_inner"]
+    assert specs.local_shape(tail, port, sizes) == (g, 8, 3, dims["d_inner"] // 16 + bc)
+    assert norm(specs.cache_leaf_spec("ssmh", ssmh, sizes), 4) == (None, "data", None, None)
+    assert ref["ssmh"] == (None, "data", None, "model")
+    with pytest.raises(ValueError, match="d_inner"):
+        specs.cache_leaf_spec("ssm", tail, sizes)
+    # the same specs through cache_pspecs of a port SSMCache
+    from repro_torch.models.mamba import SSMCache
+
+    fake = SSMCache(*(torch.empty(()).expand(*shape) for shape in (state, tail, ssmh)))
+    got = specs.cache_pspecs(fake, sizes)
+    assert got.conv_tail[3] == specs.Leading("model", dims["d_inner"])
+    # a rank's tail: its x channels, then every B/C channel
+    full = np.arange(2 * dims["conv_ch"]).reshape(1, 1, 2, dims["conv_ch"])
+    one = specs.local_slice(full, (None, None, None, port[3]), sizes, {"model": 3})
+    w = dims["d_inner"] // 16
+    np.testing.assert_array_equal(one, np.concatenate(
+        [full[..., 3 * w:4 * w], full[..., dims["d_inner"]:]], axis=-1))
 
 
 def _engines():
@@ -246,25 +305,32 @@ def test_local_slice_and_shapes():
         specs.local_slice(full, ("model", None), {"model": 3}, {"model": 0})
 
 
-@pytest.mark.parametrize("arch", ["llada-8b", "dream-7b", "olmoe-1b-7b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["llada-8b", "dream-7b", "olmoe-1b-7b", "llama3-8b",
+                                  "mamba2-370m", "jamba-v0.1-52b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
 def test_port_param_spec_matches_reference_layout(arch):
-    """``port_param_spec`` of an unstacked port leaf is the stacked
-    reference leaf's spec without the group dim, at model 16."""
+    """``port_param_spec`` of an unstacked port leaf (the decoder's, the
+    encoder's, the mixer's) is the stacked reference leaf's spec without
+    the group dim, at model 16."""
     cfg = tconfigs.get_config(arch)
     sizes = {"model": 16}
+    kw = dict(ssm=cfg.ssm)
     for path, leaf in _ref_params(arch).items():
         parts = path.split("/")
-        if parts[0] != "layers":
+        if parts[0] not in ("layers", "encoder") or parts[-1] == "final_norm":
             name, shape = path.replace("/", "."), tuple(leaf.shape)
-            want = specs.param_spec(path, shape, sizes, mode="serve", head_dim=cfg.head_dim)
+            want = specs.param_spec(path, shape, sizes, mode="serve", head_dim=cfg.head_dim,
+                                    **kw)
         else:
-            name = ".".join(["layers", parts[1]] + parts[2:])
+            # layers/j/... -> layers.j...; encoder/... -> encoder.layers.0...
+            name = ".".join(["layers", parts[1]] + parts[2:] if parts[0] == "layers"
+                            else ["encoder", "layers", "0"] + parts[1:])
             shape = tuple(leaf.shape[1:])
             try:
                 want = specs.param_spec(path, tuple(leaf.shape), sizes, mode="serve",
-                                        head_dim=cfg.head_dim)[1:]
+                                        head_dim=cfg.head_dim, **kw)[1:]
             except ValueError:
                 with pytest.raises(ValueError):
-                    specs.port_param_spec(name, shape, sizes, cfg.head_dim)
+                    specs.port_param_spec(name, shape, sizes, cfg.head_dim, **kw)
                 continue
-        assert specs.port_param_spec(name, shape, sizes, cfg.head_dim) == want, path
+        assert specs.port_param_spec(name, shape, sizes, cfg.head_dim, **kw) == want, path

@@ -38,20 +38,23 @@ ARCHS = ["llada-8b", "dream-7b", "olmoe-1b-7b"]
 ES = dict(mode="es", skip_stages=((1, 0.5), (2, 0.5)))
 
 
-def generate_job(mesh, cfg, gen, prompt: np.ndarray, *, tree, logits: bool = False) -> dict:
+def generate_job(mesh, cfg, gen, prompt: np.ndarray, *, tree, logits: bool = False,
+                 enc: np.ndarray | None = None) -> dict:
     """One offline ``generate`` on the CPU: the tokens, the collectives it
-    made, and with ``logits`` a cacheless forward's logits of the output."""
+    made, and with ``logits`` a cacheless forward's logits of the output;
+    ``enc`` the encoder-conditioned archs' ``enc_embeds``."""
     from repro_torch.core import make_engine
     from repro_torch.sharding.comm import COUNTER
 
     model = tp.build_model(cfg, mesh, "cpu", tree=tree)
     engine = make_engine(model, gen, device="cpu")
+    kw = {} if enc is None else dict(enc_embeds=torch.as_tensor(enc))
     COUNTER.reset()
-    out = engine.generate(torch.as_tensor(prompt))
+    out = engine.generate(torch.as_tensor(prompt), **kw)
     res = dict(tokens=out.numpy(), collectives=dict(COUNTER.count_by_site))
     if logits:
         with torch.no_grad():
-            res["logits"] = model.forward(out)[0].float().numpy()
+            res["logits"] = model.forward(out, **kw)[0].float().numpy()
     return res
 
 
@@ -240,20 +243,62 @@ def test_mesh_of_one_is_bit_equal_to_no_mesh(tmp_path):
 
 
 def test_tp_refusals():
-    """A mesh on a stack the port does not shard yet raises
-    NotImplementedError; heads that do not divide raise ValueError."""
+    """Every registered arch passes ``check_supported``; what a mesh cannot
+    cut raises ValueError naming the rule: query, KV and SSM heads that do
+    not divide, and an SSM with more than one B/C group."""
+    import dataclasses
+
     from repro_torch import configs
+    from repro_torch.models import Model
     from repro_torch.models.model import check_supported
     from repro_torch.sharding import specs
 
-    for arch in ("mamba2-370m", "jamba-v0.1-52b", "llama-3.2-vision-11b",
-                 "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_supported(configs.get_config(arch), mesh=object())
-    check_supported(configs.get_config("olmoe-1b-7b"), mesh=object())
+    for arch in configs.list_archs():
+        check_supported(configs.get_config(arch))
     with pytest.raises(ValueError, match="n_heads % model"):
         specs.port_param_spec("layers.0.attn.wq", (1152, 1024), {"model": 16}, 256)
     with pytest.raises(ValueError, match="model % n_kv_heads"):
         specs.port_param_spec("layers.0.attn.wk", (4096, 3 * 128), {"model": 4}, 128)
     assert specs.port_param_spec("layers.0.attn.wk", (256, 4 * 32), {"model": 8}, 32) == \
         (None, specs.Grouped("model", 4))
+    # mamba2-370m: 32 SSM heads of 64 channels
+    ssm = configs.get_config("mamba2-370m").ssm
+    assert specs.port_param_spec("layers.0.mixer.x_proj", (1024, 2048), {"model": 16}, 0,
+                                 ssm=ssm) == (None, "model")
+    with pytest.raises(ValueError, match="n_ssm_heads % model"):
+        specs.port_param_spec("layers.0.mixer.x_proj", (1024, 2048), {"model": 64}, 0, ssm=ssm)
+    with pytest.raises(ValueError, match="n_ssm_heads % model"):
+        specs.port_param_spec("layers.0.mixer.a_log", (32,), {"model": 3}, 0, ssm=ssm)
+    grouped = dataclasses.replace(ssm, n_groups=2)
+    with pytest.raises(ValueError, match=r"n_groups=2.*ROADMAP"):
+        specs.port_param_spec("layers.0.mixer.bc_proj", (1024, 512), {"model": 2}, 0,
+                              ssm=grouped)
+    # the model refuses both at construction, before any weight is drawn
+    cfg = dataclasses.replace(configs.reduced(configs.get_config("mamba2-370m")), n_layers=1)
+    with pytest.raises(ValueError, match="n_ssm_heads % model"):
+        Model(cfg, device="cpu", mesh=_FakeModelAxis(64))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        Model(dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, n_groups=2)),
+              device="cpu", mesh=_FakeModelAxis(2))
+
+
+class _FakeModelAxis:
+    """A stand-in ``DeviceMesh`` with a ``model`` axis of ``size`` ranks:
+    enough for ``TPGroup.from_mesh``, which reads the axis and no group
+    until a collective runs."""
+    mesh_dim_names = ("model",)
+
+    def __init__(self, size: int):
+        self.size_ = size
+
+    def __getitem__(self, name):
+        return self
+
+    def get_group(self):
+        return None
+
+    def get_local_rank(self):
+        return 0
+
+    def size(self, dim=None):
+        return self.size_
