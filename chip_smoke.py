@@ -187,7 +187,22 @@ no result):
    single-pod dry runs of jamba-v0.1-52b at all 32 layers and
    llama-3.2-vision-11b at decode_32k (18c).  Phase 3 also holds kernel 8
    at a TP-2 rank's 64 Jamba heads (decode and prefill) and kernel 1 as
-   SeamlessM4T's cross-attention at 8 of 16 heads.
+   SeamlessM4T's cross-attention at 8 of 16 heads;
+19. training under FSDP x TP: a ``(data=2, model=2)`` mesh of four gloo
+   ranks sharing the card (``Model(mode="train")``, ``sharding/fsdp.py``),
+   TF32 off in every rank: qwen2-1.5b at full width cut to 4 of 28 layers
+   (19a) and mamba2-370m cut to 4 of 48 (19b), f32, two train steps of
+   synthetic 4 x 256 batches (CE chunks of 128, lr 1e-3) against the same
+   two steps at TP 1 in this process: losses within 1e-5 relative, grad
+   norms within 1e-5 at step 1 and 1e-4 at step 2 (``fsdp_metric_rtol``),
+   every rank's gathered parameters equal, the ranks that hold
+   one piece of a leaf bit-equal, rank 0's gathered parameters within the
+   bound ``fsdp_param_errs`` states of TP 1's, no hand-written kernel
+   launched; s a step, per-rank memory, the all-reduces, all-gathers and
+   reduce-scatters a step by site with their bytes and device ms (gloo
+   through the host on one card, not a multi-card figure); the dry run of
+   19a's configuration at ``debug=(2, 2)``, its ``argument_size`` equal to
+   rank 0's measured bytes of parameters, moments, key and rows (19c).
 
 On phases 5, 6, 7, 9, 10, 11, 12, 13, 14 and 15 every attention launch must take
 the tensor-core body (on phase 11 reading int8 codes, with every K/V write the
@@ -208,8 +223,10 @@ import dataclasses
 import json
 import math
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -5412,7 +5429,8 @@ def phase17(kernel_fns) -> tuple[dict, dict]:
     tp1_18 = {arch: tp1_one_block(arch, depth) for arch, depth in TP_PARITY_18}
     tp1_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ranks = spawn(tp_rank_job, TP, workdir=ROOT / "build" / f"tp17_{time.time_ns()}")
+    with tempfile.TemporaryDirectory(prefix="tp17_", dir=ROOT / "build") as work:
+        ranks = spawn(tp_rank_job, TP, workdir=work)
     ranks_s = time.perf_counter() - t0
     a = [r["17"]["a"] for r in ranks]
     b = [r["17"]["b"] for r in ranks]
@@ -5664,6 +5682,327 @@ def report18(r: dict) -> None:
           f"{c['dryrun']['flops']:.3e}, all-reduces by site "
           f"{json.dumps(c['dryrun']['collectives_by_site']['count'])}")
     report_single("18c", c["single"])
+
+
+# ---------------------------------------------------------------------------
+# phase 19: training under FSDP x TP, four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+FSDP_MESH = (2, 2)                     # (data, model)
+# 19a and 19b: full width, cut in depth to fit the phase's 60 s (PERF.md §4)
+FSDP_ARCHS = (("qwen2-1.5b", 4), ("mamba2-370m", 4))
+FSDP_TRAIN = dict(steps=2, batch=4, seq=256, ce_chunk=128, lr=1e-3)
+
+
+def fsdp_steps(model, cfg, kernel_fns, masks: dict | None = None, *,
+               ce_chunk: int | None = None, eps: float | None = None) -> dict:
+    """``FSDP_TRAIN``'s train steps on ``model`` (a rank's shards, or TP 1
+    whole) from ``SEED``'s key and batches: each step's loss, grad norm and
+    seconds (host clock, synchronized at both ends), its collectives by kind
+    and site with their bytes and device ms (CUDA events); no hand-written
+    kernel may launch.  With ``masks`` (TP 1), ``masks[name]`` is set to
+    where every step's gradient of parameter ``name`` is at least 1e-4 of
+    its largest |g| and its clipped gradient at least ``100 eps``.  Also the
+    bytes of the step's arguments: parameters, moments, key and the rank's
+    rows of the batch.  ``ce_chunk`` and ``eps`` replace ``FSDP_TRAIN``'s
+    CE chunk and AdamW's eps (phase 19's witness)."""
+    from repro_torch.core import prng
+    from repro_torch.sharding.comm import COUNTER
+    from repro_torch.train import (
+        DataConfig,
+        OptimizerConfig,
+        SyntheticTextDataset,
+        TrainState,
+        init_opt_state,
+        make_train_step,
+    )
+    from repro_torch.train.optimizer import clip_scale
+
+    t = FSDP_TRAIN
+    opt = OptimizerConfig(lr=t["lr"], warmup_steps=1, total_steps=t["steps"])
+    if eps is not None:
+        opt = dataclasses.replace(opt, eps=eps)
+    step = make_train_step(model, opt, ce_chunk=ce_chunk or t["ce_chunk"])
+    state = TrainState(model, init_opt_state(model), prng.prng_key(SEED, device="cuda"))
+    ds = SyntheticTextDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                                         global_batch=t["batch"], seed=SEED))
+    rows = t["batch"] // (1 if model.dp is None else model.dp.batch_size)
+    out = dict(losses=[], grad_norms=[], step_s=[], collectives=[],
+               arg_bytes=nbytes(*model.parameters(), *state.opt.mu.values(),
+                                *state.opt.nu.values(), state.key)
+               + rows * t["seq"] * (4 + 1))           # int32 tokens, bool loss region
+    zero_counts(kernel_fns)
+    for _ in range(t["steps"]):
+        batch = ds.next_batch()
+        COUNTER.reset()
+        COUNTER.timing = True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        COUNTER.timing = False
+        out["collectives"].append(dict(
+            count={k: dict(v) for k, v in COUNTER.count_by_kind_site.items()},
+            bytes=dict(COUNTER.bytes_by_site),
+            device_ms=COUNTER.device_ms_by_site()))
+        out["losses"].append(float(m["loss"]))
+        out["grad_norms"].append(float(m["grad_norm"]))
+        if masks is not None:
+            clip = float(clip_scale(m["grad_norm"], opt.grad_clip))
+            for name, p in model.named_parameters():
+                g = p.grad.abs()
+                big = (g >= 1e-4 * g.max()) & (g * clip >= 100 * opt.eps)
+                masks[name] = big if name not in masks else masks[name] & big
+    launched = {k: v for k, v in counts(kernel_fns).items() if v}
+    if launched:
+        raise AssertionError(f"phase 19: training launched kernels {launched}")
+    return out
+
+
+def fsdp_metric_rtol(name: str, step: int) -> float:
+    """Phase 19's relative bound on a step's loss or grad norm against TP
+    1's: 1e-5, but 1e-4 on the grad norm after the first step.  From equal
+    parameters the two differ only in the order of f32 additions (the sums
+    over the ranks, the card's GEMMs at a rank's shapes), but step 2's
+    gradient is taken at parameters AdamW has moved: an element whose
+    clipped gradient is near its eps (1e-8) moves by ``lr g / (|g| + eps)``,
+    so a rounding difference of its gradient moves it, and the gradient at
+    step 2 follows.  ``fsdp_witness`` shows it without the mesh: TP 1
+    against TP 1 with only the CE's order of additions changed, at eps and
+    at eps raised."""
+    return 1e-4 if name == "grad_norms" and step > 0 else 1e-5
+
+
+def fsdp_witness(kernel_fns, base: dict) -> dict:
+    """Where the step-2 gap of ``fsdp_metric_rtol`` comes from, on 19a's
+    model at TP 1: ``base`` (``fsdp_steps`` at ``FSDP_TRAIN``) against the
+    same steps with CE chunks of 256 (which changes only the order in which
+    the head's weight gradient adds the chunks), and both again with AdamW's
+    eps raised to 1e-6.  Returns the relative gaps of each step's loss and
+    grad norm at each eps."""
+    arch, depth = FSDP_ARCHS[0]
+    cfg = tp_cfg(arch, "float32", depth)
+
+    def run(**kw) -> dict:
+        model = seeded_model(cfg)
+        out = fsdp_steps(model, cfg, kernel_fns, **kw)
+        del model
+        torch.cuda.empty_cache()
+        return out
+
+    def gaps(x: dict, y: dict) -> dict:
+        return {name: [abs(a - b) / abs(b) for a, b in zip(x[name], y[name])]
+                for name in ("losses", "grad_norms")}
+    raised = run(eps=1e-6)
+    return {"1e-08": gaps(run(ce_chunk=256), base),
+            "1e-06": gaps(run(ce_chunk=256, eps=1e-6), raised)}
+
+
+def fsdp_param_errs(got: dict, want: dict, masks: dict) -> dict:
+    """19a's and 19b's bound on the parameters after the two steps (flat
+    trees of numpy arrays, the reference's paths), as the CPU tests state
+    it against the reference: every element within ``4 lr`` of TP 1's (an
+    AdamW update is at most 1 at step 1 and 1.0007 at step 2, so a sign
+    flipped by rounding moves an element by at most that), and every
+    element whose gradient at each step was at least 1e-4 of its
+    parameter's largest |g| and whose clipped gradient was at least
+    ``100 eps`` within ``1e-2 lr`` (``well_set_share`` of the elements).
+    Returns the largest error of each kind."""
+    import numpy as np
+
+    lr = FSDP_TRAIN["lr"]
+    worst = dict(all=0.0, well_set=0.0, well_set_share=0.0)
+    n = n_set = 0
+    for path, w in want.items():
+        err = np.abs(got[path] - w)
+        worst["all"] = max(worst["all"], float(err.max(initial=0)))
+        worst["well_set"] = max(worst["well_set"], float(err[masks[path]].max(initial=0)))
+        n, n_set = n + err.size, n_set + int(masks[path].sum())
+    worst["well_set_share"] = n_set / n
+    if not (worst["all"] <= 4 * lr and worst["well_set"] <= 1e-2 * lr):
+        raise AssertionError(f"phase 19: parameters after two steps {worst} from TP 1's")
+    return worst
+
+
+def fsdp_rank_job(mesh, tp1_dir: str) -> dict:
+    """One rank of phase 19 (its own process, sharing the card): for each of
+    ``FSDP_ARCHS``, the rank's shards of the seeded weights, the two steps,
+    its memory, a digest of every gathered leaf and of each of its shards;
+    on rank 0 the gathered parameters against TP 1's (from ``tp1_dir``)."""
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.launch.tp import build_model
+    from repro_torch.sharding import specs
+    from repro_torch.utils.tree import flatten_with_paths
+
+    kernel_fns = all_kernel_fns()
+    out = {}
+    for arch, depth in FSDP_ARCHS:
+        cfg = tp_cfg(arch, "float32", depth)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, mesh, "cuda", seed=SEED, mode="train")
+        torch.cuda.synchronize()
+        run = dict(init_s=time.perf_counter() - t0, coords=specs.mesh_coords(mesh),
+                   full_shapes={n: shape for n, (shape, _) in model.fsdp.layout.items()})
+        run.update(fsdp_steps(model, cfg, kernel_fns))
+        run["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        run["shard_digest"] = {n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
+                               for n, p in model.named_parameters()}
+        t0 = time.perf_counter()
+        tree = flatten_with_paths(params_to_numpy(model))
+        run["gather_s"] = time.perf_counter() - t0
+        run["digest"] = {k: hashlib.sha1(a.tobytes()).hexdigest() for k, a in tree.items()}
+        if dist.get_rank() == 0:
+            with np.load(Path(tp1_dir) / f"{arch}.npz") as f:
+                want = {k: f[k] for k in tree}
+                masks = {k: f["mask:" + k] for k in tree}
+            run["vs_tp1"] = fsdp_param_errs(tree, want, masks)
+        out[arch] = run
+        del model, tree
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase19(kernel_fns) -> dict:
+    """Training under FSDP x TP over ``FSDP_MESH``: four gloo ranks on the
+    one card (NCCL refuses two ranks on one card).  TP 1 first, in this
+    process, on the same seeded weights: its two steps, then its final
+    parameters and gradient masks written for rank 0 into a directory that
+    is removed once the ranks return; ``fsdp_witness``; then the ranks (19a,
+    19b) and the dry run of 19a's step (19c: its bytes and its collectives
+    by kind and site against rank 0's).  Raises where a check fails."""
+    import numpy as np
+
+    from repro_torch.configs import InputShape
+    from repro_torch.convert import params_to_numpy, restack
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.tp import spawn
+    from repro_torch.utils.tree import flatten_with_paths
+
+    work = Path(tempfile.mkdtemp(prefix="fsdp19_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        tp1 = {}
+        for arch, depth in FSDP_ARCHS:
+            cfg = tp_cfg(arch, "float32", depth)
+            model = seeded_model(cfg)
+            masks: dict = {}
+            tp1[arch] = fsdp_steps(model, cfg, kernel_fns, masks)
+            arrays = flatten_with_paths(params_to_numpy(model))
+            arrays.update({"mask:" + k: v for k, v in flatten_with_paths(
+                restack(model, lambda n: masks[n].cpu().numpy())).items()})
+            np.savez(work / f"{arch}.npz", **arrays)
+            del model, masks, arrays
+            torch.cuda.empty_cache()
+        tp1_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        witness = fsdp_witness(kernel_fns, tp1[FSDP_ARCHS[0][0]])
+        witness_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn(fsdp_rank_job, math.prod(FSDP_MESH), (str(work),),
+                      workdir=work / "ranks", mesh_shape=FSDP_MESH)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec = dict(mesh=dict(zip(("data", "model"), FSDP_MESH)), backend="gloo", tp1_s=tp1_s,
+               ranks_s=ranks_s, witness_s=witness_s, witness=witness, train=FSDP_TRAIN,
+               runs={})
+    for (arch, depth), part in zip(FSDP_ARCHS, "ab"):
+        got = [r[arch] for r in ranks]
+        for name in ("losses", "grad_norms"):
+            for i, (x, y) in enumerate(zip(got[0][name], tp1[arch][name])):
+                if not abs(x - y) <= fsdp_metric_rtol(name, i) * abs(y):
+                    raise AssertionError(f"phase 19{part} {arch}: {name} {got[0][name]} at "
+                                         f"(2, 2), {tp1[arch][name]} at TP 1")
+        if any(g[name] != got[0][name] for g in got for name in ("losses", "grad_norms")):
+            raise AssertionError(f"phase 19{part} {arch}: the ranks' metrics differ")
+        if any(g["digest"] != got[0]["digest"] for g in got):
+            raise AssertionError(f"phase 19{part} {arch}: the ranks' gathered parameters differ")
+        shared = fsdp_shared_pieces(tp_cfg(arch, "float32", depth), got)
+        rec["runs"][arch] = dict(
+            part=part, layers=depth, tp1=tp1[arch], vs_tp1=got[0]["vs_tp1"],
+            pieces_held_by_several_ranks=shared,
+            ranks=[{k: v for k, v in g.items() if k not in ("digest", "shard_digest",
+                                                            "vs_tp1", "full_shapes")}
+                   for g in got])
+    # 19c: the dry run of 19a's configuration beside rank 0's bytes
+    t0 = time.perf_counter()
+    arch, depth = FSDP_ARCHS[0]
+    t = FSDP_TRAIN
+    dry = dryrun.run_one(arch, "phase19", "debug", debug=FSDP_MESH,
+                         cfg=tp_cfg(arch, "float32", depth), verbose=False,
+                         shape=InputShape("phase19_train", t["seq"], t["batch"], "train"),
+                         ce_chunk=t["ce_chunk"])
+    end_dry_run_group()
+    measured = ranks[0][arch]["arg_bytes"]
+    if dry["memory"]["argument_size"] != measured:
+        raise AssertionError(f"phase 19c: dry-run argument_size {dry['memory']['argument_size']}"
+                             f" != measured {measured}")
+    real = ranks[0][arch]["collectives"][-1]["count"]
+    if dry["collectives_by_site"]["count_by_kind"] != real:
+        raise AssertionError(f"phase 19c: dry-run collectives "
+                             f"{dry['collectives_by_site']['count_by_kind']} != rank 0's {real}")
+    rec["c"] = dict(dryrun=dry, measured_bytes=measured, dryrun_s=time.perf_counter() - t0)
+    return rec
+
+
+def fsdp_shared_pieces(cfg, got: list) -> int:
+    """The ranks that hold one piece of a leaf hold the same bits
+    (``shard_digest``): raises where two differ; returns how many such
+    pairs were compared."""
+    from repro_torch.sharding import specs
+
+    sizes = dict(zip(("data", "model"), FSDP_MESH))
+    shared = 0
+    for name, shape in got[0]["full_shapes"].items():
+        spec = specs.port_param_spec(name, shape, sizes, cfg.head_dim, mode="train",
+                                     ssm=cfg.ssm)
+        pieces: dict = {}
+        for g in got:
+            idx = specs.local_index(shape, spec, sizes, g["coords"])
+            pieces.setdefault(tuple((s.start, s.stop) for s in idx), []).append(g)
+        for holders in pieces.values():
+            for g in holders[1:]:
+                shared += 1
+                if g["shard_digest"][name] != holders[0]["shard_digest"][name]:
+                    raise AssertionError(f"phase 19: {name}: ranks {holders[0]['coords']} and "
+                                         f"{g['coords']} hold one piece with other bits")
+    return shared
+
+
+def report19(r: dict) -> None:
+    print(f"phase 19: training under FSDP x TP, mesh {json.dumps(r['mesh'])} over "
+          f"{r['backend']}, four ranks on one card (times are gloo through the host, not a "
+          f"multi-card figure); TP 1 {r['tp1_s']:.1f} s, witness {r['witness_s']:.1f} s, ranks "
+          f"{r['ranks_s']:.1f} s, dry run {r['c']['dryrun_s']:.1f} s")
+    print(f"phase 19 witness, {FSDP_ARCHS[0][0]} at TP 1, CE chunks of 256 against "
+          f"{FSDP_TRAIN['ce_chunk']}, relative gaps by AdamW eps: {json.dumps(r['witness'])}")
+    for arch, a in r["runs"].items():
+        t1 = a["tp1"]
+        print(f"phase 19{a['part']} {arch} (f32, {a['layers']} layers): losses "
+              f"{a['ranks'][0]['losses']} (TP 1 {t1['losses']}), grad norms "
+              f"{a['ranks'][0]['grad_norms']} (TP 1 {t1['grad_norms']}); parameters after "
+              f"two steps vs TP 1 {json.dumps(a['vs_tp1'])}; {a['pieces_held_by_several_ranks']}"
+              f" shared pieces bit-equal; TP 1 s a step {json.dumps(t1['step_s'])}")
+        for rank, g in enumerate(a["ranks"]):
+            c = g["collectives"][-1]
+            print(f"phase 19{a['part']} rank {rank} {json.dumps(g['coords'])}: s a step "
+                  f"{json.dumps([round(x, 3) for x in g['step_s']])}, max_memory_allocated "
+                  f"{g['max_memory_allocated_gb']:.2f} GB, gather of the tree "
+                  f"{g['gather_s']:.1f} s; step 2's collectives {json.dumps(c['count'])}, "
+                  f"bytes by site {json.dumps(c['bytes'])}, device ms by site "
+                  f"{json.dumps({k: round(v, 2) for k, v in c['device_ms'].items()})}")
+    c = r["c"]
+    mem = c["dryrun"]["memory"]
+    print(f"phase 19c: dry run of 19a's train step at (2, 2): argument_size "
+          f"{mem['argument_size']} = rank 0's measured {c['measured_bytes']}, temp_size "
+          f"{mem['temp_size']}, flops {c['dryrun']['flops']:.3e}, collectives "
+          f"{json.dumps(c['dryrun']['collectives']['count_by_kind'])} (by site = rank 0's)")
 
 
 def profile_run(fn, top: int = 8) -> dict:
@@ -6083,6 +6422,10 @@ def main() -> int:
     tp18_run = phase18(tp18_inputs)
     report18(tp18_run)
     lap("17-18")
+    # phase 19: training under FSDP x TP, four gloo ranks on the one card
+    fsdp_run = phase19(kernel_fns)
+    report19(fsdp_run)
+    lap("19")
     print(f"phase seconds: {json.dumps(phase_s)}")
 
     # the kernels record, at a decode shape and dtype each path gives each
@@ -6206,7 +6549,7 @@ def main() -> int:
              scatter_d256=scatter256, cross_device_jamba=cross_jamba, jamba=jamba,
              cross_device_encoders=cross_enc, encoder_archs=enc_runs,
              cross_device_training=cross_train, training=train_run, tensor_parallel=tp_run,
-             tensor_parallel_stacks=tp18_run,
+             tensor_parallel_stacks=tp18_run, fsdp_training=fsdp_run,
              dream_sampled_serving=sampled, mamba2=mamba_runs, kernels=kernels),
         indent=1))
     print(smi.splitlines()[0])

@@ -39,17 +39,20 @@ F32_LEAVES = dict.fromkeys(("a_log", "dt_bias", "d_skip", "router", "gate_attn")
 
 def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       device: str | torch.device | None = None, *,
-                      mesh=None) -> dict[str, torch.Tensor]:
+                      mesh=None, mode: str = "serve") -> dict[str, torch.Tensor]:
     """Returns a state dict for ``Model(cfg)``: ``model.load_state_dict(...)``.
     Arrays are cast to ``cfg.param_dtype``, but the f32 leaves.  With
     ``mesh`` (a DeviceMesh with a ``model`` axis), each leaf is cut to this
-    rank's shard (``sharding/specs.py``) before it is copied to the device:
-    the state dict of ``Model(cfg, mesh=mesh)``."""
+    rank's shard (``sharding/specs.py``'s rules of ``mode``: the train mode
+    cuts over ``data`` too) before it is copied to the device: the state
+    dict of ``Model(cfg, mesh=mesh, mode=mode)``."""
     dev = resolve_device(device)
     sizes = coords = None
     if mesh is not None:
-        sizes = {"model": specs.axis_sizes(mesh)["model"]}
-        coords = {"model": specs.mesh_coords(mesh)["model"]}
+        axes = ("model", "data") if mode == "train" else ("model",)
+        all_sizes, all_coords = specs.axis_sizes(mesh), specs.mesh_coords(mesh)
+        sizes = {a: all_sizes.get(a, 1) for a in axes}
+        coords = {a: all_coords.get(a, 0) for a in axes}
     dtype = DTYPES[cfg.param_dtype]
     period = cfg.pattern_period
     if set(tree["layers"]) != {str(j) for j in range(period)}:
@@ -59,7 +62,8 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
     def t(a, dt=dtype, name: str = "") -> torch.Tensor:
         a = np.asarray(a, np.float32)
         if sizes is not None:
-            spec = specs.port_param_spec(name, a.shape, sizes, cfg.head_dim, ssm=cfg.ssm)
+            spec = specs.port_param_spec(name, a.shape, sizes, cfg.head_dim, mode=mode,
+                                         ssm=cfg.ssm)
             a = specs.local_slice(a, spec, sizes, coords).copy()
         return torch.tensor(a, device=dev).to(dt)
 
@@ -95,18 +99,24 @@ def params_to_numpy(model, *, grads: bool = False) -> dict:
     (``F32_LEAVES``) and float32 parameters stay float32; bfloat16 ones are
     widened to float32, which numpy holds and which converts back exactly.
     With ``grads``, the parameters' ``.grad`` (zeros where None) in the same
-    tree, under the same paths."""
-    cfg = model.cfg
-    if model.tp is not None:
-        raise NotImplementedError("params_to_numpy: a tensor-parallel model holds shards; "
-                                  "training under FSDP x TP is queued in ROADMAP.md (A8)")
-    period, n_groups = cfg.pattern_period, cfg.n_layers // cfg.pattern_period
-
+    tree, under the same paths.  On a model with a mesh every rank gathers
+    the whole tree (``FSDP.full``: a collective, so every rank calls it)."""
     def a(name: str) -> np.ndarray:
         p = model.get_parameter(name)
         if grads:
             p = torch.zeros_like(p) if p.grad is None else p.grad
+        if model.fsdp is not None:
+            p = model.fsdp.full(name, p.detach())
         return p.detach().to("cpu", torch.float32).numpy().copy()
+    return restack(model, a)
+
+
+def restack(model, a) -> dict:
+    """The reference's nested tree of ``a(name)`` (a numpy array) for each
+    parameter ``name`` of ``model``, layer ``g*P + j``'s leaves stacked as
+    ``layers[str(j)][g]``, the encoder's as ``encoder[...][i]``."""
+    cfg = model.cfg
+    period, n_groups = cfg.pattern_period, cfg.n_layers // cfg.pattern_period
 
     def stack(prefixes) -> dict:
         first = prefixes[0]

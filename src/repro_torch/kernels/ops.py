@@ -72,11 +72,11 @@ def attention(
     With ``k_scale``/``v_scale``, ``k``/``v`` are int8 codes read with their
     per-(token, head) scales: the kernel dequantizes as it reads, so the
     cache is never widened.  ``impl="plain"`` runs the plain version on
-    either device."""
+    either device, and on fake tensors (the dry run's train step)."""
     _check_impl("attention", impl)
     kw = dict(window=window, anchor=anchor, causal=causal, bc_start=bc_start,
               bc_block=bc_block, k_scale=k_scale, v_scale=v_scale)
-    if fake.is_fake(q, k, v):
+    if fake.is_fake(q, k, v) and impl == "kernel":
         return fake.attention(q, k, v, q_pos, kv_pos, k_scale=k_scale, v_scale=v_scale)
     if _on_card(q, k, v, q_pos, kv_pos, k_scale, v_scale) and impl == "kernel":
         return flash_attention(q, k, v, q_pos, kv_pos, **kw)

@@ -34,12 +34,15 @@ Every serving combination runs pure TP: each rank holds ``1/model`` of the
 weights.  The reference switches to FSDP x TP weights where a rank's share
 passes 4 GiB (jamba-v0.1-52b's 6.5 GiB, sized for v5e's 16 GiB); the port
 does not, and records jamba-v0.1-52b's per-rank ``argument_size`` as it is.
-The reference's ``--variant`` flag (``int8kv``, ``ssm_seqpar``,
-``moe_lean``) is not ported (``ROADMAP.md``, A8).
+``train_4k`` runs the train step under FSDP x TP (``launch/steps.py``):
+forward, backward and AdamW on the rank's shards and rows, its collectives
+by kind (``all-gather``, ``reduce-scatter``, ``all-reduce``) and site.  The
+reference's ``--variant`` flag (``int8kv``, ``ssm_seqpar``, ``moe_lean``) is
+not ported (``ROADMAP.md``, A8).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llada-8b --shape decode_32k --mesh single
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--mesh single|multi|both]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--shape train_4k] [--mesh single|multi|both]
 
 Results go to ``build/dryrun/<arch>__<shape>__<mesh>.json`` at the repo
 root; an existing one is kept unless ``--force``.
@@ -120,7 +123,7 @@ def make_mesh(mesh_name: str, debug: tuple | None = None):
 def run_one(arch: str, shape_name: str, mesh_name: str, *, verbose: bool = True,
             debug: tuple | None = None, **overrides) -> dict:
     """One combination's record; ``debug=(data, model)`` takes a debug mesh,
-    and ``overrides`` (``cfg``, ``shape``, ``gen``) reach
+    and ``overrides`` (``cfg``, ``shape``, ``gen``, ``ce_chunk``) reach
     ``steps.input_specs``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
@@ -168,7 +171,9 @@ def run_one(arch: str, shape_name: str, mesh_name: str, *, verbose: bool = True,
         "bytes_accessed": cost["bytes accessed"],
         "collectives": coll.as_dict(),
         "collectives_by_site": {"count": dict(COUNTER.count_by_site),
-                                "bytes": dict(COUNTER.bytes_by_site)},
+                                "bytes": dict(COUNTER.bytes_by_site),
+                                "count_by_kind": {k: dict(v) for k, v in
+                                                  COUNTER.count_by_kind_site.items()}},
         "kernels": {k: dict(v) for k, v in TALLY.by_kernel.items()},
         "memory": {"argument_size": argument_size,
                    "output_size": nbytes(fresh.values()),
@@ -201,7 +206,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     archs = list_archs() if (args.all or args.arch is None) else [args.arch]
-    shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
+    shapes = list(INPUT_SHAPES) if args.shape is None else [args.shape]
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     ARTIFACT_DIR.mkdir(parents=True, exist_ok=True)

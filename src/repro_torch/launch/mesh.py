@@ -9,9 +9,10 @@ the mesh's size for the dry run (``repro_torch.launch.dryrun``).  Functions,
 not module-level constants, so importing this module touches no process
 group.
 
-The port uses the mesh's ``model`` axis for tensor parallelism; ``data`` and
-``pod`` are replicas, each serving its own share of the batch, which exchange
-nothing.
+The port uses the mesh's ``model`` axis for tensor parallelism.  Serving,
+``data`` and ``pod`` are replicas, each serving its own share of the batch,
+which exchange nothing; training cuts the parameters over ``data`` (FSDP,
+``sharding/fsdp.py``) and sums the gradients over both.
 """
 from __future__ import annotations
 

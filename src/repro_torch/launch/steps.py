@@ -11,8 +11,10 @@ Shape -> step (the reference's mapping):
   long_500k   -> serve step at a 524,288-row cache; pure full-attention
                  archs run the windowed long-context variant (window 8,192
                  and a prompt anchor of 1,024)
-  train_4k    -> refused: training under FSDP x TP is queued (ROADMAP.md,
-                 A8)
+  train_4k    -> train step   (the masked-diffusion loss, its backward pass
+                 with remat, CE chunks of 256, and AdamW with
+                 ``OptimizerConfig()``); the audio and vision archs' batch
+                 holds ``enc_embeds`` too
 
 The reference returns ``ShapeDtypeStruct`` stand-ins for XLA to lower; the
 port builds the model, the engine and the step's state as they are, so
@@ -20,7 +22,10 @@ under ``FakeTensorMode`` they are fake tensors with no data.  With a mesh
 the model is the rank's tensor-parallel shard (its ``model`` axis) and the
 state holds the rank's share of the batch (its ``data``/``pod`` axes, where
 they divide the batch, else the whole batch, as ``sharding.specs``'s guard
-replicates it).
+replicates it).  A train step's model is cut by the train rules, FSDP over
+``data`` x TP over ``model`` (``sharding/fsdp.py``), and its state holds
+the rank's shards of the parameters and AdamW's moments and its rows of the
+global batch.
 """
 from __future__ import annotations
 
@@ -36,9 +41,12 @@ from repro_torch.configs import (
     default_skip_stages,
     get_config,
 )
+from repro_torch.core import prng
 from repro_torch.core.engine import DiffusionEngine
 from repro_torch.models.model import Model
 from repro_torch.sharding import specs
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.train.train_step import TrainState, make_train_step
 
 LONG_CTX_WINDOW = 8192
 LONG_CTX_ANCHOR = 1024
@@ -120,19 +128,42 @@ def make_prefill_fn(model: Model, shape: InputShape, arch: str, *, mesh=None,
     return prefill_step, (state, bs, enc), eng
 
 
+def make_train_fn(model: Model, shape: InputShape, *, mesh=None, ce_chunk: int = 256):
+    """train step: the reference's ``make_train_fn``, ``OptimizerConfig()``,
+    remat, CE chunks of ``ce_chunk`` (the sequence, where it is shorter).
+    Returns ``(step_fn, (state, batch))``: the state holds the model (the
+    rank's shards), zero moments of the shards' shapes and a key, the batch
+    the rank's rows of the global one (``local_batch``), in the compute
+    dtype for ``enc_embeds``."""
+    cfg = model.cfg
+    step = make_train_step(model, OptimizerConfig(), ce_chunk=min(ce_chunk, shape.seq_len),
+                           remat=True, global_batch=shape.global_batch)
+    state = TrainState(model, init_opt_state(model), prng.prng_key(0, device=model.device))
+    b, l = local_batch(shape, mesh), shape.seq_len
+    batch = {"tokens": torch.zeros((b, l), dtype=torch.int32, device=model.device),
+             "loss_region": torch.zeros((b, l), dtype=torch.bool, device=model.device)}
+    if cfg.family in ("audio", "vlm"):
+        batch["enc_embeds"] = torch.zeros((b, cfg.n_enc_tokens, cfg.d_enc or cfg.d_model),
+                                          dtype=model.compute_dtype, device=model.device)
+    return step, (state, batch)
+
+
 def input_specs(arch: str, shape_name: str, mesh=None, *, device: str | torch.device = "cuda", cfg: ModelConfig | None = None,
-                shape: InputShape | None = None, gen: GenerationConfig | None = None):
+                shape: InputShape | None = None, gen: GenerationConfig | None = None,
+                ce_chunk: int = 256):
     """Public entry: ``(step_fn, args, model)``, the model on ``device`` (a
-    tensor-parallel shard with ``mesh``).  ``cfg``, ``shape`` and ``gen``
-    replace the arch's bf16 config, the named shape and the serving config
-    (reduced runs).  Raises ``NotImplementedError`` for what the port does
-    not run sharded yet (training) and ``ValueError`` for head counts the
-    mesh does not divide."""
+    shard with ``mesh``: tensor-parallel to serve, FSDP x TP to train).
+    ``cfg``, ``shape``, ``gen`` and ``ce_chunk`` replace the arch's bf16
+    config, the named shape, the serving config and the train step's CE
+    chunk (reduced runs).  Raises ``ValueError`` for head counts the mesh
+    does not divide."""
     shape = shape or INPUT_SHAPES[shape_name]
+    cfg = cfg or dryrun_model_config(arch)
     if shape.kind == "train":
-        raise NotImplementedError(f"{shape.name}: training under FSDP x TP is queued in "
-                                  f"ROADMAP.md (A8)")
-    model = Model(cfg or dryrun_model_config(arch), device=device, mesh=mesh)
+        model = Model(cfg, device=device, mesh=mesh, mode="train")
+        step, args = make_train_fn(model, shape, mesh=mesh, ce_chunk=ce_chunk)
+        return step, args, model
+    model = Model(cfg, device=device, mesh=mesh)
     make = make_prefill_fn if shape.kind == "prefill" else make_serve_fn
     step, args, _ = make(model, shape, arch, mesh=mesh, gen=gen)
     return step, args, model

@@ -7,6 +7,11 @@ the same steps on the CPU).  The model starts from seeded random weights
       --reduced --steps 50 --batch 4 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --arch seamless-m4t-large-v2 --steps 4 --batch 2 --seq 32 --ckpt build/ckpt.npz
+
+It takes no mesh, as the reference's launcher takes none: sharded training
+runs through ``Model(cfg, mesh=..., mode="train")`` and ``make_train_step``
+(``launch/tp.py::spawn`` starts the ranks), and ``launch/dryrun.py``'s
+``train_4k``.
 """
 from __future__ import annotations
 

@@ -16,7 +16,12 @@ head).  The mixer runs at the widths it reads from its weights, and its
 state and conv tail hold the rank's heads and x channels
 (``ssm_conv_tail``).  Two sums over the ranks: the gated RMSNorm's sum of
 squares over ``d_inner`` (``[B, L, 1]``, site ``ssm_norm``) and the output
-after ``out_proj`` (``[B, L, d]``, site ``ssm``).
+after ``out_proj`` (``[B, L, d]``, site ``ssm``).  In training three more
+values the ranks hold alike sum their gradients where the rank's heads
+read them (``sharding/comm.py``'s *f*): the mixer's input to ``z_proj``,
+``x_proj`` and ``dt_proj`` (``ssm_in``; ``bc_proj``'s work is the same on
+every rank), B and C (``ssm_bc``) and the gated norm's ``1/rms``
+(``ssm_rms``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import _param
 from repro_torch.models.common import gated_rms_norm
-from repro_torch.sharding.comm import TPGroup, tp_sum
+from repro_torch.sharding.comm import TPGroup, tp_enter, tp_sum
 
 
 class SSMState(NamedTuple):
@@ -105,10 +110,13 @@ def mamba_apply(
     d_inner, n_heads = mixer.x_proj.shape[1], mixer.dt_proj.shape[1]
     g, n = s.n_groups, s.d_state
     b, l, _ = x.shape
-    z = x @ mixer.z_proj
-    x_in = x @ mixer.x_proj
+    # the rank's heads read x through z/x/dt (their gradients summed over
+    # the ranks, ssm_in); bc_proj's work is the same on every rank
+    xf = tp_enter(tp, x, "ssm_in")
+    z = xf @ mixer.z_proj
+    x_in = xf @ mixer.x_proj
     bc_in = x @ mixer.bc_proj
-    dt_raw = x @ mixer.dt_proj
+    dt_raw = xf @ mixer.dt_proj
     if state is None:
         tail = torch.zeros((b, s.conv_width - 1, d_inner + bc_in.shape[-1]),
                            dtype=x_in.dtype, device=x.device)
@@ -118,7 +126,7 @@ def mamba_apply(
     x_conv, tail_x = _causal_conv(x_in, tail[..., :d_inner], mixer.conv_x, mixer.conv_xb)
     bc_conv, tail_bc = _causal_conv(bc_in, tail[..., d_inner:], mixer.conv_bc, mixer.conv_bcb)
     xs = F.silu(x_conv).reshape(b, l, n_heads, s.headdim)
-    bc = F.silu(bc_conv)
+    bc = tp_enter(tp, F.silu(bc_conv), "ssm_bc")        # B and C, read by the rank's heads
     bmat = bc[..., :g * n].reshape(b, l, g, n)
     cmat = bc[..., g * n:].reshape(b, l, g, n)
     dt = F.softplus(dt_raw.float() + mixer.dt_bias)                  # [B, L, H]
@@ -154,7 +162,8 @@ def _gated_rms_norm_tp(x: torch.Tensor, gate: torch.Tensor, scale: torch.Tensor,
     divided by the full width (one ``[B, L, 1]`` all-reduce)."""
     xf = (x * F.silu(gate.float()).to(x.dtype)).float()
     var = tp.all_reduce_sum(xf.square().sum(dim=-1, keepdim=True), "ssm_norm") / width
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    # 1/rms scales the rank's channels: its gradient sums over the ranks
+    return (xf * tp.enter(torch.rsqrt(var + eps), "ssm_rms") * scale.float()).to(x.dtype)
 
 
 class SSMCache(NamedTuple):

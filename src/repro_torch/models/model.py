@@ -71,6 +71,18 @@ vocab, so every rank holds the same hidden states, encoder output, logits
 and tokens, and every host decision above the stack reads replicated
 values.  The K/V, cross and SSM planes hold the rank's heads.
 
+Training over a mesh (``Model(cfg, mesh=..., mode="train")``) differentiates
+through those sums (*g*, ``sharding/comm.py``) and sums the gradient of
+each value the ranks hold alike where it enters a rank's own part (*f*:
+the normed inputs of attention, the MLP, the experts and the mixer,
+``attn_in``, ``mlp_in``, ``moe_in``, ``ssm_in``; the head's input,
+``head_in``; a cross layer's query input and ``enc_out``, ``cross_in`` and
+``enc_in``; inside the MoE and the mixer, ``moe_gates``, ``ssm_bc`` and
+``ssm_rms``).  Its parameters are cut over ``data`` too and gathered as
+each layer runs (``sharding/fsdp.py``: ``run_layers`` reads a layer through
+``fsdp.view``, inside the layer's checkpoint), and the MoE aux loss is
+averaged over the batch axes (``Model.dp``).
+
 Prefill stores each SSM layer's block rows of ``h`` after the mixer's
 residual (before a hybrid layer's FFN) in ``ssmh``, while a decode scatters
 the layer's *input* rows into it and runs the mixer on that buffer as the
@@ -85,7 +97,7 @@ from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -110,7 +122,8 @@ from repro_torch.models.common import (
 from repro_torch.models.mamba import Mixer, SSMCache, SSMState, mamba_apply, mamba_dims
 from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.sharding import specs
-from repro_torch.sharding.comm import TPGroup, tp_sum
+from repro_torch.sharding.comm import TPGroup, tp_enter, tp_sum
+from repro_torch.sharding.fsdp import FSDP, view
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -269,19 +282,24 @@ class Encoder(nn.Module):
         self.final_norm = _param((cfg.d_enc,), device, dtype)
 
     def forward(self, h: torch.Tensor, impl: str = "kernel",
-                tp: Optional[TPGroup] = None) -> torch.Tensor:
+                tp: Optional[TPGroup] = None, fsdp: Optional[FSDP] = None) -> torch.Tensor:
         """With ``tp`` each layer holds a rank's heads and ``d_ff`` columns,
-        and its attention and MLP outputs are summed over the ranks."""
+        and its attention and MLP outputs are summed over the ranks (their
+        inputs' gradients too, ``attn_in`` and ``mlp_in``); with ``fsdp``
+        each layer's leaves are gathered as it runs."""
         cfg = self.cfg
         b, e, _ = h.shape
         pos = torch.arange(e, dtype=torch.int32, device=h.device)[None].expand(b, e).contiguous()
         rope = rope_tables(pos, cfg.head_dim, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-        for layer in self.layers:
-            h = h + tp_sum(tp, self_attention(layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps),
-                                              pos, rope=rope, impl=impl), "attn")
-            h = h + tp_sum(tp, mlp_apply(layer.ffn, rms_norm(h, layer.ln2, cfg.rms_eps), cfg.act),
-                           "mlp")
-        return rms_norm(h, self.final_norm, cfg.rms_eps)
+        for i, layer in enumerate(self.layers):
+            layer = view(layer, f"encoder.layers.{i}.", fsdp)
+            x = tp_enter(tp, rms_norm(h, layer.ln1, cfg.rms_eps), "attn_in")
+            h = h + tp_sum(tp, self_attention(layer.attn, cfg, x, pos, rope=rope, impl=impl),
+                           "attn")
+            x = tp_enter(tp, rms_norm(h, layer.ln2, cfg.rms_eps), "mlp_in")
+            h = h + tp_sum(tp, mlp_apply(layer.ffn, x, cfg.act), "mlp")
+        final_norm = view(self, "encoder.", fsdp).final_norm
+        return rms_norm(h, final_norm, cfg.rms_eps)
 
 
 def _store(dst: torch.Tensor, new: torch.Tensor, row_mask: Optional[torch.Tensor]) -> None:
@@ -299,11 +317,14 @@ class Model(nn.Module):
     :meth:`init` or ``load_state_dict(convert.params_from_numpy(...))``."""
 
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device | None = None,
-                 mesh=None):
+                 mesh=None, mode: str = "serve"):
         super().__init__()
         cfg.validate()
         check_supported(cfg)
+        if mode not in ("serve", "train"):
+            raise ValueError(f"mode={mode!r}: 'serve' or 'train'")
         self.cfg = cfg
+        self.mode = mode
         self.device = resolve_device(device)
         self.tp = TPGroup.from_mesh(mesh)
         self.dtype = DTYPES[cfg.param_dtype]
@@ -337,36 +358,60 @@ class Model(nn.Module):
                          else None)
         # name -> (full shape, spec) of each parameter a rank holds a shard of
         self.shards: dict = {}
+        self.fsdp: Optional[FSDP] = None
+        # the layer of the batch axes (pod, data) a training loss sums over,
+        # None without more than one batch piece
+        self.dp: Optional[FSDP] = None
         if self.tp is not None:
-            self._shard()
+            self._shard(mesh)
+            self.dp = self.fsdp if self.fsdp.batch_size > 1 else None
 
     def tp_mesh(self) -> tuple[dict, dict]:
-        """``({"model": size}, {"model": rank})``: the axis a rank's shards
-        are cut over, and its coordinate (one rank without a mesh)."""
-        tp = self.tp
-        return {"model": 1 if tp is None else tp.size}, {"model": 0 if tp is None else tp.rank}
+        """``({axis: size}, {axis: coordinate})`` of the axes a rank's
+        parameters are cut over: ``model``, and ``data`` in the train mode
+        (one rank without a mesh)."""
+        if self.fsdp is None:
+            return {"model": 1}, {"model": 0}
+        return ({a: self.fsdp.sizes.get(a, 1) for a in self._param_axes()},
+                {a: self.fsdp.coords.get(a, 0) for a in self._param_axes()})
 
-    def _shard(self) -> None:
+    def _param_axes(self) -> tuple:
+        return ("model", "data") if self.mode == "train" else ("model",)
+
+    def _shard(self, mesh) -> None:
         """Replaces each meta parameter by an uninitialised shard on the
-        model's device.  A leaf the tensor-parallel forward reads as a shard
-        (every one but the norms and those it reads whole: the router, the
-        mixer's ``bc_proj`` and ``conv_bc``, ``enc_proj``) must have been
-        cut: a rule that fell back to replication (an indivisible ``d_ff``,
-        experts or vocab) raises, where the sums would otherwise count it
-        ``model`` times."""
-        sizes, _ = self.tp_mesh()
+        model's device, cut by ``sharding/specs.py``'s rules of the model's
+        mode (the train mode adds ``d`` on ``data``).  A leaf the
+        tensor-parallel forward reads as a shard (every one but the norms
+        and those it reads whole: the router, the mixer's ``bc_proj`` and
+        ``conv_bc``, ``enc_proj``) must have been cut over ``model``: a rule
+        that fell back to replication (an indivisible ``d_ff``, experts or
+        vocab) raises, where the sums would otherwise count it ``model``
+        times."""
+        m, sizes = self.tp.size, specs.axis_sizes(mesh)
+        sizes = {a: sizes.get(a, 1) for a in self._param_axes()}
+        layout = {}
         for name, p in list(self.named_parameters()):
-            spec = specs.port_param_spec(name, tuple(p.shape), sizes, self.cfg.head_dim,
-                                         ssm=self.cfg.ssm)
+            shape = tuple(p.shape)
+            tp_spec = specs.port_param_spec(name, shape, {"model": m}, self.cfg.head_dim,
+                                            ssm=self.cfg.ssm)
             whole = name.rsplit(".", 1)[-1] in ("router", "bc_proj", "conv_bc", "enc_proj")
-            if not any(spec) and p.dim() >= 2 and not whole:
-                raise ValueError(f"{name} {tuple(p.shape)} does not divide over "
-                                 f"model={sizes['model']}")
+            if not any(tp_spec) and p.dim() >= 2 and not whole:
+                raise ValueError(f"{name} {shape} does not divide over model={m}")
+            spec = specs.port_param_spec(name, shape, sizes, self.cfg.head_dim, mode=self.mode,
+                                         ssm=self.cfg.ssm)
             mod, _, leaf = name.rpartition(".")
             setattr(self.get_submodule(mod) if mod else self, leaf,
-                    _param(specs.local_shape(p.shape, spec, sizes), self.device, p.dtype))
+                    _param(specs.local_shape(shape, spec, sizes), self.device, p.dtype))
+            layout[name] = (shape, spec)
             if any(spec):
-                self.shards[name] = (tuple(p.shape), spec)
+                self.shards[name] = (shape, spec)
+        self.fsdp = FSDP(mesh, layout)
+
+    def _leaf(self, name: str) -> torch.Tensor:
+        """Top-level leaf ``name`` as the forward reads it (gathered over
+        ``data`` in the train mode)."""
+        return getattr(view(self, "", self.fsdp), name)
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
@@ -425,7 +470,7 @@ class Model(nn.Module):
         cfg = self.cfg
         ssm = kv = None
         # a rank's planes hold its heads (``sharding/specs.py``'s cache rules)
-        sizes, _ = self.tp_mesh()
+        sizes = {"model": self.tp_mesh()[0]["model"]}
 
         def zeros(kind: str, full: tuple, dtype, **kw) -> torch.Tensor:
             shape = specs.local_shape(full, specs.cache_leaf_spec(kind, full, sizes, **kw), sizes)
@@ -467,10 +512,11 @@ class Model(nn.Module):
         if self.tp is None:
             return self.embed[tokens.long()].to(self.compute_dtype)
         # the rank's rows of the vocab-sharded embedding, zero elsewhere, summed
-        n = self.embed.shape[0]
+        embed = self._leaf("embed")
+        n = embed.shape[0]
         local = tokens.long() - self.tp.rank * n
         mine = (local >= 0) & (local < n)
-        rows = self.embed[torch.where(mine, local, 0)].to(self.compute_dtype)
+        rows = embed[torch.where(mine, local, 0)].to(self.compute_dtype)
         return self.tp.all_reduce_sum(torch.where(mine[..., None], rows, 0), "embed")
 
     def encode(self, enc_embeds: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
@@ -482,17 +528,28 @@ class Model(nn.Module):
         layer reads them.  ``impl`` is the encoder attention's."""
         x = enc_embeds.to(device=self.device, dtype=self.compute_dtype)
         if self.cfg.family == "vlm":
-            return x if self.enc_proj is None else x @ self.enc_proj
+            return x if self.enc_proj is None else x @ self._leaf("enc_proj")
         if self.encoder is None:
             return x
         # called as a function, as every other layer of the stack: no module
         # hooks (the dry run's memory tracker hooks every module it sees)
-        return self.encoder.forward(x, impl, tp=self.tp)
+        return self.encoder.forward(x, impl, tp=self.tp, fsdp=self.fsdp)
 
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
-        h = rms_norm(h, self.final_norm, self.cfg.rms_eps)
-        head = self.embed.T if self.lm_head is None else self.lm_head
-        out = h @ head.to(h.dtype)
+    def head(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(final_norm, the head [d, Vp])`` as :meth:`logits` reads them:
+        ``embed.T`` where the embeddings are tied (gathered over ``data`` in
+        the train mode; the chunked CE reads them once for all its
+        chunks)."""
+        if self.lm_head is None:
+            return self._leaf("final_norm"), self._leaf("embed").T
+        return self._leaf("final_norm"), self._leaf("lm_head")
+
+    def logits(self, h: torch.Tensor, head: Optional[tuple] = None) -> torch.Tensor:
+        """Full-vocab logits of pre-head hidden states; ``head`` is
+        :meth:`head`'s, where the caller has it."""
+        final_norm, w = self.head() if head is None else head
+        h = tp_enter(self.tp, rms_norm(h, final_norm, self.cfg.rms_eps), "head_in")
+        out = h @ w.to(h.dtype)
         return out if self.tp is None else self.tp.gather_vocab(out)
 
     def forward(self, tokens: torch.Tensor, *, enc_embeds: Optional[torch.Tensor] = None,
@@ -545,7 +602,9 @@ class Model(nn.Module):
                                                       kv_cache.k.shape[2])
 
         def run_layer(l: int, h: torch.Tensor, aux: Optional[torch.Tensor]):
-            layer = self.layers[l]
+            # in the train mode the layer's leaves are gathered here, inside
+            # its checkpoint, so the remat's recompute gathers them again
+            layer = view(self.layers[l], f"layers.{l}.", self.fsdp)
             if layer.kind == "ssm":
                 h = self._apply_ssm(layer, self.ssm_plane[l], h, ctx, ssm_cache)
             elif layer.kind == "cross":
@@ -554,8 +613,9 @@ class Model(nn.Module):
                 kv = kv_cache.layer(self.kv_plane[l]) if kv_cache is not None else None
                 if kv is not None and ctx.block_tables is not None:
                     kv = PagedKVCache(kv, ctx.block_tables, read_bt)
+                x = tp_enter(self.tp, rms_norm(h, layer.ln1, cfg.rms_eps), "attn_in")
                 h = h + tp_sum(self.tp, self_attention(
-                    layer.attn, cfg, rms_norm(h, layer.ln1, cfg.rms_eps), ctx.positions,
+                    layer.attn, cfg, x, ctx.positions,
                     cache=kv, slot_idx=ctx.slot_idx, kv_pos=kv_pos, rope=rope,
                     scatter_mask=ctx.scatter_mask, token_mask=ctx.refresh_mask,
                     window=layer_window(cfg, l, ctx.window_override), anchor=ctx.anchor,
@@ -563,18 +623,19 @@ class Model(nn.Module):
             if layer.ffn is not None:
                 hn = rms_norm(h, layer.ln2, cfg.rms_eps)
                 if not layer.moe:
-                    h = h + tp_sum(self.tp, mlp_apply(layer.ffn, hn, cfg.act), "mlp")
+                    h = h + tp_sum(self.tp, mlp_apply(layer.ffn, tp_enter(self.tp, hn, "mlp_in"),
+                                                      cfg.act), "mlp")
                 elif aux is None:
                     h = h + moe_apply(layer.ffn, cfg, hn, tp=self.tp)
                 else:
-                    f, a = moe_apply(layer.ffn, cfg, hn, with_aux=True, tp=self.tp)
+                    f, a = moe_apply(layer.ffn, cfg, hn, with_aux=True, tp=self.tp, dp=self.dp)
                     h, aux = h + f, aux + a
             return h, aux
 
         def run_group(g: int, h: torch.Tensor, aux: Optional[torch.Tensor]):
             for l in range(g * self.period, (g + 1) * self.period):
                 if ctx.remat and self.period > 1:
-                    h, aux = checkpoint(run_layer, l, h, aux, use_reentrant=False)
+                    h, aux = self._checkpoint(run_layer, l, h, aux)
                 else:
                     h, aux = run_layer(l, h, aux)
             return h, aux
@@ -582,10 +643,20 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=h.device) if with_aux else None
         for g in range(group_lo, group_hi):
             if ctx.remat:
-                h, aux = checkpoint(run_group, g, h, aux, use_reentrant=False)
+                h, aux = self._checkpoint(run_group, g, h, aux)
             else:
                 h, aux = run_group(g, h, aux)
         return (h, aux) if with_aux else h
+
+    def _checkpoint(self, fn, *args):
+        """``fn(*args)`` in a checkpoint.  With a mesh its recompute runs the
+        whole of ``fn`` (no early stop), so every collective of the region
+        runs again in it, on every rank: a count that does not hang on where
+        the last saved activation falls."""
+        if self.tp is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        with set_checkpoint_early_stop(False):
+            return checkpoint(fn, *args, use_reentrant=False)
 
     def _apply_cross(self, layer: Block, i: int, h: torch.Tensor, ctx: ForwardCtx,
                      cache: Optional[KVCache]) -> torch.Tensor:
@@ -594,9 +665,11 @@ class Model(nn.Module):
         stores them (the owned rows only), a pass without caches projects
         them and keeps nothing."""
         planes = None if cache is None else cache.layer(i)
+        enc_out = None if ctx.enc_out is None else tp_enter(self.tp, ctx.enc_out, "enc_in")
         x, (ck, cv) = cross_attention(
-            layer.xattn, self.cfg, rms_norm(h, layer.lnx, self.cfg.rms_eps), enc_out=ctx.enc_out,
-            cache=planes if ctx.mode == "decode" else None, impl=ctx.attn_impl)
+            layer.xattn, self.cfg,
+            tp_enter(self.tp, rms_norm(h, layer.lnx, self.cfg.rms_eps), "cross_in"),
+            enc_out=enc_out, cache=planes if ctx.mode == "decode" else None, impl=ctx.attn_impl)
         if planes is not None and ctx.mode == "prefill":
             _store(planes.k, ck, ctx.scatter_mask)
             _store(planes.v, cv, ctx.scatter_mask)

@@ -40,7 +40,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.attention import _param
 from repro_torch.models.common import activation
-from repro_torch.sharding.comm import TPGroup, tp_sum
+from repro_torch.sharding.comm import TPGroup, tp_enter, tp_sum
 
 
 class MoE(nn.Module):
@@ -101,26 +101,38 @@ def routing(probs: torch.Tensor, m: MoEConfig, cap: int) -> Routing:
     return Routing(expert, slot, kept, chosen / denom)
 
 
-def aux_loss(probs: torch.Tensor, r: Routing, m: MoEConfig) -> torch.Tensor:
+def aux_loss(probs: torch.Tensor, r: Routing, m: MoEConfig, dp=None) -> torch.Tensor:
     """The Switch load-balance loss of the reference's ``_routing``, times
     ``aux_loss_coef``: ``E * sum(frac * mean_prob)``, ``frac[e]`` the share
     of a group's ``S`` rows with a kept pick of expert ``e`` (averaged over
     the groups), ``mean_prob`` the router probabilities averaged over every
     row of every group, the zero pad rows of the last group included (their
-    probabilities are uniform).  Only ``mean_prob`` carries a gradient."""
+    probabilities are uniform).  Only ``mean_prob`` carries a gradient.
+
+    With ``dp`` (``Model.dp``: each data rank routes its own groups
+    of the global batch) the loss is not linear in the groups, so ``frac``
+    and ``mean_prob`` are averaged over the batch axes before the product
+    (one *g* all-reduce, site ``aux``): every rank holds the global loss,
+    and its gradient reaches the rank's own probabilities only."""
     g, s, e = probs.shape
     hit = ((r.expert[..., None] == torch.arange(e, device=probs.device))
            & r.kept[..., None]).any(dim=2)                               # [G, S, E]
     frac = hit.sum(dim=1).float().mean(dim=0) / s
-    return e * torch.sum(frac * probs.mean(dim=(0, 1))) * m.aux_loss_coef
+    mean_prob = probs.mean(dim=(0, 1))
+    if dp is not None:
+        frac, mean_prob = dp.batch_mean(torch.stack([frac, mean_prob]), "aux").unbind(0)
+    return e * torch.sum(frac * mean_prob) * m.aux_loss_coef
 
 
 def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *, with_aux: bool = False,
-              tp: Optional[TPGroup] = None):
+              tp: Optional[TPGroup] = None, dp=None):
     """The expert FFN on ``x [B, K, d]`` -> ``[B, K, d]`` in ``x.dtype``, the
     reference's ``moe_apply``; with ``with_aux``, ``(out, aux)`` with the
-    f32 scalar :func:`aux_loss`.  With ``tp``, ``moe`` holds the rank's
-    experts ``[tp.rank * E_l, (tp.rank + 1) * E_l)``."""
+    f32 scalar :func:`aux_loss` (over the batch axes ``dp``).  With ``tp``,
+    ``moe`` holds the rank's experts ``[tp.rank * E_l, (tp.rank + 1) *
+    E_l)``: the rows its experts read (``moe_in``) and the gates that weight
+    its picks (``moe_gates``) sum their gradients over the ranks, while the
+    router's own work, and the aux loss, are the same on every rank."""
     m = cfg.moe
     b, k, d = x.shape
     t = b * k
@@ -139,7 +151,8 @@ def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *, with_aux: bool = F
     src = torch.full((ng * e * cap + 1,), ng * gsz, dtype=torch.int64, device=x.device)
     rows = torch.arange(ng * gsz, device=x.device).view(ng, gsz, 1).expand_as(flat)
     src.scatter_(0, torch.where(kept, flat, ng * e * cap).reshape(-1), rows.reshape(-1))
-    xpad = torch.cat([xg.reshape(-1, d), xg.new_zeros((1, d))])          # the empty slot's row
+    xe = tp_enter(tp, xg, "moe_in")
+    xpad = torch.cat([xe.reshape(-1, d), xe.new_zeros((1, d))])          # the empty slot's row
     xd = xpad[src[:-1]].view(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
     act = activation(cfg.act)
     hid = act(torch.bmm(xd, moe.w_gate)) * torch.bmm(xd, moe.w_up)
@@ -147,7 +160,7 @@ def moe_apply(moe: MoE, cfg: ModelConfig, x: torch.Tensor, *, with_aux: bool = F
     down = down.view(e, ng, cap, d).transpose(0, 1).reshape(ng * e * cap, d)
     # the combine in f32, its weights rounded to x's dtype as the reference's
     picked = down[torch.where(kept, flat, 0)].float()                     # [G, S, k, d]
-    w = r.weight.to(x.dtype).float()[..., None]
+    w = tp_enter(tp, r.weight, "moe_gates").to(x.dtype).float()[..., None]
     out = tp_sum(tp, torch.where(kept[..., None], w * picked, 0.0).sum(dim=2), "moe")
     out = out.to(x.dtype).reshape(-1, d)[:t].view(b, k, d)
-    return (out, aux_loss(probs, r, m)) if with_aux else out
+    return (out, aux_loss(probs, r, m, dp)) if with_aux else out

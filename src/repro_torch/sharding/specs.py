@@ -61,6 +61,10 @@ ssm_conv_tail      the SSM cache's conv      flat split of ``conv_ch``       ``L
                    tail ``[G, B, W-1,        over ``model``                  the rank's ``d_inner / model``
                    conv_ch]``                                                x channels, then all ``2 G N``
                                                                              B/C channels
+seq_parallel       training's residual       ``[B, L, d]`` constrained to    replicated over ``model``: each
+                   stream between layer      ``L`` on ``model`` between      rank holds its batch rows'
+                   groups                    groups (``act_sharding``,       whole hidden states
+                                             ``seq_parallel_spec``)
 =================  ========================  ==============================  ==============================
 
 The attention rules need the head width (``head_dim``) and the SSM rules
@@ -69,14 +73,16 @@ the rules are the reference's flat ones.  The SSD state ``[G, B, H, N, P]``
 keeps the reference's rule, heads on ``model``, and the cross planes follow
 ``kv_heads``; the vision model's ``enc_proj`` stays whole.
 
-What runs: ``port_param_spec`` in serve mode cuts every parameter
-(``Model._shard``, ``Model.init``, ``convert.params_from_numpy``),
-``cache_leaf_spec`` shapes every K/V plane and pool, SSM plane and cross
-plane (``Model.init_cache``) and ``batch_spec`` a rank's share of the batch
-(``launch/steps.py``).  The train mode and the state specs
+What runs: ``port_param_spec`` cuts every parameter (``Model._shard``,
+``Model.init``, ``convert.params_from_numpy``) in serve mode, and in train
+mode for training under FSDP x TP (``Model(mode="train")``:
+``sharding/fsdp.py`` gathers the ``data`` pieces and reduce-scatters the
+gradients); ``cache_leaf_spec`` shapes every K/V plane and pool, SSM plane
+and cross plane (``Model.init_cache``) and ``batch_spec`` a rank's share of
+the batch (``launch/steps.py``, the train step's rows).  The state specs
 (``cache_pspecs``, ``block_state_pspecs``, ``engine_state_pspecs``) are the
-layouts of record for training under FSDP x TP (``ROADMAP.md``, A8);
-``tests/test_torch_sharding.py`` holds them to the reference's.
+layouts of record; ``tests/test_torch_sharding.py`` holds them to the
+reference's.
 """
 from __future__ import annotations
 
@@ -116,6 +122,8 @@ DIVERGENCES = {
                  "out_proj split by whole SSM heads; n_ssm_heads % model != 0 raises",
     "ssm_groups": "bc_proj/conv_bc/conv_bcb replicated (n_groups == 1); n_groups > 1 raises",
     "ssm_conv_tail": "the SSM conv tail holds the rank's x channels, then every B/C channel",
+    "seq_parallel": "training's [B, L, d] residual stream replicated over model (the reference "
+                    "constrains L to model between groups)",
 }
 
 
@@ -459,6 +467,14 @@ def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
         s = _dim_slice(d, a, sizes, {})
         out.append(d if a is None else s.stop - s.start)
     return tuple(out)
+
+
+def local_index(shape: tuple, spec: tuple, mesh, coords: Mapping) -> tuple:
+    """The index of the shard the rank at ``coords`` holds under ``spec`` in
+    the full array (a spec without ``Leading`` dims)."""
+    sizes = axis_sizes(mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(_dim_slice(d, a, sizes, coords) for d, a in zip(shape, spec))
 
 
 def local_slice(full, spec: tuple, mesh, coords: Mapping):

@@ -88,10 +88,12 @@ def adamw_update(cfg: OptimizerConfig, model: torch.nn.Module, state: OptState
     """One AdamW step on ``model``'s parameters in place, from their
     ``.grad`` (zeros where None, as ``jax.grad`` gives an unused leaf).
     Returns the new state and ``{"lr", "grad_norm"}`` (the norm before the
-    clip)."""
+    clip).  On a model with a mesh each rank updates its shards, and the
+    norm is the whole gradient tree's (``FSDP.grad_norm``)."""
     params = dict(model.named_parameters())
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad for n, p in params.items()}
-    gnorm = global_norm(grads)
+    fsdp = getattr(model, "fsdp", None)
+    gnorm = global_norm(grads) if fsdp is None else fsdp.grad_norm(grads)
     scale = clip_scale(gnorm, cfg.grad_clip)      # the clip, applied leaf by leaf below
     step = state.step + 1
     b1, b2 = cfg.betas

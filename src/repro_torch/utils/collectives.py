@@ -3,9 +3,10 @@
 
 The reference parses compiled HLO text for its collectives' result bytes,
 since ``cost_analysis()`` leaves them out.  Eager PyTorch has no HLO: the
-port's collectives are its own calls (``sharding/comm.py``), counted as they
-are made, and ``CommDebugMode`` counts the ``c10d`` ops that reach the
-process group.  ``CollectiveStats`` keeps the reference's fields and
+port's collectives are its own calls (``sharding/comm.py``: all-reduces,
+and a train step's all-gathers and reduce-scatters), counted as they are
+made, and ``CommDebugMode`` counts the ``c10d`` ops that reach the process
+group.  ``CollectiveStats`` keeps the reference's fields and
 ``as_dict()``.  ``cost_dict`` gives the FLOPs of one step: the matmuls that
 ``FlopCounterMode`` counts plus the hand-written kernels' work, which the
 kernel ops tally on fake tensors (``kernels/fake.py``).
@@ -40,7 +41,7 @@ class CollectiveStats:
 def collective_stats(counter, comm_mode=None) -> CollectiveStats:
     """Stats from ``comm.COUNTER`` (bytes and calls by kind).  With a
     ``CommDebugMode`` that watched the same calls, its count of ``c10d``
-    all-reduces must agree: a collective made outside ``sharding/comm.py``
+    collectives must agree: a collective made outside ``sharding/comm.py``
     raises."""
     stats = CollectiveStats(dict(counter.bytes_by_kind), dict(counter.count_by_kind))
     if comm_mode is not None:

@@ -23,7 +23,8 @@ tensors.
   bytes (SeamlessM4T's prefill takes ``enc_embeds`` and encodes them), and
   full-size mamba2, Jamba, the vision model and SeamlessM4T run on the
   single-pod mesh with the collectives their layer kinds make;
-* a refused combination records its reason.
+* a refused combination records its reason, and ``train_4k`` runs (FSDP x
+  TP) where the mesh divides the heads.
 """
 import dataclasses
 
@@ -211,8 +212,15 @@ def test_refused_combination_records_its_reason():
     assert "4 heads over model=16" in res["unsupported"]
     res = dryrun.run_one("dream-7b", "decode_32k", "single", verbose=False)
     assert "28 heads over model=16" in res["unsupported"]
-    res = dryrun.run_one("llada-8b", "train_4k", "single", verbose=False)
-    assert "ROADMAP" in res["unsupported"]
+    # train_4k, which refused every arch until FSDP x TP training was
+    # ported, now runs (LLaDA-8B's widths at 2 layers here; the full depth
+    # takes 20 s) and refuses only head counts the mesh does not divide
+    cfg = dataclasses.replace(step_lib.dryrun_model_config("llada-8b"), n_layers=2)
+    res = dryrun.run_one("llada-8b", "train_4k", "single", verbose=False, cfg=cfg)
+    assert "unsupported" not in res and res["kind"] == "train"
+    assert res["collectives_by_site"]["count"]["fsdp_grad"] == 7 * 2 + 2
+    res = dryrun.run_one("qwen2-1.5b", "train_4k", "single", verbose=False)
+    assert "12 heads over model=16" in res["unsupported"]
     # a stack PR 27 refused now runs: Jamba on the single-pod mesh, pure TP
     res = dryrun.run_one("jamba-v0.1-52b", "decode_32k", "single", verbose=False)
     assert "unsupported" not in res and res["collectives_by_site"]["count"]["ssm"] == 28

@@ -216,8 +216,14 @@ def test_tp2_served_trace_equals_reference(runs):
 def test_mesh_of_one_is_bit_equal_to_no_mesh(tmp_path):
     """One gloo rank in this process: ``Model(mesh=(1, 1))`` from the same
     tree gives the same tokens and bit-equal logits as ``Model()``; with a
-    mesh, sparse attention, training and ``params_to_numpy`` refuse."""
+    mesh, sparse attention refuses, while ``params_to_numpy`` and training,
+    which refused a mesh until FSDP x TP training was ported, now run: the
+    gathered tree is the one loaded, and a train step's metrics are
+    finite."""
+    from repro_torch.core import prng
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import TrainState, init_opt_state
+    from repro_torch.utils.tree import flatten_with_paths
 
     _, _, cfg, tree, _, tgen, prompt = case("llada-8b")
     want = generate_job(None, cfg, tgen, prompt, tree=tree, logits=True)
@@ -231,15 +237,18 @@ def test_mesh_of_one_is_bit_equal_to_no_mesh(tmp_path):
             generate_job(make_debug_mesh(1, 1, device_type="cpu"), cfg,
                             dataclasses.replace(tgen, sparse_attention=True), prompt, tree=tree)
         model = tp.build_model(cfg, make_debug_mesh(1, 1, device_type="cpu"), "cpu", tree=tree)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(model, OptimizerConfig())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            params_to_numpy(model)
+        gathered = flatten_with_paths(params_to_numpy(model))
+        step = make_train_step(model, OptimizerConfig(), ce_chunk=prompt.shape[1])
+        batch = {"tokens": prompt, "loss_region": np.ones(prompt.shape, bool)}
+        _, metrics = step(TrainState(model, init_opt_state(model), prng.prng_key(0)), batch)
     finally:
         dist.destroy_process_group()
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
     np.testing.assert_array_equal(got["logits"], want["logits"])
     assert want["collectives"] == {} and got["collectives"]["logits"] > 0
+    for path, a in flatten_with_paths(tree).items():
+        np.testing.assert_array_equal(gathered[path], a, err_msg=path)
+    assert all(np.isfinite(float(v)) for v in metrics.values()) and metrics["grad_norm"] > 0
 
 
 def test_tp_refusals():
